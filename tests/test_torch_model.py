@@ -147,11 +147,17 @@ def test_greedy_sampling_and_knob_checks():
 
 
 def test_moe_config_raises():
+    """MoE configs train (the dense-dispatch trunk) but do not serve yet:
+    the serving prefill and int8 quantization raise."""
     cfg = pt.TransformerConfig(**SHAPE, n_experts=4, dtype=torch.float32)
+    params = pt.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert params["layers"]["router"].shape == (2, 64, 4)
     with pytest.raises(NotImplementedError, match="MoE"):
-        pt.Transformer(cfg)
+        prefill(params, cfg, torch.zeros((1, 8), dtype=torch.int32), 16)
+    from torchkafka_tpu_torch.models.quant import quantize_params
+
     with pytest.raises(NotImplementedError, match="MoE"):
-        pt.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+        quantize_params(params, cfg)
 
 
 def test_init_params_tree_matches_jax_layout():

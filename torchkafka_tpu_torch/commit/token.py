@@ -1,0 +1,168 @@
+"""Commit tokens: the user-facing commit-after-step handle.
+
+Copy of ``torchkafka_tpu/commit/token.py``, imports re-rooted; the one
+change is in ``commit_async``, which records the step's fence on the
+caller's thread (see ``CommitBarrier.fence``).
+
+The reference's contract is "yield a batch → user processes it → commit the
+offsets for exactly that batch" (/root/reference/src/auto_commit.py:55-58).
+Its mechanism (a generator that commits *between* iterations, plus signals to
+workers) cannot express "the step is an async device computation"; ours can:
+each batch comes with a CommitToken, and ``token.commit(wait_for=loss)``
+blocks on the device result, runs the pod barrier, then commits exactly that
+batch's offsets.
+
+Tokens are sequenced: commits may only move the offset watermark forward.
+Committing token k after token k+n is a no-op (k's offsets are subsumed —
+snapshots are monotonic per partition), which also makes double-commit
+idempotent. Commit failure after a rebalance is logged and swallowed,
+matching the reference's non-fatal contract
+(/root/reference/src/kafka_dataset.py:131-135).
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Callable, Mapping
+
+from torchkafka_tpu_torch.commit.barrier import CommitBarrier
+from torchkafka_tpu_torch.errors import CommitFailedError
+from torchkafka_tpu_torch.source.consumer import Consumer
+from torchkafka_tpu_torch.source.records import TopicPartition
+
+logger = logging.getLogger(__name__)
+
+
+class CommitSequencer:
+    """Shared monotonic watermark across the tokens of one stream.
+
+    Thread-safe: tokens are issued on the consuming thread while commits may
+    execute on the stream's async-commit thread."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._next_seq = 0
+        self._high_water = -1
+
+    def issue(self) -> int:
+        with self._lock:
+            seq = self._next_seq
+            self._next_seq += 1
+            return seq
+
+    def superseded(self, seq: int) -> bool:
+        with self._lock:
+            return seq <= self._high_water
+
+    def advance(self, seq: int) -> None:
+        with self._lock:
+            self._high_water = max(self._high_water, seq)
+
+
+class CommitToken:
+    """One batch's commit handle. Obtain via the stream; call once."""
+
+    def __init__(
+        self,
+        consumer: Consumer,
+        offsets: Mapping[TopicPartition, int],
+        sequencer: CommitSequencer,
+        barrier: CommitBarrier | None = None,
+        on_commit: Callable[[float, bool], None] | None = None,
+        executor: Callable[[], ThreadPoolExecutor] | None = None,
+    ) -> None:
+        self._consumer = consumer
+        self._offsets = dict(offsets)
+        self._sequencer = sequencer
+        self._seq = sequencer.issue()
+        self._barrier = barrier
+        self._on_commit = on_commit
+        self._executor = executor
+        self._committed = False
+
+    @property
+    def offsets(self) -> dict[TopicPartition, int]:
+        """Next-read offsets this token would commit (exactly this batch's
+        records plus earlier drops — never carried-over records)."""
+        return dict(self._offsets)
+
+    @property
+    def seq(self) -> int:
+        return self._seq
+
+    @property
+    def committed(self) -> bool:
+        return self._committed
+
+    def commit(self, wait_for: Any = None) -> bool:
+        """Barrier, then commit this batch's offsets.
+
+        ``wait_for``: any tensor/pytree produced by the step that consumed
+        the batch (or a ``StepFence`` taken from it); the commit happens
+        only after it is device-complete on every process (pass None for
+        host-only work).
+
+        Returns True if offsets are durably committed (or were already covered
+        by a later token), False if the commit failed non-fatally
+        (re-delivery will occur). Raises BarrierError if the pod barrier
+        failed — fail closed, nothing committed.
+        """
+        # The barrier runs on EVERY commit() call, before any fast path.
+        # Ordering matters in SPMD: commit() call sites are identical across
+        # hosts, but local outcomes (committed flag, sequencer watermark, a
+        # host-local CommitFailedError) can diverge — if the barrier lived
+        # behind those checks, hosts would make different numbers of
+        # sync_global_devices calls and the pod would deadlock on mismatched
+        # barrier names.
+        if self._barrier is not None:
+            self._barrier(wait_for)
+        if self._committed:
+            return True
+        if self._sequencer.superseded(self._seq):
+            # A later batch already committed; our offsets are subsumed.
+            self._committed = True
+            return True
+        t0 = time.perf_counter()
+        try:
+            self._consumer.commit(self._offsets)
+        except CommitFailedError as e:
+            # Non-fatal by contract: the group rebalanced; records will be
+            # re-delivered to the new partition owners.
+            logger.error("offset commit failed (will re-deliver): %s", e)
+            if self._on_commit is not None:
+                self._on_commit(time.perf_counter() - t0, False)
+            return False
+        self._committed = True
+        self._sequencer.advance(self._seq)
+        logger.debug("committed batch seq=%d offsets=%s", self._seq, self._offsets)
+        if self._on_commit is not None:
+            self._on_commit(time.perf_counter() - t0, True)
+        return True
+
+    def commit_async(self, wait_for: Any = None) -> "Future[bool]":
+        """Pipelined ``commit``: same barrier-then-commit, on the stream's
+        single commit thread, so the training loop never stalls on the
+        step-retirement wait (which can be ~100 ms of pure latency on
+        remote/tunneled device transports). FIFO thread ⇒ commit order is
+        preserved; semantics are unchanged — offsets still only commit
+        after THIS batch's step provably retired. The returned Future
+        resolves to commit()'s bool (or raises BarrierError); the stream's
+        ``close()`` drains pending commits.
+        """
+        if self._barrier is not None and wait_for is not None:
+            # The fence (a CUDA event on the caller's current stream) is
+            # recorded HERE, on the thread that enqueued the step; recorded
+            # on the commit thread's own stream it would prove nothing.
+            wait_for = self._barrier.fence(wait_for)
+        if self._executor is None:
+            # Standalone token (no stream): degrade to a synchronous commit.
+            fut: Future[bool] = Future()
+            try:
+                fut.set_result(self.commit(wait_for))
+            except BaseException as e:  # noqa: BLE001 - delivered via future
+                fut.set_exception(e)
+            return fut
+        return self._executor().submit(self.commit, wait_for)

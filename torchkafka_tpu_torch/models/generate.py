@@ -175,7 +175,7 @@ def prefill_capture(params, cfg: TransformerConfig, tokens: torch.Tensor,
     [L, B, S, K, Dh] in the compute dtype: the prompt's cache rows, for a
     caller that writes them into its own pool."""
     model = model or prefill_model(cfg)
-    x, ks, vs = model.trunk(params, tokens, capture_kv=True)
+    x, ks, vs = model.trunk_kv(params, tokens)
     logits = matmul_f32(x[:, -1], params["lm_head"], cfg.dtype)
     return logits, ks, vs
 

@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", *ARCH_FLAGS)
-KERNELS = ("flash_fwd", "kvattn_dynlen")
+KERNELS = ("flash_fwd", "flash_bwd", "kvattn_dynlen")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
