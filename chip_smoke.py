@@ -21,6 +21,10 @@ Phases, each printing one JSON line:
    backward as the pair's yardstick;
 5. kvattn_dynlen: the int8 decode kernel (K4) against its plain version at
    the 1b decode shape with pools of 192 and 2048 positions, and timings;
+5b. kvattn_paged: the block-table int8 decode kernel (K5) against its plain
+   version at the 1b decode shape, block size 16, logical views of 192 and
+   2048 positions (shared prefix blocks, sink entries, unreferenced garbage
+   blocks), timings, and K4's time on the same fills laid out dense;
 6. train_grad: one training loss and backward at 1b width, 2 layers,
    S=512, B=2, through the kernels and through dense attention: the loss
    and every parameter's gradient must agree within bf16 tolerance;
@@ -38,6 +42,18 @@ Phases, each printing one JSON line:
    by ``StreamingGenerator`` with the int8 pool (a main path: every kernel
    launch count is zeroed just before it and read just after), then again
    with the bf16 pool;
+8b. serve_paged: the same 1b model through the PAGED pool (int8, block
+   size 16, radix prefix reuse, chunked prefill, K5 on decode-only ticks):
+   48 prompts of 128 tokens from three tenants, each a fixed 96-token
+   system prompt plus 32 random tokens, produced keyed by tenant onto four
+   partitions (scenario 12's stream shape). 48/48 completions of 64 tokens,
+   committed == end offset on every partition, prefix hits, fewer prefill
+   tokens than 48 × 128, and K5 launched n_layers × (decode ticks − chunk
+   ticks) times (counts zeroed just before the run, read just after). Then
+   the same stream through the gathered read (no K5 launch): identical
+   commits and token 0;
+8c. serve_paged_f32: 1b width, 2 layers, f32 weights, the same stream
+   through K5 and through the gathered read: every token identical;
 9. kernels: one line for every ported kernel;
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
@@ -272,6 +288,83 @@ def check_kvattn(torch, kvattn, flush, gen) -> dict:
     return out
 
 
+def paged_case(np, B: int, M: int, bs: int, rng):
+    """Block tables for B slots over logical views of M positions: slots
+    0..B/2-1 share one prefix run of blocks and the rest share another
+    (the radix shape), every other block is private, entries past a slot's
+    watermark point at the sink (block 0), and a few garbage blocks stay
+    unreferenced. Returns (table [B, nblk] int32, pos [B] int32, NB)."""
+    nblk = M // bs
+    shared = max(1, nblk // 4)
+    n_priv = B * (nblk - shared)
+    nb = 1 + 2 * shared + n_priv + 8  # + sink and 8 garbage blocks
+    ids = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    prefix = (ids[:shared], ids[shared:2 * shared])
+    priv = ids[2 * shared:2 * shared + n_priv].reshape(B, nblk - shared)
+    table = np.concatenate(
+        [np.stack([prefix[b >= B // 2] for b in range(B)]), priv], axis=1)
+    base = [0, 63, 64, 127, 128, M // 2 + 5, M - 2, M - 1]
+    pos = np.asarray((base * 2)[:B], np.int32)
+    live = np.arange(nblk)[None, :] <= (pos // bs)[:, None]
+    table = np.where(live, table, 0).astype(np.int32)
+    return table, pos, nb
+
+
+def check_kvattn_paged(torch, kvattn, flush, gen) -> dict:
+    """K5 against its plain version at the 1b decode shape (B=16, K=8,
+    rep=2, Dh=128), block size 16, logical views of 192 (the serve_paged
+    phase's) and 2048 positions; K4 timed on the same fills laid out dense
+    as context."""
+    import numpy as np
+
+    B, K, REP, DH, BS = 16, 8, 2, 128, 16
+    tol = {"bf16": 3e-2, "f32": 1e-4}
+    out = {"phase": "kvattn_paged", "shape": {"B": B, "K": K, "rep": REP, "Dh": DH,
+                                              "bs": BS},
+           "tolerance": tol, "views": {}}
+    rng = np.random.default_rng(SEED + 5)
+    for M in (192, 2048):
+        table_np, pos_np, NB = paged_case(np, B, M, BS, rng)
+        table = torch.from_numpy(table_np).cuda()
+        pos = torch.from_numpy(pos_np).cuda()
+        kq, vq = (torch.randint(-127, 127, (NB, K, BS, DH), generator=gen,
+                                device="cuda", dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((NB, K, BS), generator=gen, device="cuda") * 0.02 + 1e-3
+                  for _ in range(2))
+        row = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(dtype)
+            got = kvattn.int8_paged_decode_attention(q, kq, ks, vq, vs, table, pos)
+            ref = kvattn.int8_paged_decode_attention_plain(q, kq, ks, vq, vs, table, pos)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, ref)
+            lim = tol["f32"] if dtype == torch.float32 else tol["bf16"]
+            if not (err <= lim and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"kvattn_paged M={M} {dtype}: err {err}")
+            row["f32" if dtype == torch.float32 else "bf16"] = err
+        q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(torch.bfloat16)
+        args = (q, kq, ks, vq, vs, table, pos)
+        ms = cuda_ms(torch, lambda: kvattn.int8_paged_decode_attention(*args), flush)
+        plain_ms = cuda_ms(torch, lambda: kvattn.int8_paged_decode_attention_plain(*args),
+                           flush)
+        # K4 on the same fills, laid out dense K-major [B, K, M, Dh].
+        dense = [kvattn.paged_gather_kmajor(t, table).transpose(1, 2).contiguous()
+                 for t in (kq, ks, vq, vs)]
+        k4_ms = cuda_ms(torch, lambda: kvattn.int8_decode_attention_dynlen(
+            q, dense[0], dense[1], dense[2], dense[3], pos), flush)
+        n_read = int((pos.long() + 1).sum())  # positions this run's data needs
+        n_ent = int(((pos.long() + BS) // BS).sum())  # table entries it reads
+        nbytes = (n_read * K * 2 * (DH + 4) + 2 * (2 * B * K * REP * DH)
+                  + 4 * n_ent + 4 * B)
+        flops = 4.0 * n_read * K * REP * DH
+        bms, by = bound(flops, nbytes)
+        out["views"][str(M)] = {"watermarks": pos_np.tolist(), "pool_blocks": NB,
+                                "max_abs_err": row, "kernel_ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                                "k4_dense_same_fill_ms": k4_ms}
+    return out
+
+
 def train_config(torch, **overrides):
     """The 1b scale for training: the zoo's shapes with f32 master weights
     (its bf16 params are the serving footprint)."""
@@ -487,6 +580,154 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
     return outs, row
 
 
+TENANTS = ("alpha", "beta", "gamma")
+PAGED_BS = 16  # vLLM's default page size
+
+
+def tenant_prompts(np, vocab: int, n: int = 48, plen: int = 128, sys_len: int = 96):
+    """Scenario 12's stream shape at the serve phase's lengths: three tenants,
+    each with a fixed system prompt of ``sys_len`` tokens (whole blocks of
+    16) followed by random tokens. Returns (prompts [n, plen], keys)."""
+    rng = np.random.default_rng(SEED + 12)
+    system = rng.integers(0, vocab, (len(TENANTS), sys_len), dtype=np.int32)
+    prompts = rng.integers(0, vocab, (n, plen), dtype=np.int32)
+    prompts[:, :sys_len] = system[np.arange(n) % len(TENANTS)]
+    return prompts, [TENANTS[i % len(TENANTS)].encode() for i in range(n)]
+
+
+def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool, parts: int = 4,
+                prof=None):
+    """Serve the tenant stream once through the port's paged
+    StreamingGenerator (int8 pool, radix prefix reuse, chunked prefill),
+    produced keyed by tenant onto ``parts`` partitions. Every kernel launch
+    count is zeroed just before ``run`` and read just after; the peak of
+    live pool blocks is sampled around every tick block. ``prof``: an
+    optional profiler context wrapped around ``run``."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.kvcache import PagedKVConfig
+    from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
+    from torchkafka_tpu_torch.ops.kvattn import (
+        int8_decode_attention_dynlen,
+        int8_paged_decode_attention,
+    )
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    n, plen = prompts.shape
+    slots, ticks = 16, 8
+    nblk = -(-(plen + MAX_NEW) // PAGED_BS)
+    pages = PagedKVConfig(block_size=PAGED_BS, num_blocks=slots * nblk + 24 + 1,
+                          prefill_chunk=None)
+    broker = InMemoryBroker()
+    broker.create_topic("t12", partitions=parts)
+    for i in range(n):
+        broker.produce("t12", prompts[i].tobytes(), key=keys[i])
+    consumer = MemoryConsumer(broker, "t12", group_id="s12")
+    server = StreamingGenerator(
+        consumer, params, cfg, slots=slots, prompt_len=plen, max_new=MAX_NEW,
+        commit_every=16, ticks_per_sync=ticks, kv_dtype="int8", kv_kernel=kv_kernel,
+        kv_pages=pages, device="cuda",
+    )
+    server.warmup()
+    peak_blocks = [0, 0]  # allocated (slot-held + cached), slot-held
+    step = server.step
+
+    def sample():
+        tbl = server._table_np
+        held = len(np.unique(tbl[tbl != 0]))
+        peak_blocks[0] = max(peak_blocks[0], server._kv_alloc.allocated())
+        peak_blocks[1] = max(peak_blocks[1], held)
+
+    def sampled_step():
+        sample()
+        out = step()
+        sample()
+        return out
+
+    server.step = sampled_step
+    kernels = (flash_fwd_bhsd, int8_decode_attention_dynlen, int8_paged_decode_attention)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        outs = {(r.partition, r.offset): out for r, out in server.run(max_records=n)}
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"flash_fwd": kernels[0].launches, "kvattn_dynlen": kernels[1].launches,
+                "kvattn_paged": kernels[2].launches}
+    consumer.close()
+    tps = [TopicPartition("t12", p) for p in range(parts)]
+    committed = [broker.committed("s12", tp) or 0 for tp in tps]
+    ends = [broker.end_offset(tp) for tp in tps]
+    m = server.metrics.summary()
+    cache, chunks = m["prefix_cache"], m["chunked_prefill"]
+    if len(outs) != n or any(len(o) != MAX_NEW for o in outs.values()):
+        raise AssertionError(f"paged: {len(outs)} completions, lengths "
+                             f"{sorted({len(o) for o in outs.values()})}")
+    if committed != ends:
+        raise AssertionError(f"paged: committed {committed} != end offsets {ends}")
+    if any(int(o.min()) < 0 or int(o.max()) >= cfg.vocab_size for o in outs.values()):
+        raise AssertionError("paged: token out of the vocabulary")
+    if not (cache["hits"] > 0 and cache["prefill_tokens"] < n * plen):
+        raise AssertionError(f"paged: no prefix reuse {cache}")
+    want_k5 = cfg.n_layers * (m["decode_ticks"] - chunks["chunk_ticks"]) if kv_kernel else 0
+    if launches["kvattn_paged"] != want_k5 or (kv_kernel and want_k5 <= 0):
+        raise AssertionError(f"paged: K5 launches {launches} vs {m['decode_ticks']} decode "
+                             f"ticks, {chunks['chunk_ticks']} chunk ticks")
+    if launches["flash_fwd"] or launches["kvattn_dynlen"]:
+        raise AssertionError(f"paged: dense-path kernels launched {launches}")
+    tokens = sum(len(o) for o in outs.values())
+    kv_row = cfg.n_kv_heads * 2 * (cfg.head_dim + 4) * cfg.n_layers  # int8 k+v, f32 scales
+    row = {"phase": "serve_paged", "model": f"1b width, {cfg.n_layers} layers",
+           "dtype": str(cfg.dtype).replace("torch.", ""), "kv_dtype": "int8",
+           "kv_kernel": kv_kernel, "block_size": PAGED_BS, "num_blocks": pages.num_blocks,
+           "prompts": n, "prompt_len": plen, "max_new": MAX_NEW, "slots": slots,
+           "ticks_per_sync": ticks, "completions": len(outs), "tokens": tokens,
+           "elapsed_s": elapsed, "tokens_per_s": tokens / elapsed,
+           "committed": committed, "end_offsets": ends,
+           "prefix_hits": cache["hits"], "prefix_misses": cache["misses"],
+           "prefix_tokens_saved": cache["prefix_tokens_saved"],
+           "prefill_tokens": cache["prefill_tokens"], "prefill_tokens_no_cache": n * plen,
+           "decode_ticks": m["decode_ticks"], "chunk_ticks": chunks["chunk_ticks"],
+           "chunk_summary": chunks, "launches": launches,
+           "tick_block_ms_p50": m["step_time"]["p50_ms"],
+           "tick_block_ms_p99": m["step_time"]["p99_ms"],
+           "peak_allocated_blocks": peak_blocks[0], "peak_slot_blocks": peak_blocks[1],
+           "dense_block_equivalents": slots * nblk,
+           "pool_bytes_paged": pages.num_blocks * PAGED_BS * kv_row,
+           "pool_bytes_dense_equivalent": slots * (plen + MAX_NEW) * kv_row,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return outs, row
+
+
+def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict, dict]:
+    """The tenant stream through the block-table kernel (K5) and again
+    through the gathered read: committed offsets and token 0 must be
+    identical; ``exact`` (f32) requires every token identical."""
+    import numpy as np
+
+    prompts, keys = tenant_prompts(np, cfg.vocab_size)
+    outs_k, row_k = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=True)
+    outs_g, row_g = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=False)
+    if row_g["committed"] != row_k["committed"]:
+        raise AssertionError(f"{name}: the gathered read committed other offsets")
+    tok0_same = all(int(outs_g[k][0]) == int(outs_k[k][0]) for k in outs_k)
+    agree = float(np.mean([np.mean(outs_g[k] == outs_k[k]) for k in outs_k]))
+    for row in (row_k, row_g):
+        row["phase"] = name
+    row_g["token0_identical_to_kernel_run"] = tok0_same
+    row_g["token_agreement_with_kernel_run"] = agree
+    if not tok0_same:
+        raise AssertionError(f"{name}: token 0 differs between the kernel and gathered reads")
+    if exact and agree != 1.0:
+        raise AssertionError(f"{name}: f32 tokens differ (agreement {agree})")
+    return row_k, row_g
+
+
 def _profiler(torch):
     from torch.profiler import ProfilerActivity, profile
 
@@ -528,14 +769,32 @@ def profile_serve(torch, cfg, params, prompts, row_q) -> dict:
         "unprofiled_tick_wall_ms": row_q["tick_block_ms_p50"] / (MAX_NEW - 1)})
 
 
+def profile_paged(torch, cfg, params, row_p) -> dict:
+    """The paged int8 serve run (K5 engaged) again under torch.profiler:
+    device time by kernel against the profiled run's wall time (the
+    profiler slows the host, so the idle share it implies is an upper
+    bound) and the unprofiled run's tick-block time."""
+    import numpy as np
+
+    prompts, keys = tenant_prompts(np, cfg.vocab_size)
+    prof = _profiler(torch)
+    _, row = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=True, prof=prof)
+    return profile_summary(prof, "paged int8 serve (K5) under torch.profiler", {
+        "decode_ticks": row["decode_ticks"], "chunk_ticks": row["chunk_ticks"],
+        "profiled_wall_ms": row["elapsed_s"] * 1e3,
+        "unprofiled_tick_block_ms_p50": row_p["tick_block_ms_p50"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phases (a quick build check)")
-    ap.add_argument("--profile", nargs="?", const="all", choices=("all", "train", "serve"),
-                    help="also trace one train step and/or the int8 serve run "
-                         "under torch.profiler and print where the device "
-                         "time goes (the serve trace takes minutes)")
+    ap.add_argument("--profile", nargs="?", const="all",
+                    choices=("all", "train", "serve", "paged"),
+                    help="also trace one train step, the dense int8 serve run "
+                         "and/or the paged int8 serve run under torch.profiler "
+                         "and print where the device time goes (a serve trace "
+                         "takes minutes)")
     args = ap.parse_args()
     import torch
 
@@ -570,6 +829,8 @@ def main() -> int:
     emit(k23)
     k4 = check_kvattn(torch, kvattn, flush, gen)
     emit(k4)
+    k5 = check_kvattn_paged(torch, kvattn, flush, gen)
+    emit(k5)
     if args.kernels_only:
         return 0
     del flush
@@ -607,7 +868,25 @@ def main() -> int:
     if args.profile in ("all", "serve"):
         emit(profile_serve(torch, cfg, params, prompts, row_q))
 
+    row_p, row_pg = check_serve_paged(torch, cfg, params, "serve_paged", exact=False)
+    emit(row_p)
+    emit(row_pg)
+    if args.profile in ("all", "paged"):
+        emit(profile_paged(torch, cfg, params, row_p))
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    params32 = random_serving_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg32, device="cuda"
+    )
+    row_f, row_fg = check_serve_paged(torch, cfg32, params32, "serve_paged_f32",
+                                      exact=True)
+    emit(row_f)
+    emit(row_fg)
+
     main_pool = k4["pools"]["192"]
+    main_view = k5["views"]["192"]
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_fwd.cu",
@@ -639,6 +918,13 @@ def main() -> int:
          "max_abs_err": main_pool["max_abs_err"]["bf16"], "ms": main_pool["kernel_ms"],
          "plain_ms": main_pool["plain_ms"], "bound_ms": main_pool["bound_ms"],
          "bound_by": main_pool["bound_by"], "library_ms": None},
+        {"name": "kvattn_paged", "route": "cuda",
+         "source": "torchkafka_tpu_torch/csrc/kvattn_paged.cu",
+         "replaces": "torchkafka_tpu/ops/kvattn.py:755",
+         "launches": row_p["launches"]["kvattn_paged"],
+         "max_abs_err": main_view["max_abs_err"]["bf16"], "ms": main_view["kernel_ms"],
+         "plain_ms": main_view["plain_ms"], "bound_ms": main_view["bound_ms"],
+         "bound_by": main_view["bound_by"], "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

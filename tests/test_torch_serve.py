@@ -100,7 +100,9 @@ def _server(model, **kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"kv_pages": {"num_blocks": 8}}, {"kv_tier": {}},
+    {"mesh": object()},
+    {"kv_pages": {"block_size": 4, "num_blocks": 16}, "kv_tier": {"host_bytes": 1}},
+    {"kv_tier": {}},
     {"prefill_role": True}, {"journal": object()}, {"tracer": object()},
     {"exactly_once": True}, {"output_producer": object()},
     {"quarantine": object()}, {"distill_topic": "d"},

@@ -1,15 +1,32 @@
 """The KV-backend resolver for the serving pool: port of
-``torchkafka_tpu/kvcache/backend.py``, dense layout only.
+``torchkafka_tpu/kvcache/backend.py``, single device.
 
-``resolve_kv_backend`` validates one (dtype × kernel) combination and
-returns a ``KVBackend`` saying what actually serves. The int8 pool always
-reads through ``ops.kvattn.int8_decode_attention_dynlen`` (its CUDA kernel
-on the card, its plain version on the CPU), stored K-major so the CPU
-and the card share one layout. ``kv_kernel`` True or "auto" with int8
-engages that read whenever ``kernel_applicable`` holds; the TPU package's
-1,024-token "auto" threshold is a TPU measurement and is not carried over
-(PERF.md). The other read of the int8 pool (``kv_kernel=False``), the
-paged pool and mesh-sharded pools are not ported yet (ROADMAP Queue A).
+``resolve_kv_backend`` validates one (layout × dtype × read) combination
+and returns a ``KVBackend`` saying what actually serves.
+
+- Dense int8 pool: always read through
+  ``ops.kvattn.int8_decode_attention_dynlen`` (its CUDA kernel on the
+  card, its plain version on the CPU), stored K-major. ``kv_kernel`` True
+  or "auto" engages that read whenever ``kernel_applicable`` holds; the
+  dense int8 pool's other read (``kv_kernel=False``) is not ported yet.
+- Paged pool (``kv_pages``): compute-dtype or int8 blocks, read through
+  the gathered per-slot view (``ops.kvattn.block_table_attention``/
+  ``_q8``). With int8, decode-only ticks may instead read through the
+  block-table kernel ``ops.kvattn.int8_paged_decode_attention``:
+  ``kv_kernel=True`` requires it (raising ``ValueError`` with the reason
+  when the CUDA kernel does not take the shape; on a CPU device the
+  wrapper runs its plain version), "auto" engages it on CUDA whenever
+  ``paged_kernel_applicable`` holds and otherwise records why not, and
+  ``False`` keeps the gathered read — a supported configuration, not a
+  fallback.
+
+The TPU package's block-size gate and 1,024-token "auto" threshold are
+measurements of the TPU kernels and are not carried over.
+
+Genuine exclusions (each raises ``ValueError``): ``kv_pages`` with an MoE
+config, legacy per-record paged admission (``prefill_chunk=0``) with the
+int8 pool, and an un-honorable ``kv_kernel=True``. Mesh-sharded pools,
+the host-RAM tier and disaggregated prefill are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,16 +45,25 @@ _INT8_XLA_READ_TODO = (
 class KVBackend:
     """The resolved serving-cache configuration.
 
-    ``int8``: quantized payloads + group-wise scales. ``kernel``: the
-    int8 pool reads through the fill-bounded kernel's wrapper (on a CPU
-    device that wrapper runs its plain version). ``device``: "cuda" or
-    "cpu"."""
+    ``layout``: "dense" (per-slot pool) or "paged" (block pool + per-slot
+    tables). ``int8``: quantized payloads + group-wise scales.
+    ``kernel``: the int8 pool's decode read goes through a kernel's
+    wrapper (on a CPU device that wrapper runs its plain version).
+    ``kernel_disabled_reason``: why it does not, when int8 was asked for
+    with ``kv_kernel`` True or "auto". ``chunked``: paged admission
+    prefills through the fused chunk tick (``prefill_chunk`` != 0).
+    ``device``: "cuda" or "cpu"."""
 
     layout: str
     int8: bool
     kernel: bool
     kernel_disabled_reason: str | None
+    chunked: bool
     device: str
+
+    @property
+    def paged(self) -> bool:
+        return self.layout == "paged"
 
     def describe(self) -> dict:
         """The ``ServeMetrics`` ``kv_backend`` info payload."""
@@ -46,8 +72,46 @@ class KVBackend:
             "kv_dtype": "int8" if self.int8 else "compute",
             "kernel": self.kernel,
             "kernel_disabled_reason": self.kernel_disabled_reason,
+            "chunked": self.chunked,
             "device": self.device,
         }
+
+
+def _check_pages(cfg, kv_pages, int8: bool) -> None:
+    if kv_pages.prefill_chunk == 0 and int8:
+        raise ValueError(
+            "legacy per-record paged admission (prefill_chunk=0) is the "
+            "compute-dtype baseline; the int8 paged pool requires the "
+            "chunked tick (prefill_chunk None or >= 1)"
+        )
+    if cfg.is_moe:
+        raise ValueError(
+            "kv_pages does not serve MoE configs: the paged suffix prefill "
+            "routes experts densely (decode's rule) while the dense prefill "
+            "uses the training dispatch, which would break the cache-on/off "
+            "exactness contract"
+        )
+
+
+def _paged_int8_read(cfg, kv_pages, kv_kernel, dev: str):
+    """(kernel, reason) for the int8 paged pool's decode read."""
+    from torchkafka_tpu_torch.ops.kvattn import paged_kernel_applicable
+
+    if kv_kernel is False:
+        return False, None
+    rep = cfg.n_heads // cfg.n_kv_heads
+    bs = kv_pages.block_size
+    if dev == "cuda" and not paged_kernel_applicable(cfg.head_dim, bs, rep):
+        reason = (
+            f"tiling: head_dim={cfg.head_dim}, block_size={bs}, H/K={rep} "
+            "(see ops.kvattn.paged_kernel_applicable)"
+        )
+        if kv_kernel is True:
+            raise ValueError(f"kv_kernel=True cannot be honored here ({reason})")
+        return False, reason
+    if kv_kernel == "auto" and dev != "cuda":
+        return False, f"auto: device={dev!r} is not cuda"
+    return True, None
 
 
 def resolve_kv_backend(
@@ -55,10 +119,11 @@ def resolve_kv_backend(
     *,
     kv_dtype: str | None = None,
     kv_kernel: bool | str = "auto",
+    kv_pages=None,
     max_len: int,
     device,
 ) -> KVBackend:
-    """Validate a dense-pool combination and decide the int8 read."""
+    """Validate one pool combination and decide the int8 read."""
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
     if not (kv_kernel is True or kv_kernel is False or kv_kernel == "auto"):
@@ -69,9 +134,17 @@ def resolve_kv_backend(
     if kv_kernel is True and not int8:
         raise ValueError("kv_kernel requires kv_dtype='int8'")
     dev = getattr(device, "type", str(device))
+    paged = kv_pages is not None
+    layout = "paged" if paged else "dense"
+    chunked = paged and kv_pages.prefill_chunk != 0
+    if paged:
+        _check_pages(cfg, kv_pages, int8)
     if not int8:
         reason = "auto: kv_dtype is not 'int8'" if kv_kernel else None
-        return KVBackend("dense", False, False, reason, dev)
+        return KVBackend(layout, False, False, reason, chunked, dev)
+    if paged:
+        kernel, reason = _paged_int8_read(cfg, kv_pages, kv_kernel, dev)
+        return KVBackend(layout, True, kernel, reason, chunked, dev)
     if kv_kernel is False:
         raise NotImplementedError(_INT8_XLA_READ_TODO)
     from torchkafka_tpu_torch.ops.kvattn import kernel_applicable
@@ -85,4 +158,4 @@ def resolve_kv_backend(
         if kv_kernel is True:
             raise ValueError(f"kv_kernel=True cannot be honored here ({reason})")
         raise NotImplementedError(f"{reason}; {_INT8_XLA_READ_TODO}")
-    return KVBackend("dense", True, True, None, dev)
+    return KVBackend("dense", True, True, None, False, dev)

@@ -1,17 +1,27 @@
-"""Fill-bounded int8 decode attention: port of
-``torchkafka_tpu/ops/kvattn.py`` ``int8_decode_attention_dynlen``.
+"""The int8 decode reads and the paged pool's operators: port of
+``torchkafka_tpu/ops/kvattn.py``.
 
-``int8_decode_attention_dynlen`` is the wrapper of the hand-written CUDA
-kernel ``csrc/kvattn_dynlen.cu`` (it replaces the Pallas
-``_kvattn_dynlen_kernel``): single-query attention over a K-major int8
-pool that reads only positions ``[0, pos[b]]`` of each slot. On a CUDA
-tensor it launches the kernel or raises; on a CPU tensor it runs
-``int8_decode_attention_plain``, the plain PyTorch version of the same
-function. There is no fallback from kernel to plain on the card.
+Two hand-written CUDA kernels, each behind a wrapper that launches it on
+a CUDA tensor (or raises) and runs its plain PyTorch version on a CPU
+tensor; there is no fallback from kernel to plain on the card:
 
-The other TPU read kernels (the paged block-table read, the v2 full-pool
-K-major read and the v1 M-major read) are not ported yet (ROADMAP
-Queue B).
+- ``int8_decode_attention_dynlen`` → ``csrc/kvattn_dynlen.cu`` (replaces
+  the Pallas ``_kvattn_dynlen_kernel``): single-query attention over a
+  dense K-major int8 pool that reads only positions ``[0, pos[b]]`` of
+  each slot; plain version ``int8_decode_attention_plain``.
+- ``int8_paged_decode_attention`` → ``csrc/kvattn_paged.cu`` (replaces
+  the Pallas ``_kvattn_paged_kernel``): the same read through per-slot
+  block tables over a shared paged pool; plain version
+  ``int8_paged_decode_attention_plain``.
+
+The paged pool's gathers, scatters and ``block_table_attention(_q8)``
+are plain PyTorch in both packages. The scatters write IN PLACE
+(``index_put_`` on the pool tensor, typically one layer's view); the JAX
+package returns updated pools instead. Nothing else aliases a pool, so
+the two are equivalent.
+
+The other TPU read kernels (the v2 full-pool K-major read and the v1
+M-major read) are not ported yet (ROADMAP Queue B).
 """
 
 from __future__ import annotations
@@ -138,5 +148,231 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# ------------------------------------------------------- paged (block-table)
+# The paged pool is a SHARED set of fixed-size blocks and each slot maps
+# logical positions to physical blocks through its row of a block table
+# [B, nblk]; several slots may map the same physical prefix blocks (radix
+# sharing). The write is a scatter at (table[pos // bs], pos % bs), the
+# gathered read a copy of each slot's nblk blocks into a contiguous
+# [B, nblk·bs, ...] logical view, masked to the live length.
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """pool [NB, bs, ...rest]; table [B, nblk] physical block ids →
+    [B, nblk·bs, ...rest]: logical position p of slot b lands at index p."""
+    b, nblk = table.shape
+    return pool[table.long()].reshape(b, nblk * pool.shape[1], *pool.shape[2:])
+
+
+def _block_offsets(table, positions, bs):
+    blk = torch.gather(table.long(), 1, (positions // bs).long())  # [B, S]
+    return blk, (positions % bs).long()
+
+
+def paged_scatter(pool, table, positions, values) -> torch.Tensor:
+    """Write ``values`` [B, S, ...rest] at logical ``positions`` [B, S]
+    through ``table`` [B, nblk] into ``pool`` [NB, bs, ...rest], in place;
+    returns ``pool``.
+
+    Live slots write only blocks they own privately (sharing is limited
+    to whole blocks strictly below any written position — the radix
+    contract), so no two live rows collide. Idle rows point every table
+    entry at the sink block (``kvcache.SINK_BLOCK``), which no live table
+    references; their duplicate writes there leave an arbitrary winner,
+    which nothing reads."""
+    blk, off = _block_offsets(table, positions, pool.shape[1])
+    pool.index_put_((blk, off), values.to(pool.dtype))
+    return pool
+
+
+def paged_gather_kmajor(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``paged_gather`` for K-MAJOR-PER-BLOCK pools: pool [NB, K, bs,
+    ...rest] (payload rest=(Dh,), scales rest=()) → [B, nblk·bs, K,
+    ...rest], the logical layout ``_attend_cached`` reads."""
+    b, nblk = table.shape
+    v = pool[table.long()].transpose(2, 3)  # [B, nblk, bs, K, ...rest]
+    return v.reshape(b, nblk * pool.shape[2], *v.shape[3:])
+
+
+def paged_scatter_kmajor(pool, table, positions, values) -> torch.Tensor:
+    """``paged_scatter`` for K-major-per-block pools: ``values`` [B, S, K,
+    ...rest] written at logical ``positions`` [B, S] into ``pool`` [NB,
+    K, bs, ...rest], in place; returns ``pool``. The three index tensors
+    broadcast to [B, S, K] explicitly (the JAX spelling ``pool.at[blk, :,
+    off]`` moves the broadcast dims to the front)."""
+    blk, off = _block_offsets(table, positions, pool.shape[2])
+    kidx = torch.arange(pool.shape[1], device=pool.device)[None, None, :]
+    pool.index_put_((blk[:, :, None], kidx, off[:, :, None]), values.to(pool.dtype))
+    return pool
+
+
+def _valid(positions: torch.Tensor, m: int) -> torch.Tensor:
+    """[B, S, M] per-query masks of readable positions [0, positions]."""
+    return torch.arange(m, device=positions.device)[None, None, :] <= positions[:, :, None]
+
+
+def block_table_attention(x, q, k_new, v_new, pool_k, pool_v, table, positions,
+                          layer, cfg):
+    """One layer of write-then-attend over a compute-dtype paged pool.
+
+    x: [B, S, D]; q/k_new/v_new: [B, S, ·, Dh] (already rope'd); pools
+    [NB, bs, K, Dh] (written in place); table [B, nblk]; positions [B, S].
+    Every row's k/v is written before any row reads (a chunk's rows
+    attend over positions earlier rows of the same chunk write), then
+    each query attends over [0, its position] of its slot's gathered view
+    through the shared ``_attend_cached`` tail. Returns x."""
+    from torchkafka_tpu_torch.models.generate import _attend_cached
+
+    paged_scatter(pool_k, table, positions, k_new)
+    paged_scatter(pool_v, table, positions, v_new)
+    ck = paged_gather(pool_k, table)  # [B, M', K, Dh]
+    cv = paged_gather(pool_v, table)
+    return _attend_cached(x, q, ck, cv, _valid(positions, ck.shape[1]), layer, cfg)
+
+
+def paged_write_q8(pool_kq, pool_ks, pool_vq, pool_vs, table, positions,
+                   k_new, v_new) -> None:
+    """The int8 paged pool's write: the fresh k/v [B, S, K, Dh] quantized
+    into the shared per-(position, head) groups
+    (``models.quant.quant_kv_groups``, the dense int8 pool's) and
+    scattered K-major-per-block (payloads [NB, K, bs, Dh], scales
+    [NB, K, bs]) in place."""
+    from torchkafka_tpu_torch.models.quant import quant_kv_groups
+
+    kq, ks = quant_kv_groups(k_new)  # [B, S, K, Dh] int8, [B, S, K] f32
+    vq, vs = quant_kv_groups(v_new)
+    for pool, val in ((pool_kq, kq), (pool_ks, ks), (pool_vq, vq), (pool_vs, vs)):
+        paged_scatter_kmajor(pool, table, positions, val)
+
+
+def block_table_attention_q8(x, q, k_new, v_new, pool_kq, pool_ks, pool_vq,
+                             pool_vs, table, positions, layer, cfg):
+    """``block_table_attention`` over the INT8 paged pool: ``paged_write_q8``,
+    then the scale-folded ``_attend_cached`` on the gathered view. Returns
+    x. ``int8_paged_decode_attention`` replaces only this read on
+    decode-only ticks; the write is shared."""
+    from torchkafka_tpu_torch.models.generate import _attend_cached
+
+    paged_write_q8(pool_kq, pool_ks, pool_vq, pool_vs, table, positions, k_new, v_new)
+    ck = paged_gather_kmajor(pool_kq, table)  # [B, M', K, Dh] int8
+    cv = paged_gather_kmajor(pool_vq, table)
+    cks = paged_gather_kmajor(pool_ks, table)  # [B, M', K] f32
+    cvs = paged_gather_kmajor(pool_vs, table)
+    return _attend_cached(x, q, ck, cv, _valid(positions, ck.shape[1]), layer,
+                          cfg, k_scale=cks, v_scale=cvs)
+
+
+def paged_kernel_applicable(head_dim: int, block_size: int, n_rep: int = 1) -> bool:
+    """Shapes the CUDA block-table kernel takes: head_dim a multiple of 16
+    up to 128 (16-byte row loads, one output column per thread), H/K in
+    {1, 2, 4, 8} query rows per kv head, and any block_size >= 1. A
+    128-position tile is assembled from the table entries it spans and
+    each row is addressed through its own entry, so blocks smaller or
+    larger than a tile both work; each block's [bs, Dh] run is
+    contiguous, so the 16-byte row loads stay coalesced inside a block
+    (block_size 16 — vLLM's default page, and what ``chip_smoke.py``
+    serves with — gives 2 KB runs at head_dim 128)."""
+    return (
+        head_dim % 16 == 0 and 16 <= head_dim <= 128 and block_size >= 1
+        and n_rep in _REPS
+    )
+
+
+def int8_paged_decode_attention_plain(q, pool_kq, pool_ks, pool_vq, pool_vs,
+                                      table, pos):
+    """Plain PyTorch version of the block-table kernel (same arguments as
+    ``int8_paged_decode_attention``): each slot's logical view gathered
+    through its table (``paged_gather_kmajor``), laid out K-major, then
+    the dense read's plain version with the same watermarks."""
+    ck = paged_gather_kmajor(pool_kq, table).transpose(1, 2)  # [B, K, M', Dh]
+    cv = paged_gather_kmajor(pool_vq, table).transpose(1, 2)
+    cks = paged_gather_kmajor(pool_ks, table).transpose(1, 2)  # [B, K, M']
+    cvs = paged_gather_kmajor(pool_vs, table).transpose(1, 2)
+    return int8_decode_attention_plain(q, ck, cks, cv, cvs, pos)
+
+
+def _check_paged(q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos) -> None:
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"decode attention is one token per slot, got q {tuple(q.shape)}")
+    b, _, h, dh = q.shape
+    if pool_kq.dim() != 4 or pool_kq.shape[3] != dh:
+        raise ValueError(f"want paged pool [NB, K, bs, Dh], got {tuple(pool_kq.shape)}")
+    nb, n_kv, bs = pool_kq.shape[:3]
+    if (pool_vq.shape != pool_kq.shape or pool_ks.shape != (nb, n_kv, bs)
+            or pool_vs.shape != (nb, n_kv, bs)):
+        raise ValueError("payloads must be [NB, K, bs, Dh] and scales [NB, K, bs]")
+    if h % n_kv:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({n_kv})")
+    if pool_kq.dtype != torch.int8 or pool_vq.dtype != torch.int8:
+        raise ValueError("payloads must be int8")
+    if pool_ks.dtype != torch.float32 or pool_vs.dtype != torch.float32:
+        raise ValueError("scales must be float32")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if table.dim() != 2 or table.shape[0] != b or table.dtype != torch.int32:
+        raise ValueError("table must be int32 [B, nblk]")
+    if pos.shape != (b,) or pos.dtype != torch.int32:
+        raise ValueError("pos must be int32 [B]")
+    if len({t.device for t in (q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos)}) != 1:
+        raise ValueError("all operands must be on one device")
+
+
+def int8_paged_decode_attention(q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos):
+    """q [B, 1, H, Dh] against the int8 PAGED pool — K-major-per-block
+    payloads ``pool_kq``/``pool_vq`` [NB, K, bs, Dh] with f32 scales [NB,
+    K, bs] — read through the per-slot block tables ``table`` [B, nblk]
+    (int32) at watermarks ``pos`` [B] (int32; positions [0, pos[b]]
+    readable) → [B, 1, H, Dh] in q's dtype. Only the ceil((pos+1)/bs)
+    table entries a slot needs are read, and no gathered view is
+    materialised. CUDA tensors launch ``csrc/kvattn_paged.cu``
+    (``int8_paged_decode_attention.launches`` counts each launch); CPU
+    tensors run ``int8_paged_decode_attention_plain``."""
+    _check_paged(q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos)
+    if q.device.type == "cpu":
+        return int8_paged_decode_attention_plain(
+            q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"int8 paged attention runs on cuda or cpu, not {q.device}")
+    b, _, h, dh = q.shape
+    nb, n_kv, bs = pool_kq.shape[:3]
+    nblk = table.shape[1]
+    if not paged_kernel_applicable(dh, bs, h // n_kv) or nblk < 1:
+        raise ValueError(
+            f"the CUDA kernel does not take head_dim={dh}, block_size={bs}, "
+            f"H/K={h // n_kv}, nblk={nblk} (see paged_kernel_applicable)"
+        )
+    ops = (q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos)
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("the int8 paged kernel needs contiguous operands")
+    out = torch.empty_like(q)
+    fn = _lib_paged().tk_kvattn_paged
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            *(t.data_ptr() for t in ops), out.data_ptr(), _DTYPES[q.dtype],
+            b, n_kv, h // n_kv, nb, bs, nblk, dh, float(1.0 / np.sqrt(dh)),
+            stream,
+        )
+    _native.check(rc, "kvattn_paged")
+    int8_paged_decode_attention.launches += 1
+    return out
+
+
+int8_paged_decode_attention.launches = 0
+
+
+def _lib_paged():
+    lib = _native.load("kvattn_paged")
+    fn = lib.tk_kvattn_paged
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # q, kq, ks, vq, vs, table, pos, out; dtype, b, n_kv, rep, nb,
+        # bs, nblk, dh; 1/sqrt(dh); stream.
+        fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
