@@ -12,8 +12,8 @@ Phases, each printing one JSON line:
    nvcc for sm_90a (one nvcc per source, started together);
 3. flash_fwd: the flash-attention forward kernel (K1) against its plain
    PyTorch version at the 1b prefill shape, plus a ragged and an offset
-   case, and timings (CUDA events, median of 25, L2 flushed before each
-   timed launch);
+   case and the 8b prefill shape (32 q / 8 kv heads), and timings (CUDA
+   events, median of 25, L2 flushed before each timed launch);
 4. flash_bwd: the backward kernels, dQ (K2) and dK/dV (K3), against their
    plain versions at the 1b training shape (B=8, S=512, 16 q / 8 kv heads,
    D=128, bf16), in f32, at a ragged S=200 and at a k_offset with fully
@@ -25,6 +25,15 @@ Phases, each printing one JSON line:
    version at the 1b decode shape, block size 16, logical views of 192 and
    2048 positions (shared prefix blocks, sink entries, unreferenced garbage
    blocks), timings, and K4's time on the same fills laid out dense;
+5c. qmatmul: the int8 weight matmul kernel (K6) against its plain version
+   on int8 weights drawn by the zoo at the 8b shapes (w_gate, w_down,
+   lm_head) with 16 decode rows, and w_gate with 2048 prefill rows; timings
+   beside the library's int8 matmul;
+5d. kvattn_full: the full-pool masked int8 reads, K-major (K7) and M-major
+   (K8), at the 8b decode shape (B=16, K=8, rep=4, Dh=128) with pools of
+   192 and 2048: on prefix masks K7, K8 (on the transposed pool), K4 and
+   the plain version agree; on masks with holes and an all-false row K7
+   and K8 agree with the plain version; timings;
 6. train_grad: one training loss and backward at 1b width, 2 layers,
    S=512, B=2, through the kernels and through dense attention: the loss
    and every parameter's gradient must agree within bf16 tolerance;
@@ -54,7 +63,22 @@ Phases, each printing one JSON line:
    commits and token 0;
 8c. serve_paged_f32: 1b width, 2 layers, f32 weights, the same stream
    through K5 and through the gathered read: every token identical;
-9. kernels: one line for every ported kernel;
+8d. serve_8b: harness scenario 7 at the 8b scale with an output topic
+   (BASELINE config 5), full width and depth, random int8 weights made on
+   the card from a seed: 48 prompts of 128 tokens produced round-robin on
+   two partitions, 16 slots, 64 new tokens, the dense int8 pool, each
+   completion published to "completions" keyed by its prompt before its
+   offset commits. Run twice, with the K4 read and then with the plain
+   M-major read (kv_kernel=False); each run serves 48/48 completions of 64
+   tokens, commits the end offsets, publishes exactly 48 records equal to
+   the completions, and launches K1 = 32 × prefills, K4 = 32 × decode ticks
+   (0 in the second run) and K6-K8 never (counts zeroed just before each
+   run, read just after); the two runs commit the same offsets and agree
+   on token 0;
+8e. serve_8b_f32: the same stream and checks at 8b width, 2 layers, f32
+   compute over the int8 weights, through K4 and through the plain M-major
+   read: every token identical;
+9. kernels: one line for every ported kernel (all eight);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Float32 matmuls run in full precision (TF32 off for matmul and cuDNN).
@@ -123,25 +147,29 @@ def max_err(torch, a, b) -> float:
 
 def check_flash(torch, F, flash, flush, gen) -> dict:
     """K1 against its plain version: bf16 at the 1b prefill shape, a ragged
-    S, a k_offset case with fully masked rows, and f32 for a tight check."""
+    S, a k_offset case with fully masked rows, f32 for a tight check, and
+    bf16 and f32 at the 8b prefill shape (32 q heads over 8 kv heads)."""
     B, S, H, K, D = 16, 128, 16, 8, 128
+    H8 = 32  # the 8b scale's q heads: H/K = 4
     tol = {"bf16_o": 4e-2, "lse": 1e-3, "f32_o": 1e-4}
 
-    def make(s, dtype):
+    def make(s, dtype, h=H):
         mk = lambda n: torch.randn((n, s, D), generator=gen, device="cuda",  # noqa: E731
                                    dtype=torch.float32).to(dtype)
-        return mk(B * H), mk(B * K), mk(B * K)
+        return mk(B * h), mk(B * K), mk(B * K)
 
     cases = {
-        "main_bf16": (S, torch.bfloat16, 0, 0),
-        "ragged_s200_bf16": (200, torch.bfloat16, 0, 0),
-        "k_offset64_bf16": (S, torch.bfloat16, 0, 64),
-        "main_f32": (S, torch.float32, 0, 0),
+        "main_bf16": (S, torch.bfloat16, 0, 0, H),
+        "ragged_s200_bf16": (200, torch.bfloat16, 0, 0, H),
+        "k_offset64_bf16": (S, torch.bfloat16, 0, 64, H),
+        "main_f32": (S, torch.float32, 0, 0, H),
+        "main_8b_bf16": (S, torch.bfloat16, 0, 0, H8),
+        "main_8b_f32": (S, torch.float32, 0, 0, H8),
     }
     errs = {}
-    for name, (s, dtype, qo, ko) in cases.items():
-        q, k, v = make(s, dtype)
-        kw = dict(causal=True, q_offset=qo, k_offset=ko, n_q_heads=H, n_kv_heads=K)
+    for name, (s, dtype, qo, ko, h) in cases.items():
+        q, k, v = make(s, dtype, h)
+        kw = dict(causal=True, q_offset=qo, k_offset=ko, n_q_heads=h, n_kv_heads=K)
         o, lse = flash.flash_fwd_bhsd(q, k, v, **kw)
         po, plse = flash.flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -362,6 +390,145 @@ def check_kvattn_paged(torch, kvattn, flush, gen) -> dict:
                                 "max_abs_err": row, "kernel_ms": ms, "plain_ms": plain_ms,
                                 "bound_ms": bms, "bound_by": by, "library_ms": None,
                                 "k4_dense_same_fill_ms": k4_ms}
+    return out
+
+
+def _library_int8_mm(torch, x, q, scale):
+    """The library yardstick for one int8 weight matmul: PyTorch's
+    ``_weight_int8pack_mm`` (q as [N, K], scales [N] in x's dtype) where
+    this build has a CUDA implementation of it, else ``x @ load_weight(q)``
+    (the dequantized bf16 matmul). Returns (label, zero-argument call);
+    the operands are prepared here, outside any timed region."""
+    from torchkafka_tpu_torch.models.quant import QTensor, load_weight
+
+    qt, st = q.t().contiguous(), scale.reshape(-1).to(x.dtype)
+    if hasattr(torch, "_weight_int8pack_mm"):
+        try:  # a feature probe: does this build run it on the card?
+            torch._weight_int8pack_mm(x[:1], qt, st)
+            torch.cuda.synchronize()
+            return "torch._weight_int8pack_mm", lambda: torch._weight_int8pack_mm(x, qt, st)
+        except (RuntimeError, NotImplementedError):
+            pass
+    w = QTensor(q, scale)
+    return "x @ load_weight(q)", lambda: x @ load_weight(w, x.dtype)
+
+
+def check_qmatmul(torch, flush, gen) -> dict:
+    """K6 against its plain version on int8 weights drawn by the zoo
+    (``_rand_q``) at the 8b shapes: 16 decode rows on w_gate, w_down and
+    lm_head, 2048 prefill rows (16 × 128) on w_gate; x bf16, and f32 on
+    w_gate's decode rows. Every shape tiles, so every call must launch the
+    kernel."""
+    from torchkafka_tpu_torch.models.zoo import _rand_q
+    from torchkafka_tpu_torch.ops.qmatmul import quantized_matmul, quantized_matmul_plain
+
+    # bf16: one bf16 ulp of the plain value (the f32 sums differ only in
+    # order, so the two roundings land at most one step apart); f32: the
+    # f32 sum order over up to 14,336 terms, on outputs of unit scale.
+    tol = {"bf16_ulp_rel": 2.0 ** -7, "f32_abs": 1e-4}
+    shapes = {"w_gate": (4096, 14336), "w_down": (14336, 4096), "lm_head": (4096, 128256)}
+    weights = {n: _rand_q(gen, s, (0,), "cuda") for n, s in shapes.items()}
+    cases = [("w_gate", 16, torch.bfloat16), ("w_down", 16, torch.bfloat16),
+             ("lm_head", 16, torch.bfloat16), ("w_gate", 2048, torch.bfloat16),
+             ("w_gate", 16, torch.float32)]
+    out = {"phase": "qmatmul", "tolerance": tol, "cases": {}}
+    quantized_matmul.launches = 0
+    for name, m, dtype in cases:
+        w = weights[name]
+        k, n = shapes[name]
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        before = quantized_matmul.launches
+        got = quantized_matmul(x, w.q, w.scale)
+        if quantized_matmul.launches != before + 1:
+            raise AssertionError(f"qmatmul {name} M={m}: the kernel did not launch")
+        ref = quantized_matmul_plain(x, w.q, w.scale)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if dtype == torch.bfloat16:
+            ok = bool((err <= tol["bf16_ulp_rel"] * ref.float().abs() + 1e-6).all())
+        else:
+            ok = float(err.max()) <= tol["f32_abs"]
+        if not (ok and torch.isfinite(got.float()).all() and got.shape == (m, n)):
+            raise AssertionError(f"qmatmul {name} M={m} {dtype}: max err {float(err.max())}")
+        label = f"{name}_m{m}_{str(dtype).replace('torch.', '')}"
+        row = {"shape": {"M": m, "K": k, "N": n}, "max_abs_err": float(err.max())}
+        if dtype == torch.bfloat16:
+            row["kernel_ms"] = cuda_ms(torch, lambda: quantized_matmul(x, w.q, w.scale), flush)
+            row["plain_ms"] = cuda_ms(
+                torch, lambda: quantized_matmul_plain(x, w.q, w.scale), flush, n=5)
+            lib, lib_fn = _library_int8_mm(torch, x, w.q, w.scale)
+            row["library"], row["library_ms"] = lib, cuda_ms(torch, lib_fn, flush)
+            nbytes = k * n + 2 * m * k + 2 * m * n + 4 * n
+            row["bound_ms"], row["bound_by"] = bound(2.0 * m * k * n, nbytes)
+        out["cases"][label] = row
+    out["launches"] = quantized_matmul.launches
+    return out
+
+
+def check_kvattn_full(torch, kvattn, flush, gen) -> dict:
+    """K7 (K-major) and K8 (M-major) against their plain version at the 8b
+    decode shape (B=16, K=8, rep=4, Dh=128), pools of 192 and 2048. Prefix
+    masks from ``check_kvattn``'s watermarks: K7, K8 on the transposed
+    pool, K4 and the plain version agree with each other. Masks with holes
+    and one all-false row: K7 and K8 against the plain version."""
+    B, K, REP, DH = 16, 8, 4, 128
+    tol = {"bf16": 3e-2, "f32": 1e-4}
+    out = {"phase": "kvattn_full", "shape": {"B": B, "K": K, "rep": REP, "Dh": DH},
+           "tolerance": tol, "pools": {}}
+    kvattn.int8_decode_attention_kmajor.launches = 0
+    kvattn.int8_decode_attention.launches = 0
+    for M in (192, 2048):
+        base = [0, 63, 64, 127, 128, M // 2 + 5, M - 2, M - 1]
+        pos = torch.tensor((base * 2)[:B], dtype=torch.int32, device="cuda")
+        kq, vq = (torch.randint(-127, 127, (B, K, M, DH), generator=gen,
+                                device="cuda", dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((B, K, M), generator=gen, device="cuda") * 0.02 + 1e-3
+                  for _ in range(2))
+        km = (kq, ks, vq, vs)
+        mm = tuple(t.transpose(1, 2).contiguous() for t in km)  # M-major copies
+        prefix = torch.arange(M, device="cuda")[None, :] <= pos[:, None].long()
+        holes = torch.rand((B, M), generator=gen, device="cuda") < 0.6
+        holes[3] = False  # an all-false row: the uniform average over all M
+        row = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            lim = tol["f32"] if dtype == torch.float32 else tol["bf16"]
+            dn = "f32" if dtype == torch.float32 else "bf16"
+            q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(dtype)
+            k7 = kvattn.int8_decode_attention_kmajor(q, *km, prefix)
+            k8 = kvattn.int8_decode_attention(q, *mm, prefix)
+            k4 = kvattn.int8_decode_attention_dynlen(q, *km, pos)
+            ref = kvattn.int8_decode_attention_kmajor_plain(q, *km, prefix)
+            h7 = kvattn.int8_decode_attention_kmajor(q, *km, holes)
+            h8 = kvattn.int8_decode_attention(q, *mm, holes)
+            href = kvattn.int8_decode_attention_mmajor_plain(q, *mm, holes)
+            torch.cuda.synchronize()
+            errs = {"k7_vs_plain": max_err(torch, k7, ref), "k8_vs_plain": max_err(torch, k8, ref),
+                    "k4_vs_plain": max_err(torch, k4, ref), "k7_vs_k8": max_err(torch, k7, k8),
+                    "k7_vs_k4": max_err(torch, k7, k4),
+                    "holes_k7_vs_plain": max_err(torch, h7, href),
+                    "holes_k8_vs_plain": max_err(torch, h8, href)}
+            finite = all(torch.isfinite(t.float()).all() for t in (k7, k8, h7, h8))
+            if not (finite and max(errs.values()) <= lim):
+                raise AssertionError(f"kvattn_full M={M} {dn}: {errs}")
+            row[dn] = errs
+        q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(torch.bfloat16)
+        t = {"k7_ms": cuda_ms(torch, lambda: kvattn.int8_decode_attention_kmajor(q, *km, prefix),
+                              flush),
+             "k8_ms": cuda_ms(torch, lambda: kvattn.int8_decode_attention(q, *mm, prefix), flush),
+             "k4_same_fill_ms": cuda_ms(
+                 torch, lambda: kvattn.int8_decode_attention_dynlen(q, *km, pos), flush),
+             "plain_kmajor_ms": cuda_ms(
+                 torch, lambda: kvattn.int8_decode_attention_kmajor_plain(q, *km, prefix), flush),
+             "plain_mmajor_ms": cuda_ms(
+                 torch, lambda: kvattn.int8_decode_attention_mmajor_plain(q, *mm, prefix), flush)}
+        # The full pool is read whatever the mask: payloads, scales, the
+        # mask, q and the output once each.
+        nbytes = B * K * M * 2 * (DH + 4) + B * M + 2 * (2 * B * K * REP * DH)
+        bms, by = bound(4.0 * B * M * K * REP * DH, nbytes)
+        out["pools"][str(M)] = {"watermarks": pos.tolist(), "max_abs_err": row, **t,
+                                "bound_ms": bms, "bound_by": by, "library_ms": None}
+    out["launches"] = {"kvattn_kmajor": kvattn.int8_decode_attention_kmajor.launches,
+                       "kvattn_mmajor": kvattn.int8_decode_attention.launches}
     return out
 
 
@@ -728,6 +895,150 @@ def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict,
     return row_k, row_g
 
 
+def serve_8b(torch, cfg, params, prompts, kv_kernel: bool, prof=None):
+    """Scenario 7 at the 8b scale with an output topic (BASELINE config 5):
+    ``prompts`` produced round-robin on two partitions, each keyed by its
+    index, served by the port's StreamingGenerator over the dense int8
+    pool, every completion published to "completions" keyed by its prompt
+    and settled before its offset commits. Every kernel launch count is
+    zeroed just before ``run`` and read just after. ``prof``: an optional
+    profiler context wrapped around ``run``."""
+    import numpy as np
+
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.models.zoo import params_nbytes
+    from torchkafka_tpu_torch.ops import kvattn
+    from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
+    from torchkafka_tpu_torch.ops.qmatmul import quantized_matmul
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+
+    n, plen = prompts.shape
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t7", partitions=2)
+    broker.create_topic("completions", partitions=2)
+    keys = [f"prompt-{i}".encode() for i in range(n)]
+    for i in range(n):
+        broker.produce("t7", prompts[i].tobytes(), key=keys[i], partition=i % 2)
+    consumer = tk.MemoryConsumer(broker, "t7", group_id="s7")
+    server = StreamingGenerator(
+        consumer, params, cfg, slots=16, prompt_len=plen, max_new=MAX_NEW,
+        commit_every=16, ticks_per_sync=MAX_NEW - 1, kv_dtype="int8",
+        kv_kernel=kv_kernel, output_producer=tk.MemoryProducer(broker),
+        output_topic="completions", device="cuda",
+    )
+    server.warmup()
+    kernels = {"flash_fwd": flash_fwd_bhsd, "kvattn_dynlen": kvattn.int8_decode_attention_dynlen,
+               "qmatmul": quantized_matmul, "kvattn_kmajor": kvattn.int8_decode_attention_kmajor,
+               "kvattn_mmajor": kvattn.int8_decode_attention}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        outs = {r.key: out for r, out in server.run(max_records=n)}
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    consumer.close()
+    tps = [tk.TopicPartition("t7", p) for p in (0, 1)]
+    committed = [broker.committed("s7", tp) for tp in tps]
+    ends = [broker.end_offset(tp) for tp in tps]
+    reader = tk.MemoryConsumer(broker, "completions", group_id="check")
+    published = []
+    while batch := reader.poll(max_records=1000, timeout_ms=0):
+        published.extend(batch)
+    reader.close()
+    m = server.metrics.summary()
+    if len(outs) != n or any(len(o) != MAX_NEW for o in outs.values()):
+        raise AssertionError(f"serve_8b: {len(outs)} completions, lengths "
+                             f"{sorted({len(o) for o in outs.values()})}")
+    if committed != ends:
+        raise AssertionError(f"serve_8b: committed {committed} != end offsets {ends}")
+    if any(int(o.min()) < 0 or int(o.max()) >= cfg.vocab_size for o in outs.values()):
+        raise AssertionError("serve_8b: token out of the vocabulary")
+    pub = {r.key: np.frombuffer(r.value, np.int32) for r in published}
+    if len(published) != n or sorted(pub) != sorted(keys):
+        raise AssertionError(f"serve_8b: {len(published)} output records for {n} prompts")
+    if any(not np.array_equal(pub[k], outs[k]) for k in keys):
+        raise AssertionError("serve_8b: an output record differs from its completion")
+    if any(tuple(r.headers) != (("mv", b"0"),) for r in published):
+        raise AssertionError("serve_8b: an output record lacks its mv header")
+    if m["output_flush_failures"] or m["output_send_failures"]:
+        raise AssertionError(f"serve_8b: output failures {m['output_flush_failures']}, "
+                             f"{m['output_send_failures']}")
+    nl = cfg.n_layers
+    want = {"flash_fwd": nl * m["prefills"],
+            "kvattn_dynlen": nl * m["decode_ticks"] if kv_kernel else 0,
+            "qmatmul": 0, "kvattn_kmajor": 0, "kvattn_mmajor": 0}
+    if launches != want or m["prefills"] == 0 or m["decode_ticks"] == 0:
+        raise AssertionError(f"serve_8b: launches {launches}, want {want}")
+    kb = m["kv_backend"]
+    if kb["kernel"] is not kv_kernel or kb["layout"] != "dense" or kb["kv_dtype"] != "int8":
+        raise AssertionError(f"serve_8b: backend {kb}")
+    tokens = sum(len(o) for o in outs.values())
+    row = {"phase": "serve_8b", "model": f"8b width, {nl} layers",
+           "dtype": str(cfg.dtype).replace("torch.", ""), "weights": "int8", "kv_dtype": "int8",
+           "kv_kernel": kv_kernel, "kv_read": "K4, K-major" if kv_kernel else
+           "plain scale-folded read, M-major", "params_nbytes": params_nbytes(params),
+           "prompts": n, "prompt_len": plen, "max_new": MAX_NEW, "slots": 16,
+           "completions": len(outs), "tokens": tokens, "elapsed_s": elapsed,
+           "tokens_per_s": tokens / elapsed, "committed": committed, "end_offsets": ends,
+           "output_records": len(published), "output_flush_failures": m["output_flush_failures"],
+           "prefills": m["prefills"], "decode_ticks": m["decode_ticks"], "launches": launches,
+           "tick_block_ms_p50": m["step_time"]["p50_ms"],
+           "tick_block_ms_p99": m["step_time"]["p99_ms"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return outs, row
+
+
+def check_serve_8b(torch, cfg, name: str, exact: bool):
+    """The 8b path twice, K4 then the plain M-major read: both runs must
+    commit the same offsets and agree on token 0; ``exact`` (f32) requires
+    every token identical. Returns (rows, params, prompts) for the
+    optional profile."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.models.zoo import random_serving_params
+
+    t0 = time.perf_counter()
+    params = random_serving_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, quantized=True, device="cuda"
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (48, 128),
+                                                   dtype=np.int32)
+    outs_k, row_k = serve_8b(torch, cfg, params, prompts, kv_kernel=True)
+    outs_p, row_p = serve_8b(torch, cfg, params, prompts, kv_kernel=False)
+    row_k["params_build_s"] = build_s
+    for row in (row_k, row_p):
+        row["phase"] = name
+    if row_p["committed"] != row_k["committed"]:
+        raise AssertionError(f"{name}: the plain read committed other offsets")
+    tok0_same = all(int(outs_p[k][0]) == int(outs_k[k][0]) for k in outs_k)
+    agree = float(np.mean([np.mean(outs_p[k] == outs_k[k]) for k in outs_k]))
+    row_p["token0_identical_to_k4_run"] = tok0_same
+    row_p["token_agreement_with_k4_run"] = agree
+    if not tok0_same:
+        raise AssertionError(f"{name}: token 0 differs between the K4 and plain reads")
+    if exact and agree != 1.0:
+        raise AssertionError(f"{name}: f32 tokens differ (agreement {agree})")
+    return (row_k, row_p), params, prompts
+
+
+def profile_serve_8b(torch, cfg, params, prompts, row_k) -> dict:
+    """One wave of the 8b K4 run (16 prompts: one prefill and 63 decode
+    ticks) under torch.profiler: device time by kernel against the
+    profiled wall time and the unprofiled tick time."""
+    prof = _profiler(torch)
+    _, row = serve_8b(torch, cfg, params, prompts[:16], kv_kernel=True, prof=prof)
+    return profile_summary(prof, "one 8b int8 wave (K4) under torch.profiler", {
+        "decode_ticks": row["decode_ticks"], "prefills": row["prefills"],
+        "profiled_wall_ms": row["elapsed_s"] * 1e3,
+        "unprofiled_tick_wall_ms": row_k["tick_block_ms_p50"] / (MAX_NEW - 1)})
+
+
 def _profiler(torch):
     from torch.profiler import ProfilerActivity, profile
 
@@ -790,11 +1101,11 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phases (a quick build check)")
     ap.add_argument("--profile", nargs="?", const="all",
-                    choices=("all", "train", "serve", "paged"),
-                    help="also trace one train step, the dense int8 serve run "
-                         "and/or the paged int8 serve run under torch.profiler "
-                         "and print where the device time goes (a serve trace "
-                         "takes minutes)")
+                    choices=("all", "train", "serve", "paged", "serve8b"),
+                    help="also trace one train step, the dense int8 serve run, "
+                         "the paged int8 serve run and/or one wave of the 8b "
+                         "int8 serve run under torch.profiler and print where "
+                         "the device time goes (a serve trace takes minutes)")
     args = ap.parse_args()
     import torch
 
@@ -831,6 +1142,10 @@ def main() -> int:
     emit(k4)
     k5 = check_kvattn_paged(torch, kvattn, flush, gen)
     emit(k5)
+    k6 = check_qmatmul(torch, flush, gen)
+    emit(k6)
+    k78 = check_kvattn_full(torch, kvattn, flush, gen)
+    emit(k78)
     if args.kernels_only:
         return 0
     del flush
@@ -884,9 +1199,33 @@ def main() -> int:
                                       exact=True)
     emit(row_f)
     emit(row_fg)
+    del params32
+    torch.cuda.empty_cache()
+
+    cfg8 = zoo_config("8b", max_seq_len=128 + MAX_NEW)
+    rows_8b, params8, prompts8 = check_serve_8b(torch, cfg8, "serve_8b", exact=False)
+    for row in rows_8b:
+        emit(row)
+    if args.profile in ("all", "serve8b"):
+        emit(profile_serve_8b(torch, cfg8, params8, prompts8, rows_8b[0]))
+    del params8
+    torch.cuda.empty_cache()
+    cfg8_32 = dataclasses.replace(cfg8, n_layers=2, dtype=torch.float32,
+                                  param_dtype=torch.float32)
+    rows_8b32, params8_32, _ = check_serve_8b(torch, cfg8_32, "serve_8b_f32", exact=True)
+    for row in rows_8b32:
+        emit(row)
+    del params8_32
+    torch.cuda.empty_cache()
 
     main_pool = k4["pools"]["192"]
+    k6_main = k6["cases"]["w_gate_m16_bfloat16"]
+    k78_main = k78["pools"]["192"]
     main_view = k5["views"]["192"]
+
+    def path_8b(kernel):
+        return sum(row["launches"][kernel] for row in rows_8b)
+
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_fwd.cu",
@@ -925,6 +1264,35 @@ def main() -> int:
          "max_abs_err": main_view["max_abs_err"]["bf16"], "ms": main_view["kernel_ms"],
          "plain_ms": main_view["plain_ms"], "bound_ms": main_view["bound_ms"],
          "bound_by": main_view["bound_by"], "library_ms": None},
+        # K6-K8 lie on no serving or training path, as in the JAX package:
+        # "launches" counts the calls of their own phase, "path_launches"
+        # those of the two full-depth 8b serve runs.
+        {"name": "qmatmul", "route": "cuda",
+         "source": "torchkafka_tpu_torch/csrc/qmatmul.cu",
+         "replaces": "torchkafka_tpu/ops/qmatmul.py:50",
+         "launches": k6["launches"], "path_launches": path_8b("qmatmul"),
+         "max_abs_err": k6_main["max_abs_err"], "ms": k6_main["kernel_ms"],
+         "plain_ms": k6_main["plain_ms"], "bound_ms": k6_main["bound_ms"],
+         "bound_by": k6_main["bound_by"], "library_ms": k6_main["library_ms"],
+         "library": k6_main["library"]},
+        {"name": "kvattn_kmajor", "route": "cuda",
+         "source": "torchkafka_tpu_torch/csrc/kvattn_full.cu",
+         "replaces": "torchkafka_tpu/ops/kvattn.py:169",
+         "launches": k78["launches"]["kvattn_kmajor"],
+         "path_launches": path_8b("kvattn_kmajor"),
+         "max_abs_err": k78_main["max_abs_err"]["bf16"]["k7_vs_plain"],
+         "ms": k78_main["k7_ms"], "plain_ms": k78_main["plain_kmajor_ms"],
+         "bound_ms": k78_main["bound_ms"], "bound_by": k78_main["bound_by"],
+         "library_ms": None},
+        {"name": "kvattn_mmajor", "route": "cuda",
+         "source": "torchkafka_tpu_torch/csrc/kvattn_full.cu",
+         "replaces": "torchkafka_tpu/ops/kvattn.py:98",
+         "launches": k78["launches"]["kvattn_mmajor"],
+         "path_launches": path_8b("kvattn_mmajor"),
+         "max_abs_err": k78_main["max_abs_err"]["bf16"]["k8_vs_plain"],
+         "ms": k78_main["k8_ms"], "plain_ms": k78_main["plain_mmajor_ms"],
+         "bound_ms": k78_main["bound_ms"], "bound_by": k78_main["bound_by"],
+         "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -148,6 +148,7 @@ def test_port_import_adds_no_jax_module():
         "import sys\n"
         "import torchkafka_tpu_torch.serve, torchkafka_tpu_torch.models.zoo\n"
         "import torchkafka_tpu_torch.source.memory\n"
+        "import torchkafka_tpu_torch.ops.qmatmul, torchkafka_tpu_torch.source.producer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
         "print(bad)\n"

@@ -178,5 +178,5 @@ def test_zoo_1b_config_and_small_random_params():
     small = pt.TransformerConfig(**SHAPE, param_dtype=torch.bfloat16)
     params = random_serving_params(torch.Generator().manual_seed(0), small, device="cpu")
     assert params["embed"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        random_serving_params(torch.Generator(), small, quantized=True, device="cpu")
+    qparams = random_serving_params(torch.Generator(), small, quantized=True, device="cpu")
+    assert qparams["embed"].q.dtype == torch.int8

@@ -104,10 +104,10 @@ def _server(model, **kw):
     {"kv_pages": {"block_size": 4, "num_blocks": 16}, "kv_tier": {"host_bytes": 1}},
     {"kv_tier": {}},
     {"prefill_role": True}, {"journal": object()}, {"tracer": object()},
-    {"exactly_once": True}, {"output_producer": object()},
+    {"exactly_once": True}, {"top_k": 4},
     {"quarantine": object()}, {"distill_topic": "d"},
     {"max_new_of": lambda r: 2}, {"temperature": 0.7},
-    {"kv_dtype": "int8", "kv_kernel": False},
+    {"rng": object()},
 ])
 def test_unsupported_arguments_raise(model, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

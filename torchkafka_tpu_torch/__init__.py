@@ -47,6 +47,12 @@ from torchkafka_tpu_torch.pipeline import KafkaStream, stream
 from torchkafka_tpu_torch.source.assignment import partitions_for_process
 from torchkafka_tpu_torch.source.consumer import Consumer, seek_to_timestamp
 from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+from torchkafka_tpu_torch.source.producer import (
+    MemoryProducer,
+    RecordMetadata,
+    TransactionalProducer,
+    dead_letter_to_topic,
+)
 from torchkafka_tpu_torch.source.records import Record, TopicPartition
 from torchkafka_tpu_torch.source.wal import WriteAheadLog
 from torchkafka_tpu_torch.transform import (
@@ -78,6 +84,7 @@ __all__ = [
     "KafkaStream",
     "LocalBarrier",
     "MemoryConsumer",
+    "MemoryProducer",
     "OffsetLedger",
     "OutputDeliveryError",
     "PoisonRecordError",
@@ -85,17 +92,20 @@ __all__ = [
     "ProducerFencedError",
     "QuorumLostError",
     "Record",
+    "RecordMetadata",
     "ShutdownSignal",
     "StaleEpochError",
     "StreamCheckpointer",
     "TopicPartition",
     "TpuKafkaError",
     "TransactionStateError",
+    "TransactionalProducer",
     "WriteAheadLog",
     "adamw",
     "chunk_of",
     "chunked",
     "compose",
+    "dead_letter_to_topic",
     "fixed_width",
     "json_field",
     "json_tokens",

@@ -4,11 +4,16 @@
 ``resolve_kv_backend`` validates one (layout × dtype × read) combination
 and returns a ``KVBackend`` saying what actually serves.
 
-- Dense int8 pool: always read through
+- Dense int8 pool: with the kernel, stored K-major and read through
   ``ops.kvattn.int8_decode_attention_dynlen`` (its CUDA kernel on the
-  card, its plain version on the CPU), stored K-major. ``kv_kernel`` True
-  or "auto" engages that read whenever ``kernel_applicable`` holds; the
-  dense int8 pool's other read (``kv_kernel=False``) is not ported yet.
+  card, its plain version on the CPU); without it, stored M-major and
+  read by the scale-folded ``models.generate._attend_cached`` under a
+  [B, M] valid mask, the JAX package's XLA read in plain code.
+  ``kv_kernel=True`` requires the kernel (raising ``ValueError`` when the
+  CUDA kernel does not take the shape), "auto" engages it whenever
+  ``kernel_applicable`` holds and otherwise records why not, and
+  ``False`` keeps the plain read — a supported configuration, not a
+  fallback.
 - Paged pool (``kv_pages``): compute-dtype or int8 blocks, read through
   the gathered per-slot view (``ops.kvattn.block_table_attention``/
   ``_q8``). With int8, decode-only ticks may instead read through the
@@ -34,12 +39,6 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = ["KVBackend", "resolve_kv_backend"]
-
-_INT8_XLA_READ_TODO = (
-    "the int8 pool's non-kernel read (kv_kernel=False) is not ported yet "
-    "(ROADMAP Queue A, serving follow-up 8)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class KVBackend:
@@ -146,7 +145,7 @@ def resolve_kv_backend(
         kernel, reason = _paged_int8_read(cfg, kv_pages, kv_kernel, dev)
         return KVBackend(layout, True, kernel, reason, chunked, dev)
     if kv_kernel is False:
-        raise NotImplementedError(_INT8_XLA_READ_TODO)
+        return KVBackend("dense", True, False, None, False, dev)
     from torchkafka_tpu_torch.ops.kvattn import kernel_applicable
 
     rep = cfg.n_heads // cfg.n_kv_heads
@@ -157,5 +156,5 @@ def resolve_kv_backend(
         )
         if kv_kernel is True:
             raise ValueError(f"kv_kernel=True cannot be honored here ({reason})")
-        raise NotImplementedError(f"{reason}; {_INT8_XLA_READ_TODO}")
+        return KVBackend("dense", True, False, reason, False, dev)
     return KVBackend("dense", True, True, None, False, dev)

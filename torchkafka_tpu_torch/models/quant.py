@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from torchkafka_tpu_torch.utils.tree import tree_leaves
+
 
 class QTensor(NamedTuple):
     q: torch.Tensor  # int8, the original weight's shape
@@ -90,3 +92,12 @@ def quantize_params(params: dict, cfg) -> dict:
         "ln_f": params["ln_f"],
         "lm_head": quantize(params["lm_head"], (0,)),  # [D, V] per column
     }
+
+
+def quantized_nbytes(tree) -> int:
+    """Device bytes of a parameter tree; a QTensor leaf counts its int8
+    payload and its scales."""
+    return sum(
+        t.numel() * t.element_size()
+        for t in tree_leaves(tree) if isinstance(t, torch.Tensor)
+    )

@@ -1,9 +1,10 @@
 """The int8 decode reads and the paged pool's operators: port of
 ``torchkafka_tpu/ops/kvattn.py``.
 
-Two hand-written CUDA kernels, each behind a wrapper that launches it on
-a CUDA tensor (or raises) and runs its plain PyTorch version on a CPU
-tensor; there is no fallback from kernel to plain on the card:
+Four hand-written CUDA kernels in three sources, each behind a wrapper
+that launches it on a CUDA tensor (or raises) and runs its plain PyTorch
+version on a CPU tensor; there is no fallback from kernel to plain on the
+card:
 
 - ``int8_decode_attention_dynlen`` → ``csrc/kvattn_dynlen.cu`` (replaces
   the Pallas ``_kvattn_dynlen_kernel``): single-query attention over a
@@ -13,6 +14,16 @@ tensor; there is no fallback from kernel to plain on the card:
   the Pallas ``_kvattn_paged_kernel``): the same read through per-slot
   block tables over a shared paged pool; plain version
   ``int8_paged_decode_attention_plain``.
+- ``int8_decode_attention_kmajor`` and ``int8_decode_attention`` →
+  ``csrc/kvattn_full.cu`` (replace the Pallas ``_kvattn_kmajor_kernel``
+  and ``_kvattn_kernel``): single-query attention over EVERY position of
+  a dense int8 pool under a [B, M] readable-position mask, on the K-major
+  [B, K, M, Dh] and the M-major [B, M, K, Dh] layout; plain versions
+  ``int8_decode_attention_kmajor_plain`` and
+  ``int8_decode_attention_mmajor_plain``. No serving path calls them, as
+  in the JAX package: the server's kernel-off int8 read is
+  ``models.generate._attend_cached`` on the M-major pool, K8's math in
+  plain code.
 
 The paged pool's gathers, scatters and ``block_table_attention(_q8)``
 are plain PyTorch in both packages. The scatters write IN PLACE
@@ -20,8 +31,6 @@ are plain PyTorch in both packages. The scatters write IN PLACE
 package returns updated pools instead. Nothing else aliases a pool, so
 the two are equivalent.
 
-The other TPU read kernels (the v2 full-pool K-major read and the v1
-M-major read) are not ported yet (ROADMAP Queue B).
 """
 
 from __future__ import annotations
@@ -148,6 +157,150 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# ------------------------------------------------------- full pool, masked
+# The v2 (K-major) and v1 (M-major) reads visit every position of the pool
+# and mask with a [B, M] bool; a masked position scores exactly -1e30, so
+# an all-false row averages all M positions uniformly (the reference
+# softmax's result), unlike the fill-bounded read, which never sees one.
+
+
+def int8_decode_attention_kmajor_plain(q, ck_q, ck_s, cv_q, cv_s, valid):
+    """Plain PyTorch version of the K-major full-pool kernel (arguments of
+    ``int8_decode_attention_kmajor``): the scale-folded read — q·k on the
+    int8 payload cast to f32, the k-scale and 1/√Dh on the scores, -1e30
+    where ``valid`` is false, a softmax, the v-scale on the probabilities
+    rounded to q's dtype before the PV product."""
+    b, _, h, dh = q.shape
+    n_kv = ck_q.shape[1]
+    qg = q[:, 0].reshape(b, n_kv, h // n_kv, dh).float()
+    s = torch.einsum("bkrd,bkmd->bkrm", qg, ck_q.float())
+    s = s * ck_s[:, :, None, :] * float(1.0 / np.sqrt(dh))
+    s = torch.where(valid[:, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    pw = (p * cv_s[:, :, None, :]).to(q.dtype).float()
+    o = torch.einsum("bkrm,bkmd->bkrd", pw, cv_q.float())
+    return o.to(q.dtype).reshape(b, 1, h, dh)
+
+
+def int8_decode_attention_mmajor_plain(q, ck_q, ck_s, cv_q, cv_s, valid):
+    """Plain PyTorch version of the M-major full-pool kernel (arguments of
+    ``int8_decode_attention``): the same scale-folded read on [B, M, K,
+    Dh] payloads and [B, M, K] scales."""
+    return int8_decode_attention_kmajor_plain(
+        q, ck_q.transpose(1, 2), ck_s.transpose(1, 2), cv_q.transpose(1, 2),
+        cv_s.transpose(1, 2), valid,
+    )
+
+
+def _check_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor: bool) -> None:
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"decode attention is one token per slot, got q {tuple(q.shape)}")
+    b, _, h, dh = q.shape
+    want = "[B, K, M, Dh]" if kmajor else "[B, M, K, Dh]"
+    if ck_q.dim() != 4 or ck_q.shape[0] != b or ck_q.shape[3] != dh:
+        raise ValueError(f"want pool {want}, got {tuple(ck_q.shape)}")
+    if cv_q.shape != ck_q.shape or ck_s.shape != ck_q.shape[:3] or cv_s.shape != ck_q.shape[:3]:
+        raise ValueError(f"payloads must be {want} and scales {want[:-5]}]")
+    n_kv, m = (ck_q.shape[1], ck_q.shape[2]) if kmajor else (ck_q.shape[2], ck_q.shape[1])
+    if h % n_kv:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({n_kv})")
+    if ck_q.dtype != torch.int8 or cv_q.dtype != torch.int8:
+        raise ValueError("payloads must be int8")
+    if ck_s.dtype != torch.float32 or cv_s.dtype != torch.float32:
+        raise ValueError("scales must be float32")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if valid.shape != (b, m) or valid.dtype != torch.bool:
+        raise ValueError("valid must be bool [B, M]")
+    if len({t.device for t in (q, ck_q, ck_s, cv_q, cv_s, valid)}) != 1:
+        raise ValueError("all operands must be on one device")
+
+
+def _launch_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor: bool):
+    """Launch ``csrc/kvattn_full.cu`` on CUDA operands (checked by the
+    caller) → [B, 1, H, Dh] in q's dtype."""
+    if q.device.type != "cuda":
+        raise ValueError(f"int8 decode attention runs on cuda or cpu, not {q.device}")
+    b, _, h, dh = q.shape
+    n_kv, m = (ck_q.shape[1], ck_q.shape[2]) if kmajor else (ck_q.shape[2], ck_q.shape[1])
+    if not kernel_applicable(dh, m, h // n_kv):
+        raise ValueError(
+            f"the CUDA kernel does not take head_dim={dh}, pool_len={m}, "
+            f"H/K={h // n_kv} (see kernel_applicable)"
+        )
+    ops = (q, ck_q, ck_s, cv_q, cv_s, valid)
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("the int8 decode kernel needs contiguous operands")
+    if ck_q.data_ptr() % 16 or cv_q.data_ptr() % 16:
+        raise ValueError("the int8 payloads must be 16-byte aligned")
+    out = torch.empty_like(q)
+    fn = _lib_full().tk_kvattn_full
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            *(t.data_ptr() for t in ops), out.data_ptr(), _DTYPES[q.dtype],
+            b, n_kv, h // n_kv, m, dh, int(kmajor), float(1.0 / np.sqrt(dh)),
+            stream,
+        )
+    _native.check(rc, "kvattn_full")
+    return out
+
+
+def int8_decode_attention_kmajor(q, ck_q, ck_s, cv_q, cv_s, valid, *,
+                                 slot_block: int | None = None):
+    """q [B, 1, H, Dh] against a K-MAJOR int8 pool ``ck_q``/``cv_q`` [B, K,
+    M, Dh] with f32 scales [B, K, M] and a readable-position mask ``valid``
+    [B, M] (bool, any pattern) → [B, 1, H, Dh] in q's dtype. On prefix
+    masks it equals the fill-bounded read. ``slot_block`` is the TPU
+    kernel's slots per grid step, validated as there (it must divide B)
+    and otherwise unused: it is a VMEM knob, not part of the contract.
+    CUDA tensors launch ``csrc/kvattn_full.cu``
+    (``int8_decode_attention_kmajor.launches`` counts each launch); CPU
+    tensors run ``int8_decode_attention_kmajor_plain``."""
+    b = q.shape[0]
+    if slot_block and b % slot_block:
+        raise ValueError(f"slot_block={slot_block} must divide batch={b}")
+    _check_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor=True)
+    if q.device.type == "cpu":
+        return int8_decode_attention_kmajor_plain(q, ck_q, ck_s, cv_q, cv_s, valid)
+    out = _launch_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor=True)
+    int8_decode_attention_kmajor.launches += 1
+    return out
+
+
+int8_decode_attention_kmajor.launches = 0
+
+
+def int8_decode_attention(q, ck_q, ck_s, cv_q, cv_s, valid):
+    """q [B, 1, H, Dh] against an M-MAJOR int8 pool ``ck_q``/``cv_q`` [B, M,
+    K, Dh] with f32 scales [B, M, K] and a readable-position mask ``valid``
+    [B, M] (bool, any pattern) → [B, 1, H, Dh] in q's dtype: the math of
+    the server's kernel-off int8 read. CUDA tensors launch
+    ``csrc/kvattn_full.cu`` (``int8_decode_attention.launches`` counts each
+    launch); CPU tensors run ``int8_decode_attention_mmajor_plain``."""
+    _check_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor=False)
+    if q.device.type == "cpu":
+        return int8_decode_attention_mmajor_plain(q, ck_q, ck_s, cv_q, cv_s, valid)
+    out = _launch_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor=False)
+    int8_decode_attention.launches += 1
+    return out
+
+
+int8_decode_attention.launches = 0
+
+
+def _lib_full():
+    lib = _native.load("kvattn_full")
+    fn = lib.tk_kvattn_full
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # q, kq, ks, vq, vs, valid, out; dtype, b, n_kv, rep, m, dh,
+        # kmajor; 1/sqrt(dh); stream.
+        fn.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
 

@@ -25,9 +25,30 @@ PyTorch idiom against the JAX package's:
 Dense pools: ``kv_dtype=None`` keeps k/v in the compute dtype
 ([L, B, M, K, Dh], read by ``models.generate._attend_cached``);
 ``kv_dtype="int8"`` stores int8 payloads and per-(position, head) f32
-scales K-major ([L, B, K, M, Dh] / [L, B, K, M]) and reads them through
-``ops.kvattn.int8_decode_attention_dynlen``, the fill-bounded CUDA kernel.
-Dense prefill attention runs through ``ops.flash``'s CUDA kernel.
+scales. With the kernel (``resolve_kv_backend``) they are K-major ([L, B,
+K, M, Dh] / [L, B, K, M]) and read through
+``ops.kvattn.int8_decode_attention_dynlen``, the fill-bounded CUDA kernel;
+without it (``kv_kernel=False``, or "auto" on a shape the kernel does not
+take) they are M-major ([L, B, M, K, Dh] / [L, B, M, K]) and read by the
+scale-folded ``_attend_cached`` under a [B, M] valid mask — the JAX
+package's XLA read, in plain code as there (the K8 kernel,
+``ops.kvattn.int8_decode_attention``, computes the same read and is not
+called here, as in the JAX package). Dense prefill attention runs through
+``ops.flash``'s CUDA kernel. Weights may be int8 ``QTensor``s
+(``models.quant.quantize_params`` or the zoo's
+``random_serving_params(quantized=True)``, how the 8b scale serves): each
+use dequantizes through ``models.quant.load_weight``.
+
+Output topic (``output_producer`` + ``output_topic``, at-least-once):
+each completion is sent as it retires, keyed by its prompt record's key,
+with ``encode_output(record, tokens)`` as the value (default: the int32
+tokens' bytes) and an ``("mv", model_version)`` header. Every offset
+commit first flushes the producer and settles every send handle since the
+last commit; a failed flush skips the commit (the prompts re-deliver), a
+terminally failed handle raises ``OutputDeliveryError``. A synchronous
+send failure leaves its record out of the ledger's emitted set, so the
+watermark stalls at it while serving goes on; ``max_send_failure_streak``
+consecutive failures stop the server with ``OutputDeliveryError``.
 
 Paged pool (``kv_pages=PagedKVConfig(...)``): a shared block pool
 ([L, NB, bs, K, Dh], or K-major-per-block int8 [L, NB, K, bs, Dh] + f32
@@ -45,8 +66,9 @@ record. A pool too small for one slot's worst case falls back to the
 dense pool (``cache_fallbacks``).
 
 Still raising ``NotImplementedError`` with their ROADMAP item (``_DEFERRED``):
-among others the host-RAM KV tier (``kv_tier``), disaggregated prefill
-(``prefill_role``), mesh, journal, tracing and sampled serving.
+among others exactly-once output (``exactly_once``), the host-RAM KV tier
+(``kv_tier``), disaggregated prefill (``prefill_role``), mesh, journal,
+tracing and sampled serving.
 """
 
 from __future__ import annotations
@@ -63,6 +85,7 @@ from torchkafka_tpu_torch.errors import (
     BrokerUnavailableError,
     CommitFailedError,
     ConsumerClosedError,
+    OutputDeliveryError,
 )
 from torchkafka_tpu_torch.kvcache.backend import KVBackend, resolve_kv_backend
 from torchkafka_tpu_torch.kvcache.blocks import (
@@ -107,9 +130,6 @@ _DEFERRED = {
     "top_k": "1, sampled serving",
     "top_p": "1, sampled serving",
     "rng": "1, sampled serving",
-    "output_producer": "2, output producer",
-    "output_topic": "2, output producer",
-    "encode_output": "2, output producer",
     "journal": "3, journal",
     "exactly_once": "4, exactly-once",
     "mesh": "6, mesh",
@@ -144,24 +164,35 @@ def _slot_layer_step(x, layer, cache_k, cache_v, pos, rows, cfg):
     return _attend_cached(x, q, cache_k, cache_v, valid, layer, cfg)
 
 
-def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg):
+def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg, kernel):
     """The int8-pool variant: the fresh k/v are quantized into the shared
-    per-(position, head) groups, scattered K-major at ``[b, :, pos[b]]``
-    (payloads [B, K, M, Dh], scales [B, K, M]; one layer's views, written
-    in place) and the pool is read through the fill-bounded kernel."""
+    per-(position, head) groups and scattered into one layer's views in
+    place. ``kernel``: the K-major pool (payloads [B, K, M, Dh], scales
+    [B, K, M]; written at ``[b, :, pos[b]]``) read through the
+    fill-bounded kernel. Otherwise the M-major pool ([B, M, K, Dh] /
+    [B, M, K]; written at ``[b, pos[b]]``) read by the scale-folded
+    ``_attend_cached`` under the [B, M] mask ``m <= pos[b]``."""
     q, k, v = _project_qkv(x, layer, cfg)
     q = _rope(q, pos[:, None], cfg.rope_theta)
     k = _rope(k, pos[:, None], cfg.rope_theta)
     kq, ks = quant_kv_groups(k[:, 0])  # [B, K, Dh] int8, [B, K] f32
     vq, vs = quant_kv_groups(v[:, 0])
-    kidx = torch.arange(ck_q.shape[1], device=x.device)[None, :]
-    idx = (rows[:, None], kidx, pos.long()[:, None])
+    p = pos.long()
+    if kernel:
+        kidx = torch.arange(ck_q.shape[1], device=x.device)[None, :]
+        idx = (rows[:, None], kidx, p[:, None])
+    else:
+        idx = (rows, p)
     ck_q.index_put_(idx, kq)
     ck_s.index_put_(idx, ks)
     cv_q.index_put_(idx, vq)
     cv_s.index_put_(idx, vs)
-    attn = int8_decode_attention_dynlen(q, ck_q, ck_s, cv_q, cv_s, pos)
-    return _attn_tail(x, attn, layer, cfg)
+    if kernel:
+        attn = int8_decode_attention_dynlen(q, ck_q, ck_s, cv_q, cv_s, pos)
+        return _attn_tail(x, attn, layer, cfg)
+    valid = torch.arange(ck_q.shape[1], device=x.device)[None, :] <= pos[:, None]
+    return _attend_cached(x, q, ck_q, cv_q, valid, layer, cfg,
+                          k_scale=ck_s, v_scale=cv_s)
 
 
 class ServeMetrics:
@@ -176,6 +207,8 @@ class ServeMetrics:
         self.readmissions = RateMeter()  # slots refilled while others decode
         self.dropped = RateMeter()  # undecodable prompts retired
         self.commit_failures = RateMeter()
+        self.output_flush_failures = RateMeter()  # output topic not durable
+        self.output_send_failures = RateMeter()  # sync send refusals (stall)
         self.commit_latency = LatencyHistogram()
         self.slot_occupancy = Gauge()  # active slots / pool size, last tick
         self.tick_time = LatencyHistogram()  # per tick block, host observed
@@ -254,6 +287,8 @@ class ServeMetrics:
             "readmissions": self.readmissions.count,
             "dropped": self.dropped.count,
             "commit_failures": self.commit_failures.count,
+            "output_flush_failures": self.output_flush_failures.count,
+            "output_send_failures": self.output_send_failures.count,
             "commit": self.commit_latency.summary(),
             "slot_occupancy": round(self.slot_occupancy.value, 3),
             "ticks": self.tick_time.count,
@@ -322,6 +357,10 @@ class StreamingGenerator:
     pool with radix prefix reuse (module docstring); None = the dense
     pool. ``kv_kernel``: how the int8 pool is read (True, "auto" or
     False; ``kvcache.resolve_kv_backend`` decides and records why).
+    ``output_producer``/``output_topic`` (given together): publish each
+    completion (module docstring), ``encode_output(record, tokens)`` its
+    value, ``model_version`` its ``mv`` header; ``max_send_failure_streak``
+    consecutive synchronous send failures stop the server.
     ``device``: where the model and the pool live; None = CUDA, raising
     when there is none (``utils.devices.resolve_device``). Greedy
     decoding only (``temperature=0``). The other arguments of the JAX
@@ -345,6 +384,11 @@ class StreamingGenerator:
         kv_dtype: str | None = None,
         kv_kernel: bool | str = "auto",
         kv_pages: PagedKVConfig | dict | None = None,
+        output_producer=None,
+        output_topic: str | None = None,
+        encode_output: Callable[[Record, np.ndarray], bytes] | None = None,
+        max_send_failure_streak: int = 64,
+        model_version: int = 0,
         device=None,
         **deferred,
     ) -> None:
@@ -365,6 +409,12 @@ class StreamingGenerator:
             raise ValueError("max_new must be >= 2 (prefill emits token 0)")
         if ticks_per_sync < 1:
             raise ValueError("ticks_per_sync must be >= 1")
+        if (output_producer is None) != (output_topic is None):
+            raise ValueError(
+                "output_producer and output_topic must be given together"
+            )
+        if max_send_failure_streak < 1:
+            raise ValueError("max_send_failure_streak must be >= 1")
         if isinstance(kv_pages, dict):
             kv_pages = PagedKVConfig(**kv_pages)
         self._device = resolve_device(device)
@@ -382,6 +432,15 @@ class StreamingGenerator:
         self._ticks_per_sync = ticks_per_sync
         self._kv_dtype = kv_dtype
         self._kv_kernel_opt = kv_kernel
+        self._output_producer = output_producer
+        self._output_topic = output_topic
+        self._encode_output = encode_output or (
+            lambda rec, toks: np.asarray(toks, np.int32).tobytes()
+        )
+        self._pending_outputs: list = []  # send handles since the last commit
+        self._max_send_failure_streak = max_send_failure_streak
+        self._send_failure_streak = 0
+        self._model_version = int(model_version)
         # Validates the whole combination eagerly (the exclusions raise);
         # _build re-resolves if a too-small paged pool falls back to dense.
         self._kv_backend = resolve_kv_backend(
@@ -427,9 +486,13 @@ class StreamingGenerator:
                 max_len=M, device=dev,
             )
         if self._kv_int8:
-            # K-major, the fill-bounded kernel's layout: each (slot, head)
-            # row of M positions is contiguous.
-            pay, sc = (nl, B, kh, M, dh), (nl, B, kh, M)
+            if self._kv_backend.kernel:
+                # K-major, the fill-bounded kernel's layout: each (slot,
+                # head) row of M positions is contiguous.
+                pay, sc = (nl, B, kh, M, dh), (nl, B, kh, M)
+            else:
+                # M-major, the layout _attend_cached reads.
+                pay, sc = (nl, B, M, kh, dh), (nl, B, M, kh)
             self._caches = (
                 torch.zeros(pay, dtype=torch.int8, device=dev),
                 torch.zeros(sc, dtype=torch.float32, device=dev),
@@ -773,10 +836,16 @@ class StreamingGenerator:
         if self._kv_int8:
             kq, ksc = quant_kv_groups(ks)  # [L, n, P, K, Dh], [L, n, P, K]
             vq, vsc = quant_kv_groups(vs)
-            c[0][:, rows, :, :P] = kq.transpose(2, 3)  # → [L, n, K, P, Dh]
-            c[1][:, rows, :, :P] = ksc.transpose(2, 3)
-            c[2][:, rows, :, :P] = vq.transpose(2, 3)
-            c[3][:, rows, :, :P] = vsc.transpose(2, 3)
+            if self._kv_backend.kernel:
+                c[0][:, rows, :, :P] = kq.transpose(2, 3)  # → [L, n, K, P, Dh]
+                c[1][:, rows, :, :P] = ksc.transpose(2, 3)
+                c[2][:, rows, :, :P] = vq.transpose(2, 3)
+                c[3][:, rows, :, :P] = vsc.transpose(2, 3)
+            else:
+                c[0][:, rows, :P] = kq
+                c[1][:, rows, :P] = ksc
+                c[2][:, rows, :P] = vq
+                c[3][:, rows, :P] = vsc
         else:
             c[0][:, rows, :P] = ks.to(c[0].dtype)
             c[1][:, rows, :P] = vs.to(c[1].dtype)
@@ -798,7 +867,7 @@ class StreamingGenerator:
             if self._kv_int8:
                 x = _slot_layer_step_q(
                     x, layer, c[0][i], c[1][i], c[2][i], c[3][i], pos,
-                    self._rows, cfg,
+                    self._rows, cfg, self._kv_backend.kernel,
                 )
             else:
                 x = _slot_layer_step(
@@ -978,14 +1047,57 @@ class StreamingGenerator:
                 self._admit(prompts, admit_mask)
         return admitted
 
+    @property
+    def model_version(self) -> int:
+        """The version tag every published output carries (``mv``)."""
+        return self._model_version
+
     def _retire_completion(self, rec: Record, out: np.ndarray,
                            completions: list) -> None:
+        """The single completion exit: metrics, the output send (fail
+        closed per record), ledger retirement."""
         self.metrics.completions.add(1)
         self.metrics.tokens.add(len(out))
         if len(out) < self._max_new:
             self.metrics.truncated.add(1)
-        self._ledger.emitted(rec)
-        self._uncommitted += 1
+        sent_ok = True
+        if self._output_producer is not None:
+            # Async send; durability is settled in _commit (flush + per-
+            # handle get) BEFORE offsets commit. A SYNCHRONOUS failure
+            # (buffer full, closed producer, missing topic) must neither
+            # stop serving nor let the record commit: it is not marked
+            # emitted, so the ledger watermark stalls at exactly this
+            # record, which re-delivers and regenerates on restart.
+            try:
+                self._pending_outputs.append(self._output_producer.send(
+                    self._output_topic,
+                    self._encode_output(rec, out),
+                    key=rec.key,
+                    headers=(("mv", str(self._model_version).encode()),),
+                ))
+                self._send_failure_streak = 0
+            except Exception:  # noqa: BLE001 - fail closed per record
+                sent_ok = False
+                self.metrics.output_send_failures.add(1)
+                self._send_failure_streak += 1
+                _logger.exception(
+                    "output send failed for %s@%d:%d; leaving it "
+                    "uncommitted to re-deliver",
+                    rec.topic, rec.partition, rec.offset,
+                )
+            if self._send_failure_streak >= self._max_send_failure_streak:
+                # The output path is down, not blinking: every further
+                # completion would be replay work behind a stalled
+                # watermark. Fail-stop, as the flush/get path does.
+                raise OutputDeliveryError(
+                    f"{self._send_failure_streak} consecutive output send "
+                    "failures; failing stop so uncommitted prompts "
+                    "re-deliver instead of serving into a stalled commit "
+                    "watermark"
+                )
+        if sent_ok:
+            self._ledger.emitted(rec)
+            self._uncommitted += 1
         completions.append((rec, out))
 
     def step(self) -> list[tuple[Record, np.ndarray]]:
@@ -1135,8 +1247,36 @@ class StreamingGenerator:
         committed. A rebalance (``CommitFailedError``) or a broker outage
         is survivable: the snapshot stays pending and the next commit
         retries. Partitions this consumer no longer owns are dropped from
-        the commit set (their records re-serve on the new owner)."""
+        the commit set (their records re-serve on the new owner).
+
+        With an output topic, output durability is settled FIRST: flush,
+        then ``get()`` every send handle since the last commit (a flush
+        need not re-raise a record's own failure). A failed flush skips the
+        commit and keeps the handles for the next one; a terminally failed
+        handle raises ``OutputDeliveryError`` rather than commit past lost
+        output. ``commit_latency`` covers the whole path."""
         t0 = time.perf_counter()
+        if self._output_producer is not None:
+            try:
+                self._output_producer.flush()
+            except Exception:  # noqa: BLE001 - any flush failure fails closed
+                self.metrics.output_flush_failures.add(1)
+                _logger.exception(
+                    "output flush failed; SKIPPING offset commit so the "
+                    "affected prompts re-deliver and regenerate"
+                )
+                return False
+            pending, self._pending_outputs = self._pending_outputs, []
+            for handle in pending:
+                try:
+                    handle.get(30.0)
+                except Exception as exc:
+                    self.metrics.output_flush_failures.add(1)
+                    raise OutputDeliveryError(
+                        "an output record terminally failed delivery; "
+                        "refusing to commit source offsets past lost "
+                        "output (restart re-delivers and regenerates)"
+                    ) from exc
         snapshot = self._ledger.snapshot()
         try:
             assigned = set(self._consumer.assignment())
