@@ -16,8 +16,12 @@ Phases, each printing one JSON line:
    events, median of 25, L2 flushed before each timed launch);
 4. flash_bwd: the backward kernels, dQ (K2) and dK/dV (K3), against their
    plain versions at the 1b training shape (B=8, S=512, 16 q / 8 kv heads,
-   D=128, bf16), in f32, at a ragged S=200 and at a k_offset with fully
-   masked rows (dq = 0 there, no NaN anywhere), and timings, with SDPA's
+   D=128, bf16: the tensor-core kernels), in f32 (the CUDA-core kernels),
+   and in bf16 at the 8b heads, D=64/32/16, non-causal, S=17, a ragged
+   S=200 and a k_offset with fully masked rows (dq = 0 there, no NaN
+   anywhere); K3 bitwise equal across two launches; each tensor-core
+   kernel's registers and spill bytes (0 required); timings and TFLOP/s,
+   beside the CUDA-core kernels on the same bf16 inputs, with SDPA's
    backward as the pair's yardstick;
 5. kvattn_dynlen: the int8 decode kernel (K4) against its plain version at
    the 1b decode shape with pools of 192 and 2048 positions, and timings;
@@ -44,8 +48,8 @@ Phases, each printing one JSON line:
    → ``KafkaStream`` → ``make_train_step`` with AdamW(1e-3), 6 steps of 8,
    each ``token.commit(wait_for=loss)``. Every loss finite, every
    partition's watermark advanced, Σ watermarks == 48, and K1/K2/K3 each
-   launched 24 × 6 times (the main path: the counts are zeroed just
-   before the loop and read just after);
+   launched 24 × 6 times, K2/K3 every time on the tensor cores (the main
+   path: the counts are zeroed just before the loop and read just after);
 8. serve: the 1b model at full width and depth, random bf16 weights made on
    the card from a seed, 32 prompts of 128 tokens on two partitions served
    by ``StreamingGenerator`` with the int8 pool (a main path: every kernel
@@ -200,33 +204,54 @@ def check_flash(torch, F, flash, flush, gen) -> dict:
 
 
 def check_flash_bwd(torch, F, flash, flush, gen) -> dict:
-    """K2 (dQ) and K3 (dK/dV) against their plain versions at the 1b
-    training shape, in f32, at a ragged S and with fully masked rows."""
+    """K2 (dQ) and K3 (dK/dV) against their plain versions: at the 1b
+    training shape in bf16 (the tensor-core kernels) and f32 (the CUDA-core
+    kernels), and in bf16 at the 8b heads (rep 4), D=64, D=32 with rep 8
+    and a q_offset, D=16, non-causal, S=17, a ragged S=200 and a k_offset
+    with fully masked rows (dq = 0 there, no NaN anywhere); D=40 takes the
+    CUDA-core kernel in bf16. K3 twice on the same inputs must agree
+    bitwise. Timings at the training shape beside the CUDA-core kernels on
+    the same bf16 inputs, the plain versions and SDPA's backward."""
     B, S, H, K, D = 8, 512, 16, 8, 128
     # Relative to the largest |plain value| of each output: bf16 about one
     # ulp (2^-7 = 7.8e-3) at the top of the range, f32 sums of 512 terms.
     tol = {"bf16_rel": 1e-2, "f32_rel": 1e-5}
-    cases = {
-        "main_bf16": (B, S, torch.bfloat16, 0, 0),
-        "main_f32": (B, S, torch.float32, 0, 0),
-        "ragged_s200_bf16": (2, 200, torch.bfloat16, 0, 0),
-        "k_offset64_f32": (2, 256, torch.float32, 0, 64),
-        "k_offset64_bf16": (2, 256, torch.bfloat16, 0, 64),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {  # b, s, dtype, q_offset, k_offset, H, K, D, causal
+        "main_bf16": (B, S, bf16, 0, 0, H, K, D, True),
+        "main_f32": (B, S, f32, 0, 0, H, K, D, True),
+        "ragged_s200_bf16": (2, 200, bf16, 0, 0, H, K, D, True),
+        "k_offset64_f32": (2, 256, f32, 0, 64, H, K, D, True),
+        "k_offset64_bf16": (2, 256, bf16, 0, 64, H, K, D, True),
+        "heads_8b_bf16": (2, S, bf16, 0, 0, 32, K, D, True),
+        "d64_bf16": (2, 256, bf16, 0, 0, H, K, 64, True),
+        "noncausal_bf16": (2, 256, bf16, 0, 0, H, K, D, False),
+        "s17_bf16": (2, 17, bf16, 0, 0, H, K, D, True),
+        "d32_rep8_q_offset32_bf16": (2, 100, bf16, 32, 0, H, 2, 32, True),
+        "d16_s77_noncausal_bf16": (2, 77, bf16, 0, 0, 8, 4, 16, False),
+        "d40_simt_bf16": (2, 96, bf16, 0, 0, H, K, 40, True),
     }
 
-    def make(b, s, dtype):
-        mk = lambda n: torch.randn((n, s, D), generator=gen, device="cuda",  # noqa: E731
+    def make(b, s, dtype, h=H, kh=K, d=D):
+        mk = lambda n: torch.randn((n, s, d), generator=gen, device="cuda",  # noqa: E731
                                    dtype=torch.float32).to(dtype)
-        return mk(b * H), mk(b * K), mk(b * K), mk(b * H)
+        return mk(b * h), mk(b * kh), mk(b * kh), mk(b * h)
 
-    errs = {}
-    for name, (b, s, dtype, qo, ko) in cases.items():
-        q, k, v, do = make(b, s, dtype)
-        kw = dict(causal=True, q_offset=qo, k_offset=ko, n_q_heads=H, n_kv_heads=K)
+    kernels = (flash.flash_dq_bhsd, flash.flash_dkv_bhsd)
+    errs, routes = {}, {}
+    for name, (b, s, dtype, qo, ko, h, kh, d, causal) in cases.items():
+        q, k, v, do = make(b, s, dtype, h, kh, d)
+        kw = dict(causal=causal, q_offset=qo, k_offset=ko, n_q_heads=h, n_kv_heads=kh)
         o, lse = flash.flash_fwd_bhsd(q, k, v, **kw)
+        before = [fn.tc_launches for fn in kernels]
         got = flash.flash_bwd_bhsd(q, k, v, o, lse, do, **kw)
+        tc = [fn.tc_launches - n for fn, n in zip(kernels, before)]
         ref = flash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        route = flash._bwd_route(dtype, d)
+        if tc != ([1, 1] if route == "tc" else [0, 0]):
+            raise AssertionError(f"flash_bwd {name}: route {route} but tc launches {tc}")
+        routes[name] = route
         rel = tol["f32_rel"] if dtype == torch.float32 else tol["bf16_rel"]
         row = {}
         for label, a, r in zip(("dq", "dk", "dv"), got, ref):
@@ -246,8 +271,21 @@ def check_flash_bwd(torch, F, flash, flush, gen) -> dict:
     o, lse = flash.flash_fwd_bhsd(q, k, v, **kw)
     delta = flash.flash_delta(o, do)
     args = (q, k, v, do, lse, delta)
+    # No atomics: the same inputs give the same bits.
+    first, second = flash.flash_dkv_bhsd(*args, **kw), flash.flash_dkv_bhsd(*args, **kw)
+    dq1, dq2 = flash.flash_dq_bhsd(*args, **kw), flash.flash_dq_bhsd(*args, **kw)
+    deterministic = {"dkv": all(torch.equal(a, b) for a, b in zip(first, second)),
+                     "dq": torch.equal(dq1, dq2)}
+    if not all(deterministic.values()):
+        raise AssertionError(f"flash_bwd: two launches differ {deterministic}")
+    resources = {f"{w}_d{d}": flash.bwd_tc_attrs(w, d) for w in ("dq", "dkv") for d in (64, 128)}
+    if any(r["local_bytes"] for r in resources.values()):
+        raise AssertionError(f"flash_bwd: a tensor-core kernel spills {resources}")
+
     dq_ms = cuda_ms(torch, lambda: flash.flash_dq_bhsd(*args, **kw), flush)
     dkv_ms = cuda_ms(torch, lambda: flash.flash_dkv_bhsd(*args, **kw), flush)
+    simt_dq_ms, simt_dkv_ms = (cuda_ms(torch, fn, flush)
+                               for fn in _simt_bwd_calls(torch, flash, args, kw))
     dq_plain = cuda_ms(torch, lambda: flash.flash_dq_plain(*args, **kw), flush, n=5)
     dkv_plain = cuda_ms(torch, lambda: flash.flash_dkv_plain(*args, **kw), flush, n=5)
     # The library yardstick: SDPA's backward at the same shape, in its own
@@ -266,15 +304,44 @@ def check_flash_bwd(torch, F, flash, flush, gen) -> dict:
     lib_ms = cuda_ms(torch, sdpa_fwd_bwd, flush) - cuda_ms(torch, sdpa_fwd, flush)
     pairs = S * (S + 1) // 2 * B * H  # allowed (q, k) pairs, causal
     io = 2 * D * S * (2 * B * H + 2 * B * K) + 2 * 4 * B * H * S  # q,do,k,v + lse,delta
-    dq_bound = bound(6.0 * D * pairs, io + 2 * D * S * B * H)
-    dkv_bound = bound(8.0 * D * pairs, io + 2 * 2 * D * S * B * K)
+    dq_flops, dkv_flops = 6.0 * D * pairs, 8.0 * D * pairs
+    dq_bound = bound(dq_flops, io + 2 * D * S * B * H)
+    dkv_bound = bound(dkv_flops, io + 2 * 2 * D * S * B * K)
     return {"phase": "flash_bwd", "shape": {"B": B, "S": S, "H": H, "K": K, "D": D},
-            "tolerance": tol, "max_abs_err": errs,
-            "dq": {"kernel_ms": dq_ms, "plain_ms": dq_plain, "bound_ms": dq_bound[0],
-                   "bound_by": dq_bound[1]},
-            "dkv": {"kernel_ms": dkv_ms, "plain_ms": dkv_plain, "bound_ms": dkv_bound[0],
-                    "bound_by": dkv_bound[1]},
+            "tolerance": tol, "max_abs_err": errs, "routes": routes,
+            "deterministic": deterministic, "tc_resources": resources,
+            "dq": {"kernel_ms": dq_ms, "tflops": dq_flops / dq_ms / 1e9,
+                   "simt_bf16_ms": simt_dq_ms, "plain_ms": dq_plain,
+                   "bound_ms": dq_bound[0], "bound_by": dq_bound[1]},
+            "dkv": {"kernel_ms": dkv_ms, "tflops": dkv_flops / dkv_ms / 1e9,
+                    "simt_bf16_ms": simt_dkv_ms, "plain_ms": dkv_plain,
+                    "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1]},
             "library_ms_sdpa_bwd": lib_ms}
+
+
+def _simt_bwd_calls(torch, flash, args, kw):
+    """The CUDA-core dQ and dK/dV kernels on bf16 inputs that the route
+    rule sends to the tensor cores: launched through the C entry points
+    directly, for a timing beside the tensor-core kernels in the same run
+    (not counted: no path launches them this way)."""
+    import ctypes
+
+    q, k, v, do, lse, delta = args
+    lib = flash._bwd_lib()
+    _, dtype, *scalars = flash._launch_args("flash_bwd", args, q_offset=0, k_offset=0, **kw)
+    ptrs = [t.data_ptr() for t in args]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def dq_call():
+        flash._native.check(lib.tk_flash_dq(*ptrs, dq.data_ptr(), dtype, q.shape[0],
+                                            *scalars, stream), "simt dq")
+
+    def dkv_call():
+        flash._native.check(lib.tk_flash_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), dtype,
+                                             k.shape[0], *scalars, stream), "simt dkv")
+
+    return dq_call, dkv_call
 
 
 def check_kvattn(torch, kvattn, flush, gen) -> dict:
@@ -607,8 +674,8 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
     """The main training path: broker → MemoryConsumer → KafkaStream
     (fixed_width decode, pinned side-stream H2D) → make_train_step (K1
     forward, fused CE, K2+K3 backward, AdamW) → token.commit(wait_for=loss)
-    → consumer.commit. K1/K2/K3 launch counts are zeroed just before the
-    loop and read just after. ``prof``: an optional profiler context
+    → consumer.commit. K1/K2/K3 launch counts (and K2/K3's tensor-core
+    counts) are zeroed just before the loop and read just after. ``prof``: an optional profiler context
     wrapped around one extra step after the run."""
     import numpy as np
 
@@ -634,6 +701,8 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
     torch.cuda.reset_peak_memory_stats()
     for fn in (flash_fwd_bhsd, flash_dq_bhsd, flash_dkv_bhsd):
         fn.launches = 0
+    for fn in (flash_dq_bhsd, flash_dkv_bhsd):
+        fn.tc_launches = 0
     losses, step_ms, wall_ms = [], [], []
     t0 = time.perf_counter()
     with tk.KafkaStream(consumer, tk.fixed_width(seq, np.int32), batch_size=batch,
@@ -658,6 +727,8 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
         elapsed = time.perf_counter() - t0
         launches = {"flash_fwd": flash_fwd_bhsd.launches, "flash_dq": flash_dq_bhsd.launches,
                     "flash_dkv": flash_dkv_bhsd.launches}
+        tc_launches = {"flash_dq": flash_dq_bhsd.tc_launches,
+                       "flash_dkv": flash_dkv_bhsd.tc_launches}
         peak = torch.cuda.max_memory_allocated() / 1e9
         if prof is not None:  # one more step on the last batch, traced
             with prof:
@@ -674,6 +745,8 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
     want = cfg.n_layers * steps
     if any(n != want for n in launches.values()):
         raise AssertionError(f"launches {launches}, want {want} each")
+    if any(n != want for n in tc_launches.values()):  # bf16, D=128: the tensor cores
+        raise AssertionError(f"tensor-core launches {tc_launches}, want {want} each")
     steady = statistics.median(step_ms[1:])
     return {"phase": "train", "model": "1b", "params": n_params,
             "param_dtype": "float32", "compute_dtype": "bfloat16",
@@ -682,7 +755,8 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
             "host_step_wall_ms": wall_ms,
             "trained_tokens_per_s": batch * seq / (steady / 1e3),
             "records_per_s_loop": steps * batch / elapsed, "loop_s": elapsed,
-            "committed": committed, "launches": launches, "peak_mem_gb": peak}
+            "committed": committed, "launches": launches, "tc_launches": tc_launches,
+            "peak_mem_gb": peak}
 
 
 def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
@@ -1045,11 +1119,17 @@ def _profiler(torch):
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
+PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                "flash_dq_tc_kernel", "flash_dkv_tc_kernel", "kvattn_dynlen_kernel",
+                "kvattn_paged_kernel", "kvattn_full_kernel", "qmm_decode_kernel",
+                "qmm_tile_kernel")
+
+
 def profile_summary(prof, run: str, extra: dict) -> dict:
-    """Device time by kernel name from a finished profiler: the total and
-    the twelve busiest. Device-side events only (kernels, copies, memsets):
-    CPU ops also carry their children's device time and would count it
-    twice."""
+    """Device time by kernel name from a finished profiler: the total, the
+    twelve busiest and every kernel of ``csrc/`` that ran. Device-side
+    events only (kernels, copies, memsets): CPU ops also carry their
+    children's device time and would count it twice."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -1063,10 +1143,14 @@ def profile_summary(prof, run: str, extra: dict) -> dict:
            and not getattr(e, "is_user_annotation", False)
            and not e.key.startswith("Optimizer.")]
     top = sorted(evs, key=dev_us, reverse=True)[:12]
+    ours = [e for e in evs if any(f"::{k}<" in e.key for k in PORT_KERNELS)]
+
+    def row(e):
+        return {"name": e.key[:80], "calls": e.count, "device_ms": dev_us(e) / 1e3}
+
     return {"phase": "profile", "run": run,
             "device_ms_total": sum(dev_us(e) for e in evs) / 1e3, **extra,
-            "top": [{"name": e.key[:80], "calls": e.count,
-                     "device_ms": dev_us(e) / 1e3} for e in top]}
+            "top": [row(e) for e in top], "port_kernels": [row(e) for e in ours]}
 
 
 def profile_serve(torch, cfg, params, prompts, row_q) -> dict:
@@ -1238,6 +1322,7 @@ def main() -> int:
          "source": "torchkafka_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:201",
          "launches": row_t["launches"]["flash_dq"],
+         "tc_launches": row_t["tc_launches"]["flash_dq"],
          "max_abs_err": k23["max_abs_err"]["main_bf16"]["dq"],
          "ms": k23["dq"]["kernel_ms"], "plain_ms": k23["dq"]["plain_ms"],
          "bound_ms": k23["dq"]["bound_ms"], "bound_by": k23["dq"]["bound_by"],
@@ -1246,6 +1331,7 @@ def main() -> int:
          "source": "torchkafka_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:252",
          "launches": row_t["launches"]["flash_dkv"],
+         "tc_launches": row_t["tc_launches"]["flash_dkv"],
          "max_abs_err": max(k23["max_abs_err"]["main_bf16"][x] for x in ("dk", "dv")),
          "ms": k23["dkv"]["kernel_ms"], "plain_ms": k23["dkv"]["plain_ms"],
          "bound_ms": k23["dkv"]["bound_ms"], "bound_by": k23["dkv"]["bound_by"],

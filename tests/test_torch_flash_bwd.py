@@ -1,6 +1,7 @@
 """The port's flash-attention backward (its plain PyTorch version, which
 the CUDA kernels are held against on the card) against the JAX package's
-Pallas backward in interpret mode, at f32."""
+Pallas backward in interpret mode, at f32 and at bf16 (the dtype of the
+tensor-core kernels)."""
 
 import jax
 import jax.numpy as jnp
@@ -125,3 +126,97 @@ def test_bwd_wrappers_refuse_what_the_kernels_do_not_take():
         flash.flash_dq_bhsd(q, q, q, q, lse.double(), lse)
     with pytest.raises(ValueError, match="dO"):
         flash.flash_dkv_bhsd(q, q, q, torch.zeros(4, 8, 8), lse, lse)
+
+
+# bf16: the dtype the tensor-core kernels take. Relative to the largest
+# |reference value|: the Pallas backward writes dK/dV per q head rounded to
+# bf16 and the test sums those partials, where the port sums the heads in
+# f32 and rounds once; with the p and ds roundings that is a few bf16 ulps
+# (2^-8 each) at the top of the range.
+BF16_REL = 2e-2
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _to_jax(t):
+    """A bf16 tensor as a bf16 JAX array with the same values."""
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _assert_rel(got, ref, name):
+    ref = np.asarray(ref, dtype=np.float32)
+    got = got.float().numpy()
+    assert got.shape == ref.shape, name
+    assert np.isfinite(got).all(), name
+    err = np.abs(got - ref).max()
+    assert err <= BF16_REL * np.abs(ref).max(), (name, err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize(
+    "d,h,k,causal,q_offset,k_offset",
+    [
+        (64, 1, 1, True, 0, 0),
+        (64, 2, 1, True, 0, 0),
+        (64, 4, 1, False, 0, 0),
+        (64, 8, 1, True, 0, 0),  # rep 8
+        (128, 2, 2, False, 0, 0),
+        (128, 4, 2, True, 0, 0),
+        (128, 4, 1, True, 0, 0),  # rep 4, the 8b model's ratio
+        (128, 8, 1, False, 0, 0),
+        (64, 4, 2, True, 0, 64),  # rows before the first key: dq = 0
+        (128, 2, 1, True, 32, 96),
+    ],
+    ids=["d64_rep1", "d64_rep2", "d64_rep4_full", "d64_rep8", "d128_rep1_full",
+         "d128_rep2", "d128_rep4", "d128_rep8_full", "d64_k_offset64",
+         "d128_offsets"],
+)
+def test_bf16_bwd_matches_pallas(d, h, k, causal, q_offset, k_offset):
+    """The port's bf16 backward (the plain versions the wrappers run on the
+    CPU, which the tensor-core kernels are held against on the card)
+    against the Pallas backward in interpret mode on the same bf16 inputs
+    and the same (o, lse). The Pallas dK/dV come per q head: they are
+    group-summed in f32 here."""
+    s = 128
+    rng = np.random.default_rng(d + h + k)
+    q, do = (_bf16(rng.normal(size=(h, s, d)).astype(np.float32)) for _ in range(2))
+    kk, v = (_bf16(rng.normal(size=(k, s, d)).astype(np.float32)) for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset, n_q_heads=h,
+              n_kv_heads=k)
+    o, lse = flash.flash_fwd_bhsd(q, kk, v, **kw)
+    got = flash.flash_bwd_bhsd(q, kk, v, o, lse, do, **kw)
+    rdq, rdk, rdv = jax_bwd_bhsd(
+        _to_jax(q), _to_jax(kk), _to_jax(v), _to_jax(o), jnp.asarray(lse.numpy()),
+        _to_jax(do), block_q=64, block_k=64, interpret=True, **kw)
+    rep = h // k
+
+    def group_sum(x):  # per-q-head partials → kv heads, in f32
+        return np.asarray(x, dtype=np.float32).reshape(k, rep, s, d).sum(axis=1)
+
+    _assert_rel(got[0], rdq, "dq")
+    _assert_rel(got[1], group_sum(rdk), "dk")
+    _assert_rel(got[2], group_sum(rdv), "dv")
+    if k_offset > q_offset:
+        assert np.all(got[0].float().numpy()[:, : k_offset - q_offset] == 0.0)
+
+
+@pytest.mark.parametrize("s,causal", [(100, True), (72, False)],
+                         ids=["s100_causal", "s72_full"])
+def test_bf16_grads_match_jax_at_ragged_s(s, causal):
+    """A ragged S through the public ``flash_attention`` in bf16: the JAX
+    side takes its dense VJP there (no block divides S), the port its
+    masked backward."""
+    q, kk, v, g = _qkv(s, 1, s, 4, 2, 64)
+    jq, jk, jv, jg = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, kk, v, g))
+
+    def loss(q, k, v):
+        out = jax_flash(q, k, v, causal, None, None, True)
+        return jnp.sum(out.astype(jnp.float32) * jg.astype(jnp.float32))
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (_bf16(x).requires_grad_(True) for x in (q, kk, v))
+    out = flash.flash_attention(tq, tk, tv, causal)
+    (out.float() * _bf16(g).float()).sum().backward()
+    for name, t, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref):
+        _assert_rel(t.grad, r, name)

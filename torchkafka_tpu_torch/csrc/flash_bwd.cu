@@ -1,5 +1,10 @@
 // Causal flash-attention backward (FlashAttention-2 recurrence) for Hopper:
-// two kernels, dQ (K2) and dK/dV (K3).
+// dQ (K2) and dK/dV (K3), each in two versions chosen by a fixed rule
+// (ops/flash.py `_bwd_route`, never on failure):
+//   bf16 with D % 16 == 0  -> flash_dq_tc_kernel / flash_dkv_tc_kernel, on
+//                             the tensor cores (the training path);
+//   f32, or D % 16 != 0    -> flash_dq_kernel / flash_dkv_kernel, scalar
+//                             f32 FMAs on the CUDA cores.
 //
 // Replaces: torchkafka_tpu/ops/flash.py `_dq_kernel` (K2) and `_dkv_kernel`
 // (K3), the Pallas TPU backward reached through `_flash_bwd_bhsd` and
@@ -35,24 +40,48 @@
 //       TPU kernel writes per-q-head partials in k's dtype and sums them
 //       afterwards; the two differ only by rounding.)
 //
-// What bounds it on this card: at the training shape (S=512, D=128) the
-// work is about 6*D (K2) and 8*D (K3) flops per allowed (q, k) pair against
-// O(S*D) bytes, so with tensor cores it would be near the balance point.
-// This first version does its inner products as f32 FMAs on the CUDA cores
-// (a 4x4 register micro-tile per thread over shared-memory tiles), like K1:
-// right rather than fast, and far from either bound; the tensor-core
-// (wgmma/TMA) version is later work. What its design does about the bound:
-// it skips every tile pair that causality rules out, reads each kv row once
-// per block instead of once per q head, and keeps the score tiles on chip
-// (O(S*D) device memory, never O(S^2)).
+// What bounds it on this card: at the training shape (B=8, S=512, D=128)
+// the work is 6*D (K2) and 8*D (K3) flops per allowed (q, k) pair against
+// O(S*D) bytes: 13-17 GFLOP over ~20 MB, near the bf16 balance point
+// (~295 flops a byte), so the tensor cores are the first limit. The
+// CUDA-core version (kept below for f32) reaches ~10-15 TFLOP/s there.
 //
-// Tiles stage in shared memory as f32 with rows padded to D+1 floats, so a
-// warp's column reads hit distinct banks. Any Sq/Sk is served: ragged edges
-// are masked. D <= 128 (four f32 tiles of 64 x (D+1) plus two score tiles
-// must fit in one block's shared memory).
+// The tensor-core version (bf16, D a multiple of 16 up to 128):
+// - Products are `mma.sync.m16n8k16` bf16 -> f32, fed by `ldmatrix`
+//   (`.trans` for the operands whose reduction runs along the rows of the
+//   tile). mma.sync, not wgmma: its fragment layouts are fixed per warp,
+//   so each operand's addressing is one short formula that the plain
+//   version checks directly; wgmma (64-row warpgroup tiles, descriptors
+//   over the same swizzled tiles) is the next step for these kernels.
+// - Operands stay bf16 in shared memory, 64-row tiles whose rows are
+//   DMAX (64 or 128) elements; the sixteen-byte chunk c of row r sits at
+//   chunk c ^ (r & 7), so the eight rows of every ldmatrix phase and every
+//   cp.async row land on distinct banks.
+// - Tiles arrive by `cp.async.cg` 16-byte copies (a zero-fill tail for
+//   rows past Sq/Sk) in two stages: the next K/V tile (K2) or the next
+//   Q/dO/lse/delta tile (K3) loads while the current one is computed.
+// - Each of the four warps owns 16 rows of the block's 64: q rows in K2,
+//   keys in K3. K3 computes the transposed products S^T = K.Q^T and
+//   dP^T = V.dO^T, so P^T and dS^T come out of the accumulator already in
+//   the A-operand layout of dV += P^T.dO and dK += dS^T.Q, and are rounded
+//   to bf16 in registers with no trip through shared memory; K2 does the
+//   same with dS for dQ += dS.K, one 32-key half of its K/V tile at a time
+//   so that its scores, dQ and fragment addresses fit in registers with no
+//   spill.
+// - The mask is applied only on tiles that cross the causal diagonal or a
+//   ragged edge; p = exp2(s * scale * log2(e) - lse * log2(e)).
+// - dQ (K2) and dK/dV (K3, summed over the rep q heads of the kv head) stay
+//   in f32 registers and are written once: no atomics, a deterministic
+//   result. Blocks are ordered heaviest causal tile first (K2: last q tile
+//   first; K3: first key tile first).
+//
+// The CUDA-core version stages tiles in shared memory as f32 with rows
+// padded to D+1 floats and does its products as a 4x4 register micro-tile
+// of FMAs per thread. Both serve any Sq/Sk (ragged edges masked), D <= 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
@@ -405,6 +434,456 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ tensor-core version (bf16)
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_NT = 128;   // four warps, 16 of the 64 tile rows each
+constexpr int TC_ROWS = 64;  // rows of every tile: q rows and keys
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of sixteen-byte chunk c of row r in a tile of rowb-byte rows.
+__device__ __forceinline__ uint32_t swz(int r, int c, int rowb) {
+  return static_cast<uint32_t>(r * rowb + ((c ^ (r & 7)) << 4));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Every group but the newest has landed (this thread's copies).
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even), the lower column in the lower
+// half; one instruction, no address taken.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// The NS A operands (16 rows x 16 deep each) of a 16 x 16*NS accumulator
+// tile c[2*NS][4]: the accumulator's row/column layout is the A layout.
+template <int NS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[NS][4], const float (&c)[2 * NS][4]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    a[s][0] = pack_bf16(c[2 * s][0], c[2 * s][1]);
+    a[s][1] = pack_bf16(c[2 * s][2], c[2 * s][3]);
+    a[s][2] = pack_bf16(c[2 * s + 1][0], c[2 * s + 1][1]);
+    a[s][3] = pack_bf16(c[2 * s + 1][2], c[2 * s + 1][3]);
+  }
+}
+
+// Rows row0 .. row0+63 of a row-major [n, d] bf16 matrix into a swizzled
+// tile of DMAX-element rows (chunks past d are left alone: never read);
+// rows past n are zero-filled.
+template <int DMAX>
+__device__ __forceinline__ void tc_load_rows(uint32_t dst, const bf16* src, int row0,
+                                             int n, int d) {
+  constexpr int CH = DMAX / 8;
+  const int ch = d >> 3;
+  for (int i = threadIdx.x; i < TC_ROWS * CH; i += TC_NT) {
+    const int r = i / CH, c = i % CH;
+    if (c < ch) {
+      const bool ok = row0 + r < n;
+      cp_async16(dst + swz(r, c, DMAX * 2), src + (size_t)(ok ? row0 + r : 0) * d + c * 8,
+                 ok);
+    }
+  }
+}
+
+// Zeroes a pair of 16 x 8*N accumulator tiles.
+template <int N>
+__device__ __forceinline__ void zero_tiles(float (&s)[N][4], float (&t)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = t[j][e] = 0.f;
+}
+
+// Two score-like products over nk 16-deep steps of D: s += A1 . B1^T and
+// t += A2 . B2^T, each A the 16 rows at row r0 of a swizzled tile, each B
+// the 16*NB rows at address b (a multiple of 8 rows into its tile, so the
+// swizzle is unchanged). B's rows are the n dimension and its columns the
+// reduction, so plain ldmatrix gives the column-major B fragments.
+template <int DMAX, int NB>
+__device__ __forceinline__ void scores(float (&s)[2 * NB][4], float (&t)[2 * NB][4],
+                                       uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
+                                       int r0, int nk, int lane) {
+  constexpr int ROWB = DMAX * 2;
+  const int la_r = (lane & 7) + ((lane >> 3) & 1) * 8, la_c = lane >> 4;
+  const int lb_r = (lane & 7) + (lane >> 4) * 8, lb_c = (lane >> 3) & 1;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    if (kk < nk) {
+      uint32_t a[4], b[4];
+      ldsm4(a, a1 + swz(r0 + la_r, 2 * kk + la_c, ROWB));
+#pragma unroll
+      for (int np = 0; np < NB; ++np) {
+        ldsm4(b, b1 + swz(np * 16 + lb_r, 2 * kk + lb_c, ROWB));
+        mma16816(s[2 * np], a, b[0], b[1]);
+        mma16816(s[2 * np + 1], a, b[2], b[3]);
+      }
+      ldsm4(a, a2 + swz(r0 + la_r, 2 * kk + la_c, ROWB));
+#pragma unroll
+      for (int np = 0; np < NB; ++np) {
+        ldsm4(b, b2 + swz(np * 16 + lb_r, 2 * kk + lb_c, ROWB));
+        mma16816(t[2 * np], a, b[0], b[1]);
+        mma16816(t[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc[16 x D] += A[16 x 16*NKQ] . B[16*NKQ x D] with A in registers and B
+// the 16*NKQ rows at address b of a swizzled tile (a multiple of 8 rows
+// in), its rows the reduction: ldmatrix.trans gives the column-major B
+// fragments.
+template <int DMAX, int NKQ>
+__device__ __forceinline__ void grad_product(float (&acc)[DMAX / 8][4],
+                                             const uint32_t (&a)[NKQ][4], uint32_t b,
+                                             int nk, int lane) {
+  constexpr int ROWB = DMAX * 2;
+  const int l_r = (lane & 7) + ((lane >> 3) & 1) * 8, l_c = lane >> 4;
+#pragma unroll
+  for (int kq = 0; kq < NKQ; ++kq) {
+#pragma unroll
+    for (int np = 0; np < DMAX / 16; ++np) {
+      if (np < nk) {
+        uint32_t f[4];
+        ldsm4t(f, b + swz(kq * 16 + l_r, 2 * np + l_c, ROWB));
+        mma16816(acc[2 * np], a[kq], f[0], f[1]);
+        mma16816(acc[2 * np + 1], a[kq], f[2], f[3]);
+      }
+    }
+  }
+}
+
+// Rows r (and r + 8) of a 16 x D accumulator tile, rounded to bf16.
+template <int DMAX>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[DMAX / 8][4],
+                                           int r, int n, int d, int tig) {
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    if (j < (d >> 3)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r + 8 * h < n)
+          *reinterpret_cast<uint32_t*>(out + (size_t)(r + 8 * h) * d + j * 8 + tig * 2) =
+              pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int DMAX>
+constexpr int dq_tc_smem() { return 6 * TC_ROWS * DMAX * 2; }
+template <int DMAX>
+constexpr int dkv_tc_smem() { return 6 * TC_ROWS * DMAX * 2 + 2 * 2 * TC_ROWS * 4; }
+
+// K2 on the tensor cores: dQ for one 64-row q tile of one b*h row. Shared
+// memory: Q, dO, then two stages of (K, V).
+template <int DMAX>
+__global__ void __launch_bounds__(TC_NT)
+flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int sq, int sk, int d, int n_q_heads,
+                   int n_kv_heads, int q_offset, int k_offset, int causal,
+                   float scale) {
+  constexpr int TB = TC_ROWS * DMAX * 2;  // bytes of one tile
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sQ = smem_addr(tc_smem), sO = sQ + TB, sKV = sQ + 2 * TB;
+
+  const int n_qt = (sq + TC_ROWS - 1) / TC_ROWS;
+  const int n_rows = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - (int)blockIdx.x / n_rows;  // heaviest causal tiles first
+  const int bh = (int)blockIdx.x % n_rows;
+  const int q0 = qt * TC_ROWS;
+  const int rep = n_q_heads / n_kv_heads;
+  const int kvrow = (bh / n_q_heads) * n_kv_heads + (bh % n_q_heads) / rep;
+  const bf16* kb = k + (size_t)kvrow * sk * d;
+  const bf16* vb = v + (size_t)kvrow * sk * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nk = d >> 4;
+  const float sl2 = scale * LOG2E;
+
+  int n_kt = (sk + TC_ROWS - 1) / TC_ROWS;
+  if (causal) {
+    const int lim = q_offset + min(q0 + TC_ROWS, sq) - 1 - k_offset;
+    n_kt = lim < 0 ? 0 : min(n_kt, lim / TC_ROWS + 1);
+  }
+
+  // This thread's two q rows, r0 and r0 + 8.
+  const int r0 = q0 + warp * 16 + gid;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = r0 + 8 * h < sq;
+    lse2[h] = ok ? lse[(size_t)bh * sq + r0 + 8 * h] * LOG2E : 0.f;
+    dlt[h] = ok ? delta[(size_t)bh * sq + r0 + 8 * h] : 0.f;
+  }
+
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  if (n_kt > 0) {
+    tc_load_rows<DMAX>(sQ, q + (size_t)bh * sq * d, q0, sq, d);
+    tc_load_rows<DMAX>(sO, dout + (size_t)bh * sq * d, q0, sq, d);
+    tc_load_rows<DMAX>(sKV, kb, 0, sk, d);
+    tc_load_rows<DMAX>(sKV + TB, vb, 0, sk, d);
+  }
+  cp_async_commit();
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int k0 = t * TC_ROWS;
+    const uint32_t sK = sKV + (t & 1) * 2 * TB, sV = sK + TB;
+    if (t + 1 < n_kt) {  // the next K/V tile loads while this one computes
+      const uint32_t nK = sKV + ((t + 1) & 1) * 2 * TB;
+      tc_load_rows<DMAX>(nK, kb, k0 + TC_ROWS, sk, d);
+      tc_load_rows<DMAX>(nK + TB, vb, k0 + TC_ROWS, sk, d);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    // The tile in two 32-key halves: half the score registers live at once.
+    const bool full =
+        k0 + TC_ROWS <= sk && (!causal || q_offset + q0 >= k_offset + k0 + TC_ROWS - 1);
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t hK = sK + half * 32 * DMAX * 2, hV = sV + half * 32 * DMAX * 2;
+      float s[4][4], dp[4][4];
+      zero_tiles(s, dp);
+      scores<DMAX, 2>(s, dp, sQ, hK, sO, hV, warp * 16, nk, lane);  // S = Q.K^T, dP = dO.V^T
+
+      // dS = P o (dP - delta) * scale; the mask only where a tile crosses
+      // the causal diagonal or the ragged key edge.
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float p = exp2f(fmaf(s[j][e], sl2, -lse2[h]));
+          if (!full) {
+            const int key = k0 + half * 32 + j * 8 + tig * 2 + (e & 1);
+            const bool ok = key < sk && (!causal || q_offset + r0 + 8 * h >= k_offset + key);
+            p = ok ? p : 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - dlt[h]) * scale;
+        }
+      }
+      uint32_t da[2][4];
+      acc_to_a(da, s);                             // round(dS, k dtype)
+      grad_product<DMAX, 2>(acc, da, hK, nk, lane);  // dQ += dS . K
+    }
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  store_rows<DMAX>(dq + (size_t)bh * sq * d, acc, r0, sq, d, tig);
+}
+
+// K3 on the tensor cores: dK and dV for one 64-key tile of one kv row,
+// summed over its rep q heads. Shared memory: K, V, two stages of (Q, dO),
+// then two stages of (lse[64], delta[64]).
+template <int DMAX>
+__global__ void __launch_bounds__(TC_NT)
+flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int d,
+                    int n_q_heads, int n_kv_heads, int q_offset, int k_offset,
+                    int causal, float scale) {
+  constexpr int TB = TC_ROWS * DMAX * 2;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sK = smem_addr(tc_smem), sV = sK + TB, sQO = sK + 2 * TB;
+  const uint32_t sL = sK + 6 * TB;
+  const float* lds = reinterpret_cast<const float*>(tc_smem + 6 * TB);
+
+  const int n_kt = (sk + TC_ROWS - 1) / TC_ROWS;
+  const int n_rows = gridDim.x / n_kt;
+  const int kt = (int)blockIdx.x / n_rows;  // heaviest causal tiles first
+  const int kvrow = (int)blockIdx.x % n_rows;
+  const int k0 = kt * TC_ROWS;
+  const int rep = n_q_heads / n_kv_heads;
+  const int b = kvrow / n_kv_heads, kh = kvrow % n_kv_heads;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nk = d >> 4;
+  const float sl2 = scale * LOG2E;
+
+  // Causal block skip: q tiles wholly before the first q row that can see
+  // key k0 contribute nothing. Steps t walk (q head, q tile) pairs.
+  const int n_qt = (sq + TC_ROWS - 1) / TC_ROWS;
+  int qt0 = 0;
+  if (causal) {
+    const int need = k_offset + k0 - q_offset;  // first q index seeing k0
+    qt0 = need <= 0 ? 0 : min(need / TC_ROWS, n_qt);
+  }
+  const int per_head = n_qt - qt0;
+  const int n_t = rep * per_head;
+
+  auto load_q = [&](int t, int st) {
+    const int bh = b * n_q_heads + kh * rep + t / per_head;
+    const int q0 = (qt0 + t % per_head) * TC_ROWS;
+    const uint32_t base = sQO + st * 2 * TB;
+    tc_load_rows<DMAX>(base, q + (size_t)bh * sq * d, q0, sq, d);
+    tc_load_rows<DMAX>(base + TB, dout + (size_t)bh * sq * d, q0, sq, d);
+    const int i = tid & (TC_ROWS - 1);  // threads 0-63: lse[i]; 64-127: delta[i]
+    const bool ok = q0 + i < sq;
+    const float* src = (tid < TC_ROWS ? lse : delta) + (size_t)bh * sq + (ok ? q0 + i : 0);
+    cp_async4(sL + (uint32_t)(st * 2 * TC_ROWS + tid) * 4, src, ok);
+  };
+
+  float dka[DMAX / 8][4], dva[DMAX / 8][4];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  if (n_t > 0) {  // K and V once; then the first q tile
+    tc_load_rows<DMAX>(sK, k + (size_t)kvrow * sk * d, k0, sk, d);
+    tc_load_rows<DMAX>(sV, v + (size_t)kvrow * sk * d, k0, sk, d);
+    load_q(0, 0);
+  }
+  cp_async_commit();
+
+  const int kr = k0 + warp * 16 + gid;  // this thread's keys: kr and kr + 8
+  for (int t = 0; t < n_t; ++t) {
+    const int st = t & 1;
+    const int q0 = (qt0 + t % per_head) * TC_ROWS;
+    const uint32_t sQ = sQO + st * 2 * TB, sO = sQ + TB;
+    const float* ls = lds + st * 2 * TC_ROWS;  // lse[64], then delta[64]
+    if (t + 1 < n_t) load_q(t + 1, st ^ 1);  // the next q tile loads meanwhile
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    zero_tiles(s, dp);
+    scores<DMAX, 4>(s, dp, sK, sQ, sV, sO, warp * 16, nk, lane);  // S^T = K.Q^T, dP^T = V.dO^T
+
+    const bool full = k0 + TC_ROWS <= sk && q0 + TC_ROWS <= sq &&
+                      (!causal || q_offset + q0 >= k_offset + k0 + TC_ROWS - 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qc = j * 8 + tig * 2;  // this thread's q columns: qc, qc + 1
+      const float2 L = *reinterpret_cast<const float2*>(ls + qc);
+      const float2 Dl = *reinterpret_cast<const float2*>(ls + TC_ROWS + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? L.y : L.x, dl = (e & 1) ? Dl.y : Dl.x;
+        float p = exp2f(fmaf(s[j][e], sl2, -lq * LOG2E));
+        if (!full) {
+          const int key = kr + 8 * (e >> 1), row = q0 + qc + (e & 1);
+          const bool ok = key < sk && row < sq && (!causal || q_offset + row >= k_offset + key);
+          p = ok ? p : 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dl) * scale;
+        s[j][e] = p;
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    acc_to_a(pa, s);    // round(p, dO dtype), transposed: keys are rows
+    acc_to_a(dsa, dp);  // round(ds, q dtype)
+    grad_product<DMAX, 4>(dva, pa, sO, nk, lane);   // dV += P^T . dO
+    grad_product<DMAX, 4>(dka, dsa, sQ, nk, lane);  // dK += dS^T . Q
+    __syncthreads();  // this stage's readers are done before it refills
+  }
+
+  store_rows<DMAX>(dk + (size_t)kvrow * sk * d, dka, kr, sk, d, tig);
+  store_rows<DMAX>(dv + (size_t)kvrow * sk * d, dva, kr, sk, d, tig);
+}
+
+template <int DMAX>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
+                 int d, int hq, int hk, int qoff, int koff, int causal, float scale,
+                 cudaStream_t stream) {
+  constexpr int smem = dq_tc_smem<DMAX>();
+  auto kern = flash_dq_tc_kernel<DMAX>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)bh * ((sq + TC_ROWS - 1) / TC_ROWS);
+  if (blocks == 0) return 0;
+  kern<<<(unsigned)blocks, TC_NT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dq, sq, sk, d, hq, hk, qoff, koff, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dk, void* dv, int bk, int sq,
+                  int sk, int d, int hq, int hk, int qoff, int koff, int causal,
+                  float scale, cudaStream_t stream) {
+  constexpr int smem = dkv_tc_smem<DMAX>();
+  auto kern = flash_dkv_tc_kernel<DMAX>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)bk * ((sk + TC_ROWS - 1) / TC_ROWS);
+  if (blocks == 0) return 0;
+  kern<<<(unsigned)blocks, TC_NT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (bf16*)dk, (bf16*)dv, sq, sk, d, hq, hk, qoff, koff, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename K>
+int func_attrs(K kern, int dyn_smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kern));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = dyn_smem;
+  return 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t (0 = launched).
@@ -453,5 +932,48 @@ extern "C" int tk_flash_dkv(const void* q, const void* k, const void* v,
     TK_DKV_CASE(__nv_bfloat16, 128);
   }
 #undef TK_DKV_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernels: bf16 (dtype 1) with D a multiple of 16 up to 128;
+// same arguments as tk_flash_dq / tk_flash_dkv. Each returns a cudaError_t.
+extern "C" int tk_flash_dq_tc(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dq, int dtype, int bh,
+                              int sq, int sk, int d, int n_q_heads,
+                              int n_kv_heads, int q_offset, int k_offset,
+                              int causal, float scale, void* stream) {
+  if (dtype != 1 || d < 16 || d > 128 || d % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d <= 64)
+    return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, n_q_heads,
+                            n_kv_heads, q_offset, k_offset, causal, scale, s);
+  return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, n_q_heads,
+                           n_kv_heads, q_offset, k_offset, causal, scale, s);
+}
+
+extern "C" int tk_flash_dkv_tc(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dk, void* dv, int dtype,
+                               int bk, int sq, int sk, int d, int n_q_heads,
+                               int n_kv_heads, int q_offset, int k_offset,
+                               int causal, float scale, void* stream) {
+  if (dtype != 1 || d < 16 || d > 128 || d % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d <= 64)
+    return launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, bk, sq, sk, d, n_q_heads,
+                             n_kv_heads, q_offset, k_offset, causal, scale, s);
+  return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, bk, sq, sk, d, n_q_heads,
+                            n_kv_heads, q_offset, k_offset, causal, scale, s);
+}
+
+// Resources of a tensor-core kernel as compiled: which 0 = dQ, 1 = dK/dV;
+// dmax 64 (D <= 64) or 128. out: registers a thread, local (spill) bytes a
+// thread, static and dynamic shared bytes a block.
+extern "C" int tk_flash_bwd_tc_attrs(int which, int dmax, int* out) {
+  if (which == 0 && dmax == 64) return func_attrs(flash_dq_tc_kernel<64>, dq_tc_smem<64>(), out);
+  if (which == 0 && dmax == 128) return func_attrs(flash_dq_tc_kernel<128>, dq_tc_smem<128>(), out);
+  if (which == 1 && dmax == 64) return func_attrs(flash_dkv_tc_kernel<64>, dkv_tc_smem<64>(), out);
+  if (which == 1 && dmax == 128) return func_attrs(flash_dkv_tc_kernel<128>, dkv_tc_smem<128>(), out);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,11 +6,15 @@ launches:
 
 - ``flash_fwd_bhsd`` → ``csrc/flash_fwd.cu`` (replaces the Pallas
   ``_flash_kernel``): O and the per-row lse;
-- ``flash_dq_bhsd`` → ``csrc/flash_bwd.cu`` ``flash_dq_kernel`` (replaces
-  ``_dq_kernel``): dQ;
-- ``flash_dkv_bhsd`` → ``csrc/flash_bwd.cu`` ``flash_dkv_kernel``
-  (replaces ``_dkv_kernel``): dK and dV, summed over the q heads of each
-  kv head inside the kernel.
+- ``flash_dq_bhsd`` → ``csrc/flash_bwd.cu`` (replaces ``_dq_kernel``): dQ;
+- ``flash_dkv_bhsd`` → ``csrc/flash_bwd.cu`` (replaces ``_dkv_kernel``):
+  dK and dV, summed over the q heads of each kv head inside the kernel.
+
+Each backward wrapper picks one of two kernels by ``_bwd_route``: bf16
+with D a multiple of 16 runs the tensor-core kernel (``flash_dq_tc_kernel``,
+``flash_dkv_tc_kernel``: mma.sync over swizzled bf16 tiles), f32 or any
+other D the CUDA-core kernel (``flash_dq_kernel``, ``flash_dkv_kernel``).
+``launches`` counts every launch, ``tc_launches`` the tensor-core ones.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it (``flash_fwd_plain``,
@@ -39,7 +43,7 @@ from torchkafka_tpu_torch.ops import _native
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _D_MAX = 256
-_D_MAX_BWD = 128  # four f32 tiles of 64 × (D+1) in one block's shared memory
+_D_MAX_BWD = 128  # the kernels keep a 64-row tile's D columns in one block
 
 
 def _kv_rows(bh: int, n_q_heads: int, n_kv_heads: int, device) -> torch.Tensor:
@@ -156,17 +160,6 @@ def _lib():
     return lib
 
 
-def _lib():
-    lib = _native.load("flash_fwd")
-    fn = lib.tk_flash_fwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 # ----------------------------------------------------------------- backward
 
 
@@ -248,27 +241,37 @@ def _check_bwd(q, k, v, do, lse, delta, n_q_heads, n_kv_heads) -> None:
             raise ValueError(f"{name} must be f32 [B·H, Sq, 1] on q's device")
 
 
+def _bwd_route(dtype: torch.dtype, d: int) -> str:
+    """Which backward kernel a CUDA launch takes, by rule: "tc" (tensor
+    cores, bf16 products) for bf16 with D a multiple of 16, "simt" (f32
+    FMAs on the CUDA cores) for f32 or any other D. Raises for D > 128."""
+    if d > _D_MAX_BWD:
+        raise ValueError(f"flash backward kernels take head dim <= {_D_MAX_BWD}, got {d}")
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
+
+
 def _launch_args(what, tensors, causal, q_offset, k_offset, n_q_heads,
                  n_kv_heads):
-    """The C launchers' scalar arguments after the kernel-only checks:
-    (dtype, Sq, Sk, D, H, K, q_offset, k_offset, causal, scale)."""
+    """The route and the C launchers' scalar arguments after the
+    kernel-only checks: (route, dtype, Sq, Sk, D, H, K, q_offset, k_offset,
+    causal, scale)."""
     q, k = tensors[0], tensors[1]
     d = q.shape[2]
-    if d > _D_MAX_BWD:
-        raise ValueError(f"{what} kernel takes head dim <= {_D_MAX_BWD}, got {d}")
+    route = _bwd_route(q.dtype, d)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} kernel needs contiguous inputs")
-    return (_DTYPES[q.dtype], q.shape[1], k.shape[1], d, n_q_heads, n_kv_heads,
-            int(q_offset), int(k_offset), int(bool(causal)), 1.0 / math.sqrt(d))
+    return (route, _DTYPES[q.dtype], q.shape[1], k.shape[1], d, n_q_heads,
+            n_kv_heads, int(q_offset), int(k_offset), int(bool(causal)),
+            1.0 / math.sqrt(d))
 
 
 def flash_dq_bhsd(
     q, k, v, do, lse, delta, *, causal: bool = True, q_offset: int = 0,
     k_offset: int = 0, n_q_heads: int = 1, n_kv_heads: int = 1,
 ):
-    """dQ [B·H, Sq, D]. CUDA tensors launch ``flash_dq_kernel``
-    (``flash_dq_bhsd.launches`` counts each launch); CPU tensors run
-    ``flash_dq_plain``."""
+    """dQ [B·H, Sq, D]. CUDA tensors launch the kernel ``_bwd_route``
+    picks (``flash_dq_bhsd.launches`` counts each launch, ``.tc_launches``
+    the tensor-core ones); CPU tensors run ``flash_dq_plain``."""
     _check_bwd(q, k, v, do, lse, delta, n_q_heads, n_kv_heads)
     kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset,
               n_q_heads=n_q_heads, n_kv_heads=n_kv_heads)
@@ -276,21 +279,25 @@ def flash_dq_bhsd(
         return flash_dq_plain(q, k, v, do, lse, delta, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_dq runs on cuda or cpu, not {q.device}")
-    dtype, *args = _launch_args("flash_dq", (q, k, v, do, lse, delta), causal,
-                                q_offset, k_offset, n_q_heads, n_kv_heads)
+    route, dtype, *args = _launch_args("flash_dq", (q, k, v, do, lse, delta),
+                                       causal, q_offset, k_offset, n_q_heads,
+                                       n_kv_heads)
     dq = torch.empty_like(q)
-    fn = _bwd_lib().tk_flash_dq
+    lib = _bwd_lib()
+    fn = lib.tk_flash_dq_tc if route == "tc" else lib.tk_flash_dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dtype,
                 q.shape[0], *args, stream)
-    _native.check(rc, "flash_dq")
+    _native.check(rc, f"flash_dq ({route})")
     flash_dq_bhsd.launches += 1
+    flash_dq_bhsd.tc_launches += route == "tc"
     return dq
 
 
 flash_dq_bhsd.launches = 0
+flash_dq_bhsd.tc_launches = 0
 
 
 def flash_dkv_bhsd(
@@ -298,9 +305,9 @@ def flash_dkv_bhsd(
     k_offset: int = 0, n_q_heads: int = 1, n_kv_heads: int = 1,
 ):
     """(dK, dV), each [B·K, Sk, D], summed over the q heads of each kv
-    head. CUDA tensors launch ``flash_dkv_kernel``
-    (``flash_dkv_bhsd.launches`` counts each launch); CPU tensors run
-    ``flash_dkv_plain``."""
+    head. CUDA tensors launch the kernel ``_bwd_route`` picks
+    (``flash_dkv_bhsd.launches`` counts each launch, ``.tc_launches`` the
+    tensor-core ones); CPU tensors run ``flash_dkv_plain``."""
     _check_bwd(q, k, v, do, lse, delta, n_q_heads, n_kv_heads)
     kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset,
               n_q_heads=n_q_heads, n_kv_heads=n_kv_heads)
@@ -308,22 +315,26 @@ def flash_dkv_bhsd(
         return flash_dkv_plain(q, k, v, do, lse, delta, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_dkv runs on cuda or cpu, not {q.device}")
-    dtype, *args = _launch_args("flash_dkv", (q, k, v, do, lse, delta), causal,
-                                q_offset, k_offset, n_q_heads, n_kv_heads)
+    route, dtype, *args = _launch_args("flash_dkv", (q, k, v, do, lse, delta),
+                                       causal, q_offset, k_offset, n_q_heads,
+                                       n_kv_heads)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _bwd_lib().tk_flash_dkv
+    lib = _bwd_lib()
+    fn = lib.tk_flash_dkv_tc if route == "tc" else lib.tk_flash_dkv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 dtype, k.shape[0], *args, stream)
-    _native.check(rc, "flash_dkv")
+    _native.check(rc, f"flash_dkv ({route})")
     flash_dkv_bhsd.launches += 1
+    flash_dkv_bhsd.tc_launches += route == "tc"
     return dk, dv
 
 
 flash_dkv_bhsd.launches = 0
+flash_dkv_bhsd.tc_launches = 0
 
 
 def flash_bwd_bhsd(
@@ -345,11 +356,27 @@ def _bwd_lib():
     lib = _native.load("flash_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if lib.tk_flash_dq.argtypes is None:
-        lib.tk_flash_dq.argtypes = [p] * 7 + [i] * 10 + [f, p]
-        lib.tk_flash_dq.restype = ctypes.c_int
-        lib.tk_flash_dkv.argtypes = [p] * 8 + [i] * 10 + [f, p]
-        lib.tk_flash_dkv.restype = ctypes.c_int
+        for fn in (lib.tk_flash_dq, lib.tk_flash_dq_tc):
+            fn.argtypes = [p] * 7 + [i] * 10 + [f, p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.tk_flash_dkv, lib.tk_flash_dkv_tc):
+            fn.argtypes = [p] * 8 + [i] * 10 + [f, p]
+            fn.restype = ctypes.c_int
+        lib.tk_flash_bwd_tc_attrs.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.tk_flash_bwd_tc_attrs.restype = ctypes.c_int
     return lib
+
+
+def bwd_tc_attrs(which: str, d: int) -> dict:
+    """The compiled resources of the tensor-core kernel that serves head
+    dim ``d``: ``which`` "dq" or "dkv" → {"regs", "local_bytes",
+    "static_smem", "dynamic_smem"} (local bytes > 0 means spills). Builds
+    the library if needed; needs CUDA."""
+    out = (ctypes.c_int * 4)()
+    rc = _bwd_lib().tk_flash_bwd_tc_attrs({"dq": 0, "dkv": 1}[which],
+                                           64 if d <= 64 else 128, out)
+    _native.check(rc, f"flash_bwd attrs {which}")
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem"), out))
 
 
 # ------------------------------------------------------------------ public
