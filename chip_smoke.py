@@ -10,10 +10,18 @@ Phases, each printing one JSON line:
    reports them;
 2. build: every CUDA kernel built from ``torchkafka_tpu_torch/csrc/`` with
    nvcc for sm_90a (one nvcc per source, started together);
-3. flash_fwd: the flash-attention forward kernel (K1) against its plain
-   PyTorch version at the 1b prefill shape, plus a ragged and an offset
-   case and the 8b prefill shape (32 q / 8 kv heads), and timings (CUDA
-   events, median of 25, L2 flushed before each timed launch);
+3. flash_fwd: the flash-attention forward (K1) against its plain PyTorch
+   version, each case through the kernel that ``_route`` picks (its
+   route printed): at the 1b prefill and training shapes in bf16 (the
+   tensor-core kernel), at the 1b prefill shape in f32 (the CUDA-core kernel), the 8b prefill shape (32 q / 8
+   kv heads), a ragged S, k_offsets with fully masked rows (o = 0, lse <
+   -1e29, no NaN), and bf16 at D=64/16, rep 1 and 4, S=17, S=200,
+   non-causal and a q_offset; D=40 and D=160 take the CUDA cores in bf16.
+   Two launches bitwise equal; the tensor-core kernel's registers and
+   spill bytes (0 required); timings (CUDA events, median of 25, L2
+   flushed before each timed launch) and TFLOP/s at the 1b prefill and
+   training shapes, beside the CUDA-core kernel on the same bf16 inputs,
+   the plain version and SDPA's forward;
 4. flash_bwd: the backward kernels, dQ (K2) and dK/dV (K3), against their
    plain versions at the 1b training shape (B=8, S=512, 16 q / 8 kv heads,
    D=128, bf16: the tensor-core kernels), in f32 (the CUDA-core kernels),
@@ -48,13 +56,13 @@ Phases, each printing one JSON line:
    → ``KafkaStream`` → ``make_train_step`` with AdamW(1e-3), 6 steps of 8,
    each ``token.commit(wait_for=loss)``. Every loss finite, every
    partition's watermark advanced, Σ watermarks == 48, and K1/K2/K3 each
-   launched 24 × 6 times, K2/K3 every time on the tensor cores (the main
-   path: the counts are zeroed just before the loop and read just after);
+   launched 24 × 6 times, every time on the tensor cores (the main path:
+   the counts are zeroed just before the loop and read just after);
 8. serve: the 1b model at full width and depth, random bf16 weights made on
    the card from a seed, 32 prompts of 128 tokens on two partitions served
    by ``StreamingGenerator`` with the int8 pool (a main path: every kernel
-   launch count is zeroed just before it and read just after), then again
-   with the bf16 pool;
+   launch count is zeroed just before it and read just after; every K1
+   launch on the tensor cores), then again with the bf16 pool;
 8b. serve_paged: the same 1b model through the PAGED pool (int8, block
    size 16, radix prefix reuse, chunked prefill, K5 on decode-only ticks):
    48 prompts of 128 tokens from three tenants, each a fixed 96-token
@@ -75,7 +83,8 @@ Phases, each printing one JSON line:
    offset commits. Run twice, with the K4 read and then with the plain
    M-major read (kv_kernel=False); each run serves 48/48 completions of 64
    tokens, commits the end offsets, publishes exactly 48 records equal to
-   the completions, and launches K1 = 32 × prefills, K4 = 32 × decode ticks
+   the completions, and launches K1 = 32 × prefills (all on the tensor
+   cores; none in the f32 run below), K4 = 32 × decode ticks
    (0 in the second run) and K6-K8 never (counts zeroed just before each
    run, read just after); the two runs commit the same offsets and agree
    on token 0;
@@ -150,56 +159,114 @@ def max_err(torch, a, b) -> float:
 
 
 def check_flash(torch, F, flash, flush, gen) -> dict:
-    """K1 against its plain version: bf16 at the 1b prefill shape, a ragged
-    S, a k_offset case with fully masked rows, f32 for a tight check, and
-    bf16 and f32 at the 8b prefill shape (32 q heads over 8 kv heads)."""
+    """K1 against its plain version, each case through the kernel that
+    ``_route`` picks (the route of each is printed and its tensor-core
+    count checked): bf16 at the 1b prefill shape and at the training shape
+    (B=8, S=512; the tensor cores), a
+    ragged S, k_offsets whose fully masked rows lie in a skipped tile (64)
+    and inside a computed one (40; o = 0 and lse < -1e29 there, no NaN),
+    f32 for a tight check (the CUDA cores), bf16 and f32 at the 8b prefill
+    shape (32 q / 8 kv heads), and bf16 at D=64 and D=16 with rep 1 and 4,
+    S=17, a ragged S=200, non-causal and a q_offset; D=40 and D=160 take
+    the CUDA cores in bf16. Two launches at the training shape must agree
+    bitwise; the tensor-core kernel's registers and spill bytes (0
+    required). Timings at the 1b prefill shape and the training shape
+    (B=8, S=512), beside the CUDA-core kernel on the same bf16 inputs, the
+    plain version and SDPA's forward."""
     B, S, H, K, D = 16, 128, 16, 8, 128
     H8 = 32  # the 8b scale's q heads: H/K = 4
     tol = {"bf16_o": 4e-2, "lse": 1e-3, "f32_o": 1e-4}
+    bf16, f32 = torch.bfloat16, torch.float32
 
-    def make(s, dtype, h=H):
-        mk = lambda n: torch.randn((n, s, D), generator=gen, device="cuda",  # noqa: E731
+    def make(b, s, dtype, h=H, kh=K, d=D):
+        mk = lambda n: torch.randn((n, s, d), generator=gen, device="cuda",  # noqa: E731
                                    dtype=torch.float32).to(dtype)
-        return mk(B * h), mk(B * K), mk(B * K)
+        return mk(b * h), mk(b * kh), mk(b * kh)
 
-    cases = {
-        "main_bf16": (S, torch.bfloat16, 0, 0, H),
-        "ragged_s200_bf16": (200, torch.bfloat16, 0, 0, H),
-        "k_offset64_bf16": (S, torch.bfloat16, 0, 64, H),
-        "main_f32": (S, torch.float32, 0, 0, H),
-        "main_8b_bf16": (S, torch.bfloat16, 0, 0, H8),
-        "main_8b_f32": (S, torch.float32, 0, 0, H8),
+    cases = {  # b, s, dtype, q_offset, k_offset, H, K, D, causal
+        "main_bf16": (B, S, bf16, 0, 0, H, K, D, True),
+        "train_bf16": (8, 512, bf16, 0, 0, H, K, D, True),
+        "ragged_s200_bf16": (B, 200, bf16, 0, 0, H, K, D, True),
+        "k_offset64_bf16": (B, S, bf16, 0, 64, H, K, D, True),
+        "main_f32": (B, S, f32, 0, 0, H, K, D, True),
+        "main_8b_bf16": (B, S, bf16, 0, 0, H8, K, D, True),
+        "main_8b_f32": (B, S, f32, 0, 0, H8, K, D, True),
+        "k_offset40_bf16": (2, S, bf16, 0, 40, H, K, D, True),
+        "d64_rep1_bf16": (2, 256, bf16, 0, 0, 8, 8, 64, True),
+        "d64_rep4_s200_bf16": (2, 200, bf16, 0, 0, H8, K, 64, True),
+        "d16_rep4_s17_bf16": (2, 17, bf16, 0, 0, 16, 4, 16, True),
+        "d16_rep1_noncausal_bf16": (2, 77, bf16, 0, 0, 8, 8, 16, False),
+        "d64_q_offset32_bf16": (2, 100, bf16, 32, 0, H, K, 64, True),
+        "noncausal_s200_bf16": (2, 200, bf16, 0, 0, H, K, D, False),
+        "d40_simt_bf16": (2, 96, bf16, 0, 0, H, K, 40, True),
+        "d160_simt_bf16": (2, 96, bf16, 0, 0, H, K, 160, True),
     }
-    errs = {}
-    for name, (s, dtype, qo, ko, h) in cases.items():
-        q, k, v = make(s, dtype, h)
-        kw = dict(causal=True, q_offset=qo, k_offset=ko, n_q_heads=h, n_kv_heads=K)
-        o, lse = flash.flash_fwd_bhsd(q, k, v, **kw)
+    fwd = flash.flash_fwd_bhsd
+    errs, routes = {}, {}
+    for name, (b, s, dtype, qo, ko, h, kh, d, causal) in cases.items():
+        q, k, v = make(b, s, dtype, h, kh, d)
+        kw = dict(causal=causal, q_offset=qo, k_offset=ko, n_q_heads=h, n_kv_heads=kh)
+        before = fwd.tc_launches
+        o, lse = fwd(q, k, v, **kw)
+        tc = fwd.tc_launches - before
         po, plse = flash.flash_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        route = flash._route(dtype, d)
+        if tc != (route == "tc"):
+            raise AssertionError(f"flash_fwd {name}: route {route} but tc launches {tc}")
+        routes[name] = route
         e_o, e_l = max_err(torch, o, po), max_err(torch, lse, plse)
         limit = tol["f32_o"] if dtype == torch.float32 else tol["bf16_o"]
         if not (e_o <= limit and e_l <= tol["lse"]):
             raise AssertionError(f"flash_fwd {name}: o err {e_o}, lse err {e_l}")
-        if not (torch.isfinite(o.float()).all() and o.shape == po.shape):
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+                and o.shape == po.shape):
             raise AssertionError(f"flash_fwd {name}: bad output")
+        if causal and ko > qo:  # rows before the first key: o = 0, lse ≈ -1e30
+            rows = slice(0, ko - qo)
+            if o[:, rows].abs().max().item() != 0.0 or lse[:, rows].max().item() >= -1e29:
+                raise AssertionError(f"flash_fwd {name}: fully masked rows not 0 / -1e30")
         errs[name] = {"o": e_o, "lse": e_l}
-    q, k, v = make(S, torch.bfloat16)
-    kw = dict(causal=True, n_q_heads=H, n_kv_heads=K)
-    ms = cuda_ms(torch, lambda: flash.flash_fwd_bhsd(q, k, v, **kw), flush)
-    plain_ms = cuda_ms(torch, lambda: flash.flash_fwd_plain(q, k, v, **kw), flush)
-    # The library yardstick, in its own [B, H, S, D] layout (copies made
-    # outside the timed region); never called by the port.
-    qs, ks, vs = (x.reshape(B, -1, S, D) for x in (q, k, v))
-    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), flush)
-    pairs = S * (S + 1) // 2  # allowed (q, k) pairs per head, causal
-    flops = 4.0 * D * pairs * B * H  # q·k and p·v multiply-adds
-    nbytes = 2 * D * S * (2 * B * H + 2 * B * K) + 4 * B * H * S
-    bms, by = bound(flops, nbytes)
-    return {"phase": "flash_fwd", "shape": {"B": B, "S": S, "H": H, "K": K, "D": D},
-            "tolerance": tol, "max_abs_err": errs, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+
+    resources = {f"d{d}": flash.fwd_tc_attrs(d) for d in (64, 128)}
+    if any(r["local_bytes"] for r in resources.values()):
+        raise AssertionError(f"flash_fwd: the tensor-core kernel spills {resources}")
+
+    def timed(b, s, check_bits: bool) -> dict:
+        q, k, v = make(b, s, bf16)
+        kw = dict(causal=True, n_q_heads=H, n_kv_heads=K)
+        if check_bits:  # no atomics: the same inputs give the same bits
+            o1, l1 = fwd(q, k, v, **kw)
+            o2, l2 = fwd(q, k, v, **kw)
+            if not (torch.equal(o1, o2) and torch.equal(l1, l2)):
+                raise AssertionError("flash_fwd: two launches differ")
+        ms = cuda_ms(torch, lambda: fwd(q, k, v, **kw), flush)
+        # The CUDA-core kernel on the same bf16 inputs, which the route
+        # rule sends to the tensor cores: launched directly, not counted.
+        simt_ms = cuda_ms(torch, lambda: flash._launch_fwd(q, k, v, "simt", **kw), flush)
+        plain_ms = cuda_ms(torch, lambda: flash.flash_fwd_plain(q, k, v, **kw), flush, n=5)
+        # The library yardstick, in its own [B, H, S, D] layout (views of
+        # the same inputs); never called by the port.
+        qs, ks, vs = (x.reshape(b, -1, s, D) for x in (q, k, v))
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), flush)
+        pairs = s * (s + 1) // 2  # allowed (q, k) pairs per head, causal
+        flops = 4.0 * D * pairs * b * H  # q·k and p·v multiply-adds
+        nbytes = 2 * D * s * (2 * b * H + 2 * b * K) + 4 * b * H * s
+        bms, by = bound(flops, nbytes)
+        return {"shape": {"B": b, "S": s, "H": H, "K": K, "D": D},
+                "route": flash._route(bf16, D), "kernel_ms": ms,
+                "tflops": flops / ms / 1e9, "simt_bf16_ms": simt_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+
+    prefill = timed(B, S, check_bits=False)
+    train_shape = timed(8, 512, check_bits=True)
+    return {"phase": "flash_fwd", "shape": prefill["shape"], "tolerance": tol,
+            "max_abs_err": errs, "routes": routes, "deterministic": True,
+            "tc_resources": resources, "kernel_ms": prefill["kernel_ms"],
+            "plain_ms": prefill["plain_ms"], "library_ms": prefill["library_ms"],
+            "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
+            "prefill": prefill, "train_shape": train_shape,
             "err_main": errs["main_bf16"]["o"]}
 
 
@@ -674,9 +741,10 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
     """The main training path: broker → MemoryConsumer → KafkaStream
     (fixed_width decode, pinned side-stream H2D) → make_train_step (K1
     forward, fused CE, K2+K3 backward, AdamW) → token.commit(wait_for=loss)
-    → consumer.commit. K1/K2/K3 launch counts (and K2/K3's tensor-core
-    counts) are zeroed just before the loop and read just after. ``prof``: an optional profiler context
-    wrapped around one extra step after the run."""
+    → consumer.commit. K1/K2/K3 launch counts (and their tensor-core
+    counts) are zeroed just before the loop and read just after. ``prof``:
+    an optional profiler context wrapped around one extra step after the
+    run."""
     import numpy as np
 
     import torchkafka_tpu_torch as tk
@@ -701,7 +769,6 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
     torch.cuda.reset_peak_memory_stats()
     for fn in (flash_fwd_bhsd, flash_dq_bhsd, flash_dkv_bhsd):
         fn.launches = 0
-    for fn in (flash_dq_bhsd, flash_dkv_bhsd):
         fn.tc_launches = 0
     losses, step_ms, wall_ms = [], [], []
     t0 = time.perf_counter()
@@ -727,7 +794,8 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
         elapsed = time.perf_counter() - t0
         launches = {"flash_fwd": flash_fwd_bhsd.launches, "flash_dq": flash_dq_bhsd.launches,
                     "flash_dkv": flash_dkv_bhsd.launches}
-        tc_launches = {"flash_dq": flash_dq_bhsd.tc_launches,
+        tc_launches = {"flash_fwd": flash_fwd_bhsd.tc_launches,
+                       "flash_dq": flash_dq_bhsd.tc_launches,
                        "flash_dkv": flash_dkv_bhsd.tc_launches}
         peak = torch.cuda.max_memory_allocated() / 1e9
         if prof is not None:  # one more step on the last batch, traced
@@ -784,6 +852,7 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
     server.warmup()
     torch.cuda.reset_peak_memory_stats()
     flash_fwd_bhsd.launches = 0
+    flash_fwd_bhsd.tc_launches = 0
     int8_decode_attention_dynlen.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -792,6 +861,7 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"flash_fwd": flash_fwd_bhsd.launches,
+                "flash_fwd_tc": flash_fwd_bhsd.tc_launches,
                 "kvattn_dynlen": int8_decode_attention_dynlen.launches}
     consumer.close()
     tps = [TopicPartition("t7", p) for p in (0, 1)]
@@ -807,6 +877,8 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
     nl = cfg.n_layers
     if launches["flash_fwd"] != nl * m["prefills"] or m["prefills"] == 0:
         raise AssertionError(f"flash launches {launches} vs {m['prefills']} prefills")
+    if launches["flash_fwd_tc"] != launches["flash_fwd"]:  # bf16, D=128: the tensor cores
+        raise AssertionError(f"flash tensor-core launches {launches}")
     want_k4 = nl * m["decode_ticks"] if kv_dtype else 0
     if launches["kvattn_dynlen"] != want_k4 or (kv_dtype and want_k4 == 0):
         raise AssertionError(f"kvattn launches {launches} vs {m['decode_ticks']} ticks")
@@ -1007,6 +1079,7 @@ def serve_8b(torch, cfg, params, prompts, kv_kernel: bool, prof=None):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
+    flash_fwd_bhsd.tc_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with prof if prof is not None else contextlib.nullcontext():
@@ -1014,6 +1087,7 @@ def serve_8b(torch, cfg, params, prompts, kv_kernel: bool, prof=None):
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    launches["flash_fwd_tc"] = flash_fwd_bhsd.tc_launches
     consumer.close()
     tps = [tk.TopicPartition("t7", p) for p in (0, 1)]
     committed = [broker.committed("s7", tp) for tp in tps]
@@ -1042,7 +1116,8 @@ def serve_8b(torch, cfg, params, prompts, kv_kernel: bool, prof=None):
         raise AssertionError(f"serve_8b: output failures {m['output_flush_failures']}, "
                              f"{m['output_send_failures']}")
     nl = cfg.n_layers
-    want = {"flash_fwd": nl * m["prefills"],
+    tc = cfg.dtype == torch.bfloat16  # D=128: bf16 on the tensor cores, f32 on the CUDA cores
+    want = {"flash_fwd": nl * m["prefills"], "flash_fwd_tc": nl * m["prefills"] if tc else 0,
             "kvattn_dynlen": nl * m["decode_ticks"] if kv_kernel else 0,
             "qmatmul": 0, "kvattn_kmajor": 0, "kvattn_mmajor": 0}
     if launches != want or m["prefills"] == 0 or m["decode_ticks"] == 0:
@@ -1120,9 +1195,9 @@ def _profiler(torch):
 
 
 PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-                "flash_dq_tc_kernel", "flash_dkv_tc_kernel", "kvattn_dynlen_kernel",
-                "kvattn_paged_kernel", "kvattn_full_kernel", "qmm_decode_kernel",
-                "qmm_tile_kernel")
+                "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
+                "kvattn_dynlen_kernel", "kvattn_paged_kernel", "kvattn_full_kernel",
+                "qmm_decode_kernel", "qmm_tile_kernel")
 
 
 def profile_summary(prof, run: str, extra: dict) -> dict:
@@ -1315,9 +1390,15 @@ def main() -> int:
          "source": "torchkafka_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:61",
          "launches": row_q["launches"]["flash_fwd"],
+         "tc_launches": row_q["launches"]["flash_fwd_tc"],
+         "kernel_route": k1["prefill"]["route"],
          "max_abs_err": k1["err_main"], "ms": k1["kernel_ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+         "train_shape": {key: k1["train_shape"][key] for key in (
+             "kernel_ms", "simt_bf16_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+         "train_launches": row_t["launches"]["flash_fwd"],
+         "train_tc_launches": row_t["tc_launches"]["flash_fwd"]},
         {"name": "flash_dq", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:201",

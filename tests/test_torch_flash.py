@@ -115,3 +115,68 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):  # 3 q heads over 2 kv heads
         flash_fwd_bhsd(q, torch.zeros(2, 8, 16), torch.zeros(2, 8, 16),
                        n_q_heads=3, n_kv_heads=2)
+
+
+# bf16 at the head dims of the tensor-core route: the port's forward (the
+# plain version the wrapper runs on the CPU, which the tensor-core kernel is
+# held against on the card) against the Pallas kernel in interpret mode on
+# the same bf16 inputs. o is compared relative to its largest |value|: p is
+# rounded to bf16 against different running maxima (one softmax over all
+# keys here, one per 64-key block there) and o is rounded to bf16 at the
+# end, about one bf16 ulp (2^-8 relative) at the top of the range. lse is
+# f32 from the same products, summed in another order.
+BF16_O_REL = 1e-2
+LSE_ATOL = 1e-5
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _to_jax(t):
+    """A bf16 tensor as a bf16 JAX array with the same values."""
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "d,h,k,s,causal,q_offset,k_offset",
+    [
+        (16, 1, 1, 128, True, 0, 0),
+        (16, 4, 1, 256, False, 0, 0),
+        (16, 2, 2, 128, True, 64, 0),
+        (64, 1, 1, 256, True, 0, 0),
+        (64, 2, 1, 128, False, 0, 0),
+        (64, 4, 1, 128, True, 0, 0),  # rep 4, the 8b model's ratio
+        (64, 8, 2, 128, True, 0, 64),  # rows before the first key
+        (128, 2, 2, 128, True, 0, 0),
+        (128, 4, 2, 256, True, 0, 0),  # rep 2, the 1b model's ratio
+        (128, 4, 1, 128, False, 0, 0),
+        (128, 8, 2, 128, True, 64, 0),
+        (128, 2, 1, 256, True, 32, 96),
+    ],
+    ids=["d16_rep1", "d16_rep4_full", "d16_q_offset64", "d64_rep1_s256",
+         "d64_rep2_full", "d64_rep4", "d64_rep4_k_offset64", "d128_rep1",
+         "d128_rep2_s256", "d128_rep4_full", "d128_rep4_q_offset64",
+         "d128_rep2_offsets"],
+)
+def test_bf16_fwd_matches_pallas(d, h, k, s, causal, q_offset, k_offset):
+    rng = np.random.default_rng(d + h + k + s + q_offset + k_offset)
+    q = _bf16(rng.normal(size=(h, s, d)).astype(np.float32))
+    kk, v = (_bf16(rng.normal(size=(k, s, d)).astype(np.float32)) for _ in range(2))
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset, n_q_heads=h,
+              n_kv_heads=k)
+    o, lse = flash_fwd_bhsd(q, kk, v, **kw)
+    ref_o, ref_lse = jax_fwd_bhsd(_to_jax(q), _to_jax(kk), _to_jax(v), block_q=64,
+                                  block_k=64, interpret=True, **kw)
+    ref_o = np.asarray(ref_o, dtype=np.float32)
+    assert o.dtype == torch.bfloat16 and o.shape == ref_o.shape
+    got = o.float().numpy()
+    assert np.isfinite(got).all() and np.isfinite(lse.numpy()).all()
+    assert np.abs(got - ref_o).max() <= BF16_O_REL * np.abs(ref_o).max()
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=LSE_ATOL, rtol=0)
+    if causal and k_offset > q_offset:
+        # 64-row blocks whose rows see no key are skipped whole by the
+        # Pallas kernel: o = 0 and lse ≈ -1e30 on both sides.
+        rows = slice(0, k_offset - q_offset)
+        assert np.all(got[:, rows] == 0.0) and np.all(ref_o[:, rows] == 0.0)
+        assert np.all(lse.numpy()[:, rows] < -1e29)

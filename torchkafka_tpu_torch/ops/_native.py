@@ -5,10 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The build
 happens at first use, from the package's own sources only, into
 ``_build/`` beside this package (listed in ``.gitignore``), keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads. Importing this module needs no ``nvcc``: nothing is
-built or loaded until a kernel's wrapper first launches it on a CUDA
-tensor.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and an unchanged one loads.
+Importing this module needs no ``nvcc``: nothing is built or loaded until
+a kernel's wrapper first launches it on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -49,9 +49,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{h}.so"
+    """The library path for ``csrc/<name>.cu``, keyed by the source, every
+    ``csrc/*.cuh`` it may include, and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

@@ -10,17 +10,21 @@ launches:
 - ``flash_dkv_bhsd`` → ``csrc/flash_bwd.cu`` (replaces ``_dkv_kernel``):
   dK and dV, summed over the q heads of each kv head inside the kernel.
 
-Each backward wrapper picks one of two kernels by ``_bwd_route``: bf16
-with D a multiple of 16 runs the tensor-core kernel (``flash_dq_tc_kernel``,
+Each wrapper picks one of two kernels by one fixed rule, ``_route`` (the
+backward's ``_bwd_route`` adds its D <= 128 limit): bf16 with D a
+multiple of 16 (up to 128) runs the
+tensor-core kernel (``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
 ``flash_dkv_tc_kernel``: mma.sync over swizzled bf16 tiles), f32 or any
-other D the CUDA-core kernel (``flash_dq_kernel``, ``flash_dkv_kernel``).
-``launches`` counts every launch, ``tc_launches`` the tensor-core ones.
+other D the CUDA-core kernel (``flash_fwd_kernel``, ``flash_dq_kernel``,
+``flash_dkv_kernel``). ``launches`` counts every launch, ``tc_launches``
+the tensor-core ones.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``), which the tests hold against the
 JAX package and which the on-card smoke check holds the kernel against.
-There is no fallback from kernel to plain on the card.
+There is no fallback from kernel to plain, or from one kernel to the
+other, on the card.
 
 Layout: the public ``flash_attention`` takes ``[B, S, H, D]`` (``mha``'s
 layout) and runs the kernels over ``[B·H, S, D]``; K < H kv heads (GQA) are
@@ -44,6 +48,7 @@ _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _D_MAX = 256
 _D_MAX_BWD = 128  # the kernels keep a 64-row tile's D columns in one block
+_D_MAX_TC = 128  # the tensor-core kernels: a 16 x D f32 accumulator a warp
 
 
 def _kv_rows(bh: int, n_q_heads: int, n_kv_heads: int, device) -> torch.Tensor:
@@ -111,14 +116,46 @@ def _check(q, k, v, n_q_heads: int, n_kv_heads: int) -> None:
         raise ValueError(f"head dim must match and be <= {_D_MAX}")
 
 
+def _route(dtype: torch.dtype, d: int) -> str:
+    """Which kernel a CUDA launch takes, forward and backward alike, by
+    rule: "tc" (tensor cores, bf16 products) for bf16 with D a multiple of
+    16 and D <= 128, "simt" (f32 FMAs on the CUDA cores) for f32, for D
+    not a multiple of 16, and for bf16 with 128 < D <= 256 (the forward
+    only: ``_bwd_route`` refuses D > 128)."""
+    tc = dtype == torch.bfloat16 and d % 16 == 0 and d <= _D_MAX_TC
+    return "tc" if tc else "simt"
+
+
+def _launch_fwd(q, k, v, route: str, *, causal: bool = True, q_offset: int = 0,
+                k_offset: int = 0, n_q_heads: int = 1, n_kv_heads: int = 1):
+    """Launch the ``route`` forward kernel on contiguous CUDA q/k/v and
+    return (o, lse); counts nothing."""
+    bh, sq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
+    fn = _lib().tk_flash_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), _DTYPES[q.dtype], int(route == "tc"), bh, sq,
+            k.shape[1], d, n_q_heads, n_kv_heads, int(q_offset),
+            int(k_offset), int(bool(causal)), 1.0 / math.sqrt(d), stream,
+        )
+    _native.check(rc, f"flash_fwd ({route})")
+    return o, lse
+
+
 def flash_fwd_bhsd(
     q, k, v, *, causal: bool = True, q_offset: int = 0, k_offset: int = 0,
     n_q_heads: int = 1, n_kv_heads: int = 1,
 ):
     """q [B·H, Sq, D], k/v [B·K, Sk, D] → (o [B·H, Sq, D], lse [B·H, Sq, 1]).
 
-    CUDA tensors launch ``csrc/flash_fwd.cu`` (``flash_fwd_bhsd.launches``
-    counts each launch); CPU tensors run ``flash_fwd_plain``."""
+    CUDA tensors launch the ``csrc/flash_fwd.cu`` kernel that
+    ``_route`` picks (``flash_fwd_bhsd.launches`` counts each launch,
+    ``.tc_launches`` the tensor-core ones); CPU tensors run
+    ``flash_fwd_plain``."""
     _check(q, k, v, n_q_heads, n_kv_heads)
     if q.device.type == "cpu":
         return flash_fwd_plain(
@@ -129,35 +166,40 @@ def flash_fwd_bhsd(
         raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_fwd kernel needs contiguous q, k and v")
-    bh, sq, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
-    fn = _lib().tk_flash_fwd
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), _DTYPES[q.dtype], bh, sq, k.shape[1], d,
-            n_q_heads, n_kv_heads, int(q_offset), int(k_offset),
-            int(bool(causal)), 1.0 / math.sqrt(d), stream,
-        )
-    _native.check(rc, "flash_fwd")
+    route = _route(q.dtype, q.shape[2])
+    o, lse = _launch_fwd(
+        q, k, v, route, causal=causal, q_offset=q_offset, k_offset=k_offset,
+        n_q_heads=n_q_heads, n_kv_heads=n_kv_heads,
+    )
     flash_fwd_bhsd.launches += 1
+    flash_fwd_bhsd.tc_launches += route == "tc"
     return o, lse
 
 
 flash_fwd_bhsd.launches = 0
+flash_fwd_bhsd.tc_launches = 0
 
 
 def _lib():
     lib = _native.load("flash_fwd")
-    fn = lib.tk_flash_fwd
-    if fn.argtypes is None:
+    if lib.tk_flash_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+        lib.tk_flash_fwd.argtypes = [p] * 5 + [i] * 11 + [ctypes.c_float, p]
+        lib.tk_flash_fwd.restype = ctypes.c_int
+        lib.tk_flash_fwd_tc_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.tk_flash_fwd_tc_attrs.restype = ctypes.c_int
     return lib
+
+
+def fwd_tc_attrs(d: int) -> dict:
+    """The compiled resources of the tensor-core forward kernel that serves
+    head dim ``d``: {"regs", "local_bytes", "static_smem", "dynamic_smem"}
+    (local bytes > 0 means spills). Builds the library if needed; needs
+    CUDA."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().tk_flash_fwd_tc_attrs(64 if d <= 64 else 128, out)
+    _native.check(rc, "flash_fwd attrs")
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem"), out))
 
 
 # ----------------------------------------------------------------- backward
@@ -242,12 +284,11 @@ def _check_bwd(q, k, v, do, lse, delta, n_q_heads, n_kv_heads) -> None:
 
 
 def _bwd_route(dtype: torch.dtype, d: int) -> str:
-    """Which backward kernel a CUDA launch takes, by rule: "tc" (tensor
-    cores, bf16 products) for bf16 with D a multiple of 16, "simt" (f32
-    FMAs on the CUDA cores) for f32 or any other D. Raises for D > 128."""
+    """``_route`` for the backward kernels, which take D <= 128 only:
+    raises for a larger D."""
     if d > _D_MAX_BWD:
         raise ValueError(f"flash backward kernels take head dim <= {_D_MAX_BWD}, got {d}")
-    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
+    return _route(dtype, d)
 
 
 def _launch_args(what, tensors, causal, q_offset, k_offset, n_q_heads,
