@@ -31,12 +31,24 @@ Phases, each printing one JSON line:
    kernel's registers and spill bytes (0 required); timings and TFLOP/s,
    beside the CUDA-core kernels on the same bf16 inputs, with SDPA's
    backward as the pair's yardstick;
-5. kvattn_dynlen: the int8 decode kernel (K4) against its plain version at
-   the 1b decode shape with pools of 192 and 2048 positions, and timings;
-5b. kvattn_paged: the block-table int8 decode kernel (K5) against its plain
-   version at the 1b decode shape, block size 16, logical views of 192 and
-   2048 positions (shared prefix blocks, sink entries, unreferenced garbage
-   blocks), timings, and K4's time on the same fills laid out dense;
+5. kvattn_dynlen: the split-K int8 decode kernel (K4) against its plain
+   version at the 1b decode shape with pools of 192 and 2048 positions, at
+   the serving watermarks and at span and tile edges (0, L-1, L, L+1, ...;
+   where the planner keeps one span, also under forced spans of 64, so the
+   merge runs at the serving pool), and at rep 1, 4 (the 8b decode shape)
+   and 8 on the 192 pool; each case's span L and n_split; the kernels' int8
+   conversion exact for all 256 values; where the read splits, two
+   launches bitwise equal, and launches on two streams (each with its own
+   merge counter buffer) bitwise equal to them; registers and spill bytes
+   at rep 2 and 8 (0 required); timings at the planner's split, forced to
+   one span and to spans of 64, 128 and 256, beside the plain version and
+   the bound, and what the same events give a one-element add (the launch
+   in every event time);
+5b. kvattn_paged: the split-K block-table int8 decode kernel (K5) the same
+   way at block size 16, logical views of 192 and 2048 positions (shared
+   prefix blocks, sink entries, unreferenced garbage blocks), and at block
+   sizes 16, 32 and 64 with table entries outside [0, NB) past the live
+   range; K4's time on the same fills laid out dense;
 5c. qmatmul: the int8 weight matmul kernel (K6) against its plain version
    on int8 weights drawn by the zoo at the 8b shapes (w_gate, w_down,
    lm_head) with 16 decode rows, and w_gate with 2048 prefill rows; timings
@@ -411,42 +423,187 @@ def _simt_bwd_calls(torch, flash, args, kw):
     return dq_call, dkv_call
 
 
+KV_TOL = {"bf16": 3e-2, "f32": 1e-4}
+
+
+def _kv_errs(torch, kernel, plain, make_q, what: str) -> dict:
+    """The kernel against its plain version on the same inputs, bf16 and
+    f32 q (``make_q(dtype)``): max |difference| of each, within KV_TOL."""
+    row = {}
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q = make_q(dtype)
+        got, ref = kernel(q), plain(q)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, ref)
+        if not (err <= KV_TOL[dn] and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{what} {dn}: err {err}")
+        row[dn] = err
+    return row
+
+
+@contextlib.contextmanager
+def _span(kvattn, span):
+    """Force the span length of the split reads (None: the planner's)."""
+    kvattn._forced_span = span
+    try:
+        yield
+    finally:
+        kvattn._forced_span = None
+
+
+def _kv_bitwise(torch, kvattn, call, what: str) -> dict:
+    """Two launches bitwise equal; one launch on each of two side streams,
+    queued together, each stream with its own merge counter buffer, bitwise
+    equal to them; every counter buffer back at zero afterwards. Run where
+    the read splits (n_split > 1), so that the merge runs."""
+    a, b = call(), call()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        c = call()
+    with torch.cuda.stream(s2):
+        d = call()
+    torch.cuda.synchronize()
+    dev = torch.cuda.current_device()
+    res = {"two_launches_equal": torch.equal(a, b),
+           "two_streams_equal": torch.equal(a, c) and torch.equal(a, d),
+           "own_counter_per_stream": {(dev, s1.cuda_stream), (dev, s2.cuda_stream)}
+           <= set(kvattn._counters),
+           "counters_zero_after": all(int(t.count_nonzero()) == 0
+                                      for t in kvattn._counters.values())}
+    if not all(res.values()):
+        raise AssertionError(f"{what}: {res}")
+    return res
+
+
+def _kv_times(torch, kvattn, kernel, plain, flush, m_len: int, sweep=()) -> dict:
+    """The kernel at the planner's split, forced to one span (the old
+    single-block schedule) and to each span length of ``sweep``, and the
+    plain version, on the same inputs."""
+    row = {"kernel_ms": cuda_ms(torch, kernel, flush)}
+    for key, span in (("one_span_ms", m_len), *((f"span{L}_ms", L) for L in sweep)):
+        with _span(kvattn, span):
+            row[key] = cuda_ms(torch, kernel, flush)
+    row["plain_ms"] = cuda_ms(torch, plain, flush)
+    return row
+
+
+def _kv_bound(torch, pos, K: int, REP: int, DH: int, extra_bytes: int = 0):
+    """(bound ms, by) of one read: the positions this run's watermarks need,
+    K and V rows with their scales, q and the output in bf16, pos."""
+    B = pos.shape[0]
+    n_read = int((pos.long() + 1).sum())
+    nbytes = n_read * K * 2 * (DH + 4) + 2 * (2 * B * K * REP * DH) + 4 * B + extra_bytes
+    return bound(4.0 * n_read * K * REP * DH, nbytes)
+
+
+def _spans(row: dict) -> dict:
+    """The forced span lengths' times of a timed row: {"64": ms, ...}."""
+    return {key[4:-3]: v for key, v in row.items() if key.startswith("span") and key.endswith("_ms")}
+
+
+def check_i8_convert(torch, kvattn) -> dict:
+    """The kernels' int8 -> f32 and -> bf16 conversion run on the card for
+    all 256 int8 values, against the exact (float)x."""
+    f32, b16 = kvattn.i8_convert_table()
+    want = torch.arange(-128, 128, device="cuda").to(torch.int8).float()
+    ok = {"f32": torch.equal(f32, want), "bf16": torch.equal(b16.float(), want)}
+    if not all(ok.values()):
+        raise AssertionError(f"int8 conversion not exact: {ok}")
+    return {"values": 256, "exact": ok}
+
+
+SPAN_SWEEP = (64, 128, 256)  # span lengths timed beside the planner's
+
+
+def _edge_pos(torch, M: int, L: int):
+    """16 watermarks at span and tile edges: 0 (one position), L-1, L,
+    L+1, 2L-1, 2L, 2L+1, 63, 64, 65, 127, 128, 129, M/2, M-2 and M-1,
+    clamped into the pool."""
+    edges = (0, L - 1, L, L + 1, 2 * L - 1, 2 * L, 2 * L + 1, 63, 64, 65, 127, 128, 129,
+             M // 2, M - 2, M - 1)
+    return torch.tensor([min(p, M - 1) for p in edges], dtype=torch.int32, device="cuda")
+
+
 def check_kvattn(torch, kvattn, flush, gen) -> dict:
     """K4 against its plain version at the 1b decode shape (B=16, K=8,
-    rep=2, Dh=128) with pools of 192 (the serve phase's) and 2048."""
+    rep=2, Dh=128) with pools of 192 (the serve phase's) and 2048, at the
+    serving watermarks and at span edges; rep 1, 4 (the 8b decode shape)
+    and 8 at a pool of 192; two launches and two streams bitwise; the
+    kernel's registers and spills; timings at the planner's split and at
+    one span."""
     B, K, REP, DH = 16, 8, 2, 128
-    tol = {"bf16": 3e-2, "f32": 1e-4}
     out = {"phase": "kvattn_dynlen", "shape": {"B": B, "K": K, "rep": REP, "Dh": DH},
-           "tolerance": tol, "pools": {}}
-    for M in (192, 2048):
-        base = [0, 63, 64, 127, 128, M // 2 + 5, M - 2, M - 1]
-        pos = torch.tensor((base * 2)[:B], dtype=torch.int32, device="cuda")
+           "tolerance": KV_TOL, "pools": {}, "reps": {},
+           "i8_convert": check_i8_convert(torch, kvattn)}
+    # What cuda_ms gives a one-element add: the launch in every event time.
+    one = torch.zeros(1, device="cuda")
+    out["event_floor_ms"] = cuda_ms(torch, lambda: one.add_(1), flush)
+    attrs = {f"rep{r}": kvattn.dynlen_attrs(torch.bfloat16, r) for r in (2, 8)}
+    attrs["rep8_f32"] = kvattn.dynlen_attrs(torch.float32, 8)
+    if any(a["local_bytes"] for a in attrs.values()):
+        raise AssertionError(f"kvattn_dynlen spills: {attrs}")
+    out["attrs"] = attrs
+
+    def pool(M):
         kq, vq = (torch.randint(-127, 127, (B, K, M, DH), generator=gen,
                                 device="cuda", dtype=torch.int8) for _ in range(2))
         ks, vs = (torch.rand((B, K, M), generator=gen, device="cuda") * 0.02 + 1e-3
                   for _ in range(2))
-        row = {}
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(dtype)
-            got = kvattn.int8_decode_attention_dynlen(q, kq, ks, vq, vs, pos)
-            ref = kvattn.int8_decode_attention_plain(q, kq, ks, vq, vs, pos)
-            torch.cuda.synchronize()
-            err = max_err(torch, got, ref)
-            lim = tol["f32"] if dtype == torch.float32 else tol["bf16"]
-            if not (err <= lim and torch.isfinite(got.float()).all()):
-                raise AssertionError(f"kvattn M={M} {dtype}: err {err}")
-            row["f32" if dtype == torch.float32 else "bf16"] = err
-        q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(torch.bfloat16)
-        args = (q, kq, ks, vq, vs, pos)
-        ms = cuda_ms(torch, lambda: kvattn.int8_decode_attention_dynlen(*args), flush)
-        plain_ms = cuda_ms(torch, lambda: kvattn.int8_decode_attention_plain(*args), flush)
-        n_read = int((pos.long() + 1).sum())  # positions this run's data needs
-        nbytes = n_read * K * 2 * (DH + 4) + 2 * (2 * B * K * REP * DH) + 4 * B
-        flops = 4.0 * n_read * K * REP * DH
-        bms, by = bound(flops, nbytes)
-        out["pools"][str(M)] = {"watermarks": pos.tolist(), "max_abs_err": row,
-                                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                                "bound_by": by, "library_ms": None}
+        return kq, ks, vq, vs
+
+    def make_q(rep):
+        return lambda dtype: torch.randn((B, 1, K * rep, DH), generator=gen,
+                                         device="cuda").to(dtype)
+
+    def case(kv, pos, rep, what):
+        return _kv_errs(torch, lambda q: kvattn.int8_decode_attention_dynlen(q, *kv, pos),
+                        lambda q: kvattn.int8_decode_attention_plain(q, *kv, pos),
+                        make_q(rep), what)
+
+    for M in (192, 2048):
+        L, n_split = kvattn._split_plan(M)
+        base = [0, 63, 64, 127, 128, M // 2 + 5, M - 2, M - 1]
+        pos = torch.tensor((base * 2)[:B], dtype=torch.int32, device="cuda")
+        kv = pool(M)
+        row = {"L": L, "n_split": n_split, "watermarks": pos.tolist(),
+               "max_abs_err": case(kv, pos, REP, f"kvattn M={M}"), "split": {}}
+        # The planner's spans and, where it does not split, forced spans of
+        # 64: the merge at this pool's span edges.
+        q = make_q(REP)(torch.bfloat16)
+        for span in ((None, 64) if n_split == 1 else (None,)):
+            with _span(kvattn, span):
+                Ls, ns = kvattn._split_plan(M, span=span)
+                edges = _edge_pos(torch, M, Ls)
+                row["split"][f"L{Ls}"] = {
+                    "L": Ls, "n_split": ns, "edge_watermarks": edges.tolist(),
+                    "edge_max_abs_err": case(kv, edges, REP, f"kvattn M={M} L={Ls} edges")}
+                if ns > 1:
+                    row["split"][f"L{Ls}"]["bitwise"] = _kv_bitwise(
+                        torch, kvattn, lambda: kvattn.int8_decode_attention_dynlen(q, *kv, pos),
+                        f"kvattn M={M} L={Ls}")
+        row.update(_kv_times(torch, kvattn,
+                             lambda: kvattn.int8_decode_attention_dynlen(q, *kv, pos),
+                             lambda: kvattn.int8_decode_attention_plain(q, *kv, pos), flush,
+                             M, [x for x in SPAN_SWEEP if x < M]))
+        row["bound_ms"], row["bound_by"] = _kv_bound(torch, pos, K, REP, DH)
+        row["library_ms"] = None
+        out["pools"][str(M)] = row
+        if M == 192:
+            edges = _edge_pos(torch, M, 64)
+            for rep in (1, 4, 8):
+                r = {"L": L, "n_split": n_split,
+                     "max_abs_err": case(kv, pos, rep, f"kvattn rep={rep}"),
+                     "edge_max_abs_err": case(kv, edges, rep, f"kvattn rep={rep} edges")}
+                with _span(kvattn, 64):
+                    r["span64_edge_max_abs_err"] = case(kv, edges, rep,
+                                                        f"kvattn rep={rep} L=64 edges")
+                q = make_q(rep)(torch.bfloat16)
+                r.update(_kv_times(
+                    torch, kvattn, lambda: kvattn.int8_decode_attention_dynlen(q, *kv, pos),
+                    lambda: kvattn.int8_decode_attention_plain(q, *kv, pos), flush, M, (64,)))
+                r["bound_ms"], r["bound_by"] = _kv_bound(torch, pos, K, rep, DH)
+                out["reps"][str(rep)] = r
     return out
 
 
@@ -475,55 +632,104 @@ def paged_case(np, B: int, M: int, bs: int, rng):
 def check_kvattn_paged(torch, kvattn, flush, gen) -> dict:
     """K5 against its plain version at the 1b decode shape (B=16, K=8,
     rep=2, Dh=128), block size 16, logical views of 192 (the serve_paged
-    phase's) and 2048 positions; K4 timed on the same fills laid out dense
-    as context."""
+    phase's) and 2048 positions, at the serving watermarks and at span
+    edges; block sizes 16, 32 and 64 at the 192 view with table entries
+    outside [0, NB) past the live range (the reference reads the clamped
+    table, as the kernel does); two launches and two streams bitwise; the
+    kernel's registers and spills; timings at the planner's split and at
+    one span, and K4's time on the same fills laid out dense as context."""
     import numpy as np
 
     B, K, REP, DH, BS = 16, 8, 2, 128, 16
-    tol = {"bf16": 3e-2, "f32": 1e-4}
     out = {"phase": "kvattn_paged", "shape": {"B": B, "K": K, "rep": REP, "Dh": DH,
                                               "bs": BS},
-           "tolerance": tol, "views": {}}
+           "tolerance": KV_TOL, "views": {}, "block_sizes": {}}
+    attrs = {f"rep{r}": kvattn.paged_attrs(torch.bfloat16, r) for r in (2, 8)}
+    attrs["rep8_f32"] = kvattn.paged_attrs(torch.float32, 8)
+    if any(a["local_bytes"] for a in attrs.values()):
+        raise AssertionError(f"kvattn_paged spills: {attrs}")
+    out["attrs"] = attrs
     rng = np.random.default_rng(SEED + 5)
+
+    def make_q(dtype):
+        return torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(dtype)
+
+    def pools(nb, bs):
+        kq, vq = (torch.randint(-127, 127, (nb, K, bs, DH), generator=gen,
+                                device="cuda", dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((nb, K, bs), generator=gen, device="cuda") * 0.02 + 1e-3
+                  for _ in range(2))
+        return kq, ks, vq, vs
+
+    def case(kv, table, pos, what, ref_table=None):
+        ref_table = table if ref_table is None else ref_table
+        return _kv_errs(
+            torch, lambda q: kvattn.int8_paged_decode_attention(q, *kv, table, pos),
+            lambda q: kvattn.int8_paged_decode_attention_plain(q, *kv, ref_table, pos),
+            make_q, what)
+
     for M in (192, 2048):
+        L, n_split = kvattn._split_plan(M, BS)
         table_np, pos_np, NB = paged_case(np, B, M, BS, rng)
         table = torch.from_numpy(table_np).cuda()
         pos = torch.from_numpy(pos_np).cuda()
-        kq, vq = (torch.randint(-127, 127, (NB, K, BS, DH), generator=gen,
-                                device="cuda", dtype=torch.int8) for _ in range(2))
-        ks, vs = (torch.rand((NB, K, BS), generator=gen, device="cuda") * 0.02 + 1e-3
-                  for _ in range(2))
-        row = {}
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(dtype)
-            got = kvattn.int8_paged_decode_attention(q, kq, ks, vq, vs, table, pos)
-            ref = kvattn.int8_paged_decode_attention_plain(q, kq, ks, vq, vs, table, pos)
-            torch.cuda.synchronize()
-            err = max_err(torch, got, ref)
-            lim = tol["f32"] if dtype == torch.float32 else tol["bf16"]
-            if not (err <= lim and torch.isfinite(got.float()).all()):
-                raise AssertionError(f"kvattn_paged M={M} {dtype}: err {err}")
-            row["f32" if dtype == torch.float32 else "bf16"] = err
-        q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(torch.bfloat16)
-        args = (q, kq, ks, vq, vs, table, pos)
-        ms = cuda_ms(torch, lambda: kvattn.int8_paged_decode_attention(*args), flush)
-        plain_ms = cuda_ms(torch, lambda: kvattn.int8_paged_decode_attention_plain(*args),
-                           flush)
+        kv = pools(NB, BS)
+        # The edge watermarks on the same pool: every table entry live.
+        full = torch.from_numpy(paged_case(np, B, M, BS, rng)[0]).cuda()
+        full = torch.where(full == 0, torch.randint(1, NB, full.shape, generator=gen,
+                                                    device="cuda", dtype=torch.int32), full)
+        row = {"L": L, "n_split": n_split, "watermarks": pos_np.tolist(), "pool_blocks": NB,
+               "max_abs_err": case(kv, table, pos, f"kvattn_paged M={M}"), "split": {}}
+        q = make_q(torch.bfloat16)
+        for span in ((None, 64) if n_split == 1 else (None,)):
+            with _span(kvattn, span):
+                Ls, ns = kvattn._split_plan(M, BS, span=span)
+                edges = _edge_pos(torch, M, Ls)
+                row["split"][f"L{Ls}"] = {
+                    "L": Ls, "n_split": ns, "edge_watermarks": edges.tolist(),
+                    "edge_max_abs_err": case(kv, full, edges, f"kvattn_paged M={M} L={Ls} edges")}
+                if ns > 1:
+                    row["split"][f"L{Ls}"]["bitwise"] = _kv_bitwise(
+                        torch, kvattn,
+                        lambda: kvattn.int8_paged_decode_attention(q, *kv, table, pos),
+                        f"kvattn_paged M={M} L={Ls}")
+        row.update(_kv_times(
+            torch, kvattn, lambda: kvattn.int8_paged_decode_attention(q, *kv, table, pos),
+            lambda: kvattn.int8_paged_decode_attention_plain(q, *kv, table, pos), flush,
+            M, [x for x in SPAN_SWEEP if x < M]))
         # K4 on the same fills, laid out dense K-major [B, K, M, Dh].
         dense = [kvattn.paged_gather_kmajor(t, table).transpose(1, 2).contiguous()
-                 for t in (kq, ks, vq, vs)]
-        k4_ms = cuda_ms(torch, lambda: kvattn.int8_decode_attention_dynlen(
-            q, dense[0], dense[1], dense[2], dense[3], pos), flush)
-        n_read = int((pos.long() + 1).sum())  # positions this run's data needs
+                 for t in kv]
+        row["k4_dense_same_fill_ms"] = cuda_ms(
+            torch, lambda: kvattn.int8_decode_attention_dynlen(q, *dense, pos), flush)
         n_ent = int(((pos.long() + BS) // BS).sum())  # table entries it reads
-        nbytes = (n_read * K * 2 * (DH + 4) + 2 * (2 * B * K * REP * DH)
-                  + 4 * n_ent + 4 * B)
-        flops = 4.0 * n_read * K * REP * DH
-        bms, by = bound(flops, nbytes)
-        out["views"][str(M)] = {"watermarks": pos_np.tolist(), "pool_blocks": NB,
-                                "max_abs_err": row, "kernel_ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": bms, "bound_by": by, "library_ms": None,
-                                "k4_dense_same_fill_ms": k4_ms}
+        row["bound_ms"], row["bound_by"] = _kv_bound(torch, pos, K, REP, DH, 4 * n_ent)
+        row["library_ms"] = None
+        out["views"][str(M)] = row
+
+    M = 192
+    for bs in (16, 32, 64):
+        L, n_split = kvattn._split_plan(M, bs)
+        table_np, pos_np, NB = paged_case(np, B, M, bs, rng)
+        # Entries past the live range outside [0, NB): clamped, never read.
+        table_np[0, -1], table_np[1, -1] = NB + 7, -3
+        table = torch.from_numpy(table_np).cuda()
+        pos = torch.from_numpy(pos_np).cuda()
+        kv = pools(NB, bs)
+        clamped = table.clamp(0, NB - 1)
+        row = {"L": L, "n_split": n_split, "pool_blocks": NB,
+               "max_abs_err": case(kv, table, pos, f"kvattn_paged bs={bs}", clamped)}
+        with _span(kvattn, 64):
+            row["span64_max_abs_err"] = case(kv, table, pos, f"kvattn_paged bs={bs} L=64",
+                                             clamped)
+        q = make_q(torch.bfloat16)
+        row.update(_kv_times(
+            torch, kvattn, lambda: kvattn.int8_paged_decode_attention(q, *kv, table, pos),
+            lambda: kvattn.int8_paged_decode_attention_plain(q, *kv, clamped, pos), flush,
+            M, (64,)))
+        n_ent = int(((pos.long() + bs) // bs).sum())
+        row["bound_ms"], row["bound_by"] = _kv_bound(torch, pos, K, REP, DH, 4 * n_ent)
+        out["block_sizes"][str(bs)] = row
     return out
 
 
@@ -1196,7 +1402,8 @@ def _profiler(torch):
 
 PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                 "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
-                "kvattn_dynlen_kernel", "kvattn_paged_kernel", "kvattn_full_kernel",
+                "kvattn_split_kernel_dense", "kvattn_split_kernel_paged",
+                "kvattn_i8_convert_kernel", "kvattn_full_kernel",
                 "qmm_decode_kernel", "qmm_tile_kernel")
 
 
@@ -1378,6 +1585,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     main_pool = k4["pools"]["192"]
+    pool_8b = k4["reps"]["4"]
     k6_main = k6["cases"]["w_gate_m16_bfloat16"]
     k78_main = k78["pools"]["192"]
     main_view = k5["views"]["192"]
@@ -1423,14 +1631,27 @@ def main() -> int:
          "launches": row_q["launches"]["kvattn_dynlen"],
          "max_abs_err": main_pool["max_abs_err"]["bf16"], "ms": main_pool["kernel_ms"],
          "plain_ms": main_pool["plain_ms"], "bound_ms": main_pool["bound_ms"],
-         "bound_by": main_pool["bound_by"], "library_ms": None},
+         "bound_by": main_pool["bound_by"], "library_ms": None,
+         "n_split": main_pool["n_split"], "span": main_pool["L"],
+         "one_span_ms": main_pool["one_span_ms"], "span_ms": _spans(main_pool),
+         "path_8b_launches": path_8b("kvattn_dynlen"),
+         "pool_2048": {**{key: k4["pools"]["2048"][key] for key in (
+             "n_split", "kernel_ms", "one_span_ms", "plain_ms", "bound_ms")},
+                       "span_ms": _spans(k4["pools"]["2048"])},
+         "shape_8b": {key: pool_8b[key] for key in (
+             "n_split", "kernel_ms", "one_span_ms", "plain_ms", "bound_ms")}},
         {"name": "kvattn_paged", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/kvattn_paged.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:755",
          "launches": row_p["launches"]["kvattn_paged"],
          "max_abs_err": main_view["max_abs_err"]["bf16"], "ms": main_view["kernel_ms"],
          "plain_ms": main_view["plain_ms"], "bound_ms": main_view["bound_ms"],
-         "bound_by": main_view["bound_by"], "library_ms": None},
+         "bound_by": main_view["bound_by"], "library_ms": None,
+         "n_split": main_view["n_split"], "span": main_view["L"],
+         "one_span_ms": main_view["one_span_ms"], "span_ms": _spans(main_view),
+         "view_2048": {**{key: k5["views"]["2048"][key] for key in (
+             "n_split", "kernel_ms", "one_span_ms", "plain_ms", "bound_ms")},
+                       "span_ms": _spans(k5["views"]["2048"])}},
         # K6-K8 lie on no serving or training path, as in the JAX package:
         # "launches" counts the calls of their own phase, "path_launches"
         # those of the two full-depth 8b serve runs.

@@ -25,12 +25,20 @@ card:
   ``models.generate._attend_cached`` on the M-major pool, K8's math in
   plain code.
 
+The two fill-bounded reads share one split-K body
+(``csrc/kvattn_split.cuh``): the grid is (n_split, B·K), each block reads
+one span of L logical positions of one (slot, kv head), and the last live
+span of a (slot, kv head) merges the spans' partials in the same launch.
+``_split_plan`` picks L and n_split from the pool or view length alone
+(the host never reads a watermark). The merge counts spans on a
+persistent int32 buffer, one per (device, CUDA stream), which every launch
+leaves at zero; the partials' workspace comes from the caching allocator.
+
 The paged pool's gathers, scatters and ``block_table_attention(_q8)``
 are plain PyTorch in both packages. The scatters write IN PLACE
 (``index_put_`` on the pool tensor, typically one layer's view); the JAX
 package returns updated pools instead. Nothing else aliases a pool, so
 the two are equivalent.
-
 """
 
 from __future__ import annotations
@@ -49,8 +57,8 @@ _REPS = (1, 2, 4, 8)
 
 def kernel_applicable(head_dim: int, max_len: int, n_rep: int = 1) -> bool:
     """Shapes the CUDA kernel takes: head_dim a multiple of 16 up to 128
-    (16-byte row loads, one output column per thread), a non-empty pool
-    of any length (the kernel masks the ragged tile), and H/K in
+    (16-byte row chunks, eight lanes a row), a non-empty pool of any
+    length (the kernel masks the ragged span and tile), and H/K in
     {1, 2, 4, 8} query rows per kv head."""
     return (
         head_dim % 16 == 0 and 16 <= head_dim <= 128 and max_len >= 1
@@ -60,13 +68,75 @@ def kernel_applicable(head_dim: int, max_len: int, n_rep: int = 1) -> bool:
 
 def dynlen_block(max_len: int) -> int:
     """The TPU kernel's M-block: the largest of (512, 256, 128, 64, 8)
-    dividing the pool length (0 if none). The CUDA kernel tiles 128
-    positions and masks the last tile, so it serves any pool length; this
-    stays for callers that reason in the TPU kernel's block units."""
+    dividing the pool length (0 if none). The CUDA kernel splits the pool
+    into spans (``_split_plan``) and masks the ragged one, so it serves any
+    pool length; this stays for callers that reason in the TPU kernel's
+    block units."""
     for mb in (512, 256, 128, 64, 8):
         if max_len % mb == 0:
             return mb
     return 0
+
+
+# ------------------------------------------------------------ split-K plan
+_SPAN = 64  # positions a span at least: one kernel tile
+_ONE_SPAN_MAX = 256  # pools of up to four tiles run as one span
+_MAX_SPLIT = 16  # spans a (slot, kv head) at most; longer pools widen L
+_KERNEL_MAX_SPLIT = 64  # what the kernel's merge takes (KV_MAX_SPLIT)
+# A span length that replaces the planner's (one span when >= the pool):
+# for timing what the split buys. Only the on-card smoke check sets it.
+_forced_span: int | None = None
+
+
+def _split_plan(m_len: int, bs: int = 1, *, span: int | None = None) -> tuple[int, int]:
+    """(L, n_split) for a pool or logical view of ``m_len`` positions in
+    blocks of ``bs``. The rule, from K4/K5 timed on the H100 at pools of
+    192-4096 positions: a pool of up to four 64-position tiles is one span
+    (the merge's dependent round trips through device memory cost more
+    than two or three tiles in parallel save); a longer one splits into
+    spans of L = 64·k positions, the least k that gives at most 16 spans.
+    Where bs <= L, L rounds up to whole blocks, so a span reads each of its
+    table entries once. n_split = ceil(m_len / L), the least count that
+    covers the pool. ``span`` forces L (one span when >= m_len). Pure
+    Python: the watermarks are not read, so planning needs no sync."""
+    if m_len < 1 or bs < 1:
+        raise ValueError(f"want m_len >= 1 and bs >= 1, got {m_len}, {bs}")
+    if span is None:
+        span = m_len if m_len <= _ONE_SPAN_MAX else _SPAN * -(-m_len // (_SPAN * _MAX_SPLIT))
+    span = min(max(span, 1), m_len)
+    if bs <= span:
+        span = -(-span // bs) * bs
+    n_split = -(-m_len // span)
+    if n_split > _KERNEL_MAX_SPLIT:
+        raise ValueError(f"{n_split} spans of {span}: the merge takes {_KERNEL_MAX_SPLIT}")
+    return span, n_split
+
+
+# One zeroed int32 counter a (slot, kv head) for the merge, per (device,
+# CUDA stream): launches on one stream run in order and each leaves its
+# counters at zero, so the buffer is zeroed once, when it is made or grown.
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counter(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def _split_args(q: torch.Tensor, bk: int, rep: int, dh: int, m_len: int, bs: int,
+                stream: int) -> tuple[int, int, int, int, tuple[torch.Tensor, ...]]:
+    """(L, n_split, workspace pointer, counter pointer, tensors to keep
+    alive until the launch is queued) for one launch of a split read."""
+    span, n_split = _split_plan(m_len, bs, span=_forced_span)
+    if n_split == 1:
+        return span, 1, 0, 0, ()
+    ws = torch.empty(bk * n_split * rep * (dh + 2), dtype=torch.float32, device=q.device)
+    cnt = _counter(q.device, stream, bk)
+    return span, n_split, ws.data_ptr(), cnt.data_ptr(), (ws, cnt)
 
 
 def int8_decode_attention_plain(q, ck_q, ck_s, cv_q, cv_s, pos):
@@ -117,9 +187,9 @@ def int8_decode_attention_dynlen(q, ck_q, ck_s, cv_q, cv_s, pos):
     """q [B, 1, H, Dh] against a K-major int8 cache ``ck_q``/``cv_q``
     [B, K, M, Dh] with f32 scales [B, K, M], reading only positions
     ``[0, pos[b]]`` of slot b (``pos``: [B] int32) → [B, 1, H, Dh] in q's
-    dtype. CUDA tensors launch ``csrc/kvattn_dynlen.cu``
-    (``int8_decode_attention_dynlen.launches`` counts each launch); CPU
-    tensors run ``int8_decode_attention_plain``."""
+    dtype. CUDA tensors launch ``csrc/kvattn_dynlen.cu``, split as
+    ``_split_plan`` says (``int8_decode_attention_dynlen.launches`` counts
+    each launch); CPU tensors run ``int8_decode_attention_plain``."""
     _check(q, ck_q, ck_s, cv_q, cv_s, pos)
     if q.device.type == "cpu":
         return int8_decode_attention_plain(q, ck_q, ck_s, cv_q, cv_s, pos)
@@ -135,13 +205,17 @@ def int8_decode_attention_dynlen(q, ck_q, ck_s, cv_q, cv_s, pos):
     ops = (q, ck_q, ck_s, cv_q, cv_s, pos)
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("the int8 decode kernel needs contiguous operands")
+    if ck_q.data_ptr() % 16 or cv_q.data_ptr() % 16:
+        raise ValueError("the int8 payloads must be 16-byte aligned")
     out = torch.empty_like(q)
     fn = _lib().tk_kvattn_dynlen
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        span, n_split, ws, cnt, _keep = _split_args(q, b * n_kv, h // n_kv, dh, m, 1,
+                                                    stream)
         rc = fn(
-            *(t.data_ptr() for t in ops), out.data_ptr(), _DTYPES[q.dtype],
-            b, n_kv, h // n_kv, m, dh, float(1.0 / np.sqrt(dh)), stream,
+            *(t.data_ptr() for t in ops), out.data_ptr(), ws, cnt, _DTYPES[q.dtype],
+            b, n_kv, h // n_kv, m, dh, span, n_split, float(1.0 / np.sqrt(dh)), stream,
         )
     _native.check(rc, "kvattn_dynlen")
     int8_decode_attention_dynlen.launches += 1
@@ -156,9 +230,40 @@ def _lib():
     fn = lib.tk_kvattn_dynlen
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        # q, kq, ks, vq, vs, pos, out, ws, counter; dtype, b, n_kv, rep, m,
+        # dh, span, n_split; 1/sqrt(dh); stream.
+        fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        lib.tk_kvattn_dynlen_attrs.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.tk_kvattn_dynlen_attrs.restype = ctypes.c_int
+        lib.tk_kvattn_i8_convert.argtypes = [p, p, p]
+        lib.tk_kvattn_i8_convert.restype = ctypes.c_int
     return lib
+
+
+def _attrs(fn, dtype: torch.dtype, rep: int, what: str) -> dict:
+    out = (ctypes.c_int * 4)()
+    _native.check(fn(_DTYPES[dtype], rep, out), what)
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem"), out))
+
+
+def dynlen_attrs(dtype: torch.dtype = torch.bfloat16, rep: int = 2) -> dict:
+    """The compiled resources of K4's kernel for (dtype, rep):
+    {"regs", "local_bytes", "static_smem", "dynamic_smem"} (local bytes > 0
+    means spills). Builds the library if needed; needs CUDA."""
+    return _attrs(_lib().tk_kvattn_dynlen_attrs, dtype, rep, "kvattn_dynlen attrs")
+
+
+def i8_convert_table(device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' int8 conversion run on the card for every int8 value:
+    (f32 [256], bf16 [256]), entry x for the int8 x - 128."""
+    f32 = torch.empty(256, dtype=torch.float32, device=device)
+    b16 = torch.empty(256, dtype=torch.bfloat16, device=device)
+    with torch.cuda.device(f32.device):
+        stream = torch.cuda.current_stream(f32.device).cuda_stream
+        rc = _lib().tk_kvattn_i8_convert(f32.data_ptr(), b16.data_ptr(), stream)
+    _native.check(rc, "kvattn i8 convert")
+    return f32, b16
 
 
 # ------------------------------------------------------- full pool, masked
@@ -421,11 +526,11 @@ def block_table_attention_q8(x, q, k_new, v_new, pool_kq, pool_ks, pool_vq,
 
 def paged_kernel_applicable(head_dim: int, block_size: int, n_rep: int = 1) -> bool:
     """Shapes the CUDA block-table kernel takes: head_dim a multiple of 16
-    up to 128 (16-byte row loads, one output column per thread), H/K in
-    {1, 2, 4, 8} query rows per kv head, and any block_size >= 1. A
-    128-position tile is assembled from the table entries it spans and
-    each row is addressed through its own entry, so blocks smaller or
-    larger than a tile both work; each block's [bs, Dh] run is
+    up to 128 (16-byte row chunks, eight lanes a row), H/K in {1, 2, 4,
+    8} query rows per kv head, and any block_size >= 1. A span's tiles
+    are assembled from the table entries they cover and each row is
+    addressed through its own entry, so blocks smaller or larger than a
+    span both work; each block's [bs, Dh] run is
     contiguous, so the 16-byte row loads stay coalesced inside a block
     (block_size 16 — vLLM's default page, and what ``chip_smoke.py``
     serves with — gives 2 KB runs at head_dim 128)."""
@@ -481,8 +586,9 @@ def int8_paged_decode_attention(q, pool_kq, pool_ks, pool_vq, pool_vs, table, po
     (int32) at watermarks ``pos`` [B] (int32; positions [0, pos[b]]
     readable) → [B, 1, H, Dh] in q's dtype. Only the ceil((pos+1)/bs)
     table entries a slot needs are read, and no gathered view is
-    materialised. CUDA tensors launch ``csrc/kvattn_paged.cu``
-    (``int8_paged_decode_attention.launches`` counts each launch); CPU
+    materialised. CUDA tensors launch ``csrc/kvattn_paged.cu``, split as
+    ``_split_plan`` says (``int8_paged_decode_attention.launches`` counts
+    each launch); CPU
     tensors run ``int8_paged_decode_attention_plain``."""
     _check_paged(q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos)
     if q.device.type == "cpu":
@@ -502,14 +608,18 @@ def int8_paged_decode_attention(q, pool_kq, pool_ks, pool_vq, pool_vs, table, po
     ops = (q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos)
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("the int8 paged kernel needs contiguous operands")
+    if pool_kq.data_ptr() % 16 or pool_vq.data_ptr() % 16:
+        raise ValueError("the int8 payloads must be 16-byte aligned")
     out = torch.empty_like(q)
     fn = _lib_paged().tk_kvattn_paged
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        span, n_split, ws, cnt, _keep = _split_args(q, b * n_kv, h // n_kv, dh,
+                                                    nblk * bs, bs, stream)
         rc = fn(
-            *(t.data_ptr() for t in ops), out.data_ptr(), _DTYPES[q.dtype],
-            b, n_kv, h // n_kv, nb, bs, nblk, dh, float(1.0 / np.sqrt(dh)),
-            stream,
+            *(t.data_ptr() for t in ops), out.data_ptr(), ws, cnt, _DTYPES[q.dtype],
+            b, n_kv, h // n_kv, nb, bs, nblk, dh, span, n_split,
+            float(1.0 / np.sqrt(dh)), stream,
         )
     _native.check(rc, "kvattn_paged")
     int8_paged_decode_attention.launches += 1
@@ -524,8 +634,16 @@ def _lib_paged():
     fn = lib.tk_kvattn_paged
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q, kq, ks, vq, vs, table, pos, out; dtype, b, n_kv, rep, nb,
-        # bs, nblk, dh; 1/sqrt(dh); stream.
-        fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, p]
+        # q, kq, ks, vq, vs, table, pos, out, ws, counter; dtype, b, n_kv,
+        # rep, nb, bs, nblk, dh, span, n_split; 1/sqrt(dh); stream.
+        fn.argtypes = [p] * 10 + [i] * 10 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        lib.tk_kvattn_paged_attrs.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.tk_kvattn_paged_attrs.restype = ctypes.c_int
     return lib
+
+
+def paged_attrs(dtype: torch.dtype = torch.bfloat16, rep: int = 2) -> dict:
+    """The compiled resources of K5's kernel for (dtype, rep), as
+    ``dynlen_attrs``. Builds the library if needed; needs CUDA."""
+    return _attrs(_lib_paged().tk_kvattn_paged_attrs, dtype, rep, "kvattn_paged attrs")
