@@ -27,7 +27,8 @@ Phases, each printing one JSON line:
    D=128, bf16: the tensor-core kernels), in f32 (the CUDA-core kernels),
    and in bf16 at the 8b heads, D=64/32/16, non-causal, S=17, a ragged
    S=200 and a k_offset with fully masked rows (dq = 0 there, no NaN
-   anywhere); K3 bitwise equal across two launches; each tensor-core
+   anywhere); D=160 and D=256 in bf16 and f32 through the CUDA-core
+   kernels; K3 bitwise equal across two launches; each tensor-core
    kernel's registers and spill bytes (0 required); timings and TFLOP/s,
    beside the CUDA-core kernels on the same bf16 inputs, with SDPA's
    backward as the pair's yardstick;
@@ -49,10 +50,18 @@ Phases, each printing one JSON line:
    prefix blocks, sink entries, unreferenced garbage blocks), and at block
    sizes 16, 32 and 64 with table entries outside [0, NB) past the live
    range; K4's time on the same fills laid out dense;
-5c. qmatmul: the int8 weight matmul kernel (K6) against its plain version
-   on int8 weights drawn by the zoo at the 8b shapes (w_gate, w_down,
-   lm_head) with 16 decode rows, and w_gate with 2048 prefill rows; timings
-   beside the library's int8 matmul;
+5c. qmatmul: the int8 weight matmul (K6) against its plain version on
+   int8 weights drawn by the zoo at the 8b shapes (w_gate, w_down, lm_head)
+   with 16 decode rows, w_gate and w_down with 2048 prefill rows, and w_gate
+   with 8, 24, 64 and 200 rows, in bf16 (the tensor-core kernel) and, on
+   w_gate's 16 rows, f32 (the CUDA-core kernel); each case's route and plan
+   (BM, BN, BK, K splits); tc_launches == the bf16 calls; where K splits,
+   two launches and two streams bitwise equal; the int8 -> bf16 conversion
+   exact for all 256 values; registers and spill bytes (0 required);
+   timings of the tensor-core kernel beside the CUDA-core kernel on the
+   same bf16 inputs, forced K splits, the plain version and the library's int8
+   matmul, with the bound, TFLOP/s and GB/s (and, for information only,
+   a dense bf16 matmul on a weight dequantised beforehand);
 5d. kvattn_full: the full-pool masked int8 reads, K-major (K7) and M-major
    (K8), at the 8b decode shape (B=16, K=8, rep=4, Dh=128) with pools of
    192 and 2048: on prefix masks K7, K8 (on the transposed pool), K4 and
@@ -287,8 +296,9 @@ def check_flash_bwd(torch, F, flash, flush, gen) -> dict:
     training shape in bf16 (the tensor-core kernels) and f32 (the CUDA-core
     kernels), and in bf16 at the 8b heads (rep 4), D=64, D=32 with rep 8
     and a q_offset, D=16, non-causal, S=17, a ragged S=200 and a k_offset
-    with fully masked rows (dq = 0 there, no NaN anywhere); D=40 takes the
-    CUDA-core kernel in bf16. K3 twice on the same inputs must agree
+    with fully masked rows (dq = 0 there, no NaN anywhere); D=40, D=160 and
+    D=256 take the CUDA-core kernels (D=160 and 256 in bf16 and f32, the
+    32-row tiles past D=128). K3 twice on the same inputs must agree
     bitwise. Timings at the training shape beside the CUDA-core kernels on
     the same bf16 inputs, the plain versions and SDPA's backward."""
     B, S, H, K, D = 8, 512, 16, 8, 128
@@ -309,6 +319,11 @@ def check_flash_bwd(torch, F, flash, flush, gen) -> dict:
         "d32_rep8_q_offset32_bf16": (2, 100, bf16, 32, 0, H, 2, 32, True),
         "d16_s77_noncausal_bf16": (2, 77, bf16, 0, 0, 8, 4, 16, False),
         "d40_simt_bf16": (2, 96, bf16, 0, 0, H, K, 40, True),
+        # Past the tensor cores' D <= 128: the CUDA-core kernels' 32-row tiles.
+        "d160_s200_simt_bf16": (2, 200, bf16, 0, 0, H, K, 160, True),
+        "d160_s200_simt_f32": (2, 200, f32, 0, 0, H, K, 160, True),
+        "d256_simt_bf16": (2, 256, bf16, 0, 0, H, K, 256, True),
+        "d256_k_offset32_simt_f32": (2, 256, f32, 0, 32, H, K, 256, True),
     }
 
     def make(b, s, dtype, h=H, kh=K, d=D):
@@ -327,7 +342,7 @@ def check_flash_bwd(torch, F, flash, flush, gen) -> dict:
         tc = [fn.tc_launches - n for fn, n in zip(kernels, before)]
         ref = flash.flash_bwd_plain(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        route = flash._bwd_route(dtype, d)
+        route = flash._route(dtype, d)
         if tc != ([1, 1] if route == "tc" else [0, 0]):
             raise AssertionError(f"flash_bwd {name}: route {route} but tc launches {tc}")
         routes[name] = route
@@ -753,55 +768,136 @@ def _library_int8_mm(torch, x, q, scale):
     return "x @ load_weight(q)", lambda: x @ load_weight(w, x.dtype)
 
 
-def check_qmatmul(torch, flush, gen) -> dict:
+def check_qmatmul(torch, kvattn, flush, gen) -> dict:
     """K6 against its plain version on int8 weights drawn by the zoo
     (``_rand_q``) at the 8b shapes: 16 decode rows on w_gate, w_down and
-    lm_head, 2048 prefill rows (16 × 128) on w_gate; x bf16, and f32 on
-    w_gate's decode rows. Every shape tiles, so every call must launch the
-    kernel."""
+    lm_head, 2048 prefill rows (16 × 128) on w_gate and w_down, and on
+    w_gate 8, 24, 64 and 200 rows (200: a ragged last tile); x bf16 (the
+    tensor-core kernel), and f32 on w_gate's decode rows (the CUDA-core
+    kernel). Every shape tiles, so every call must launch a kernel, by the
+    route ``_route`` names; each case prints its route and plan. Where the
+    plan splits K, two launches and two streams bitwise equal. The
+    tensor-core kernel's int8 conversion exact for all 256 values, its
+    registers and spill bytes (0 required). At the 8b shapes, timings of
+    the tensor-core kernel beside the CUDA-core kernel on the same bf16
+    inputs, the plain version, ``torch._weight_int8pack_mm``, forced
+    splits of 1, 2, 4, 8 and 16 (decode rows), the bound, TFLOP/s and
+    GB/s; at 2048 rows, how many outputs a sequential f32 GEMM puts
+    outside the tolerance of the plain version's exact f32 sum."""
+    from torchkafka_tpu_torch.models.quant import QTensor, load_weight
     from torchkafka_tpu_torch.models.zoo import _rand_q
-    from torchkafka_tpu_torch.ops.qmatmul import quantized_matmul, quantized_matmul_plain
+    from torchkafka_tpu_torch.ops import qmatmul as qmm
 
-    # bf16: one bf16 ulp of the plain value (the f32 sums differ only in
-    # order, so the two roundings land at most one step apart); f32: the
-    # f32 sum order over up to 14,336 terms, on outputs of unit scale.
+    quantized_matmul, plain = qmm.quantized_matmul, qmm.quantized_matmul_plain
+    # bf16: one bf16 ulp of the plain value (the plain version rounds the
+    # exact sum once to f32, the kernel's f32 sums differ from it by their
+    # own rounding, so the two bf16 roundings land at most one step apart);
+    # f32: the f32 sum order over up to 14,336 terms, on outputs of unit
+    # scale.
     tol = {"bf16_ulp_rel": 2.0 ** -7, "f32_abs": 1e-4}
     shapes = {"w_gate": (4096, 14336), "w_down": (14336, 4096), "lm_head": (4096, 128256)}
-    weights = {n: _rand_q(gen, s, (0,), "cuda") for n, s in shapes.items()}
-    cases = [("w_gate", 16, torch.bfloat16), ("w_down", 16, torch.bfloat16),
-             ("lm_head", 16, torch.bfloat16), ("w_gate", 2048, torch.bfloat16),
-             ("w_gate", 16, torch.float32)]
-    out = {"phase": "qmatmul", "tolerance": tol, "cases": {}}
-    quantized_matmul.launches = 0
-    for name, m, dtype in cases:
+    weights = {nm: _rand_q(gen, s, (0,), "cuda") for nm, s in shapes.items()}
+    bf16 = torch.bfloat16
+    timed = {("w_gate", 16), ("w_down", 16), ("lm_head", 16), ("w_gate", 2048),
+             ("w_down", 2048)}
+    cases = [("w_gate", 16, bf16), ("w_down", 16, bf16), ("lm_head", 16, bf16),
+             ("w_gate", 2048, bf16), ("w_gate", 16, torch.float32),
+             ("w_gate", 8, bf16), ("w_gate", 24, bf16), ("w_gate", 64, bf16),
+             ("w_gate", 200, bf16), ("w_down", 2048, bf16)]
+    table = qmm.i8_convert_table()
+    want = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8).view(
+        torch.int8).to(bf16)
+    if not torch.equal(table.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("qmatmul: the int8 -> bf16 conversion is not exact")
+    attrs = {f"bm{bm}": qmm.tc_attrs(bm) for bm in (16, 32, 64, 128)}
+    if any(a["local_bytes"] for a in attrs.values()):
+        raise AssertionError(f"qmatmul: the tensor-core kernel spills {attrs}")
+    out = {"phase": "qmatmul", "tolerance": tol, "i8_convert_exact": True,
+           "tc_resources": attrs, "cases": {}}
+    quantized_matmul.launches = quantized_matmul.tc_launches = 0
+    inputs = {}
+    for name, m, dtype in cases:  # one counted call a case: the checks
         w = weights[name]
         k, n = shapes[name]
         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-        before = quantized_matmul.launches
+        inputs[(name, m, dtype)] = x
+        before = (quantized_matmul.launches, quantized_matmul.tc_launches)
         got = quantized_matmul(x, w.q, w.scale)
-        if quantized_matmul.launches != before + 1:
-            raise AssertionError(f"qmatmul {name} M={m}: the kernel did not launch")
-        ref = quantized_matmul_plain(x, w.q, w.scale)
+        route = qmm._route(dtype, k, n)
+        after = (quantized_matmul.launches, quantized_matmul.tc_launches)
+        if after != (before[0] + 1, before[1] + (route == "tc")):
+            raise AssertionError(f"qmatmul {name} M={m}: launches {before} -> {after}, "
+                                 f"route {route}")
+        ref = plain(x, w.q, w.scale)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs()
-        if dtype == torch.bfloat16:
+        if dtype == bf16:
             ok = bool((err <= tol["bf16_ulp_rel"] * ref.float().abs() + 1e-6).all())
         else:
             ok = float(err.max()) <= tol["f32_abs"]
         if not (ok and torch.isfinite(got.float()).all() and got.shape == (m, n)):
             raise AssertionError(f"qmatmul {name} M={m} {dtype}: max err {float(err.max())}")
-        label = f"{name}_m{m}_{str(dtype).replace('torch.', '')}"
-        row = {"shape": {"M": m, "K": k, "N": n}, "max_abs_err": float(err.max())}
-        if dtype == torch.bfloat16:
-            row["kernel_ms"] = cuda_ms(torch, lambda: quantized_matmul(x, w.q, w.scale), flush)
-            row["plain_ms"] = cuda_ms(
-                torch, lambda: quantized_matmul_plain(x, w.q, w.scale), flush, n=5)
-            lib, lib_fn = _library_int8_mm(torch, x, w.q, w.scale)
-            row["library"], row["library_ms"] = lib, cuda_ms(torch, lib_fn, flush)
-            nbytes = k * n + 2 * m * k + 2 * m * n + 4 * n
-            row["bound_ms"], row["bound_by"] = bound(2.0 * m * k * n, nbytes)
-        out["cases"][label] = row
+        row = {"shape": {"M": m, "K": k, "N": n}, "route": route,
+               "max_abs_err": float(err.max())}
+        if route == "tc":
+            bm, bn, bk, n_split = qmm._qmm_plan(m, k, n)
+            row["plan"] = {"BM": bm, "BN": bn, "BK": bk, "n_split": n_split,
+                           "split_rows": qmm._split_rows(k, bk, n_split)}
+        out["cases"][f"{name}_m{m}_{str(dtype).replace('torch.', '')}"] = row
+    bf16_calls = sum(dtype == bf16 for _, _, dtype in cases)
     out["launches"] = quantized_matmul.launches
+    out["tc_launches"] = quantized_matmul.tc_launches
+    out["bf16_calls"] = bf16_calls
+    if (out["launches"], out["tc_launches"]) != (len(cases), bf16_calls):
+        raise AssertionError(f"qmatmul: {out['launches']} launches, {out['tc_launches']} "
+                             f"on the tensor cores, for {len(cases)} calls, {bf16_calls} bf16")
+
+    for (name, m, dtype), x in inputs.items():  # bitwise repeats and timings
+        w = weights[name]
+        k, n = shapes[name]
+        row = out["cases"][f"{name}_m{m}_{str(dtype).replace('torch.', '')}"]
+        call = lambda: quantized_matmul(x, w.q, w.scale)  # noqa: E731
+        if row.get("plan", {}).get("n_split", 1) > 1:
+            row["bitwise"] = _kv_bitwise(torch, kvattn, call, f"qmatmul {name} M={m}")
+        if (name, m) not in timed or dtype != bf16:
+            continue
+        row["kernel_ms"] = cuda_ms(torch, call, flush)
+        # The CUDA-core kernel on the same bf16 inputs, launched uncounted
+        # through the wrapper's own launcher (no path runs it on bf16).
+        simt_out = torch.empty((m, n), dtype=bf16, device="cuda")
+        scale32 = w.scale.reshape(-1).float().contiguous()
+        row["simt_bf16_ms"] = cuda_ms(torch, lambda: qmm._native.check(
+            qmm._launch("simt", x, w.q, scale32, simt_out), "simt qmatmul"), flush)
+        if m <= 64:  # forced split counts beside the plan's
+            row["split_ms"] = {}
+            try:
+                for ns in (1, 2, 4, 8, 16):
+                    qmm._forced_split = ns
+                    row["split_ms"][str(ns)] = cuda_ms(torch, call, flush)
+            finally:
+                qmm._forced_split = None
+        row["plain_ms"] = cuda_ms(torch, lambda: plain(x, w.q, w.scale), flush, n=5)
+        lib, lib_fn = _library_int8_mm(torch, x, w.q, w.scale)
+        row["library"] = lib
+        row["library_ms"] = cuda_ms(torch, lib_fn, flush, n=5 if m > 64 else 25)
+        nbytes = k * n + 2 * m * k + 2 * m * n + 4 * n
+        flops = 2.0 * m * k * n
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+        row["tflops"] = flops / row["kernel_ms"] / 1e9
+        row["gb_per_s"] = nbytes / row["kernel_ms"] / 1e6
+        row["tc_faster_than_simt"] = row["kernel_ms"] < row["simt_bf16_ms"]
+        if m > 64:  # why the plain version sums bf16 x in f64
+            ref = plain(x, w.q, w.scale).float()
+            f32_gemm = ((x.float() @ w.q.float()) * w.scale.float()).to(bf16).float()
+            row["f32_gemm_outputs_off_plain"] = int(
+                ((f32_gemm - ref).abs() > tol["bf16_ulp_rel"] * ref.abs() + 1e-6).sum())
+            del ref, f32_gemm
+        # For information only, NOT K6's function (a bf16 weight rounded
+        # from q·scale, twice the bytes): the dense bf16 GEMM on a weight
+        # dequantised beforehand.
+        wd = load_weight(QTensor(w.q, w.scale), bf16)
+        row["info_dense_bf16_matmul_ms_not_k6"] = cuda_ms(torch, lambda: x @ wd, flush)
+        del wd
     return out
 
 
@@ -1404,7 +1500,8 @@ PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                 "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                 "kvattn_split_kernel_dense", "kvattn_split_kernel_paged",
                 "kvattn_i8_convert_kernel", "kvattn_full_kernel",
-                "qmm_decode_kernel", "qmm_tile_kernel")
+                "qmm_decode_kernel", "qmm_tile_kernel", "qmm_tc_kernel",
+                "qmm_i8_convert_kernel")
 
 
 def profile_summary(prof, run: str, extra: dict) -> dict:
@@ -1508,7 +1605,7 @@ def main() -> int:
     emit(k4)
     k5 = check_kvattn_paged(torch, kvattn, flush, gen)
     emit(k5)
-    k6 = check_qmatmul(torch, flush, gen)
+    k6 = check_qmatmul(torch, kvattn, flush, gen)
     emit(k6)
     k78 = check_kvattn_full(torch, kvattn, flush, gen)
     emit(k78)
@@ -1662,7 +1759,11 @@ def main() -> int:
          "max_abs_err": k6_main["max_abs_err"], "ms": k6_main["kernel_ms"],
          "plain_ms": k6_main["plain_ms"], "bound_ms": k6_main["bound_ms"],
          "bound_by": k6_main["bound_by"], "library_ms": k6_main["library_ms"],
-         "library": k6_main["library"]},
+         "library": k6_main["library"], "tc_launches": k6["tc_launches"],
+         "kernel_route": k6_main["route"], "simt_bf16_ms": k6_main["simt_bf16_ms"],
+         "prefill_2048": {key: k6["cases"]["w_gate_m2048_bfloat16"][key] for key in (
+             "route", "max_abs_err", "kernel_ms", "simt_bf16_ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "tflops")}},
         {"name": "kvattn_kmajor", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/kvattn_full.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:169",

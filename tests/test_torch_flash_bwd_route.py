@@ -1,5 +1,5 @@
 """The rule that picks the port's flash-backward kernel on a CUDA tensor
-(``ops/flash.py _bwd_route``), and the wrappers' counters on the CPU."""
+(``ops/flash.py _route``, one rule for both directions), and the wrappers' counters on the CPU."""
 
 import pytest
 import torch
@@ -21,13 +21,27 @@ from torchkafka_tpu_torch.ops import flash
     ],
 )
 def test_route_rule(dtype, d, route):
-    assert flash._bwd_route(dtype, d) == route
+    assert flash._route(dtype, d) == route
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_route_refuses_head_dims_past_128(dtype):
-    with pytest.raises(ValueError, match="head dim <= 128"):
-        flash._bwd_route(dtype, 256)
+    """Head dims past the tensor-core kernels' 128 take the CUDA-core
+    backward (32-row tiles there), in bf16 and in f32: no refusal below
+    ``_D_MAX``."""
+    assert flash._route(dtype, 160) == "simt"
+    assert flash._route(dtype, 256) == "simt"
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_wrappers_refuse_head_dims_past_256(which):
+    """D > 256 still raises, through the wrappers' ``_check``, as the
+    forward does."""
+    q = torch.zeros(2, 8, 272)
+    lse = torch.zeros(2, 8, 1)
+    fn = flash.flash_dq_bhsd if which == "dq" else flash.flash_dkv_bhsd
+    with pytest.raises(ValueError, match="<= 256"):
+        fn(q, q, q, q, lse, lse)
 
 
 def test_cpu_tensors_launch_no_kernel():

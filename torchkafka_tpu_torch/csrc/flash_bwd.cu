@@ -1,9 +1,11 @@
 // Causal flash-attention backward (FlashAttention-2 recurrence) for Hopper:
 // dQ (K2) and dK/dV (K3), each in two versions chosen by a fixed rule
-// (ops/flash.py `_bwd_route`, never on failure):
-//   bf16 with D % 16 == 0  -> flash_dq_tc_kernel / flash_dkv_tc_kernel, on
+// (ops/flash.py `_route`, never on failure):
+//   bf16 with D % 16 == 0, D <= 128
+//                          -> flash_dq_tc_kernel / flash_dkv_tc_kernel, on
 //                             the tensor cores (the training path);
-//   f32, or D % 16 != 0    -> flash_dq_kernel / flash_dkv_kernel, scalar
+//   f32, D % 16 != 0, or 128 < D <= 256
+//                          -> flash_dq_kernel / flash_dkv_kernel, scalar
 //                             f32 FMAs on the CUDA cores.
 //
 // Replaces: torchkafka_tpu/ops/flash.py `_dq_kernel` (K2) and `_dkv_kernel`
@@ -76,8 +78,13 @@
 //   first; K3: first key tile first).
 //
 // The CUDA-core version stages tiles in shared memory as f32 with rows
-// padded to D+1 floats and does its products as a 4x4 register micro-tile
-// of FMAs per thread. Both serve any Sq/Sk (ragged edges masked), D <= 128.
+// padded to D+1 floats and does its products as a register micro-tile of
+// FMAs per thread (TR/16 rows by TR/16 keys). Its tiles are TR = 64 rows
+// up to D = 128 and TR = 32 rows above: at D = 256 four 64-row f32 tiles
+// alone take 4 * 256 * 257 * 4 = 263,168 bytes, more than a block's
+// 232,448, while 32-row tiles take 135,808 (dQ) and 140,032 (dK/dV) bytes.
+// Both versions serve any Sq/Sk (ragged edges masked); the tensor-core one
+// D <= 128 (a 16 x D f32 accumulator a warp), the CUDA-core one D <= 256.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,8 +94,6 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKT = 64;
 constexpr int NT = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -115,8 +120,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
-// K2: dQ for one 64-row q tile of one b*h row.
-template <typename T, int DMAX>
+// K2: dQ for one TR-row q tile of one b*h row.
+template <typename T, int DMAX, int TR>
 __global__ void __launch_bounds__(NT)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
@@ -124,7 +129,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 T* __restrict__ dq, int sq, int sk, int d, int n_q_heads,
                 int n_kv_heads, int q_offset, int k_offset, int causal,
                 float scale) {
-  constexpr int DPT = DMAX / 16;  // output columns per thread
+  constexpr int BQ = TR, BKT = TR;  // q rows and keys of a tile
+  constexpr int RI = TR / 16;       // rows (and keys) per thread
+  constexpr int DPT = DMAX / 16;    // output columns per thread
   extern __shared__ float smem[];
   __shared__ float lse_s[BQ], delta_s[BQ];
   const int ld = d + 1;
@@ -153,9 +160,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     delta_s[tid] = ok ? delta[(size_t)bh * sq + q0 + tid] : 0.f;
   }
 
-  float acc[4][DPT];
+  float acc[RI][DPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
@@ -174,39 +181,39 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile(Vs, vb, k0, sk, d, ld, BKT);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int c = 0; c < d; ++c) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[RI], ov[RI], kv[RI], vv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         qv[i] = Qs[(tr + 16 * i) * ld + c];
         ov[i] = dOs[(tr + 16 * i) * ld + c];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         kv[j] = Ks[(tc + 16 * j) * ld + c];
         vv[j] = Vs[(tc + 16 * j) * ld + c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = tr + 16 * i;
       const int qpos = q_offset + q0 + r;
       const bool row_ok = q0 + r < sq;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int kk = tc + 16 * j;
         const bool ok = row_ok && (k0 + kk < sk) &&
                         (!causal || qpos >= k_offset + k0 + kk);
@@ -218,23 +225,23 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     for (int kk = 0; kk < BKT; ++kk) {
-      float dsv[4];
+      float dsv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(tr + 16 * i) * (BKT + 1) + kk];
+      for (int i = 0; i < RI; ++i) dsv[i] = dSs[(tr + 16 * i) * (BKT + 1) + kk];
 #pragma unroll
       for (int j = 0; j < DPT; ++j) {
         const int c = tc + 16 * j;
         if (c < d) {
           const float kvv = Ks[kk * ld + c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kvv, acc[i][j]);
+          for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(dsv[i], kvv, acc[i][j]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = q0 + tr + 16 * i;
     if (r < sq) {
       const size_t row = (size_t)bh * sq + r;
@@ -247,8 +254,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K3: dK and dV for one 64-key tile of one kv row, summed over its q heads.
-template <typename T, int DMAX>
+// K3: dK and dV for one TR-key tile of one kv row, summed over its q heads.
+template <typename T, int DMAX, int TR>
 __global__ void __launch_bounds__(NT)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -256,6 +263,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int d,
                  int n_q_heads, int n_kv_heads, int q_offset, int k_offset,
                  int causal, float scale) {
+  constexpr int BQ = TR, BKT = TR;
+  constexpr int RI = TR / 16;
   constexpr int DPT = DMAX / 16;
   extern __shared__ float smem[];
   __shared__ float lse_s[BQ], delta_s[BQ];
@@ -280,9 +289,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile(Ks, k + (size_t)kvrow * sk * d, k0, sk, d, ld, BKT);
   load_tile(Vs, v + (size_t)kvrow * sk * d, k0, sk, d, ld, BKT);
 
-  float acc_k[4][DPT], acc_v[4][DPT];
+  float acc_k[RI][DPT], acc_v[RI][DPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
@@ -311,39 +320,39 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
-      float s[4][4], dp[4][4];
+      float s[RI][RI], dp[RI][RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
       for (int c = 0; c < d; ++c) {
-        float kv[4], vv[4], qv[4], ov[4];
+        float kv[RI], vv[RI], qv[RI], ov[RI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           kv[i] = Ks[(tr + 16 * i) * ld + c];
           vv[i] = Vs[(tr + 16 * i) * ld + c];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           qv[j] = Qs[(tc + 16 * j) * ld + c];
           ov[j] = dOs[(tc + 16 * j) * ld + c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < RI; ++j) {
             s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
           }
       }
 
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int kr = tr + 16 * i;
         const int kpos = k_offset + k0 + kr;
         const bool key_ok = k0 + kr < sk;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           const int qc = tc + 16 * j;
           const bool ok = key_ok && (q0 + qc < sq) &&
                           (!causal || q_offset + q0 + qc >= kpos);
@@ -356,9 +365,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4], dsv[4];
+        float pv[RI], dsv[RI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           pv[i] = Pt[(tr + 16 * i) * (BQ + 1) + qq];
           dsv[i] = dSt[(tr + 16 * i) * (BQ + 1) + qq];
         }
@@ -369,7 +378,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float ovv = dOs[qq * ld + c];
             const float qvv = Qs[qq * ld + c];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < RI; ++i) {
               acc_v[i][j] = fmaf(pv[i], ovv, acc_v[i][j]);
               acc_k[i][j] = fmaf(dsv[i], qvv, acc_k[i][j]);
             }
@@ -380,7 +389,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = k0 + tr + 16 * i;
     if (r < sk) {
       const size_t row = (size_t)kvrow * sk + r;
@@ -396,14 +405,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int TR>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int sq,
               int sk, int d, int hq, int hk, int qoff, int koff, int causal,
               float scale, cudaStream_t stream) {
+  constexpr int BQ = TR, BKT = TR;
   const int ld = d + 1;
   const size_t smem = sizeof(float) * ((size_t)(2 * BQ + 2 * BKT) * ld + BQ * (BKT + 1));
-  auto kern = flash_dq_kernel<T, DMAX>;
+  auto kern = flash_dq_kernel<T, DMAX, TR>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -415,15 +425,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, int TR>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bk,
                int sq, int sk, int d, int hq, int hk, int qoff, int koff,
                int causal, float scale, cudaStream_t stream) {
+  constexpr int BQ = TR, BKT = TR;
   const int ld = d + 1;
   const size_t smem =
       sizeof(float) * ((size_t)(2 * BQ + 2 * BKT) * ld + 2 * BKT * (BQ + 1));
-  auto kern = flash_dkv_kernel<T, DMAX>;
+  auto kern = flash_dkv_kernel<T, DMAX, TR>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -556,7 +567,7 @@ flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tc_load_rows<DMAX>(nK + TB, vb, k0 + TC_ROWS, sk, d);
     }
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
 
     // The tile in two 32-key halves: half the score registers live at once.
@@ -668,7 +679,7 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float* ls = lds + st * 2 * TC_ROWS;  // lse[64], then delta[64]
     if (t + 1 < n_t) load_q(t + 1, st ^ 1);  // the next q tile loads meanwhile
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
 
     float s[8][4], dp[8][4];
@@ -753,18 +764,20 @@ extern "C" int tk_flash_dq(const void* q, const void* k, const void* v,
                            int n_kv_heads, int q_offset, int k_offset,
                            int causal, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define TK_DQ_CASE(T, DM)                                                     \
-  return launch_dq<T, DM>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,       \
+#define TK_DQ_CASE(T, DM, TR)                                                 \
+  return launch_dq<T, DM, TR>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,   \
                           n_q_heads, n_kv_heads, q_offset, k_offset, causal,  \
                           scale, s)
-  if (d < 1 || d > 128) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (d <= 64) { TK_DQ_CASE(float, 64); }
-    TK_DQ_CASE(float, 128);
+    if (d <= 64) { TK_DQ_CASE(float, 64, 64); }
+    if (d <= 128) { TK_DQ_CASE(float, 128, 64); }
+    TK_DQ_CASE(float, 256, 32);
   }
   if (dtype == 1) {
-    if (d <= 64) { TK_DQ_CASE(__nv_bfloat16, 64); }
-    TK_DQ_CASE(__nv_bfloat16, 128);
+    if (d <= 64) { TK_DQ_CASE(__nv_bfloat16, 64, 64); }
+    if (d <= 128) { TK_DQ_CASE(__nv_bfloat16, 128, 64); }
+    TK_DQ_CASE(__nv_bfloat16, 256, 32);
   }
 #undef TK_DQ_CASE
   return (int)cudaErrorInvalidValue;
@@ -777,18 +790,20 @@ extern "C" int tk_flash_dkv(const void* q, const void* k, const void* v,
                             int n_kv_heads, int q_offset, int k_offset,
                             int causal, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define TK_DKV_CASE(T, DM)                                                    \
-  return launch_dkv<T, DM>(q, k, v, dout, lse, delta, dk, dv, bk, sq, sk, d,  \
+#define TK_DKV_CASE(T, DM, TR)                                                \
+  return launch_dkv<T, DM, TR>(q, k, v, dout, lse, delta, dk, dv, bk, sq, sk, d,\
                            n_q_heads, n_kv_heads, q_offset, k_offset, causal, \
                            scale, s)
-  if (d < 1 || d > 128) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (d <= 64) { TK_DKV_CASE(float, 64); }
-    TK_DKV_CASE(float, 128);
+    if (d <= 64) { TK_DKV_CASE(float, 64, 64); }
+    if (d <= 128) { TK_DKV_CASE(float, 128, 64); }
+    TK_DKV_CASE(float, 256, 32);
   }
   if (dtype == 1) {
-    if (d <= 64) { TK_DKV_CASE(__nv_bfloat16, 64); }
-    TK_DKV_CASE(__nv_bfloat16, 128);
+    if (d <= 64) { TK_DKV_CASE(__nv_bfloat16, 64, 64); }
+    if (d <= 128) { TK_DKV_CASE(__nv_bfloat16, 128, 64); }
+    TK_DKV_CASE(__nv_bfloat16, 256, 32);
   }
 #undef TK_DKV_CASE
   return (int)cudaErrorInvalidValue;

@@ -394,7 +394,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc_load_rows<DMAX>(sKV, kb, 0, sk, d);
     tc_load_rows<DMAX>(sKV + TB, vb, 0, sk, d);
     cp_async_commit();
-    cp_async_wait_prev();  // Q has landed; the first K/V tile may not have
+    cp_async_wait<1>();  // Q has landed; the first K/V tile may not have
     __syncthreads();
   }
 
@@ -417,7 +417,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tc_load_rows<DMAX>(nK + TB, vb, k0 + TC_ROWS, sk, d);
     }
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
 
     float s[8][4];

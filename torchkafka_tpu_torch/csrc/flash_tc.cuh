@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the flash kernels (flash_fwd.cu,
-// flash_bwd.cu): bf16 tiles of 64 rows in shared memory, the sixteen-byte
+// flash_bwd.cu) and the int8 weight matmul (qmatmul.cu): bf16 tiles of 64 rows in shared memory, the sixteen-byte
 // chunk c of row r stored at chunk c ^ (r & 7); filled by cp.async with a
 // zero-fill tail, read by ldmatrix into mma.sync.m16n8k16 fragments.
 //
@@ -51,9 +51,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Every group but the newest has landed (this thread's copies).
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// Every group but the newest N has landed (this thread's copies).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {

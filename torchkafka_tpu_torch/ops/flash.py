@@ -10,9 +10,8 @@ launches:
 - ``flash_dkv_bhsd`` → ``csrc/flash_bwd.cu`` (replaces ``_dkv_kernel``):
   dK and dV, summed over the q heads of each kv head inside the kernel.
 
-Each wrapper picks one of two kernels by one fixed rule, ``_route`` (the
-backward's ``_bwd_route`` adds its D <= 128 limit): bf16 with D a
-multiple of 16 (up to 128) runs the
+Each wrapper picks one of two kernels by one fixed rule, ``_route``, the
+same in both directions: bf16 with D a multiple of 16 (up to 128) runs the
 tensor-core kernel (``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``,
 ``flash_dkv_tc_kernel``: mma.sync over swizzled bf16 tiles), f32 or any
 other D the CUDA-core kernel (``flash_fwd_kernel``, ``flash_dq_kernel``,
@@ -46,8 +45,7 @@ from torchkafka_tpu_torch.ops import _native
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_D_MAX = 256
-_D_MAX_BWD = 128  # the kernels keep a 64-row tile's D columns in one block
+_D_MAX = 256  # both directions; the CUDA-core backward takes 32-row tiles past 128
 _D_MAX_TC = 128  # the tensor-core kernels: a 16 x D f32 accumulator a warp
 
 
@@ -120,8 +118,8 @@ def _route(dtype: torch.dtype, d: int) -> str:
     """Which kernel a CUDA launch takes, forward and backward alike, by
     rule: "tc" (tensor cores, bf16 products) for bf16 with D a multiple of
     16 and D <= 128, "simt" (f32 FMAs on the CUDA cores) for f32, for D
-    not a multiple of 16, and for bf16 with 128 < D <= 256 (the forward
-    only: ``_bwd_route`` refuses D > 128)."""
+    not a multiple of 16, and for bf16 with 128 < D <= 256. ``_check``
+    refuses D > 256 before a route is taken."""
     tc = dtype == torch.bfloat16 and d % 16 == 0 and d <= _D_MAX_TC
     return "tc" if tc else "simt"
 
@@ -283,14 +281,6 @@ def _check_bwd(q, k, v, do, lse, delta, n_q_heads, n_kv_heads) -> None:
             raise ValueError(f"{name} must be f32 [B·H, Sq, 1] on q's device")
 
 
-def _bwd_route(dtype: torch.dtype, d: int) -> str:
-    """``_route`` for the backward kernels, which take D <= 128 only:
-    raises for a larger D."""
-    if d > _D_MAX_BWD:
-        raise ValueError(f"flash backward kernels take head dim <= {_D_MAX_BWD}, got {d}")
-    return _route(dtype, d)
-
-
 def _launch_args(what, tensors, causal, q_offset, k_offset, n_q_heads,
                  n_kv_heads):
     """The route and the C launchers' scalar arguments after the
@@ -298,7 +288,7 @@ def _launch_args(what, tensors, causal, q_offset, k_offset, n_q_heads,
     causal, scale)."""
     q, k = tensors[0], tensors[1]
     d = q.shape[2]
-    route = _bwd_route(q.dtype, d)
+    route = _route(q.dtype, d)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} kernel needs contiguous inputs")
     return (route, _DTYPES[q.dtype], q.shape[1], k.shape[1], d, n_q_heads,
@@ -310,7 +300,7 @@ def flash_dq_bhsd(
     q, k, v, do, lse, delta, *, causal: bool = True, q_offset: int = 0,
     k_offset: int = 0, n_q_heads: int = 1, n_kv_heads: int = 1,
 ):
-    """dQ [B·H, Sq, D]. CUDA tensors launch the kernel ``_bwd_route``
+    """dQ [B·H, Sq, D]. CUDA tensors launch the kernel ``_route``
     picks (``flash_dq_bhsd.launches`` counts each launch, ``.tc_launches``
     the tensor-core ones); CPU tensors run ``flash_dq_plain``."""
     _check_bwd(q, k, v, do, lse, delta, n_q_heads, n_kv_heads)
@@ -346,7 +336,7 @@ def flash_dkv_bhsd(
     k_offset: int = 0, n_q_heads: int = 1, n_kv_heads: int = 1,
 ):
     """(dK, dV), each [B·K, Sk, D], summed over the q heads of each kv
-    head. CUDA tensors launch the kernel ``_bwd_route`` picks
+    head. CUDA tensors launch the kernel ``_route`` picks
     (``flash_dkv_bhsd.launches`` counts each launch, ``.tc_launches`` the
     tensor-core ones); CPU tensors run ``flash_dkv_plain``."""
     _check_bwd(q, k, v, do, lse, delta, n_q_heads, n_kv_heads)
