@@ -63,10 +63,17 @@ Phases, each printing one JSON line:
    matmul, with the bound, TFLOP/s and GB/s (and, for information only,
    a dense bf16 matmul on a weight dequantised beforehand);
 5d. kvattn_full: the full-pool masked int8 reads, K-major (K7) and M-major
-   (K8), at the 8b decode shape (B=16, K=8, rep=4, Dh=128) with pools of
-   192 and 2048: on prefix masks K7, K8 (on the transposed pool), K4 and
-   the plain version agree; on masks with holes and an all-false row K7
-   and K8 agree with the plain version; timings;
+   (K8), on the split-K body in its mask mode, at the 8b decode shape
+   (B=16, K=8, rep=4, Dh=128) with pools of 192 and 2048, at the planner's
+   split and, at 192, under forced spans of 64: on prefix masks K7, K8 (on
+   the transposed pool), K4 and the plain version agree (K7 against K4 at
+   the same span, bitwise or not, printed); on masks with holes, an
+   all-false row and a row whose only readable position is the last, K7
+   and K8 agree with the plain version; where the read splits, two
+   launches and two streams bitwise; registers and spill bytes at rep 4
+   and 8 (0 required); timings at the planner's split, one span and spans
+   of 64, 128, 256 and 512, beside the plain version and the bound, K4
+   reading every position on K7's spans, and K7 at rep 1, 2, 4 and 8;
 6. train_grad: one training loss and backward at 1b width, 2 layers,
    S=512, B=2, through the kernels and through dense attention: the loss
    and every parameter's gradient must agree within bf16 tolerance;
@@ -903,17 +910,33 @@ def check_qmatmul(torch, kvattn, flush, gen) -> dict:
 
 def check_kvattn_full(torch, kvattn, flush, gen) -> dict:
     """K7 (K-major) and K8 (M-major) against their plain version at the 8b
-    decode shape (B=16, K=8, rep=4, Dh=128), pools of 192 and 2048. Prefix
-    masks from ``check_kvattn``'s watermarks: K7, K8 on the transposed
-    pool, K4 and the plain version agree with each other. Masks with holes
-    and one all-false row: K7 and K8 against the plain version."""
+    decode shape (B=16, K=8, rep=4, Dh=128), pools of 192 and 2048, each
+    pool's L and n_split, at the planner's split and, where it keeps one
+    span, under forced spans of 64 (the merge at this pool). Prefix masks
+    from ``check_kvattn``'s watermarks: K7, K8 on the transposed pool, K4
+    and the plain version agree with each other, and K7 against K4 at the
+    same span (the difference, and whether it is bitwise). Masks with
+    holes, one all-false row and one row whose only readable position is
+    the pool's last: K7 and K8 against the plain version. Where the read
+    splits, two launches and two streams bitwise for K7 and K8. Registers
+    and spills at rep 4 and 8 (0 required); timings at the planner's
+    split, one span and spans of 64/128/256/512, beside the plain version,
+    K4 reading every position on the same spans, and K7 at rep 1/2/4/8."""
     B, K, REP, DH = 16, 8, 4, 128
-    tol = {"bf16": 3e-2, "f32": 1e-4}
     out = {"phase": "kvattn_full", "shape": {"B": B, "K": K, "rep": REP, "Dh": DH},
-           "tolerance": tol, "pools": {}}
+           "tolerance": KV_TOL, "pools": {}}
+    attrs = {}
+    for kmajor, name in ((True, "k7"), (False, "k8")):
+        for rep in (4, 8):
+            attrs[f"{name}_rep{rep}"] = kvattn.full_attrs(torch.bfloat16, rep, kmajor)
+        attrs[f"{name}_rep8_f32"] = kvattn.full_attrs(torch.float32, 8, kmajor)
+    if any(a["local_bytes"] for a in attrs.values()):
+        raise AssertionError(f"kvattn_full spills: {attrs}")
+    out["attrs"] = attrs
     kvattn.int8_decode_attention_kmajor.launches = 0
     kvattn.int8_decode_attention.launches = 0
     for M in (192, 2048):
+        L, n_split = kvattn._split_plan(M, max_split=kvattn._MAX_SPLIT_FULL)
         base = [0, 63, 64, 127, 128, M // 2 + 5, M - 2, M - 1]
         pos = torch.tensor((base * 2)[:B], dtype=torch.int32, device="cuda")
         kq, vq = (torch.randint(-127, 127, (B, K, M, DH), generator=gen,
@@ -925,44 +948,82 @@ def check_kvattn_full(torch, kvattn, flush, gen) -> dict:
         prefix = torch.arange(M, device="cuda")[None, :] <= pos[:, None].long()
         holes = torch.rand((B, M), generator=gen, device="cuda") < 0.6
         holes[3] = False  # an all-false row: the uniform average over all M
-        row = {}
-        for dtype in (torch.bfloat16, torch.float32):
-            lim = tol["f32"] if dtype == torch.float32 else tol["bf16"]
-            dn = "f32" if dtype == torch.float32 else "bf16"
-            q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(dtype)
-            k7 = kvattn.int8_decode_attention_kmajor(q, *km, prefix)
-            k8 = kvattn.int8_decode_attention(q, *mm, prefix)
-            k4 = kvattn.int8_decode_attention_dynlen(q, *km, pos)
-            ref = kvattn.int8_decode_attention_kmajor_plain(q, *km, prefix)
-            h7 = kvattn.int8_decode_attention_kmajor(q, *km, holes)
-            h8 = kvattn.int8_decode_attention(q, *mm, holes)
-            href = kvattn.int8_decode_attention_mmajor_plain(q, *mm, holes)
-            torch.cuda.synchronize()
-            errs = {"k7_vs_plain": max_err(torch, k7, ref), "k8_vs_plain": max_err(torch, k8, ref),
-                    "k4_vs_plain": max_err(torch, k4, ref), "k7_vs_k8": max_err(torch, k7, k8),
-                    "k7_vs_k4": max_err(torch, k7, k4),
-                    "holes_k7_vs_plain": max_err(torch, h7, href),
-                    "holes_k8_vs_plain": max_err(torch, h8, href)}
-            finite = all(torch.isfinite(t.float()).all() for t in (k7, k8, h7, h8))
-            if not (finite and max(errs.values()) <= lim):
-                raise AssertionError(f"kvattn_full M={M} {dn}: {errs}")
-            row[dn] = errs
+        holes[5] = False
+        holes[5, M - 1] = True  # the only readable position in the last span
+        row = {"L": L, "n_split": n_split, "watermarks": pos.tolist(), "split": {}}
+        # The planner's spans and, where it keeps one span, forced spans of
+        # 64. Each is forced on K4 as well, so that K7 and K4 split alike.
+        for Ls in ((L, 64) if n_split == 1 else (L,)):
+            with _span(kvattn, Ls):
+                ns = kvattn._split_plan(M, span=Ls)[1]
+                errs_by, k7_k4 = {}, {}
+                for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                    q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(dtype)
+                    k7 = kvattn.int8_decode_attention_kmajor(q, *km, prefix)
+                    k8 = kvattn.int8_decode_attention(q, *mm, prefix)
+                    k4 = kvattn.int8_decode_attention_dynlen(q, *km, pos)
+                    ref = kvattn.int8_decode_attention_kmajor_plain(q, *km, prefix)
+                    h7 = kvattn.int8_decode_attention_kmajor(q, *km, holes)
+                    h8 = kvattn.int8_decode_attention(q, *mm, holes)
+                    href = kvattn.int8_decode_attention_mmajor_plain(q, *mm, holes)
+                    torch.cuda.synchronize()
+                    errs = {"k7_vs_plain": max_err(torch, k7, ref),
+                            "k8_vs_plain": max_err(torch, k8, ref),
+                            "k4_vs_plain": max_err(torch, k4, ref),
+                            "k7_vs_k8": max_err(torch, k7, k8),
+                            "k7_vs_k4": max_err(torch, k7, k4),
+                            "holes_k7_vs_plain": max_err(torch, h7, href),
+                            "holes_k8_vs_plain": max_err(torch, h8, href)}
+                    finite = all(torch.isfinite(t.float()).all() for t in (k7, k8, h7, h8))
+                    if not (finite and max(errs.values()) <= KV_TOL[dn]):
+                        raise AssertionError(f"kvattn_full M={M} L={Ls} {dn}: {errs}")
+                    errs_by[dn] = errs
+                    k7_k4[dn] = torch.equal(k7, k4)
+                split = {"L": Ls, "n_split": ns, "max_abs_err": errs_by,
+                         "k7_bitwise_equals_k4": k7_k4}
+                if ns > 1:
+                    q = torch.randn((B, 1, K * REP, DH), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    split["bitwise_k7"] = _kv_bitwise(
+                        torch, kvattn,
+                        lambda: kvattn.int8_decode_attention_kmajor(q, *km, holes),
+                        f"kvattn_full K7 M={M} L={Ls}")
+                    split["bitwise_k8"] = _kv_bitwise(
+                        torch, kvattn, lambda: kvattn.int8_decode_attention(q, *mm, holes),
+                        f"kvattn_full K8 M={M} L={Ls}")
+                row["split"][f"L{Ls}"] = split
+        row["max_abs_err"] = row["split"][f"L{L}"]["max_abs_err"]
         q = torch.randn((B, 1, K * REP, DH), generator=gen, device="cuda").to(torch.bfloat16)
-        t = {"k7_ms": cuda_ms(torch, lambda: kvattn.int8_decode_attention_kmajor(q, *km, prefix),
-                              flush),
-             "k8_ms": cuda_ms(torch, lambda: kvattn.int8_decode_attention(q, *mm, prefix), flush),
-             "k4_same_fill_ms": cuda_ms(
-                 torch, lambda: kvattn.int8_decode_attention_dynlen(q, *km, pos), flush),
-             "plain_kmajor_ms": cuda_ms(
-                 torch, lambda: kvattn.int8_decode_attention_kmajor_plain(q, *km, prefix), flush),
-             "plain_mmajor_ms": cuda_ms(
-                 torch, lambda: kvattn.int8_decode_attention_mmajor_plain(q, *mm, prefix), flush)}
+        sweep = [x for x in (*SPAN_SWEEP, 512) if x < M]
+        row["k7"] = _kv_times(
+            torch, kvattn, lambda: kvattn.int8_decode_attention_kmajor(q, *km, prefix),
+            lambda: kvattn.int8_decode_attention_kmajor_plain(q, *km, prefix), flush, M, sweep)
+        row["k8"] = _kv_times(
+            torch, kvattn, lambda: kvattn.int8_decode_attention(q, *mm, prefix),
+            lambda: kvattn.int8_decode_attention_mmajor_plain(q, *mm, prefix), flush, M, sweep)
+        row.update({"k7_ms": row["k7"]["kernel_ms"], "k8_ms": row["k8"]["kernel_ms"],
+                    "k4_same_fill_ms": cuda_ms(
+                        torch, lambda: kvattn.int8_decode_attention_dynlen(q, *km, pos), flush),
+                    "plain_kmajor_ms": row["k7"]["plain_ms"],
+                    "plain_mmajor_ms": row["k8"]["plain_ms"]})
+        # What the body costs when it reads every position: K4 at watermarks
+        # M-1 on K7's spans, and K7 at other q rows per kv head (the bytes
+        # stay, the arithmetic scales with rep).
+        last = torch.full((B,), M - 1, dtype=torch.int32, device="cuda")
+        with _span(kvattn, L):
+            row["k4_full_fill_ms"] = cuda_ms(
+                torch, lambda: kvattn.int8_decode_attention_dynlen(q, *km, last), flush)
+        row["k7_rep_ms"] = {}
+        for rep in (1, 2, 4, 8):
+            qr = torch.randn((B, 1, K * rep, DH), generator=gen, device="cuda").to(torch.bfloat16)
+            row["k7_rep_ms"][str(rep)] = cuda_ms(
+                torch, lambda: kvattn.int8_decode_attention_kmajor(qr, *km, prefix), flush)
         # The full pool is read whatever the mask: payloads, scales, the
         # mask, q and the output once each.
         nbytes = B * K * M * 2 * (DH + 4) + B * M + 2 * (2 * B * K * REP * DH)
-        bms, by = bound(4.0 * B * M * K * REP * DH, nbytes)
-        out["pools"][str(M)] = {"watermarks": pos.tolist(), "max_abs_err": row, **t,
-                                "bound_ms": bms, "bound_by": by, "library_ms": None}
+        row["bound_ms"], row["bound_by"] = bound(4.0 * B * M * K * REP * DH, nbytes)
+        row["library_ms"] = None
+        out["pools"][str(M)] = row
     out["launches"] = {"kvattn_kmajor": kvattn.int8_decode_attention_kmajor.launches,
                        "kvattn_mmajor": kvattn.int8_decode_attention.launches}
     return out
@@ -1499,7 +1560,7 @@ def _profiler(torch):
 PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                 "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                 "kvattn_split_kernel_dense", "kvattn_split_kernel_paged",
-                "kvattn_i8_convert_kernel", "kvattn_full_kernel",
+                "kvattn_i8_convert_kernel", "kvattn_split_kernel_full",
                 "qmm_decode_kernel", "qmm_tile_kernel", "qmm_tc_kernel",
                 "qmm_i8_convert_kernel")
 
@@ -1690,6 +1751,18 @@ def main() -> int:
     def path_8b(kernel):
         return sum(row["launches"][kernel] for row in rows_8b)
 
+    def full_split(which):
+        """K7's or K8's split and span times at the 192 pool, and at 2048."""
+        big = k78["pools"]["2048"]
+        return {"n_split": k78_main["n_split"], "span": k78_main["L"],
+                "one_span_ms": k78_main[which]["one_span_ms"],
+                "span_ms": _spans(k78_main[which]),
+                "pool_2048": {"n_split": big["n_split"], "span": big["L"],
+                              "kernel_ms": big[which]["kernel_ms"],
+                              "one_span_ms": big[which]["one_span_ms"],
+                              "span_ms": _spans(big[which]),
+                              "plain_ms": big[which]["plain_ms"], "bound_ms": big["bound_ms"]}}
+
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_fwd.cu",
@@ -1772,7 +1845,7 @@ def main() -> int:
          "max_abs_err": k78_main["max_abs_err"]["bf16"]["k7_vs_plain"],
          "ms": k78_main["k7_ms"], "plain_ms": k78_main["plain_kmajor_ms"],
          "bound_ms": k78_main["bound_ms"], "bound_by": k78_main["bound_by"],
-         "library_ms": None},
+         "library_ms": None, **full_split("k7")},
         {"name": "kvattn_mmajor", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/kvattn_full.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:98",
@@ -1781,7 +1854,7 @@ def main() -> int:
          "max_abs_err": k78_main["max_abs_err"]["bf16"]["k8_vs_plain"],
          "ms": k78_main["k8_ms"], "plain_ms": k78_main["plain_mmajor_ms"],
          "bound_ms": k78_main["bound_ms"], "bound_by": k78_main["bound_by"],
-         "library_ms": None},
+         "library_ms": None, **full_split("k8")},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

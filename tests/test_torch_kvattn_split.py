@@ -6,7 +6,8 @@ paged; ``csrc/kvattn_split.cuh``), checked on the CPU:
 - a numpy model of the kernel's split-and-merge (spans from ``_split_plan``,
   64-position tiles, an online softmax per span, p * v_scale rounded to q's
   dtype against the span's running max, the merge of the live spans in
-  split order), held against the port's plain versions;
+  split order), held against the port's plain versions (its mask mode,
+  the full-pool reads K7/K8: ``tests/test_torch_kvattn_full_split.py``);
 - the plain versions against the JAX package's Pallas kernels in interpret
   mode at the schedule's edge cases (rep 4 and 8, ragged pools, watermarks
   at span edges, small blocks);
@@ -79,10 +80,16 @@ def _bf16(x):
     return u.astype(np.uint32).view(np.float32)
 
 
-def _model_one(q, k, ks, v, vs, n_pos, span, bf16):
+def _model_one(q, k, ks, v, vs, n_pos, span, bf16, valid=None, sentinel=False):
     """One (slot, kv head) as the kernel computes it. q [rep, dh] f32 (values
     of q's dtype); k/v [n, dh] int8 and ks/vs [n] f32 in logical order.
-    Returns (out [rep, dh] f32 before the output rounding, live spans)."""
+    ``valid`` [n_pos] bool selects the mask mode (K7/K8): all n_pos
+    positions are visited, every span is live, a masked position scores
+    exactly -1e30, and alpha is 0 on a span's first tile by its index.
+    The watermark mode (K4/K5) finds the first tile by m == -1e30 instead;
+    ``sentinel`` applies that rule in the mask mode too (the rule the
+    body had before the mask mode). Returns (out [rep, dh] f32 before the
+    output rounding, live spans)."""
     rnd = _bf16 if bf16 else (lambda x: x)
     inv = np.float32(1.0 / np.sqrt(q.shape[1]))
     parts = []
@@ -91,11 +98,15 @@ def _model_one(q, k, ks, v, vs, n_pos, span, bf16):
         m = np.full(q.shape[0], NEG, np.float32)
         l = np.zeros(q.shape[0], np.float32)
         acc = np.zeros(q.shape, np.float32)
-        for t0 in range(start, end, TILE):
+        for i, t0 in enumerate(range(start, end, TILE)):
             t1 = min(t0 + TILE, end)
             s = (q @ k[t0:t1].astype(np.float32).T) * ks[t0:t1] * inv
+            if valid is not None:
+                s = np.where(valid[t0:t1], s, NEG).astype(np.float32)
             m_new = np.maximum(m, s.max(axis=1))
-            alpha = np.exp(m - m_new)
+            first = m == NEG if valid is None or sentinel else np.full(m.shape, i == 0)
+            alpha = np.where(first, 0, np.where(m == m_new, 1, np.exp(m - m_new)))
+            alpha = alpha.astype(np.float32)
             p = np.exp(s - m_new[:, None])
             pw = rnd((p * vs[t0:t1]).astype(np.float32))
             l = l * alpha + p.sum(axis=1)

@@ -35,8 +35,8 @@ kvattn_split_kernel_dense(const T* __restrict__ q, const int8_t* __restrict__ kq
                           int span, float inv_sqrt_dh) {
   const int bk = blockIdx.y;
   const DenseRows rows{(size_t)bk * m_len};
-  kvattn_split_body<DenseRows, T, REP>(rows, pos + bk / n_kv, m_len, q, kq, ks, vq, vs,
-                                       out, ws, counter, span, dh, inv_sqrt_dh);
+  kvattn_split_body<DenseRows, T, REP>(rows, pos + bk / n_kv, nullptr, m_len, q, kq, ks, vq,
+                                       vs, out, ws, counter, span, dh, inv_sqrt_dh);
 }
 
 template <typename T, int REP>

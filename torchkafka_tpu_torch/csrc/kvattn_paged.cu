@@ -44,8 +44,8 @@ kvattn_split_kernel_paged(const T* __restrict__ q, const int8_t* __restrict__ kq
                           float inv_sqrt_dh) {
   const int bk = blockIdx.y, b = bk / n_kv;
   const PagedRows rows{table + (size_t)b * nblk, n_pool, n_kv, bk - b * n_kv, bs};
-  kvattn_split_body<PagedRows, T, REP>(rows, pos + b, nblk * bs, q, kq, ks, vq, vs, out,
-                                       ws, counter, span, dh, inv_sqrt_dh);
+  kvattn_split_body<PagedRows, T, REP>(rows, pos + b, nullptr, nblk * bs, q, kq, ks, vq, vs,
+                                       out, ws, counter, span, dh, inv_sqrt_dh);
 }
 
 template <typename T, int REP>

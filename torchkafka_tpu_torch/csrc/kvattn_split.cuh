@@ -1,13 +1,17 @@
-// The split-K body of the fill-bounded int8 decode reads (K4, dense
-// K-major pool: kvattn_dynlen.cu; K5, paged pool through block tables:
-// kvattn_paged.cu), for Hopper. Each source is a thin kernel and launcher
-// around `kvattn_split_body`, templated on how a logical position maps to
-// a pool row (`DenseRows`, `PagedRows`).
+// The split-K body of the int8 decode reads, for Hopper: the fill-bounded
+// reads (K4, dense K-major pool: kvattn_dynlen.cu; K5, paged pool through
+// block tables: kvattn_paged.cu) and the full-pool masked reads (K7
+// K-major, K8 M-major: kvattn_full.cu). Each source is a thin kernel and
+// launcher around `kvattn_split_body`, templated on how a logical position
+// maps to a pool row (`DenseRows`, `PagedRows`, `MMajorRows`) and on the
+// mask mode (MASKED: every position of the pool under a [B, M] bool mask,
+// instead of the positions up to a watermark; see kvattn_full.cu).
 //
-// Contract (both reads): one query token per slot, q [B, H, Dh] (bf16 or
-// f32), rep = H/K query rows per kv head, int8 K/V rows of Dh bytes with
-// one f32 scale each, pos [B] int32 watermarks. Slot b reads ONLY logical
-// positions [0, pos[b]] (the watermark clamped into the pool or view):
+// Contract of the watermark mode (K4, K5): one query token per slot,
+// q [B, H, Dh] (bf16 or f32), rep = H/K query rows per kv head, int8 K/V
+// rows of Dh bytes with one f32 scale each, pos [B] int32 watermarks.
+// Slot b reads ONLY logical positions [0, pos[b]] (the watermark clamped
+// into the pool or view):
 //   s   = (q . float(k[p])) * ks[p] * (1/sqrt(Dh))
 //   p   = exp(s - m)                       m: a running max, in f32
 //   acc += round_to_q_dtype(p * vs[p]) . float(v[p])
@@ -152,6 +156,15 @@ struct DenseRows {
   __device__ __forceinline__ size_t row(int p) const { return base + (size_t)p; }
 };
 
+// Position -> pool row of one (slot, kv head), dense M-major pool
+// [B, M, K, Dh]: row (b*M + p)*K + kh, rows K*Dh bytes apart (16-byte
+// aligned at Dh % 16 == 0, so load_tile's chunks serve it unchanged).
+struct MMajorRows {
+  size_t base;  // b * M * K + kh
+  int n_kv;
+  __device__ __forceinline__ size_t row(int p) const { return base + (size_t)p * n_kv; }
+};
+
 // Logical position -> pool row through the slot's block table, paged pool
 // [NB, K, bs, Dh]; a table entry outside [0, NB) is clamped into the pool.
 // Offsets are 64-bit (blk * K * bs * Dh overflows 32 bits on large pools).
@@ -168,15 +181,17 @@ struct PagedRows {
 // One span of one (slot, kv head): grid (n_split, B*K), KV_NT threads.
 // kq/vq rows of dh bytes and ks/vs f32 per row, addressed by rows.row(p);
 // pos_b the slot's watermark, clamped into the m_view positions of its
-// pool or view; q/out [B*K*REP, dh]; ws: the partials, acc [B*K][n_split]
+// pool or view (MASKED: unused, every position is read, and valid_b, the
+// slot's m_view mask bytes, says which score; the watermark mode does not
+// read valid_b); q/out [B*K*REP, dh]; ws: the partials, acc [B*K][n_split]
 // [REP*dh] then (m, l) [B*K][n_split][2*REP], f32; counter: one int per
 // (slot, head), 0 between launches (ws and counter are unused, and may be
 // null, when n_split == 1).
-template <typename Rows, typename T, int REP>
+template <typename Rows, typename T, int REP, bool MASKED = false>
 __device__ __forceinline__ void kvattn_split_body(
-    const Rows& rows, const int* __restrict__ pos_b, int m_view,
-    const T* __restrict__ q, const int8_t* __restrict__ kq,
-    const float* __restrict__ ks, const int8_t* __restrict__ vq,
+    const Rows& rows, const int* __restrict__ pos_b,
+    const uint8_t* __restrict__ valid_b, int m_view, const T* __restrict__ q,
+    const int8_t* __restrict__ kq, const float* __restrict__ ks, const int8_t* __restrict__ vq,
     const float* __restrict__ vs, T* __restrict__ out, float* __restrict__ ws,
     int* __restrict__ counter, int span, int dh, float inv_sqrt_dh) {
   __shared__ __align__(16) int8_t kv_s[KV_STAGES][2][KV_TILE][KV_DH_MAX];  // stage, k/v
@@ -199,7 +214,8 @@ __device__ __forceinline__ void kvattn_split_body(
     const int i = tid + k * KV_NT;
     if (i < REP * dh) qv[k] = q[q_row0 * dh + i];
   }
-  const int n_pos = min(max(__ldg(pos_b), 0), m_view - 1) + 1;
+  int n_pos = m_view;  // MASKED: the whole pool, every span live
+  if constexpr (!MASKED) n_pos = min(max(__ldg(pos_b), 0), m_view - 1) + 1;
   const int start = split * span;
   if (start >= n_pos) return;  // a span past the watermark: nothing to read
   const int end = min(start + span, n_pos);
@@ -255,8 +271,28 @@ __device__ __forceinline__ void kvattn_split_body(
   const int pg = lane >> 3, c = lane & 7;  // Q.K: position group, chunk
   const bool col_ok = lane * 4 < dh;       // P.V: columns lane*4 .. +3
 
+  // MASKED: bit `it` of the lane's mask word says whether its position
+  // t0 + warp*KV_PW + it*4 + pg of the tile at t0 is readable. One byte a
+  // position is too narrow and too unaligned for cp.async, so each lane
+  // loads its own bytes at the top of the tile, ahead of the barrier and
+  // the Q.K products that hide the load. (Loaded a tile ahead, into a
+  // register carried across the loop, they spilled 8 bytes at rep 8 on
+  // the M-major map.)
+  auto mask_bits = [&](int t0) {
+    uint32_t bits = 0;
+    if constexpr (MASKED) {
+#pragma unroll
+      for (int it = 0; it < KV_IT; ++it) {
+        const int p = t0 + warp * KV_PW + it * 4 + pg;
+        if (p < end && __ldg(valid_b + p)) bits |= 1u << it;
+      }
+    }
+    return bits;
+  };
+
   for (int i = 0, t0 = start; t0 < end; ++i, t0 += KV_TILE) {
     const int st = i % KV_STAGES;
+    const uint32_t mk = mask_bits(t0);
     if (i == 0) {
       kv_wait<KV_STAGES - 1>();
     } else {
@@ -322,7 +358,10 @@ __device__ __forceinline__ void kvattn_split_body(
           x += __shfl_xor_sync(0xffffffffu, x, 4);
           x += __shfl_xor_sync(0xffffffffu, x, 2);
           x += __shfl_xor_sync(0xffffffffu, x, 1);
-          s[it][r] = ok ? (x * ksv) * inv_sqrt_dh : KV_NEG;
+          // MASKED: a masked position inside the pool scores exactly
+          // -1e30 and still takes part (p = exp(-1e30 - m) below).
+          const bool readable = !MASKED || ((mk >> it) & 1u);
+          s[it][r] = ok && readable ? (x * ksv) * inv_sqrt_dh : KV_NEG;
         }
       }
     }
@@ -342,7 +381,10 @@ __device__ __forceinline__ void kvattn_split_body(
     __syncthreads();
 
     // The tile's max over the warps and the online rescale (alpha is
-    // exactly 0 on the span's first tile and 1 where the max holds).
+    // exactly 0 on the span's first tile and 1 where the max holds). The
+    // watermark mode knows the first tile by m_run == -1e30: its live
+    // scores are never -1e30. MASKED rows may stay at exactly -1e30 over
+    // all-masked tiles, whose p = 1 sums must then carry on, so it asks i.
     float alpha[REP];
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
@@ -350,7 +392,8 @@ __device__ __forceinline__ void kvattn_split_body(
 #pragma unroll
       for (int w = 1; w < KV_NW; ++w) tmax = fmaxf(tmax, red_m[w][r]);
       const float m_new = fmaxf(m_run[r], tmax);
-      alpha[r] = m_run[r] == KV_NEG ? 0.f : m_run[r] == m_new ? 1.f : expf(m_run[r] - m_new);
+      const bool first = MASKED ? i == 0 : m_run[r] == KV_NEG;
+      alpha[r] = first ? 0.f : m_run[r] == m_new ? 1.f : expf(m_run[r] - m_new);
       m_run[r] = m_new;
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[r][e] *= alpha[r];

@@ -25,14 +25,15 @@ card:
   ``models.generate._attend_cached`` on the M-major pool, K8's math in
   plain code.
 
-The two fill-bounded reads share one split-K body
-(``csrc/kvattn_split.cuh``): the grid is (n_split, B·K), each block reads
-one span of L logical positions of one (slot, kv head), and the last live
-span of a (slot, kv head) merges the spans' partials in the same launch.
-``_split_plan`` picks L and n_split from the pool or view length alone
-(the host never reads a watermark). The merge counts spans on a
-persistent int32 buffer, one per (device, CUDA stream), which every launch
-leaves at zero; the partials' workspace comes from the caching allocator.
+All four reads share one split-K body (``csrc/kvattn_split.cuh``): the
+grid is (n_split, B·K), each block reads one span of L logical positions
+of one (slot, kv head), and the last live span of a (slot, kv head)
+merges the spans' partials in the same launch. The full-pool reads run it
+in its mask mode, where every span is live. ``_split_plan`` picks L and
+n_split from the pool or view length alone (the host never reads a
+watermark or a mask). The merge counts spans on a persistent int32
+buffer, one per (device, CUDA stream), which every launch leaves at zero;
+the partials' workspace comes from the caching allocator.
 
 The paged pool's gathers, scatters and ``block_table_attention(_q8)``
 are plain PyTorch in both packages. The scatters write IN PLACE
@@ -82,19 +83,29 @@ def dynlen_block(max_len: int) -> int:
 _SPAN = 64  # positions a span at least: one kernel tile
 _ONE_SPAN_MAX = 256  # pools of up to four tiles run as one span
 _MAX_SPLIT = 16  # spans a (slot, kv head) at most; longer pools widen L
+_MAX_SPLIT_FULL = 8  # the same for the full-pool reads, whose spans are all live
 _KERNEL_MAX_SPLIT = 64  # what the kernel's merge takes (KV_MAX_SPLIT)
 # A span length that replaces the planner's (one span when >= the pool):
 # for timing what the split buys. Only the on-card smoke check sets it.
 _forced_span: int | None = None
 
 
-def _split_plan(m_len: int, bs: int = 1, *, span: int | None = None) -> tuple[int, int]:
+def _split_plan(m_len: int, bs: int = 1, *, span: int | None = None,
+                max_split: int = _MAX_SPLIT) -> tuple[int, int]:
     """(L, n_split) for a pool or logical view of ``m_len`` positions in
     blocks of ``bs``. The rule, from K4/K5 timed on the H100 at pools of
     192-4096 positions: a pool of up to four 64-position tiles is one span
     (the merge's dependent round trips through device memory cost more
     than two or three tiles in parallel save); a longer one splits into
-    spans of L = 64·k positions, the least k that gives at most 16 spans.
+    spans of L = 64·k positions, the least k that gives at most
+    ``max_split`` spans: 16 for the fill-bounded reads, whose spans past a
+    slot's watermark exit at once, and 8 (``_MAX_SPLIT_FULL``) for the
+    full-pool reads K7/K8, whose spans all read: at the 8b decode shape on
+    an NVIDIA H100 (700 W) K7 read a 2048 pool faster in 8 spans of 256
+    (0.058 ms) than in 16 of 128 (0.062), 32 of 64, 4 of 512 or one span
+    (K8, with one block an SM fewer, fastest in 4 of 512, then 8 of 256),
+    and a 192 pool faster in one span than in spans of 64 or 128
+    (``chip_smoke.py`` phase ``kvattn_full`` times them; PERF.md).
     Where bs <= L, L rounds up to whole blocks, so a span reads each of its
     table entries once. n_split = ceil(m_len / L), the least count that
     covers the pool. ``span`` forces L (one span when >= m_len). Pure
@@ -102,7 +113,7 @@ def _split_plan(m_len: int, bs: int = 1, *, span: int | None = None) -> tuple[in
     if m_len < 1 or bs < 1:
         raise ValueError(f"want m_len >= 1 and bs >= 1, got {m_len}, {bs}")
     if span is None:
-        span = m_len if m_len <= _ONE_SPAN_MAX else _SPAN * -(-m_len // (_SPAN * _MAX_SPLIT))
+        span = m_len if m_len <= _ONE_SPAN_MAX else _SPAN * -(-m_len // (_SPAN * max_split))
     span = min(max(span, 1), m_len)
     if bs <= span:
         span = -(-span // bs) * bs
@@ -114,7 +125,9 @@ def _split_plan(m_len: int, bs: int = 1, *, span: int | None = None) -> tuple[in
 
 # One zeroed int32 counter a (slot, kv head) for the merge, per (device,
 # CUDA stream): launches on one stream run in order and each leaves its
-# counters at zero, so the buffer is zeroed once, when it is made or grown.
+# counters at zero, so the buffer is zeroed once, when it is made or grown,
+# and every split kernel on the stream can share it: K4, K5, K7, K8 and
+# K6's split-K (``ops/qmatmul.py``).
 _counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -128,10 +141,11 @@ def _counter(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _split_args(q: torch.Tensor, bk: int, rep: int, dh: int, m_len: int, bs: int,
-                stream: int) -> tuple[int, int, int, int, tuple[torch.Tensor, ...]]:
+                stream: int, max_split: int = _MAX_SPLIT
+                ) -> tuple[int, int, int, int, tuple[torch.Tensor, ...]]:
     """(L, n_split, workspace pointer, counter pointer, tensors to keep
     alive until the launch is queued) for one launch of a split read."""
-    span, n_split = _split_plan(m_len, bs, span=_forced_span)
+    span, n_split = _split_plan(m_len, bs, span=_forced_span, max_split=max_split)
     if n_split == 1:
         return span, 1, 0, 0, ()
     ws = torch.empty(bk * n_split * rep * (dh + 2), dtype=torch.float32, device=q.device)
@@ -327,7 +341,8 @@ def _check_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor: bool) -> None:
 
 def _launch_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor: bool):
     """Launch ``csrc/kvattn_full.cu`` on CUDA operands (checked by the
-    caller) → [B, 1, H, Dh] in q's dtype."""
+    caller), split as ``_split_plan`` says for a full read of the pool →
+    [B, 1, H, Dh] in q's dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"int8 decode attention runs on cuda or cpu, not {q.device}")
     b, _, h, dh = q.shape
@@ -346,10 +361,12 @@ def _launch_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor: bool):
     fn = _lib_full().tk_kvattn_full
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        span, n_split, ws, cnt, _keep = _split_args(q, b * n_kv, h // n_kv, dh, m, 1,
+                                                    stream, _MAX_SPLIT_FULL)
         rc = fn(
-            *(t.data_ptr() for t in ops), out.data_ptr(), _DTYPES[q.dtype],
-            b, n_kv, h // n_kv, m, dh, int(kmajor), float(1.0 / np.sqrt(dh)),
-            stream,
+            *(t.data_ptr() for t in ops), out.data_ptr(), ws, cnt, _DTYPES[q.dtype],
+            b, n_kv, h // n_kv, m, dh, span, n_split, int(kmajor),
+            float(1.0 / np.sqrt(dh)), stream,
         )
     _native.check(rc, "kvattn_full")
     return out
@@ -363,8 +380,8 @@ def int8_decode_attention_kmajor(q, ck_q, ck_s, cv_q, cv_s, valid, *,
     masks it equals the fill-bounded read. ``slot_block`` is the TPU
     kernel's slots per grid step, validated as there (it must divide B)
     and otherwise unused: it is a VMEM knob, not part of the contract.
-    CUDA tensors launch ``csrc/kvattn_full.cu``
-    (``int8_decode_attention_kmajor.launches`` counts each launch); CPU
+    CUDA tensors launch ``csrc/kvattn_full.cu``, split as ``_split_plan``
+    says (``int8_decode_attention_kmajor.launches`` counts each launch); CPU
     tensors run ``int8_decode_attention_kmajor_plain``."""
     b = q.shape[0]
     if slot_block and b % slot_block:
@@ -385,8 +402,9 @@ def int8_decode_attention(q, ck_q, ck_s, cv_q, cv_s, valid):
     K, Dh] with f32 scales [B, M, K] and a readable-position mask ``valid``
     [B, M] (bool, any pattern) → [B, 1, H, Dh] in q's dtype: the math of
     the server's kernel-off int8 read. CUDA tensors launch
-    ``csrc/kvattn_full.cu`` (``int8_decode_attention.launches`` counts each
-    launch); CPU tensors run ``int8_decode_attention_mmajor_plain``."""
+    ``csrc/kvattn_full.cu``, split as ``_split_plan`` says
+    (``int8_decode_attention.launches`` counts each launch); CPU tensors
+    run ``int8_decode_attention_mmajor_plain``."""
     _check_full(q, ck_q, ck_s, cv_q, cv_s, valid, kmajor=False)
     if q.device.type == "cpu":
         return int8_decode_attention_mmajor_plain(q, ck_q, ck_s, cv_q, cv_s, valid)
@@ -403,11 +421,22 @@ def _lib_full():
     fn = lib.tk_kvattn_full
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q, kq, ks, vq, vs, valid, out; dtype, b, n_kv, rep, m, dh,
-        # kmajor; 1/sqrt(dh); stream.
-        fn.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, p]
+        # q, kq, ks, vq, vs, valid, out, ws, counter; dtype, b, n_kv, rep,
+        # m, dh, span, n_split, kmajor; 1/sqrt(dh); stream.
+        fn.argtypes = [p] * 9 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        lib.tk_kvattn_full_attrs.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.tk_kvattn_full_attrs.restype = ctypes.c_int
     return lib
+
+
+def full_attrs(dtype: torch.dtype = torch.bfloat16, rep: int = 4, kmajor: bool = True) -> dict:
+    """The compiled resources of K7's (``kmajor``) or K8's kernel for
+    (dtype, rep), as ``dynlen_attrs``. Builds the library if needed; needs
+    CUDA."""
+    fn = _lib_full().tk_kvattn_full_attrs
+    return _attrs(lambda d, r, out: fn(d, r, int(kmajor), out), dtype, rep,
+                  "kvattn_full attrs")
 
 
 # ------------------------------------------------------- paged (block-table)
