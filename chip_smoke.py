@@ -74,6 +74,15 @@ Phases, each printing one JSON line:
    and 8 (0 required); timings at the planner's split, one span and spans
    of 64, 128, 256 and 512, beside the plain version and the bound, K4
    reading every position on K7's spans, and K7 at rep 1, 2, 4 and 8;
+5e. prng: the keyed sampler's threefry (``utils.prng``) against known
+   answers of ``jax.random`` (jax 0.9.0, partitionable threefry), bit for
+   bit on CUDA and on the CPU: key data, the JAX server's record keys
+   (offset 0x7FFFFFFF included), split, bits over the [16, 32000] serving
+   draw and per-key bits (first, last and strided samples), uniforms; CUDA
+   against the CPU path over 16 keys x 32000: bits and uniforms bit for
+   bit, Gumbels within 2 ulp (at the scale of max(|g|, 1)); the time of
+   one slot draw (``serve._pick_slots``, temperature 0.9, top_k 16, top_p
+   0.95) beside greedy argmax, by events and by the host's wall;
 6. train_grad: one training loss and backward at 1b width, 2 layers,
    S=512, B=2, through the kernels and through dense attention: the loss
    and every parameter's gradient must agree within bf16 tolerance;
@@ -91,6 +100,16 @@ Phases, each printing one JSON line:
    by ``StreamingGenerator`` with the int8 pool (a main path: every kernel
    launch count is zeroed just before it and read just after; every K1
    launch on the tensor cores), then again with the bf16 pool;
+8a. serve_sampled: the serve phase's model and 32 prompts plus one poison
+   record (7 bytes, which ``decode_prompt`` rejects), sampled (temperature
+   0.9, top_k 16, top_p 0.95, ``rng=prng.key(11)``) over the TCP broker:
+   the topic in an ``InMemoryBroker`` behind a ``BrokerServer`` on
+   localhost, consumed through ``MemoryConsumer(BrokerClient(...))``, the
+   int8 pool on K4, ``quarantine=PoisonQuarantine(MemoryProducer(broker),
+   "prompts.dlq", budget=2)``. 32/32 completions of 64 tokens, committed ==
+   end offsets (the poison's included), exactly one DLQ record with the
+   quarantine's provenance headers, K1 = 24 x prefills, K4 = 24 x decode
+   ticks; run twice, with identical tokens, commits and DLQ record;
 8b. serve_paged: the same 1b model through the PAGED pool (int8, block
    size 16, radix prefix reuse, chunked prefill, K5 on decode-only ticks):
    48 prompts of 128 tokens from three tenants, each a fixed 96-token
@@ -103,6 +122,15 @@ Phases, each printing one JSON line:
    commits and token 0;
 8c. serve_paged_f32: 1b width, 2 layers, f32 weights, the same stream
    through K5 and through the gathered read: every token identical;
+8c'. serve_sampled_f32: the tenant stream of 8b plus the poison record,
+   sampled as in 8a over the TCP broker, at 1b width, 2 layers, f32, in six
+   runs: the dense and paged compute-dtype pools, the dense int8 pool
+   through K4 and through the plain M-major read, the paged int8 pool
+   through K5 and through the gathered read. Every token, the commits and
+   the DLQ record identical within each pair; the K4 and K5 runs commit
+   the same offsets and DLQ record (their tokens differ where the dense
+   prefill's exact prompt k/v and the paged prefill's quantized pool
+   round apart; the agreement is printed);
 8d. serve_8b: harness scenario 7 at the 8b scale with an output topic
    (BASELINE config 5), full width and depth, random int8 weights made on
    the card from a seed: 48 prompts of 128 tokens produced round-robin on
@@ -156,17 +184,19 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, flush, n: int = 25, warm: int = 3) -> float:
+def cuda_ms(torch, fn, flush, n: int = 25, warm: int = 3,
+            sleep_cycles: int = 2_000_000) -> float:
     """Median device time of one call of ``fn`` in ms, L2 flushed first.
-    A ~1 ms device sleep ahead of the start event keeps the card busy
-    while the host enqueues ``fn``'s kernels, so the events time the
-    kernels and not the host's launch latency."""
+    A device sleep of ``sleep_cycles`` (~1 ms by default) ahead of the
+    start event keeps the card busy while the host enqueues ``fn``'s
+    kernels, so the events time the kernels and not the host's launch
+    latency; a call that takes the host longer to enqueue needs more."""
     for _ in range(warm):
         fn()
     times = []
     for _ in range(n):
         flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1404,6 +1434,324 @@ def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict,
     return row_k, row_g
 
 
+# Known answers of jax.random under jax 0.9.0 (jax_threefry_partitionable
+# True, its default): key data of key(0) and key(11); the JAX server's
+# record keys (`_record_key_data`) under base key(11); split(key(11), 3);
+# and, at the flat indices `flat_idx` of a [16, 32000] draw (the 1b serving
+# draw: 16 slots over the vocabulary), bits(key(11)), the bits of
+# uniform(key(11), minval=tiny) as uint32, and the per-key bits of
+# split(key(11), 16), each key over 32000.
+PRNG_KAT = {
+    "key0": [0, 0], "key11": [0, 11],
+    "records": [["prompts", 0, 0, [2218655383, 2356092170]],
+                ["prompts", 1, 17, [727883379, 2431539275]],
+                ["prompts", 1, 2147483647, [563890496, 913402334]]],
+    "split11": [[1943334310, 1180745302], [3947986621, 4020105687],
+                [3467837548, 1955229632]],
+    "flat_idx": [0, 1, 2, 31999, 32000, 40009, 80018, 120027, 160036, 200045,
+                 240054, 280063, 320072, 360081, 400090, 440099, 480108, 511998,
+                 511999],
+    "bits11": [901010416, 80514922, 3124326316, 1573991069, 595980571, 2444963827,
+               3500984093, 2921708605, 570804211, 3373407160, 824124538, 234308450,
+               723895684, 731956787, 2909875870, 738004407, 770609159, 2667640778,
+               3360031820],
+    "uniform11_u32": [1045877064, 1016697280, 1060780398, 1052484196, 1041110976,
+                      1058126638, 1062251718, 1059988924, 1040717592, 1061753370,
+                      1044675728, 1029665824, 1043109648, 1043235608, 1059942702,
+                      1043330096, 1043839552, 1058996470, 1061701124],
+    "rowbits": [1624905595, 1216879637, 4200566959, 995084349, 2621320021, 3267088429,
+                2861103198, 3802529438, 2174557446, 3095848150, 2180222523, 3478286239,
+                2161572422, 2435701894, 2635158808, 3802216401, 2132219889, 3078280026,
+                2662959436],
+}
+SAMPLING = {"temperature": 0.9, "top_k": 16, "top_p": 0.95}  # base key: key(11)
+POISON = b"\xff" * 7  # not a whole number of int32 tokens: decode_prompt raises
+
+
+def _u32(t) -> list:
+    return [int(x) & 0xFFFFFFFF for x in t.reshape(-1).cpu().tolist()]
+
+
+def prng_known_answers(torch, device) -> int:
+    """The port's threefry (``utils.prng``) on ``device`` against
+    ``PRNG_KAT``, bit for bit; raises on any difference. Returns the number
+    of 32-bit words held."""
+    import zlib
+
+    from torchkafka_tpu_torch.utils import prng
+
+    k11 = prng.key(11, device)
+    records = []
+    for topic, part, off, _ in PRNG_KAT["records"]:
+        k = k11
+        for d in (zlib.crc32(topic.encode()) & 0x7FFFFFFF, part & 0x7FFFFFFF,
+                  off & 0x7FFFFFFF):
+            k = prng.fold_in(k, d)
+        records.append([topic, part, off, _u32(k)])
+    idx = torch.tensor(PRNG_KAT["flat_idx"], device=device)
+    got = {
+        "key0": _u32(prng.key(0, device)), "key11": _u32(k11), "records": records,
+        "split11": [_u32(k) for k in prng.split(k11, 3)],
+        "flat_idx": PRNG_KAT["flat_idx"],
+        "bits11": _u32(prng.random_bits(k11, (16, 32000)).reshape(-1)[idx]),
+        "uniform11_u32": _u32(
+            prng.uniform(k11, (16, 32000)).view(torch.int32).reshape(-1)[idx]),
+        "rowbits": _u32(prng.random_bits(prng.split(k11, 16), (32000,)).reshape(-1)[idx]),
+    }
+    bad = [name for name in PRNG_KAT if got[name] != PRNG_KAT[name]]
+    if bad:
+        raise AssertionError(f"prng on {device}: {bad} differ from jax.random's")
+    return 4 + 2 * len(records) + 2 * 3 + 3 * len(PRNG_KAT["flat_idx"])
+
+
+def check_prng(torch, flush) -> dict:
+    """The keyed sampler on the card: known answers on CUDA and on the CPU;
+    CUDA against the CPU path over the serving draw (16 keys x 32000): bits
+    and uniforms bit for bit, Gumbels within 2 ulp at the scale of max(|g|,
+    1) (torch's log on either device, within an ulp of XLA's); then the
+    time of one slot draw (``serve._pick_slots`` with ``SAMPLING``) beside
+    greedy argmax: device time by events (behind a ~40 ms device sleep:
+    the host takes several ms to enqueue the draw's launches), and the
+    host's wall per call (the 1b tick is host-bound)."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.serve import _pick_slots
+    from torchkafka_tpu_torch.utils import prng
+
+    words = prng_known_answers(torch, "cuda")
+    prng_known_answers(torch, "cpu")
+    B, V = 16, 32000
+    keys = prng.split(prng.key(11, "cuda"), B)
+    bits_eq = torch.equal(prng.random_bits(keys, (V,)).cpu(),
+                          prng.random_bits(keys.cpu(), (V,)))
+    u_dev, u_cpu = prng.uniform(keys, (V,)).cpu(), prng.uniform(keys.cpu(), (V,))
+    u_eq = torch.equal(u_dev.view(torch.int32), u_cpu.view(torch.int32))
+    g_dev = prng.gumbel(keys, (V,)).cpu().numpy()
+    g_cpu = prng.gumbel(keys.cpu(), (V,)).numpy()
+    scale = np.maximum(np.maximum(np.abs(g_dev), np.abs(g_cpu)), 1).astype(np.float32)
+    ulps = float((np.abs(g_dev.astype(np.float64) - g_cpu) / np.spacing(scale)).max())
+    if not (bits_eq and u_eq):
+        raise AssertionError(f"prng: CUDA bits {bits_eq}, uniforms {u_eq} vs the CPU path")
+    if not np.isfinite(g_dev).all() or ulps > 2.0:
+        raise AssertionError(f"prng: CUDA Gumbels {ulps} ulp from the CPU path")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    logits = torch.randn((B, V), generator=gen, device="cuda") * 3
+    idx = torch.arange(B, dtype=torch.int32, device="cuda")
+
+    def pick():
+        return _pick_slots(logits, keys, idx, **SAMPLING)
+
+    def greedy():
+        return torch.argmax(logits, dim=-1)
+
+    tok_dev = pick().cpu()
+    tok_cpu = _pick_slots(logits.cpu(), keys.cpu(), idx.cpu(), **SAMPLING)
+
+    def host_ms(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    return {"phase": "prng", "known_answer_words": words, "known_answers": "cuda, cpu",
+            "draw": {"keys": B, "vocab": V}, "bits_cuda_eq_cpu": bits_eq,
+            "uniform_cuda_eq_cpu": u_eq, "gumbel_max_ulp_cuda_vs_cpu": ulps,
+            "gumbel_tolerance_ulp": 2.0,
+            "pick_tokens_cuda_eq_cpu": bool(torch.equal(tok_dev, tok_cpu)),
+            "sampling": SAMPLING,
+            "pick_slots_ms": cuda_ms(torch, pick, flush, sleep_cycles=80_000_000),
+            "argmax_ms": cuda_ms(torch, greedy, flush),
+            "pick_slots_host_ms": host_ms(pick), "argmax_host_ms": host_ms(greedy)}
+
+
+def serve_sampled(torch, cfg, params, prompts, keys=None, *, pages=None, ticks=None,
+                  kv_dtype="int8", kv_kernel: bool = True, parts: int = 2,
+                  poison_at: int = 10):
+    """Serve ``prompts`` plus one poison record with keyed sampling
+    (``SAMPLING``, base key ``prng.key(11)``) over the TCP broker: the
+    topic lives in an ``InMemoryBroker`` hosted by a ``BrokerServer`` on
+    localhost, and the port's StreamingGenerator consumes it through
+    ``MemoryConsumer(BrokerClient(...))``. Prompts go round-robin onto
+    ``parts`` partitions (keyed by ``keys`` when given); the poison record
+    (``POISON``, which the default ``decode_prompt`` rejects) goes onto
+    partition 1 before prompt ``poison_at`` and is dead-lettered to
+    "prompts.dlq" by a ``PoisonQuarantine`` (budget 2). The pool: dense or,
+    with ``pages``, paged; int8, read by K4 or K5 (``kv_kernel=False``: the
+    plain M-major or gathered read), or with ``kv_dtype`` None the compute
+    dtype (no decode kernel). Every kernel launch count is zeroed
+    just before ``run`` and read just after. Hard checks: every completion
+    of ``MAX_NEW`` tokens, committed == end offsets (the poison's
+    included), exactly one DLQ record carrying the quarantine's provenance
+    headers, the launch counts of the path."""
+    from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
+    from torchkafka_tpu_torch.ops.kvattn import (
+        int8_decode_attention_dynlen,
+        int8_paged_decode_attention,
+    )
+    from torchkafka_tpu_torch.resilience import PoisonQuarantine
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source import BrokerClient, BrokerServer, MemoryProducer
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+    from torchkafka_tpu_torch.utils import prng
+
+    n, plen = prompts.shape
+    broker = InMemoryBroker()
+    broker.create_topic("prompts", partitions=parts)
+    broker.create_topic("prompts.dlq", partitions=1)
+    for i in range(n):
+        if i == poison_at:
+            poison_off = broker.end_offset(TopicPartition("prompts", 1))
+            broker.produce("prompts", POISON, key=b"poison", partition=1)
+        broker.produce("prompts", prompts[i].tobytes(),
+                       key=keys[i] if keys else None, partition=i % parts)
+    host = BrokerServer(broker)
+    client = BrokerClient(host.host, host.port)
+    kernels = (flash_fwd_bhsd, int8_decode_attention_dynlen, int8_paged_decode_attention)
+    try:
+        consumer = MemoryConsumer(client, "prompts", group_id="sampled")
+        server = StreamingGenerator(
+            consumer, params, cfg, slots=16, prompt_len=plen, max_new=MAX_NEW,
+            commit_every=16, ticks_per_sync=ticks or MAX_NEW - 1, kv_dtype=kv_dtype,
+            kv_kernel=kv_kernel if kv_dtype else "auto", kv_pages=pages, rng=prng.key(11),
+            quarantine=PoisonQuarantine(MemoryProducer(broker), "prompts.dlq", budget=2),
+            device="cuda", **SAMPLING,
+        )
+        server.warmup()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        flash_fwd_bhsd.tc_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = {(r.partition, r.offset): out for r, out in server.run(max_records=n)}
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {"flash_fwd": kernels[0].launches, "flash_fwd_tc": kernels[0].tc_launches,
+                    "kvattn_dynlen": kernels[1].launches, "kvattn_paged": kernels[2].launches}
+        consumer.close()
+    finally:
+        client.close()
+        host.close()
+    tps = [TopicPartition("prompts", p) for p in range(parts)]
+    committed = [broker.committed("sampled", tp) for tp in tps]
+    ends = [broker.end_offset(tp) for tp in tps]
+    dlq = broker.fetch(TopicPartition("prompts.dlq", 0), 0, 10)
+    m = server.metrics.summary()
+    what = "serve_sampled" + (" paged" if pages else "")
+    if len(outs) != n or any(len(o) != MAX_NEW for o in outs.values()):
+        raise AssertionError(f"{what}: {len(outs)} completions, lengths "
+                             f"{sorted({len(o) for o in outs.values()})}")
+    if committed != ends:
+        raise AssertionError(f"{what}: committed {committed} != end offsets {ends}")
+    if any(int(o.min()) < 0 or int(o.max()) >= cfg.vocab_size for o in outs.values()):
+        raise AssertionError(f"{what}: token out of the vocabulary")
+    headers = dict(dlq[0].headers) if len(dlq) == 1 else {}
+    want = {"dlq.topic": b"prompts", "dlq.partition": b"1",
+            "dlq.offset": str(poison_off).encode(), "dlq.attempts": b"2"}
+    if (len(dlq) != 1 or dlq[0].value != POISON or dlq[0].key != b"poison"
+            or any(headers.get(h) != v for h, v in want.items())
+            or not headers.get("dlq.error")):
+        raise AssertionError(f"{what}: DLQ {[(r.key, r.value, r.headers) for r in dlq]}")
+    if (m["quarantined"], m["dropped"], m["dlq_delivery_failures"]) != (1, 1, 0):
+        raise AssertionError(f"{what}: quarantine counts {m}")
+    nl, kernel = cfg.n_layers, kv_dtype == "int8" and kv_kernel
+    if pages is None:
+        want_l = {"flash_fwd": nl * m["prefills"],
+                  "kvattn_dynlen": nl * m["decode_ticks"] if kernel else 0, "kvattn_paged": 0}
+    else:
+        want_l = {"flash_fwd": 0, "kvattn_dynlen": 0,
+                  "kvattn_paged": nl * (m["decode_ticks"]
+                                        - m["chunked_prefill"]["chunk_ticks"]) if kernel else 0}
+    if (any(launches[k] != v for k, v in want_l.items())
+            or (kernel and not want_l["kvattn_dynlen"] + want_l["kvattn_paged"])):
+        raise AssertionError(f"{what}: launches {launches}, want {want_l}")
+    if cfg.dtype == torch.bfloat16 and launches["flash_fwd_tc"] != launches["flash_fwd"]:
+        raise AssertionError(f"{what}: flash tensor-core launches {launches}")
+    tokens = sum(len(o) for o in outs.values())
+    row = {"phase": "serve_sampled", "model": f"1b width, {nl} layers",
+           "dtype": str(cfg.dtype).replace("torch.", ""), "pool": "paged" if pages else "dense",
+           "kv_dtype": kv_dtype or "compute", "kv_kernel": kernel, "transport": "BrokerServer/BrokerClient on localhost",
+           "sampling": SAMPLING, "rng": "prng.key(11)", "prompts": n, "prompt_len": plen,
+           "max_new": MAX_NEW, "slots": 16, "ticks_per_sync": ticks or MAX_NEW - 1,
+           "completions": len(outs), "tokens": tokens, "elapsed_s": elapsed,
+           "tokens_per_s": tokens / elapsed, "committed": committed, "end_offsets": ends,
+           "dlq": {"records": len(dlq), "key": dlq[0].key.decode(),
+                   "headers": {h: v.decode() for h, v in headers.items()}},
+           "quarantined": m["quarantined"], "prefills": m["prefills"],
+           "decode_ticks": m["decode_ticks"],
+           "chunk_ticks": m["chunked_prefill"]["chunk_ticks"], "launches": launches,
+           "tick_block_ms_p50": m["step_time"]["p50_ms"],
+           "tick_block_ms_p99": m["step_time"]["p99_ms"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "nvidia_smi": smi_line()}
+    return outs, row
+
+
+def check_serve_sampled(torch, cfg, params, prompts, greedy_row) -> list:
+    """The 1b sampled serve over the TCP broker, twice: the second run must
+    give the same tokens, commits and DLQ record (each draw depends on its
+    record's key and token index only)."""
+    outs_a, row_a = serve_sampled(torch, cfg, params, prompts)
+    outs_b, row_b = serve_sampled(torch, cfg, params, prompts)
+    same = outs_a.keys() == outs_b.keys() and all(
+        (outs_a[k] == outs_b[k]).all() for k in outs_a)
+    if not same or row_a["committed"] != row_b["committed"] or row_a["dlq"] != row_b["dlq"]:
+        raise AssertionError("serve_sampled: a second run gave other tokens or commits")
+    for row in (row_a, row_b):
+        row["greedy_tokens_per_s"] = greedy_row["tokens_per_s"]
+        row["greedy_tick_block_ms_p50"] = greedy_row["tick_block_ms_p50"]
+    row_b["identical_to_first_run"] = True
+    return [row_a, row_b]
+
+
+def check_serve_sampled_f32(torch, cfg, params) -> list:
+    """The tenant stream with keyed sampling at 1b width, 2 layers, f32,
+    in six runs. Every token, the commits and the DLQ record must be
+    identical between the dense and the paged compute-dtype pools (the
+    card's version of the JAX package's seeded dense-vs-paged test),
+    between K4 and the plain M-major read of the dense int8 pool, and
+    between K5 and the gathered read of the paged int8 pool. The dense and
+    paged int8 pools commit the same offsets and DLQ record; their tokens
+    are not held equal: the dense prefill attends over the prompt's exact
+    k/v, the paged chunk prefill over the quantized pool, in the JAX
+    package as here (their agreement is printed)."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.kvcache import PagedKVConfig
+
+    prompts, keys = tenant_prompts(np, cfg.vocab_size)
+    n, plen = prompts.shape
+    nblk = -(-(plen + MAX_NEW) // PAGED_BS)
+    pages = PagedKVConfig(block_size=PAGED_BS, num_blocks=16 * nblk + 24 + 1,
+                          prefill_chunk=None)
+    runs = {}
+    for name, kw in (("dense", {"kv_dtype": None}), ("paged", {"kv_dtype": None, "pages": pages}),
+                     ("dense_k4", {}), ("dense_plain", {"kv_kernel": False}),
+                     ("paged_k5", {"pages": pages}),
+                     ("paged_gathered", {"pages": pages, "kv_kernel": False})):
+        runs[name] = serve_sampled(torch, cfg, params, prompts, keys, ticks=8, **kw)
+        runs[name][1]["phase"] = "serve_sampled_f32"
+        runs[name][1]["run"] = name
+
+    def agreement(a, b):
+        return float(np.mean([np.mean(runs[a][0][k] == runs[b][0][k]) for k in runs[a][0]]))
+
+    for a, b, exact in (("dense", "paged", True), ("dense_k4", "dense_plain", True),
+                        ("paged_k5", "paged_gathered", True), ("dense_k4", "paged_k5", False)):
+        ra, rb = runs[a][1], runs[b][1]
+        agree = agreement(a, b)
+        rb[f"token_agreement_with_{a}"] = agree
+        if ra["committed"] != rb["committed"] or ra["dlq"] != rb["dlq"]:
+            raise AssertionError(f"serve_sampled_f32: {a} and {b} commit other offsets or DLQ")
+        if exact and agree != 1.0:
+            raise AssertionError(f"serve_sampled_f32: {a} and {b} tokens differ "
+                                 f"(agreement {agree})")
+    return [row for _, row in runs.values()]
+
+
 def serve_8b(torch, cfg, params, prompts, kv_kernel: bool, prof=None):
     """Scenario 7 at the 8b scale with an output topic (BASELINE config 5):
     ``prompts`` produced round-robin on two partitions, each keyed by its
@@ -1672,6 +2020,7 @@ def main() -> int:
     emit(k78)
     if args.kernels_only:
         return 0
+    emit(check_prng(torch, flush))
     del flush
 
     emit(check_train_grads(torch))
@@ -1706,6 +2055,8 @@ def main() -> int:
 
     if args.profile in ("all", "serve"):
         emit(profile_serve(torch, cfg, params, prompts, row_q))
+    for row in check_serve_sampled(torch, cfg, params, prompts, row_q):
+        emit(row)
 
     row_p, row_pg = check_serve_paged(torch, cfg, params, "serve_paged", exact=False)
     emit(row_p)
@@ -1723,6 +2074,8 @@ def main() -> int:
                                       exact=True)
     emit(row_f)
     emit(row_fg)
+    for row in check_serve_sampled_f32(torch, cfg32, params32):
+        emit(row)
     del params32
     torch.cuda.empty_cache()
 

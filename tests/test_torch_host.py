@@ -149,6 +149,9 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.serve, torchkafka_tpu_torch.models.zoo\n"
         "import torchkafka_tpu_torch.source.memory\n"
         "import torchkafka_tpu_torch.ops.qmatmul, torchkafka_tpu_torch.source.producer\n"
+        "import torchkafka_tpu_torch.utils.prng, torchkafka_tpu_torch.compat\n"
+        "import torchkafka_tpu_torch.source.cluster, torchkafka_tpu_torch.source.kafka\n"
+        "import torchkafka_tpu_torch.source.checkpoint_wire, torchkafka_tpu_torch.resilience\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
         "print(bad)\n"

@@ -262,7 +262,7 @@ def test_stream_unported_arguments_raise():
     proc = ptk.fixed_width(SEQ, np.int32)
     for kw, match in (
         ({"mesh": object()}, "mesh"),
-        ({"quarantine": object(), "on_processor_error": "quarantine"}, "quarantine"),
+        ({"on_barrier_timeout": lambda: None}, "multihost"),
         ({"barrier_timeout_s": 10.0}, "multihost"),
     ):
         with pytest.raises(NotImplementedError, match=match):

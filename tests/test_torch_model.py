@@ -129,18 +129,26 @@ def test_filter_logits_matches(top_k, top_p):
 def test_greedy_sampling_and_knob_checks():
     from torchkafka_tpu.models.generate import sample_logits as jax_sample
     from torchkafka_tpu_torch.models.generate import check_sampling_params, sample_logits
+    from torchkafka_tpu_torch.utils import prng
 
     logits = np.random.default_rng(5).normal(size=(6, 33)).astype(np.float32)
     logits[2, [3, 9]] = 10.0  # argmax ties resolve to the first maximum
     ref = np.asarray(jax_sample(jnp.asarray(logits), jax.random.key(0)))
-    got = sample_logits(torch.from_numpy(logits))
+    got = sample_logits(torch.from_numpy(logits), prng.key(0))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
     # Top-1 sampling is greedy where the maximum is unique (ties are kept).
     untied = np.delete(logits, 2, axis=0)
-    drawn = sample_logits(torch.from_numpy(untied), torch.Generator().manual_seed(0),
+    drawn = sample_logits(torch.from_numpy(untied), prng.key(0),
                           temperature=1.0, top_k=1)
     np.testing.assert_array_equal(drawn.numpy(), np.delete(ref, 2))
+    # A keyed draw is JAX's draw.
+    for seed in range(4):
+        want = np.asarray(jax_sample(jnp.asarray(logits), jax.random.key(seed),
+                                     temperature=1.0))
+        have = sample_logits(torch.from_numpy(logits), prng.key(seed),
+                             temperature=1.0)
+        np.testing.assert_array_equal(have.numpy(), want)
     for bad in ({"top_k": 0}, {"top_p": 0.0}, {"top_p": 1.5}):
         with pytest.raises(ValueError):
             check_sampling_params(bad.get("top_k"), bad.get("top_p"))

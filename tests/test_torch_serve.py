@@ -18,6 +18,7 @@ from torchkafka_tpu_torch.models import transformer as pt
 from torchkafka_tpu_torch.serve import StreamingGenerator
 from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
 from torchkafka_tpu_torch.source.records import TopicPartition
+from torchkafka_tpu_torch.utils import prng
 
 SHAPE = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
              d_ff=64, max_seq_len=32)
@@ -99,19 +100,38 @@ def _server(model, **kw):
     return StreamingGenerator(consumer, params, pcfg, **{**base, **kw})
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh": object()},
-    {"kv_pages": {"block_size": 4, "num_blocks": 16}, "kv_tier": {"host_bytes": 1}},
-    {"kv_tier": {}},
-    {"prefill_role": True}, {"journal": object()}, {"tracer": object()},
-    {"exactly_once": True}, {"top_k": 4},
-    {"quarantine": object()}, {"distill_topic": "d"},
-    {"max_new_of": lambda r: 2}, {"temperature": 0.7},
-    {"rng": object()},
-])
-def test_unsupported_arguments_raise(model, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+# The ids keep each case's position in the list. Sampling and the
+# quarantine are served now: their cases test the new checks (bad knobs
+# raise ValueError at construction, an rng that is no key raises TypeError)
+# or a still-deferred argument.
+@pytest.mark.parametrize("kw,exc", [
+    ({"mesh": object()}, NotImplementedError),
+    ({"kv_pages": {"block_size": 4, "num_blocks": 16},
+      "kv_tier": {"host_bytes": 1}}, NotImplementedError),
+    ({"kv_tier": {}}, NotImplementedError),
+    ({"prefill_role": True}, NotImplementedError),
+    ({"journal": object()}, NotImplementedError),
+    ({"tracer": object()}, NotImplementedError),
+    ({"exactly_once": True}, NotImplementedError),
+    ({"top_k": 0}, ValueError),
+    ({"distill_producer": object()}, NotImplementedError),
+    ({"distill_topic": "d"}, NotImplementedError),
+    ({"max_new_of": lambda r: 2}, NotImplementedError),
+    ({"temperature": 0.7, "top_p": 1.5}, ValueError),
+    ({"rng": object()}, TypeError),
+], ids=[f"kw{i}" for i in range(13)])
+def test_unsupported_arguments_raise(model, kw, exc):
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None):
         _server(model, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"top_k": 4}, {"quarantine": object()}, {"temperature": 0.7},
+    {"rng": prng.key(3)}, {"rng": np.array([0, 3], np.uint32)},
+])
+def test_sampling_and_quarantine_arguments_go_through(model, kw):
+    summary = _server(model, **kw).metrics.summary()
+    assert summary["quarantined"] == summary["dlq_delivery_failures"] == 0
 
 
 def test_unknown_argument_is_a_type_error(model):

@@ -44,11 +44,34 @@ from torchkafka_tpu_torch.errors import (
 from torchkafka_tpu_torch.models.transformer import make_train_step
 from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.pipeline import KafkaStream, stream
+from torchkafka_tpu_torch.resilience import (
+    CircuitBreaker,
+    ManualClock,
+    PoisonQuarantine,
+    ResilientConsumer,
+    RetryPolicy,
+)
 from torchkafka_tpu_torch.source.assignment import partitions_for_process
+from torchkafka_tpu_torch.source import (
+    BrokerCell,
+    BrokerClient,
+    BrokerServer,
+    ChaosConsumer,
+    ChaosProducer,
+    ChaosTransport,
+    FollowerReplica,
+    KafkaConsumer,
+    KafkaProducer,
+    KafkaTransactionalProducer,
+    ReplicationConfig,
+    Replicator,
+    WireFaults,
+)
 from torchkafka_tpu_torch.source.consumer import Consumer, seek_to_timestamp
 from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
 from torchkafka_tpu_torch.source.producer import (
     MemoryProducer,
+    Producer,
     RecordMetadata,
     TransactionalProducer,
     dead_letter_to_topic,
@@ -72,27 +95,45 @@ __all__ = [
     "BarrierError",
     "Batch",
     "Batcher",
+    "BrokerCell",
+    "BrokerClient",
+    "BrokerServer",
     "BrokerUnavailableError",
+    "ChaosConsumer",
+    "ChaosProducer",
+    "ChaosTransport",
+    "CircuitBreaker",
     "CommitBarrier",
     "CommitFailedError",
     "CommitToken",
     "Consumer",
     "ConsumerClosedError",
     "FencedMemberError",
+    "FollowerReplica",
     "InMemoryBroker",
     "JournalLockedError",
+    "KafkaConsumer",
+    "KafkaProducer",
     "KafkaStream",
+    "KafkaTransactionalProducer",
     "LocalBarrier",
+    "ManualClock",
     "MemoryConsumer",
     "MemoryProducer",
     "OffsetLedger",
     "OutputDeliveryError",
+    "PoisonQuarantine",
     "PoisonRecordError",
+    "Producer",
     "ProducerClosedError",
     "ProducerFencedError",
     "QuorumLostError",
     "Record",
     "RecordMetadata",
+    "ReplicationConfig",
+    "Replicator",
+    "ResilientConsumer",
+    "RetryPolicy",
     "ShutdownSignal",
     "StaleEpochError",
     "StreamCheckpointer",
@@ -100,6 +141,7 @@ __all__ = [
     "TpuKafkaError",
     "TransactionStateError",
     "TransactionalProducer",
+    "WireFaults",
     "WriteAheadLog",
     "adamw",
     "chunk_of",

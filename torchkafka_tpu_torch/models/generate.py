@@ -1,5 +1,5 @@
-"""Prefill, the cached decode read and sampling: port of
-``torchkafka_tpu/models/generate.py``.
+"""Prefill, the cached decode read, sampling and the lockstep ``generate``
+loop: port of ``torchkafka_tpu/models/generate.py``.
 
 ``prefill`` reuses the trunk of ``Transformer`` (one implementation of the
 layer math, as in the JAX package) and captures each layer's k/v for the
@@ -9,8 +9,10 @@ the int8 pool with its scales folded onto the small score/probability
 tensors. The server's int8 pool reads through the CUDA kernel instead
 (``ops.kvattn``); this read serves the compute-dtype pool.
 
-Not ported yet: the lockstep ``generate`` loop, keyed (threefry-exact)
-sampling and the mesh shardings (ROADMAP Queue A).
+Sampling draws as the JAX package does: ``jax.random.categorical`` over
+the filtered logits, from threefry keys (``utils.prng``), so a key gives
+the same tokens in both packages. Not ported yet: the mesh shardings
+(ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -21,14 +23,17 @@ from typing import NamedTuple
 
 import torch
 
-from torchkafka_tpu_torch.models.quant import load_weight
+from torchkafka_tpu_torch.models.quant import embed_rows, load_weight
 from torchkafka_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     _mlp,
     _rms_norm,
+    _rope,
+    layer_at,
     matmul_f32,
 )
+from torchkafka_tpu_torch.utils import prng
 
 
 class KVCache(NamedTuple):
@@ -48,8 +53,12 @@ def filter_logits(
 ) -> torch.Tensor:
     """Temperature → top-k → top-p over [..., V] logits; masked entries go
     to -inf. Ties at either threshold are kept (>= the boundary value), the
-    JAX package's rule."""
-    logits = logits.float() / float(temperature)
+    JAX package's rule. The temperature divides as a tensor on the logits'
+    device: CUDA multiplies by the reciprocal of a host scalar instead,
+    which can differ in the last bit."""
+    temp = torch.full((), float(temperature), dtype=torch.float32,
+                      device=logits.device)
+    logits = logits.float() / temp
     neg = float("-inf")
     if top_k is not None and 0 < top_k < logits.shape[-1]:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
@@ -69,25 +78,22 @@ def filter_logits(
 
 def sample_logits(
     logits: torch.Tensor,
-    generator: torch.Generator | None = None,
+    key: torch.Tensor | None,
     *,
     temperature: float = 0.0,
     top_k: int | None = None,
     top_p: float | None = None,
 ) -> torch.Tensor:
     """[..., V] logits → [...] int32 token ids. ``temperature == 0`` is
-    greedy argmax (the first maximum, as in JAX); otherwise a categorical
-    draw over ``filter_logits`` from ``generator``. The draws are not the
-    JAX package's (threefry keys are ROADMAP Queue C item 2)."""
+    greedy argmax (the first maximum, as in JAX; the key is not used);
+    otherwise ``prng.categorical(key, filter_logits(...))``: one key [2]
+    draws over the whole array, keys [B, 2] draw row b with key b."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    probs = torch.softmax(
-        filter_logits(logits, temperature=temperature, top_k=top_k, top_p=top_p),
-        dim=-1,
+    filtered = filter_logits(
+        logits, temperature=temperature, top_k=top_k, top_p=top_p
     )
-    flat = probs.reshape(-1, probs.shape[-1])
-    draw = torch.multinomial(flat, 1, generator=generator)
-    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+    return prng.categorical(key, filtered).to(torch.int32)
 
 
 def check_sampling_params(top_k: int | None, top_p: float | None) -> None:
@@ -191,3 +197,65 @@ def prefill(params, cfg: TransformerConfig, tokens: torch.Tensor, max_len: int):
     cache_k[:, :, :s] = ks
     cache_v[:, :, :s] = vs
     return logits, KVCache(cache_k, cache_v)
+
+
+# --------------------------------------------------------------- lockstep
+
+
+def _layer_step(x, layer, cache_k, cache_v, pos: int, cfg: TransformerConfig):
+    """One token through one layer at the scalar position ``pos``. x:
+    [B, 1, D]; caches [B, max_len, K, Dh], one layer's views, written in
+    place at ``pos``; the read covers positions [0, pos]."""
+    q, k, v = _project_qkv(x, layer, cfg)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
+    return _attend_cached(x, q, cache_k, cache_v, valid, layer, cfg)
+
+
+def _decode_one(params, cfg: TransformerConfig, cache: KVCache,
+                token: torch.Tensor, pos: int) -> torch.Tensor:
+    """token [B] → logits [B, V] f32; the cache is written in place."""
+    x = embed_rows(params["embed"], token, cfg.dtype)[:, None, :]
+    for i in range(cfg.n_layers):
+        x = _layer_step(x, layer_at(params["layers"], i), cache.k[i],
+                        cache.v[i], pos, cfg)
+    x = _rms_norm(x[:, 0], params["ln_f"])
+    return matmul_f32(x, params["lm_head"], cfg.dtype)
+
+
+@torch.inference_mode()
+def generate(
+    params,
+    cfg: TransformerConfig,
+    prompt: torch.Tensor,
+    max_new: int,
+    *,
+    temperature: float = 0.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    rng: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """prompt [B, S] int32 → generated [B, max_new] int32, every row in
+    lockstep (greedy when ``temperature == 0``). ``rng``: a ``prng`` key
+    (None = ``prng.key(0)``). Token 0 draws with ``rng`` itself; each later
+    step does ``key, sub = split(key)`` and draws with ``sub``, the JAX
+    package's schedule, so a key gives the same tokens in both packages."""
+    check_sampling_params(top_k, top_p)
+    batch, seq = prompt.shape
+    logits, cache = prefill(params, cfg, prompt, seq + max_new)
+    key = prng.key(0, prompt.device) if rng is None else rng.to(prompt.device)
+
+    def pick(lg, k):
+        return sample_logits(lg, k, temperature=temperature, top_k=top_k,
+                             top_p=top_p)
+
+    tokens = [pick(logits, key)]
+    for i in range(max_new - 1):
+        key, sub = prng.split(key)
+        logits = _decode_one(params, cfg, cache, tokens[-1], seq + i)
+        tokens.append(pick(logits, sub))
+    return torch.stack(tokens, dim=1)

@@ -12,8 +12,8 @@ stream while the step may still read it. Run the step on the stream that
 is current when ``next()`` returns.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh=`` (global sharded batches), the multi-process barrier
-watchdog default, and ``on_processor_error="quarantine"``/``quarantine=``.
+item): ``mesh=`` (global sharded batches) and the multi-process barrier
+watchdog default.
 
 What follows is the JAX package's design note, which holds for the port.
 
@@ -189,11 +189,6 @@ class KafkaStream:
     ) -> None:
         if mesh is not None:
             raise _not_ported("mesh=", "slice 4, mesh and multi-process paths")
-        if quarantine is not None or on_processor_error == "quarantine":
-            raise _not_ported(
-                "on_processor_error='quarantine' / quarantine=",
-                "serving follow-up 11, poison quarantine",
-            )
         if barrier is None and _world_size() > 1:
             raise _not_ported(
                 "the multi-process barrier watchdog default",

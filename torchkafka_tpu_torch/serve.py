@@ -65,16 +65,33 @@ legacy per-record admission (compute dtype only): one suffix prefill per
 record. A pool too small for one slot's worst case falls back to the
 dense pool (``cache_fallbacks``).
 
+Sampling (``temperature`` > 0, ``top_k``, ``top_p``, ``rng``): each
+admitted record derives a key from ``rng`` and its identity
+(``_record_key_data``: ``fold_in`` of the topic's crc32, the partition and
+the offset), kept per slot on the device; token i of the record draws
+with ``fold_in(record_key, i)`` (``_pick_slots``). A record's tokens are
+therefore the same in any slot, tick or process, and equal to the JAX
+package's for the same logits. ``temperature=0`` is greedy argmax and
+does no key work.
+
+Poison prompts (``quarantine=resilience.PoisonQuarantine(...)``): a prompt
+that ``decode_prompt`` rejects spends its retry budget in place, then is
+dead-lettered with an acknowledged produce before its offset retires
+(``metrics.quarantined``); a failed DLQ produce counts in
+``metrics.dlq_delivery_failures`` and raises ``OutputDeliveryError``.
+Without a quarantine the prompt retires as dropped.
+
 Still raising ``NotImplementedError`` with their ROADMAP item (``_DEFERRED``):
 among others exactly-once output (``exactly_once``), the host-RAM KV tier
-(``kv_tier``), disaggregated prefill (``prefill_role``), mesh, journal,
-tracing and sampled serving.
+(``kv_tier``), disaggregated prefill (``prefill_role``), mesh, journal and
+tracing.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+import zlib
 from typing import Callable, Iterator
 
 import numpy as np
@@ -98,8 +115,10 @@ from torchkafka_tpu_torch.models.generate import (
     _attend_cached,
     _attn_tail,
     _project_qkv,
+    check_sampling_params,
     prefill_capture,
     prefill_model,
+    sample_logits,
 )
 from torchkafka_tpu_torch.models.quant import QTensor, embed_rows, quant_kv_groups
 from torchkafka_tpu_torch.models.transformer import (
@@ -118,6 +137,7 @@ from torchkafka_tpu_torch.ops.kvattn import (
 )
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
 from torchkafka_tpu_torch.source.records import Record
+from torchkafka_tpu_torch.utils import prng
 from torchkafka_tpu_torch.utils.devices import resolve_device
 from torchkafka_tpu_torch.utils.metrics import Gauge, LatencyHistogram, RateMeter
 
@@ -127,14 +147,10 @@ _logger = logging.getLogger(__name__)
 # each with the ROADMAP item that ports it. Passing one (with a value other
 # than None/False) raises NotImplementedError; none is silently ignored.
 _DEFERRED = {
-    "top_k": "1, sampled serving",
-    "top_p": "1, sampled serving",
-    "rng": "1, sampled serving",
     "journal": "3, journal",
     "exactly_once": "4, exactly-once",
     "mesh": "6, mesh",
     "tracer": "9, tracing spans",
-    "quarantine": "11, poison quarantine",
     "distill_topic": "11, draft distillation",
     "distill_producer": "11, draft distillation",
     "max_new_of": "11, per-record output budgets",
@@ -146,6 +162,38 @@ _DEFERRED = {
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue A, serving follow-up {item})"
+    )
+
+
+def _pick_slots(logits, key_data, idx, *, temperature, top_k, top_p):
+    """Per-slot sampling with per-(record, token-index) keys. ``logits``
+    [B, V]; ``key_data`` [B, 2]: each row its slot's RECORD key
+    (``StreamingGenerator._record_key_data``); ``idx`` [B] int32: the
+    output index of the token being drawn. Row b draws with
+    ``fold_in(record_key_b, idx_b)``, so a record's token i is the same
+    draw in any slot, tick or process. Greedy (temperature 0) ignores the
+    keys."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    keys = prng.fold_in(key_data, idx)
+    return sample_logits(
+        logits, keys, temperature=temperature, top_k=top_k, top_p=top_p
+    )
+
+
+def _rng_words(rng) -> tuple[int, int]:
+    """The base key's two 32-bit words from ``rng``: None (``prng.key(0)``),
+    a [2] uint32 numpy array of raw key data, or a ``prng.key`` tensor."""
+    if rng is None:
+        return (0, 0)
+    if isinstance(rng, np.ndarray) and rng.dtype == np.uint32 and rng.shape == (2,):
+        return int(rng[0]), int(rng[1])
+    if (isinstance(rng, torch.Tensor) and rng.shape == (2,)
+            and rng.dtype == torch.int64):
+        return tuple(int(w) & 0xFFFFFFFF for w in rng.tolist())
+    raise TypeError(
+        "rng must be None, a [2] uint32 numpy array of key data or a "
+        f"prng.key tensor, got {type(rng).__name__}"
     )
 
 
@@ -206,9 +254,12 @@ class ServeMetrics:
         self.truncated = RateMeter()  # stopped by EOS before max_new
         self.readmissions = RateMeter()  # slots refilled while others decode
         self.dropped = RateMeter()  # undecodable prompts retired
+        self.quarantined = RateMeter()  # poison prompts dead-lettered
         self.commit_failures = RateMeter()
         self.output_flush_failures = RateMeter()  # output topic not durable
         self.output_send_failures = RateMeter()  # sync send refusals (stall)
+        self.dlq_delivery_failures = RateMeter()  # failed quarantine DLQ
+        # produces (the server fail-stops on each)
         self.commit_latency = LatencyHistogram()
         self.slot_occupancy = Gauge()  # active slots / pool size, last tick
         self.tick_time = LatencyHistogram()  # per tick block, host observed
@@ -286,9 +337,11 @@ class ServeMetrics:
             "truncated_by_eos": self.truncated.count,
             "readmissions": self.readmissions.count,
             "dropped": self.dropped.count,
+            "quarantined": self.quarantined.count,
             "commit_failures": self.commit_failures.count,
             "output_flush_failures": self.output_flush_failures.count,
             "output_send_failures": self.output_send_failures.count,
+            "dlq_delivery_failures": self.dlq_delivery_failures.count,
             "commit": self.commit_latency.summary(),
             "slot_occupancy": round(self.slot_occupancy.value, 3),
             "ticks": self.tick_time.count,
@@ -361,10 +414,15 @@ class StreamingGenerator:
     completion (module docstring), ``encode_output(record, tokens)`` its
     value, ``model_version`` its ``mv`` header; ``max_send_failure_streak``
     consecutive synchronous send failures stop the server.
+    ``temperature``: 0 = greedy; > 0 samples each slot from
+    ``filter_logits`` under ``top_k``/``top_p`` with per-record keys
+    derived from ``rng`` (module docstring). ``quarantine``: a
+    ``resilience.PoisonQuarantine`` for prompts ``decode_prompt`` rejects
+    (module docstring); None drops them.
     ``device``: where the model and the pool live; None = CUDA, raising
-    when there is none (``utils.devices.resolve_device``). Greedy
-    decoding only (``temperature=0``). The other arguments of the JAX
-    package's server raise ``NotImplementedError`` (``_DEFERRED``)."""
+    when there is none (``utils.devices.resolve_device``). The other
+    arguments of the JAX package's server raise ``NotImplementedError``
+    (``_DEFERRED``)."""
 
     def __init__(
         self,
@@ -381,6 +439,10 @@ class StreamingGenerator:
         max_poll_records: int = 512,
         ticks_per_sync: int = 4,
         temperature: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        rng=None,
+        quarantine=None,
         kv_dtype: str | None = None,
         kv_kernel: bool | str = "auto",
         kv_pages: PagedKVConfig | dict | None = None,
@@ -397,10 +459,8 @@ class StreamingGenerator:
                 raise TypeError(f"unexpected keyword argument {name!r}")
             if value is not None and value is not False:
                 raise _not_ported(f"{name}=", _DEFERRED[name])
-        if temperature != 0.0:
-            raise _not_ported(
-                f"temperature={temperature}", "1, sampled serving"
-            )
+        check_sampling_params(top_k, top_p)
+        self._rng_words = _rng_words(rng)
         if cfg.is_moe:
             raise _not_ported("an MoE config", "7, MoE serving")
         if prompt_len + max_new > cfg.max_seq_len:
@@ -430,6 +490,10 @@ class StreamingGenerator:
         self._decode_prompt = decode_prompt or _default_decode_prompt(prompt_len)
         self._max_poll = max_poll_records
         self._ticks_per_sync = ticks_per_sync
+        self._temperature = float(temperature)
+        self._top_k = top_k
+        self._top_p = top_p
+        self._quarantine = quarantine
         self._kv_dtype = kv_dtype
         self._kv_kernel_opt = kv_kernel
         self._output_producer = output_producer
@@ -477,6 +541,8 @@ class StreamingGenerator:
         self._last_tok = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._gen = torch.zeros((B, max_new), dtype=torch.int32, device=dev)
+        # Per-slot RECORD key data (sampled runs; merged at admission).
+        self._slot_keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
         if self._kv_pages is not None:
             if self._paged_setup():
                 self._build_paged()
@@ -726,6 +792,8 @@ class StreamingGenerator:
         bs = self._kv_pages.block_size
         nblk = self._blocks_per_slot
         admitted: list[tuple[int, torch.Tensor]] = []  # legacy (slot, logits)
+        keys_np = np.zeros((self._slots, 2), np.int64)
+        key_mask = np.zeros((self._slots,), bool)
         reserved = 0
         slot_iter = iter(phys_free)
         while True:
@@ -775,6 +843,9 @@ class StreamingGenerator:
                 self.metrics.prefix_misses.add(1)
             self._slot_rec[i] = rec
             self._slot_emitted[i] = 0
+            if self._sampled:
+                keys_np[i] = self._record_key_data(rec)
+                key_mask[i] = True
             if self._chunked:
                 self._prefilling[i] = True
                 self._prefill_queue.append(_PendingPrefill(
@@ -799,6 +870,8 @@ class StreamingGenerator:
         filled = len(admitted) + reserved
         if filled and in_flight > 0:
             self.metrics.readmissions.add(filled)
+        if filled:
+            self._merge_keys(keys_np, key_mask)
         if admitted:
             # Chunked reservations push nothing: prefilling rows stay
             # masked to the sink until activation.
@@ -806,10 +879,47 @@ class StreamingGenerator:
             rows = self._h2d(np.asarray([i for i, _ in admitted], np.int64))
             logits = torch.cat([lg for _, lg in admitted])
             with torch.inference_mode():
-                self._merge_token0(
-                    rows, torch.argmax(logits, dim=-1).to(torch.int32)
-                )
+                self._merge_token0(rows, self._pick(logits, self._slot_keys[rows]))
         return filled
+
+    @property
+    def _sampled(self) -> bool:
+        return self._temperature != 0.0
+
+    def _record_key_data(self, rec: Record) -> np.ndarray:
+        """The record's sampling key: ``rng`` folded with the record's
+        topic (crc32), partition and offset, each masked to 31 bits, as
+        the JAX package derives it: a pure function of (base key, record
+        identity). Computed on the host in Python ints; → uint32 [2]."""
+        k = prng.fold_in_host(
+            self._rng_words, zlib.crc32(rec.topic.encode()) & 0x7FFFFFFF
+        )
+        k = prng.fold_in_host(k, rec.partition & 0x7FFFFFFF)
+        k = prng.fold_in_host(k, rec.offset & 0x7FFFFFFF)
+        return np.asarray(k, np.uint32)
+
+    def _merge_keys(self, keys_np: np.ndarray, key_mask: np.ndarray) -> None:
+        """Install the admitted slots' record keys (sampled runs only)."""
+        if self._sampled and key_mask.any():
+            self._slot_keys = torch.where(
+                self._h2d(key_mask)[:, None], self._h2d(keys_np),
+                self._slot_keys,
+            )
+
+    def _pick(self, logits: torch.Tensor, keys: torch.Tensor,
+              idx: torch.Tensor | None = None) -> torch.Tensor:
+        """Tokens for ``logits`` rows: greedy argmax, or ``_pick_slots``
+        with the rows' record ``keys`` at output index ``idx`` (None = 0,
+        token 0 of an admission)."""
+        if not self._sampled:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if idx is None:
+            idx = torch.zeros(logits.shape[:1], dtype=torch.int32,
+                              device=logits.device)
+        return _pick_slots(
+            logits, keys, idx, temperature=self._temperature,
+            top_k=self._top_k, top_p=self._top_p,
+        )
 
     def _merge_token0(self, rows: torch.Tensor, tok0: torch.Tensor) -> None:
         """Activate admitted ``rows``: token 0, position P and a cleared
@@ -850,7 +960,7 @@ class StreamingGenerator:
             c[0][:, rows, :P] = ks.to(c[0].dtype)
             c[1][:, rows, :P] = vs.to(c[1].dtype)
         self.metrics.prefills.add(1)
-        self._merge_token0(rows, torch.argmax(logits, dim=-1).to(torch.int32))
+        self._merge_token0(rows, self._pick(logits, self._slot_keys[rows]))
 
     def _decode_logits(self, last_tok, pos) -> torch.Tensor:
         """One token per slot through every layer → logits [B, V] f32."""
@@ -876,12 +986,14 @@ class StreamingGenerator:
         return self._head(x[:, 0])
 
     def _bookkeep(self, logits, act, last_tok, pos, gen, done, n_out):
-        """One tick's greedy pick, EOS/budget test and position advance
-        over the rows ``act`` (the JAX tick body's tail)."""
+        """One tick's pick (output index ``pos - P + 1``), EOS/budget test
+        and position advance over the rows ``act`` (the JAX tick body's
+        tail)."""
         P, max_new = self._prompt_len, self._max_new
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
         t = pos - P  # decode ticks completed before this one
-        idx = torch.clamp(t + 1, max=max_new - 1)
+        t1 = t + 1  # the output index this tick writes (and draws at)
+        tok = self._pick(logits, self._slot_keys, t1)
+        idx = torch.clamp(t1, max=max_new - 1)
         cols = torch.arange(max_new, device=self._device)[None, :]
         onehot = cols == idx[:, None]
         gen = torch.where(onehot & act[:, None], tok[:, None], gen)
@@ -937,7 +1049,7 @@ class StreamingGenerator:
                 logits, act, last_tok, pos, gen, done, n_out
             )
         if chunk is not None:
-            tok0 = torch.argmax(chunk_logits[fin_row], dim=-1).to(torch.int32)
+            tok0 = self._pick(chunk_logits[fin_row], self._slot_keys)
             last_tok = torch.where(fin_mask, tok0, last_tok)
             pos = torch.where(fin_mask, P, pos)
             col0 = torch.where(fin_mask, tok0, gen[:, 0])
@@ -995,19 +1107,39 @@ class StreamingGenerator:
 
     def _next_decodable(self, queue: list[Record]):
         """Pop ``queue`` until a record decodes → (record, tokens), or None.
-        An undecodable record retires as dropped (it would re-deliver and
-        fail forever otherwise)."""
+        Failures follow the poison policy: with a quarantine, each failure
+        spends the record's retry budget (the SAME record re-attempts in
+        place) and an exhausted budget dead-letters it (the record is
+        resolved and its offset may retire; a failed DLQ produce raises
+        ``OutputDeliveryError`` before any commit could cover it). Without
+        one, the record retires as dropped (it would re-deliver and fail
+        forever otherwise)."""
         while queue:
             rec = queue.pop(0)
-            try:
-                return rec, self._decode_prompt(rec)
-            except Exception:  # noqa: BLE001 - any decode failure drops
-                _logger.exception(
-                    "dropping undecodable prompt %s@%s:%s",
-                    rec.topic, rec.partition, rec.offset,
-                )
-                self._ledger.dropped(rec)
-                self.metrics.dropped.add(1)
+            while True:
+                try:
+                    return rec, self._decode_prompt(rec)
+                except Exception as exc:  # noqa: BLE001 - any decode failure
+                    if self._quarantine is not None:
+                        try:
+                            resolved = self._quarantine.note_failure(rec, exc)
+                        except OutputDeliveryError:
+                            self.metrics.dlq_delivery_failures.add(1)
+                            raise
+                        if not resolved:
+                            continue  # budget left: re-attempt in place
+                        self.metrics.quarantined.add(1)
+                        # The DLQ copy is acknowledged; the offset has not
+                        # retired yet (redelivery re-quarantines).
+                        crash_hook("post_dlq_pre_retire")
+                    else:
+                        _logger.exception(
+                            "dropping undecodable prompt %s@%s:%s",
+                            rec.topic, rec.partition, rec.offset,
+                        )
+                    self._ledger.dropped(rec)
+                    self.metrics.dropped.add(1)
+                    break  # next record
         return None
 
     def admit_records(self, records: list[Record]) -> int:
@@ -1026,6 +1158,7 @@ class StreamingGenerator:
         in_flight = self._slots - len(free)
         prompts = np.zeros((self._slots, self._prompt_len), np.int32)
         admit_mask = np.zeros((self._slots,), bool)
+        keys_np = np.zeros((self._slots, 2), np.int64)
         queue = list(records)
         slot_iter = iter(free)
         while True:
@@ -1035,6 +1168,8 @@ class StreamingGenerator:
             rec, toks = nxt
             i = next(slot_iter)
             prompts[i] = toks
+            if self._sampled:
+                keys_np[i] = self._record_key_data(rec)
             self._slot_rec[i] = rec
             admit_mask[i] = True
             self._active[i] = True
@@ -1043,6 +1178,7 @@ class StreamingGenerator:
         if admitted:
             if in_flight > 0:
                 self.metrics.readmissions.add(admitted)
+            self._merge_keys(keys_np, admit_mask)
             with torch.inference_mode():
                 self._admit(prompts, admit_mask)
         return admitted
