@@ -16,12 +16,14 @@ Phases, each printing one JSON line:
    tensor-core kernel), at the 1b prefill shape in f32 (the CUDA-core kernel), the 8b prefill shape (32 q / 8
    kv heads), a ragged S, k_offsets with fully masked rows (o = 0, lse <
    -1e29, no NaN), and bf16 at D=64/16, rep 1 and 4, S=17, S=200,
-   non-causal and a q_offset; D=40 and D=160 take the CUDA cores in bf16.
-   Two launches bitwise equal; the tensor-core kernel's registers and
-   spill bytes (0 required); timings (CUDA events, median of 25, L2
-   flushed before each timed launch) and TFLOP/s at the 1b prefill and
-   training shapes, beside the CUDA-core kernel on the same bf16 inputs,
-   the plain version and SDPA's forward;
+   non-causal and a q_offset; D=40 and D=160 take the CUDA cores in bf16;
+   the warm-resume prefill's shape (B=1, S=143). Two launches bitwise
+   equal; the tensor-core kernel's registers and spill bytes (0
+   required); timings (CUDA events, median of 25, L2 flushed before each
+   timed launch) and TFLOP/s at the 1b prefill and training shapes and at
+   B=1, S = 128 + g - 1 for the resume lengths ``RESUME_S``, beside the
+   CUDA-core kernel on the same bf16 inputs, the plain version and SDPA's
+   forward;
 4. flash_bwd: the backward kernels, dQ (K2) and dK/dV (K3), against their
    plain versions at the 1b training shape (B=8, S=512, 16 q / 8 kv heads,
    D=128, bf16: the tensor-core kernels), in f32 (the CUDA-core kernels),
@@ -82,7 +84,8 @@ Phases, each printing one JSON line:
    against the CPU path over 16 keys x 32000: bits and uniforms bit for
    bit, Gumbels within 2 ulp (at the scale of max(|g|, 1)); the time of
    one slot draw (``serve._pick_slots``, temperature 0.9, top_k 16, top_p
-   0.95) beside greedy argmax, by events and by the host's wall;
+   0.95) beside greedy argmax, by events and by the host's wall; the
+   uniform at the largest CUDA-vs-CPU Gumbel gap is printed;
 6. train_grad: one training loss and backward at 1b width, 2 layers,
    S=512, B=2, through the kernels and through dense attention: the loss
    and every parameter's gradient must agree within bf16 tolerance;
@@ -110,6 +113,26 @@ Phases, each printing one JSON line:
    end offsets (the poison's included), exactly one DLQ record with the
    quarantine's provenance headers, K1 = 24 x prefills, K4 = 24 x decode
    ticks; run twice, with identical tokens, commits and DLQ record;
+8a'. serve_resume: the serve phase's model, 32 prompts and the poison
+   record in an ``InMemoryBroker``, sampled as in 8a, over the bf16
+   compute-dtype dense pool (warm resume needs it), exactly-once: output
+   through a ``TransactionalProducer`` with ``exactly_once=True``, the
+   ``PoisonQuarantine`` over the same producer, a ``DecodeJournal`` of
+   cadence 8, 4 ticks a block. Five runs: uncut; A, killed without a
+   close, commit or flush once the first wave retired and the second sits
+   between two cadence writes; B warm (a producer of the same
+   transactional id fences A; hints from ``DecodeJournal.load``); A again
+   on a second broker and B cold with no hints. Held: A commits nothing;
+   both recoveries publish each completion and the poison's DLQ copy
+   exactly once in the read_committed views and commit the end offsets;
+   A's journal equals the uncut run's tokens; B warm serves A's finished
+   entries from the journal, resumes each partial one and decodes
+   sum(64 - g) + 64 per cold admission, fewer than B cold; K1 = 24 x
+   (prefills + resumes), all on the tensor cores; K4 = K5 = 0;
+   transactions committed. Printed: the post-prefix agreement with the
+   uncut run, time to recover warm and cold, each resume prefill's event
+   time by S and the prefill's device time at ``RESUME_S``, journal flush
+   host ms and transaction commit ms (p50, p99);
 8b. serve_paged: the same 1b model through the PAGED pool (int8, block
    size 16, radix prefix reuse, chunked prefill, K5 on decode-only ticks):
    48 prompts of 128 tokens from three tenants, each a fixed 96-token
@@ -131,6 +154,10 @@ Phases, each printing one JSON line:
    the same offsets and DLQ record (their tokens differ where the dense
    prefill's exact prompt k/v and the paged prefill's quantized pool
    round apart; the agreement is printed);
+8c''. serve_resume_f32: 8a' at 1b width, 2 layers, f32, on the dense and
+   the chunked paged compute-dtype pools (the paged resume rides the
+   chunk queue), greedy and sampled: both recoveries equal the uncut run
+   token for token and in committed watermarks;
 8d. serve_8b: harness scenario 7 at the 8b scale with an output topic
    (BASELINE config 5), full width and depth, random int8 weights made on
    the card from a seed: 48 prompts of 128 tokens produced round-robin on
@@ -230,7 +257,8 @@ def check_flash(torch, F, flash, flush, gen) -> dict:
     bitwise; the tensor-core kernel's registers and spill bytes (0
     required). Timings at the 1b prefill shape and the training shape
     (B=8, S=512), beside the CUDA-core kernel on the same bf16 inputs, the
-    plain version and SDPA's forward."""
+    plain version and SDPA's forward, and at the warm-resume prefill's
+    shapes (B=1, S = 128 + g - 1 for ``RESUME_S``)."""
     B, S, H, K, D = 16, 128, 16, 8, 128
     H8 = 32  # the 8b scale's q heads: H/K = 4
     tol = {"bf16_o": 4e-2, "lse": 1e-3, "f32_o": 1e-4}
@@ -245,6 +273,7 @@ def check_flash(torch, F, flash, flush, gen) -> dict:
         "main_bf16": (B, S, bf16, 0, 0, H, K, D, True),
         "train_bf16": (8, 512, bf16, 0, 0, H, K, D, True),
         "ragged_s200_bf16": (B, 200, bf16, 0, 0, H, K, D, True),
+        "resume_b1_s143_bf16": (1, 143, bf16, 0, 0, H, K, D, True),
         "k_offset64_bf16": (B, S, bf16, 0, 64, H, K, D, True),
         "main_f32": (B, S, f32, 0, 0, H, K, D, True),
         "main_8b_bf16": (B, S, bf16, 0, 0, H8, K, D, True),
@@ -319,12 +348,14 @@ def check_flash(torch, F, flash, flush, gen) -> dict:
 
     prefill = timed(B, S, check_bits=False)
     train_shape = timed(8, 512, check_bits=True)
+    # A warm resume prefills one sequence of S = P + g - 1 positions.
+    resume = {str(s): timed(1, s, check_bits=False) for s in RESUME_S}
     return {"phase": "flash_fwd", "shape": prefill["shape"], "tolerance": tol,
             "max_abs_err": errs, "routes": routes, "deterministic": True,
             "tc_resources": resources, "kernel_ms": prefill["kernel_ms"],
             "plain_ms": prefill["plain_ms"], "library_ms": prefill["library_ms"],
             "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
-            "prefill": prefill, "train_shape": train_shape,
+            "prefill": prefill, "train_shape": train_shape, "resume_prefill": resume,
             "err_main": errs["main_bf16"]["o"]}
 
 
@@ -1465,6 +1496,7 @@ PRNG_KAT = {
                 2662959436],
 }
 SAMPLING = {"temperature": 0.9, "top_k": 16, "top_p": 0.95}  # base key: key(11)
+RESUME_S = (129, 136, 144, 160, 190)  # 128 + g - 1 for g = 2, 9, 17, 33, 63
 POISON = b"\xff" * 7  # not a whole number of int32 tokens: decode_prompt raises
 
 
@@ -1508,7 +1540,8 @@ def check_prng(torch, flush) -> dict:
     """The keyed sampler on the card: known answers on CUDA and on the CPU;
     CUDA against the CPU path over the serving draw (16 keys x 32000): bits
     and uniforms bit for bit, Gumbels within 2 ulp at the scale of max(|g|,
-    1) (torch's log on either device, within an ulp of XLA's); then the
+    1) (both logs in f64 on either device, rounded to f32 once), with the
+    uniform at the largest gap printed; then the
     time of one slot draw (``serve._pick_slots`` with ``SAMPLING``) beside
     greedy argmax: device time by events (behind a ~40 ms device sleep:
     the host takes several ms to enqueue the draw's launches), and the
@@ -1529,7 +1562,14 @@ def check_prng(torch, flush) -> dict:
     g_dev = prng.gumbel(keys, (V,)).cpu().numpy()
     g_cpu = prng.gumbel(keys.cpu(), (V,)).numpy()
     scale = np.maximum(np.maximum(np.abs(g_dev), np.abs(g_cpu)), 1).astype(np.float32)
-    ulps = float((np.abs(g_dev.astype(np.float64) - g_cpu) / np.spacing(scale)).max())
+    gap = np.abs(g_dev.astype(np.float64) - g_cpu) / np.spacing(scale)
+    ulps = float(gap.max())
+    at = np.unravel_index(int(gap.argmax()), gap.shape)
+    u_at = u_cpu.numpy()[at]
+    worst = {"index": [int(x) for x in at], "uniform": float(u_at),
+             "uniform_u32": int(np.float32(u_at).view(np.uint32)),
+             "gumbel_cuda": float(g_dev[at]), "gumbel_cpu": float(g_cpu[at]),
+             "differing": int((g_dev != g_cpu).sum())}
     if not (bits_eq and u_eq):
         raise AssertionError(f"prng: CUDA bits {bits_eq}, uniforms {u_eq} vs the CPU path")
     if not np.isfinite(g_dev).all() or ulps > 2.0:
@@ -1559,7 +1599,7 @@ def check_prng(torch, flush) -> dict:
     return {"phase": "prng", "known_answer_words": words, "known_answers": "cuda, cpu",
             "draw": {"keys": B, "vocab": V}, "bits_cuda_eq_cpu": bits_eq,
             "uniform_cuda_eq_cpu": u_eq, "gumbel_max_ulp_cuda_vs_cpu": ulps,
-            "gumbel_tolerance_ulp": 2.0,
+            "gumbel_tolerance_ulp": 2.0, "gumbel_largest_gap": worst,
             "pick_tokens_cuda_eq_cpu": bool(torch.equal(tok_dev, tok_cpu)),
             "sampling": SAMPLING,
             "pick_slots_ms": cuda_ms(torch, pick, flush, sleep_cycles=80_000_000),
@@ -1750,6 +1790,380 @@ def check_serve_sampled_f32(torch, cfg, params) -> list:
             raise AssertionError(f"serve_sampled_f32: {a} and {b} tokens differ "
                                  f"(agreement {agree})")
     return [row for _, row in runs.values()]
+
+
+RESUME_CADENCE = 8  # journal cadence, tokens
+RESUME_TICKS = 4  # decode ticks per tick block: the journal lags by up to 4
+
+
+def _resume_topics(broker, prompts, parts: int = 2, poison_at: int = 10):
+    """``prompts`` round-robin on ``parts`` partitions keyed by index, the
+    poison record on partition 1 before prompt ``poison_at``, as
+    ``serve_sampled`` lays them out; the output and DLQ topics."""
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    broker.create_topic("prompts", partitions=parts)
+    broker.create_topic("completions", partitions=1)
+    broker.create_topic("prompts.dlq", partitions=1)
+    for i in range(len(prompts)):
+        if i == poison_at:
+            broker.produce("prompts", POISON, key=b"poison", partition=1)
+        broker.produce("prompts", prompts[i].tobytes(), key=str(i).encode(),
+                       partition=i % parts)
+    return [TopicPartition("prompts", p) for p in range(parts)]
+
+
+def _prompt_index(broker, tps) -> dict:
+    """(partition, offset) → prompt index, from the prompt records' keys."""
+    return {(r.partition, r.offset): int(r.key) for tp in tps
+            for r in broker.fetch(tp, 0, 1000) if r.key != b"poison"}
+
+
+def _resume_server(cfg, params, broker, jpath, commit_every, **kw):
+    """The exactly-once journaled server of the resume phases: a
+    ``TransactionalProducer`` (transactional id "serve-resume", so a
+    successor fences its predecessor), a ``PoisonQuarantine`` over that
+    same producer, a ``DecodeJournal`` at ``jpath``; the journal's flushes
+    are timed on the host into ``server.flush_s``."""
+    from torchkafka_tpu_torch.journal import DecodeJournal
+    from torchkafka_tpu_torch.resilience import PoisonQuarantine
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source import TransactionalProducer
+    from torchkafka_tpu_torch.source.memory import MemoryConsumer
+
+    consumer = MemoryConsumer(broker, "prompts", group_id="resume")
+    producer = TransactionalProducer(broker, "serve-resume")
+    journal = DecodeJournal(jpath, cadence=RESUME_CADENCE)
+    server = StreamingGenerator(
+        consumer, params, cfg, slots=16, prompt_len=128, max_new=MAX_NEW,
+        commit_every=commit_every, ticks_per_sync=RESUME_TICKS,
+        output_producer=producer, output_topic="completions", exactly_once=True,
+        quarantine=PoisonQuarantine(producer, "prompts.dlq", budget=2),
+        journal=journal, device="cuda", **kw,
+    )
+    server.flush_s = []
+    flush = journal.flush
+
+    def timed_flush():
+        dirty = journal._dirty
+        t0 = time.perf_counter()
+        flush()
+        if dirty:
+            server.flush_s.append(time.perf_counter() - t0)
+
+    journal.flush = timed_flush
+    return server, consumer, producer
+
+
+def _drive(server, consumer, kill: bool):
+    """Serve every record through the external admission surface, as
+    ``run()`` does (poll all, admit into free slots, one tick block a
+    step). ``kill``: stop, without a close, commit or flush, at the first
+    tick block after the first wave retired where a decoding slot holds
+    tokens its journal entry does not have yet (the second wave between
+    two cadence writes). Returns the completions by (partition, offset)."""
+    import numpy as np
+
+    records = []
+    while batch := consumer.poll(max_records=512, timeout_ms=100):
+        records.extend(batch)
+    server.note_fetched(records)
+    pending, outs, first_wave = list(records), {}, None
+    while pending or server.has_active():
+        free = server.free_slots() - server.pending_admissions
+        if free > 0 and pending:
+            take, pending = pending[:free], pending[free:]
+            filled = server.admit_records(take)
+            first_wave = filled if first_wave is None else first_wave
+        for rec, out in server.step():
+            outs[(rec.partition, rec.offset)] = out
+        live = np.nonzero(server._active)[0]
+        if kill and len(outs) >= first_wave and any(
+                0 < server._slot_journaled[i] < server._slot_emitted[i] for i in live):
+            return outs
+    if kill:
+        raise AssertionError("serve_resume: the run ended before the kill point")
+    server.flush_commits()
+    return outs
+
+
+def _committed_once(what, broker, n, tps):
+    """The read_committed views: each prompt's completion once (by key),
+    the poison's DLQ copy once, committed == end offsets. → {key: tokens}."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    recs, _ = broker.fetch_stable(TopicPartition("completions", 0), 0, 100000)
+    keys = [r.key for r in recs]
+    if sorted(keys) != sorted(str(i).encode() for i in range(n)):
+        raise AssertionError(f"{what}: committed outputs {sorted(keys)} are not "
+                             f"each of {n} prompts once")
+    dlq, _ = broker.fetch_stable(TopicPartition("prompts.dlq", 0), 0, 100)
+    if [(r.key, r.value) for r in dlq] != [(b"poison", POISON)]:
+        raise AssertionError(f"{what}: committed DLQ {[(r.key, r.value) for r in dlq]}")
+    committed = [broker.committed("resume", tp) for tp in tps]
+    ends = [broker.end_offset(tp) for tp in tps]
+    if committed != ends:
+        raise AssertionError(f"{what}: committed {committed} != end offsets {ends}")
+    return {int(r.key): np.frombuffer(r.value, np.int32) for r in recs}, committed
+
+
+def serve_resume(torch, cfg, params, prompts, *, pages=None, sampled=True):
+    """A killed-and-resumed exactly-once serve (``_resume_server``) of
+    ``prompts`` plus the poison record, over an ``InMemoryBroker``, in
+    five runs: the uncut run; A, killed (``_drive``) with nothing
+    committed (commit_every effectively infinite); B warm, a new server
+    whose producer fences A's, hinted from ``DecodeJournal.load`` of A's
+    journal and served to the end by ``run()``; A again on a second
+    broker, and B cold on it with no hints. Every kernel launch count is
+    zeroed just before each B serves (after its warmup) and read just
+    after. Hard checks: A commits nothing; B's producer fences A's; in both
+    recoveries each completion and the poison's DLQ copy once in the
+    read_committed views and committed == end offsets; every entry A's
+    journal holds equals the uncut run's tokens (the same program up to
+    the kill); B warm serves A's finished entries from the journal,
+    resumes every partial entry, decodes sum(MAX_NEW - g) + MAX_NEW per
+    cold admission, fewer than B cold; K1 = layers x (prefills + resumes),
+    all on the tensor cores in bf16 (0 on the paged pool, whose prefill is
+    the chunk tick), K4 = K5 = 0; commits > 0; at f32 both recoveries
+    equal the uncut run token for token. Returns the row."""
+    import tempfile
+
+    import numpy as np
+
+    from torchkafka_tpu_torch.errors import ProducerFencedError
+    from torchkafka_tpu_torch.journal import DecodeJournal
+    from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
+    from torchkafka_tpu_torch.ops.kvattn import (
+        int8_decode_attention_dynlen,
+        int8_paged_decode_attention,
+    )
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker
+    from torchkafka_tpu_torch.utils import prng
+
+    n, plen = prompts.shape
+    nl = cfg.n_layers
+    kw = {"kv_pages": pages}
+    if sampled:
+        kw.update(rng=prng.key(11), **SAMPLING)
+    what = (f"serve_resume {'paged' if pages else 'dense'} "
+            f"{'sampled' if sampled else 'greedy'} {str(cfg.dtype)[6:]}")
+    kernels = (flash_fwd_bhsd, int8_decode_attention_dynlen, int8_paged_decode_attention)
+    with tempfile.TemporaryDirectory() as tmp:
+        broker = InMemoryBroker()
+        tps = _resume_topics(broker, prompts)
+        server, consumer, _ = _resume_server(cfg, params, broker, f"{tmp}/uncut.json",
+                                             16, **kw)
+        server.warmup()
+        index = _prompt_index(broker, tps)
+        uncut = _drive(server, consumer, kill=False)
+        uncut_view, _ = _committed_once(what + " uncut", broker, n, tps)
+        if any((uncut_view[index[k]] != out).any() for k, out in uncut.items()):
+            raise AssertionError(f"{what}: the uncut run's outputs differ from its completions")
+        del server
+
+        def killed(path):
+            """Run A on a fresh broker: returns the broker, A's producer,
+            completions and the journal it left."""
+            b = InMemoryBroker()
+            _resume_topics(b, prompts)
+            srv, cons, prod = _resume_server(cfg, params, b, path, 2**31 - 1, **kw)
+            srv.warmup()
+            outs = _drive(srv, cons, kill=True)
+            flush_s = srv.flush_s
+            cons.close()  # the death: no close, no commit, no flush
+            recs, _ = b.fetch_stable(type(tps[0])("completions", 0), 0, 100)
+            if recs or any(b.committed("resume", tp) is not None for tp in tps):
+                raise AssertionError(f"{what}: A committed before its death")
+            return b, prod, outs, flush_s
+
+        def recover(b, path, hints):
+            """Run B: time to recover runs from its construction (warmup
+            included) to its last transaction commit."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv, cons, _ = _resume_server(cfg, params, b, path, 16, **kw)
+            commits = []
+            commit_txn = srv._commit_txn
+
+            def timed_commit(t):
+                ok = commit_txn(t)
+                commits.append(time.perf_counter())
+                return ok
+
+            srv._commit_txn = timed_commit
+            events = []
+            resume = srv._resume_into_slot
+
+            def timed_resume(i, rec, toks, hint, key_np):
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+                resume(i, rec, toks, hint, key_np)
+                e.record()
+                events.append((plen + len(hint.tokens) - 1, s, e))
+
+            srv._resume_into_slot = timed_resume
+            srv.warmup()
+            torch.cuda.synchronize()
+            for fn in kernels:
+                fn.launches = 0
+            flash_fwd_bhsd.tc_launches = 0
+            if hints:
+                srv.add_resume_hints(hints)
+            outs = {(r.partition, r.offset): out for r, out in srv.run(max_records=n)}
+            torch.cuda.synchronize()
+            launches = {"flash_fwd": kernels[0].launches,
+                        "flash_fwd_tc": kernels[0].tc_launches,
+                        "kvattn_dynlen": kernels[1].launches,
+                        "kvattn_paged": kernels[2].launches}
+            cons.close()
+            by_s: dict = {}
+            for s_len, s, e in events:
+                by_s.setdefault(s_len, []).append(s.elapsed_time(e))
+            return {"server": srv, "outs": outs, "launches": launches,
+                    "recover_s": commits[-1] - t0 if commits else None,
+                    "resume_event_ms": {str(k): statistics.median(v)
+                                        for k, v in sorted(by_s.items())}}
+
+        jpath = f"{tmp}/journal.json"
+        broker_w, prod_a, outs_a, flush_a = killed(jpath)
+        hints = DecodeJournal.load(jpath)
+        warm = recover(broker_w, jpath, hints)
+        try:  # the successor's producer fenced A's
+            prod_a.begin()
+            raise AssertionError(f"{what}: A's producer was not fenced")
+        except ProducerFencedError:
+            pass
+        view_w, committed_w = _committed_once(what + " warm", broker_w, n, tps)
+        cpath = f"{tmp}/journal_cold.json"
+        broker_c, _, outs_a2, _ = killed(cpath)
+        cold = recover(broker_c, cpath, None)
+        view_c, committed_c = _committed_once(what + " cold", broker_c, n, tps)
+
+    finished = [e for e in hints.values() if e.finished]
+    partial = [e for e in hints.values() if not e.finished and e.tokens]
+    by_key = {(e.partition, e.offset): e for e in hints.values()}
+    # The journal A left holds the uncut run's tokens: the same program up
+    # to the kill.
+    for (p, off), e in by_key.items():
+        want = uncut[(p, off)][: len(e.tokens)]
+        if list(e.tokens) != want.tolist() or (e.finished and len(e.tokens) != MAX_NEW):
+            raise AssertionError(f"{what}: journal entry {(p, off)} differs from "
+                                 "the uncut run's prefix")
+    if len(finished) != len(outs_a):
+        raise AssertionError(f"{what}: {len(finished)} finished entries, A "
+                             f"finished {len(outs_a)}")
+    mw, mc = warm["server"].metrics.summary(), cold["server"].metrics.summary()
+    jw, jc = mw["journal"], mc["journal"]
+    cold_admissions = n - len(finished) - len(partial)
+    want_decoded = sum(MAX_NEW - len(e.tokens) for e in partial) + MAX_NEW * cold_admissions
+    if (jw["served_from_journal"], jw["warm_resumes"], jw["decoded_tokens"]) != (
+            len(finished), len(partial), want_decoded):
+        raise AssertionError(f"{what}: warm journal counters {jw}, want served "
+                             f"{len(finished)}, resumes {len(partial)}, decoded "
+                             f"{want_decoded}")
+    if not 0 < jw["decoded_tokens"] < jc["decoded_tokens"] or jc["warm_resumes"]:
+        raise AssertionError(f"{what}: warm decoded {jw}, cold {jc}")
+    for run in (warm, cold):
+        m = run["server"].metrics.summary()
+        want_l = {"flash_fwd": 0 if pages else nl * (m["prefills"]
+                                                     + m["journal"]["warm_resumes"]),
+                  "kvattn_dynlen": 0, "kvattn_paged": 0}
+        if any(run["launches"][k] != v for k, v in want_l.items()):
+            raise AssertionError(f"{what}: launches {run['launches']}, want {want_l}")
+        if (cfg.dtype == torch.bfloat16 and not pages
+                and run["launches"]["flash_fwd_tc"] != run["launches"]["flash_fwd"]):
+            raise AssertionError(f"{what}: flash tensor-core launches {run['launches']}")
+        if m["txn"]["commits"] < 1 or m["txn"]["held_outputs"]:
+            raise AssertionError(f"{what}: transactions {m['txn']}")
+    post, post_same = 0, 0
+    for e in partial:
+        full = view_w[index[(e.partition, e.offset)]]
+        ref = uncut[(e.partition, e.offset)]
+        if (full[:len(e.tokens)] != ref[:len(e.tokens)]).any():
+            raise AssertionError(f"{what}: a resumed output's restored prefix "
+                                 "differs from the uncut run's")
+        post += MAX_NEW - len(e.tokens)
+        post_same += int((full[len(e.tokens):] == ref[len(e.tokens):]).sum())
+    exact = cfg.dtype == torch.float32
+    for name, view in (("warm", view_w), ("cold", view_c)):
+        same = all((view[k] == uncut_view[k]).all() for k in uncut_view)
+        if exact and not same:
+            raise AssertionError(f"{what}: {name} recovery's tokens differ from the uncut run")
+    flush_w = warm["server"].flush_s
+    ms = lambda xs, q: 1e3 * float(np.quantile(xs, q)) if xs else None  # noqa: E731
+    return {
+        "phase": "serve_resume" if cfg.dtype == torch.bfloat16 else "serve_resume_f32",
+        "model": f"1b width, {nl} layers", "dtype": str(cfg.dtype)[6:],
+        "pool": "paged" if pages else "dense", "kv_dtype": "compute",
+        "sampling": SAMPLING if sampled else "greedy", "prompts": n, "prompt_len": plen,
+        "max_new": MAX_NEW, "slots": 16, "ticks_per_sync": RESUME_TICKS,
+        "journal_cadence": RESUME_CADENCE, "output": "TransactionalProducer, exactly_once",
+        "a_completions_at_kill": len(outs_a), "a_again_completions_at_kill": len(outs_a2),
+        "journal_finished": len(finished), "journal_partial": len(partial),
+        "journal_partial_tokens": sorted({len(e.tokens) for e in partial}),
+        "warm": {**jw, "txn": mw["txn"], "launches": warm["launches"],
+                 "recover_s": warm["recover_s"],
+                 "commit_ms_p50": mw["commit"]["p50_ms"], "commit_ms_p99": mw["commit"]["p99_ms"],
+                 "resume_prefill_event_ms": warm["resume_event_ms"]},
+        "cold": {**jc, "txn": mc["txn"], "launches": cold["launches"],
+                 "recover_s": cold["recover_s"],
+                 "commit_ms_p50": mc["commit"]["p50_ms"], "commit_ms_p99": mc["commit"]["p99_ms"]},
+        "committed": committed_w, "committed_cold": committed_c,
+        "post_prefix_tokens": post, "post_prefix_agreement_with_uncut":
+            post_same / post if post else None,
+        "warm_equals_uncut": all((view_w[k] == uncut_view[k]).all() for k in uncut_view),
+        "cold_equals_uncut": all((view_c[k] == uncut_view[k]).all() for k in uncut_view),
+        "journal_flush_host_ms_p50": ms(flush_a + flush_w, 0.5),
+        "journal_flush_host_ms_p99": ms(flush_a + flush_w, 0.99),
+        "journal_flushes": len(flush_a + flush_w),
+        "nvidia_smi": smi_line(),
+    }
+
+
+def resume_prefill_times(torch, cfg, params) -> dict:
+    """The warm resume's prefill alone (``prefill_capture`` of one
+    sequence, all layers) at the ``RESUME_S`` lengths: device ms by CUDA
+    events behind a device sleep (the host enqueues ~20 launches a
+    layer), L2 flushed first."""
+    from torchkafka_tpu_torch.models.generate import prefill_capture, prefill_model
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    model = prefill_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    out = {}
+    with torch.inference_mode():
+        for s in RESUME_S:
+            toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            out[str(s)] = cuda_ms(torch, lambda: prefill_capture(params, cfg, toks, model),
+                                  flush, n=10, sleep_cycles=80_000_000)
+    return out
+
+
+def check_serve_resume_f32(torch, cfg, params) -> list:
+    """``serve_resume`` at 1b width, 2 layers, f32, on the dense and the
+    chunked paged compute-dtype pools, greedy and sampled: every warm and
+    cold recovery equals the uncut run token for token and in its
+    committed watermarks."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.kvcache import PagedKVConfig
+
+    prompts = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (32, 128), dtype=np.int32)
+    nblk = -(-(128 + MAX_NEW) // PAGED_BS)
+    pages = PagedKVConfig(block_size=PAGED_BS, num_blocks=16 * nblk + 1,
+                          prefill_chunk=None)
+    rows = []
+    for pool in (None, pages):
+        for sampled in (False, True):
+            row = serve_resume(torch, cfg, params, prompts, pages=pool, sampled=sampled)
+            if not (row["warm_equals_uncut"] and row["cold_equals_uncut"]):
+                raise AssertionError(f"serve_resume_f32: {row}")
+            rows.append(row)
+    return rows
 
 
 def serve_8b(torch, cfg, params, prompts, kv_kernel: bool, prof=None):
@@ -1952,6 +2366,26 @@ def profile_serve(torch, cfg, params, prompts, row_q) -> dict:
         "unprofiled_tick_wall_ms": row_q["tick_block_ms_p50"] / (MAX_NEW - 1)})
 
 
+def profile_resume(torch, cfg, params, row_r) -> dict:
+    """Five warm-resume prefills (``prefill_capture`` of one sequence of
+    136 positions, all layers) under torch.profiler: device time by
+    kernel, beside the unprofiled device time of one."""
+    from torchkafka_tpu_torch.models.generate import prefill_capture, prefill_model
+
+    model = prefill_model(cfg)
+    toks = torch.zeros((1, 136), dtype=torch.int32, device="cuda")
+    prof = _profiler(torch)
+    with torch.inference_mode():
+        prefill_capture(params, cfg, toks, model)
+        torch.cuda.synchronize()
+        with prof:
+            for _ in range(5):
+                prefill_capture(params, cfg, toks, model)
+            torch.cuda.synchronize()
+    return profile_summary(prof, "5 resume prefills (B=1, S=136) under torch.profiler", {
+        "unprofiled_device_ms_one": row_r["resume_prefill_device_ms"]["136"]})
+
+
 def profile_paged(torch, cfg, params, row_p) -> dict:
     """The paged int8 serve run (K5 engaged) again under torch.profiler:
     device time by kernel against the profiled run's wall time (the
@@ -1973,11 +2407,12 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phases (a quick build check)")
     ap.add_argument("--profile", nargs="?", const="all",
-                    choices=("all", "train", "serve", "paged", "serve8b"),
+                    choices=("all", "train", "serve", "paged", "serve8b", "resume"),
                     help="also trace one train step, the dense int8 serve run, "
-                         "the paged int8 serve run and/or one wave of the 8b "
-                         "int8 serve run under torch.profiler and print where "
-                         "the device time goes (a serve trace takes minutes)")
+                         "the paged int8 serve run, one wave of the 8b int8 "
+                         "serve run and/or five warm-resume prefills under "
+                         "torch.profiler and print where the device time goes "
+                         "(a serve trace takes minutes)")
     args = ap.parse_args()
     import torch
 
@@ -2057,6 +2492,11 @@ def main() -> int:
         emit(profile_serve(torch, cfg, params, prompts, row_q))
     for row in check_serve_sampled(torch, cfg, params, prompts, row_q):
         emit(row)
+    row_r = serve_resume(torch, cfg, params, prompts)
+    row_r["resume_prefill_device_ms"] = resume_prefill_times(torch, cfg, params)
+    emit(row_r)
+    if args.profile in ("all", "resume"):
+        emit(profile_resume(torch, cfg, params, row_r))
 
     row_p, row_pg = check_serve_paged(torch, cfg, params, "serve_paged", exact=False)
     emit(row_p)
@@ -2075,6 +2515,8 @@ def main() -> int:
     emit(row_f)
     emit(row_fg)
     for row in check_serve_sampled_f32(torch, cfg32, params32):
+        emit(row)
+    for row in check_serve_resume_f32(torch, cfg32, params32):
         emit(row)
     del params32
     torch.cuda.empty_cache()
@@ -2129,7 +2571,11 @@ def main() -> int:
          "train_shape": {key: k1["train_shape"][key] for key in (
              "kernel_ms", "simt_bf16_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
          "train_launches": row_t["launches"]["flash_fwd"],
-         "train_tc_launches": row_t["tc_launches"]["flash_fwd"]},
+         "train_tc_launches": row_t["tc_launches"]["flash_fwd"],
+         "resume_launches": row_r["warm"]["launches"]["flash_fwd"],
+         "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
+             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                            for s in k1["resume_prefill"]}},
         {"name": "flash_dq", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:201",

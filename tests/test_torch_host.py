@@ -138,6 +138,7 @@ def test_port_never_imports_jax_ast():
     files = sorted((ROOT / "torchkafka_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    assert ROOT / "torchkafka_tpu_torch" / "journal" / "journal.py" in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
     assert bad == []
@@ -152,6 +153,7 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.utils.prng, torchkafka_tpu_torch.compat\n"
         "import torchkafka_tpu_torch.source.cluster, torchkafka_tpu_torch.source.kafka\n"
         "import torchkafka_tpu_torch.source.checkpoint_wire, torchkafka_tpu_torch.resilience\n"
+        "import torchkafka_tpu_torch.journal\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
         "print(bad)\n"

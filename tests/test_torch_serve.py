@@ -100,19 +100,20 @@ def _server(model, **kw):
     return StreamingGenerator(consumer, params, pcfg, **{**base, **kw})
 
 
-# The ids keep each case's position in the list. Sampling and the
-# quarantine are served now: their cases test the new checks (bad knobs
-# raise ValueError at construction, an rng that is no key raises TypeError)
-# or a still-deferred argument.
+# The ids keep each case's position in the list. Sampling, the quarantine,
+# the journal and exactly-once output are served now: their cases test the
+# new checks (bad knobs raise ValueError at construction, exactly_once
+# without an output producer raises ValueError as in JAX, an rng that is
+# no key raises TypeError) or a still-deferred argument.
 @pytest.mark.parametrize("kw,exc", [
     ({"mesh": object()}, NotImplementedError),
     ({"kv_pages": {"block_size": 4, "num_blocks": 16},
       "kv_tier": {"host_bytes": 1}}, NotImplementedError),
     ({"kv_tier": {}}, NotImplementedError),
     ({"prefill_role": True}, NotImplementedError),
-    ({"journal": object()}, NotImplementedError),
+    ({"trace_replica": "r0"}, NotImplementedError),
     ({"tracer": object()}, NotImplementedError),
-    ({"exactly_once": True}, NotImplementedError),
+    ({"exactly_once": True}, ValueError),
     ({"top_k": 0}, ValueError),
     ({"distill_producer": object()}, NotImplementedError),
     ({"distill_topic": "d"}, NotImplementedError),
@@ -123,6 +124,31 @@ def _server(model, **kw):
 def test_unsupported_arguments_raise(model, kw, exc):
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None):
         _server(model, **kw)
+
+
+def _queue_a_titles() -> list[str]:
+    """The item titles of ROADMAP.md's queue A, lower-cased."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    queue = text.split("### Queue A", 1)[1].split("\n### ", 1)[0]
+    return [t.rstrip(".").lower()
+            for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)]
+
+
+def test_every_deferral_names_a_queue_a_title(model):
+    """Each still-deferred argument's error names the title of the ROADMAP
+    queue A item that ports it, never a bare item number."""
+    from torchkafka_tpu_torch import serve
+
+    titles = _queue_a_titles()
+    assert len(titles) >= 8
+    for name in serve._DEFERRED:
+        with pytest.raises(NotImplementedError) as info:
+            _server(model, **{name: object()})
+        msg = str(info.value).lower()
+        assert any(t in msg for t in titles), (name, msg, titles)
 
 
 @pytest.mark.parametrize("kw", [

@@ -41,6 +41,7 @@ from torchkafka_tpu_torch.errors import (
     TpuKafkaError,
     TransactionStateError,
 )
+from torchkafka_tpu_torch.journal import DecodeJournal, JournalEntry
 from torchkafka_tpu_torch.models.transformer import make_train_step
 from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.pipeline import KafkaStream, stream
@@ -108,9 +109,11 @@ __all__ = [
     "CommitToken",
     "Consumer",
     "ConsumerClosedError",
+    "DecodeJournal",
     "FencedMemberError",
     "FollowerReplica",
     "InMemoryBroker",
+    "JournalEntry",
     "JournalLockedError",
     "KafkaConsumer",
     "KafkaProducer",

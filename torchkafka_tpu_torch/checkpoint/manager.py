@@ -74,8 +74,8 @@ def _to_host(state: Any) -> Any:
 
 def _pod_save_not_ported() -> NotImplementedError:
     return NotImplementedError(
-        "multi-process checkpoint saves are not ported yet (ROADMAP Queue A, "
-        "slice 4: mesh and multi-process paths)"
+        "multi-process checkpoint saves are not ported yet (ROADMAP queue A: "
+        "mesh and multi-process paths)"
     )
 
 

@@ -78,7 +78,7 @@ def quantize_params(params: dict, cfg) -> dict:
     arrive with the MoE slice."""
     if cfg.is_moe:
         raise NotImplementedError(
-            "MoE configs are not ported yet (ROADMAP Queue A, serving follow-up 7)"
+            "MoE configs are not ported yet (ROADMAP queue A: training options)"
         )
     layers = {}
     for name, w in params["layers"].items():

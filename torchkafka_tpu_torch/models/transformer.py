@@ -41,7 +41,7 @@ from torchkafka_tpu_torch.utils.tree import tree_leaves
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to torchkafka_tpu_torch yet (ROADMAP Queue A, {item})"
+        f"{what} is not ported to torchkafka_tpu_torch yet (ROADMAP queue A: {item})"
     )
 
 
@@ -290,13 +290,13 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         if mesh is not None:
-            raise _not_ported("mesh=", "slice 4, mesh and multi-process paths")
+            raise _not_ported("mesh=", "mesh and multi-process paths")
         if cfg.is_moe and cfg.moe_dispatch == "capacity":
-            raise _not_ported("moe_dispatch='capacity'", "slice 4, capacity MoE")
+            raise _not_ported("moe_dispatch='capacity'", "training options")
         if cfg.attn_impl not in ("auto", "dense", "flash"):
             raise NotImplementedError(
                 f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP "
-                "Queue A: mesh paths); use 'auto', 'flash' or 'dense'"
+                "queue A: mesh and multi-process paths); use 'auto', 'flash' or 'dense'"
             )
         self.cfg = cfg
 
@@ -374,7 +374,7 @@ class Transformer(nn.Module):
         """The serving prefill's trunk: tokens [B, S] → (final-norm hidden
         states [B, S, D], k, v), k/v each [L, B, S, K, Dh]."""
         if self.cfg.is_moe:
-            raise _not_ported("MoE serving", "serving follow-up 7")
+            raise _not_ported("MoE serving", "training options")
         x = embed_rows(params["embed"], tokens, self.cfg.dtype)
         ks, vs = [], []
         for layer in unstack_layers(params["layers"]):
@@ -450,7 +450,7 @@ def make_train_step(
     ``optimizer``: an ``optim.adamw(...)``; None means ``adamw(1e-3)``.
     ``mesh``: not ported yet (must be None)."""
     if mesh is not None:
-        raise _not_ported("mesh=", "slice 4, mesh and multi-process paths")
+        raise _not_ported("mesh=", "mesh and multi-process paths")
     model = Transformer(cfg)
     opt = adamw(1e-3) if optimizer is None else optimizer
     dev = resolve_device(device)

@@ -1,6 +1,6 @@
 """Dense multi-head attention (port of ``torchkafka_tpu/ops/attention.py``
 ``mha``). Ring and Ulysses sequence parallelism are not ported yet
-(ROADMAP Queue A: mesh paths)."""
+(ROADMAP queue A: mesh and multi-process paths)."""
 
 from __future__ import annotations
 

@@ -73,7 +73,7 @@ _END = object()
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to torchkafka_tpu_torch yet (ROADMAP Queue A, {item})"
+        f"{what} is not ported to torchkafka_tpu_torch yet (ROADMAP queue A: {item})"
     )
 
 
@@ -188,16 +188,16 @@ class KafkaStream:
         device: str | torch.device | None = None,
     ) -> None:
         if mesh is not None:
-            raise _not_ported("mesh=", "slice 4, mesh and multi-process paths")
+            raise _not_ported("mesh=", "mesh and multi-process paths")
         if barrier is None and _world_size() > 1:
             raise _not_ported(
                 "the multi-process barrier watchdog default",
-                "slice 4, parallel/multihost.py",
+                "mesh and multi-process paths, parallel/multihost.py",
             )
         if barrier_timeout_s != 300.0 or on_barrier_timeout is not None:
             raise _not_ported(
                 "barrier_timeout_s= / on_barrier_timeout=",
-                "slice 4, parallel/multihost.py",
+                "mesh and multi-process paths, parallel/multihost.py",
             )
         if on_processor_error not in ("raise", "drop", "quarantine"):
             raise ValueError(

@@ -81,10 +81,32 @@ dead-lettered with an acknowledged produce before its offset retires
 ``metrics.dlq_delivery_failures`` and raises ``OutputDeliveryError``.
 Without a quarantine the prompt retires as dropped.
 
-Still raising ``NotImplementedError`` with their ROADMAP item (``_DEFERRED``):
-among others exactly-once output (``exactly_once``), the host-RAM KV tier
-(``kv_tier``), disaggregated prefill (``prefill_role``), mesh, journal and
-tracing.
+Decode journal (``journal=journal.DecodeJournal(path, cadence)``): each
+admitted record's resumable state (identity and payload CRC, sampling
+settings, its record key, the tokens emitted so far) is journaled at
+admission, every ``cadence`` tokens and at finish, and pruned once a
+commit covers it. A new server given a dead one's entries
+(``add_resume_hints(DecodeJournal.load(path))``) re-serves a finished
+but uncommitted completion straight from the journal, and warm-resumes a
+partial one: one prefill of ``prompt + emitted[:-1]`` into the slot's
+rows (a chunk-queue suffix on the paged pool), then decoding from the
+journaled position with the same record key, so at most one cadence of
+tokens is decoded again. Partial hints need the compute-dtype pool; an
+int8 pool replays them cold, as in the JAX package (``_take_hint``).
+
+Exactly-once output (``exactly_once=True`` with a
+``source.producer.TransactionalProducer`` as ``output_producer``): each
+completion, and each DLQ copy of the quarantine (rebound onto
+``_TxnOutboxProducer``), is staged in an outbox keyed by record identity;
+every commit is one broker transaction that produces the staged records
+whose offsets the ledger snapshot covers and commits those offsets with
+them (``_commit_txn``). A read_committed consumer of the output topic
+sees each completion once; a successor built with the same transactional
+id fences this server and aborts its open transaction.
+
+Still raising ``NotImplementedError`` with their ROADMAP queue A title
+(``_DEFERRED``): mesh, tracing and per-record budgets, the host-RAM KV
+tier, draft distillation and disaggregated prefill.
 """
 
 from __future__ import annotations
@@ -103,7 +125,9 @@ from torchkafka_tpu_torch.errors import (
     CommitFailedError,
     ConsumerClosedError,
     OutputDeliveryError,
+    ProducerFencedError,
 )
+from torchkafka_tpu_torch.journal import DecodeJournal, JournalEntry, value_crc
 from torchkafka_tpu_torch.kvcache.backend import KVBackend, resolve_kv_backend
 from torchkafka_tpu_torch.kvcache.blocks import (
     SINK_BLOCK,
@@ -136,7 +160,8 @@ from torchkafka_tpu_torch.ops.kvattn import (
     paged_write_q8,
 )
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
-from torchkafka_tpu_torch.source.records import Record
+from torchkafka_tpu_torch.source.producer import RecordMetadata, _ResolvedSend
+from torchkafka_tpu_torch.source.records import Record, TopicPartition
 from torchkafka_tpu_torch.utils import prng
 from torchkafka_tpu_torch.utils.devices import resolve_device
 from torchkafka_tpu_torch.utils.metrics import Gauge, LatencyHistogram, RateMeter
@@ -144,24 +169,24 @@ from torchkafka_tpu_torch.utils.metrics import Gauge, LatencyHistogram, RateMete
 _logger = logging.getLogger(__name__)
 
 # Arguments of the JAX package's server that this port does not serve yet,
-# each with the ROADMAP item that ports it. Passing one (with a value other
-# than None/False) raises NotImplementedError; none is silently ignored.
+# each with the title of the ROADMAP queue A item that ports it. Passing
+# one (with a value other than None/False) raises NotImplementedError;
+# none is silently ignored.
 _DEFERRED = {
-    "journal": "3, journal",
-    "exactly_once": "4, exactly-once",
-    "mesh": "6, mesh",
-    "tracer": "9, tracing spans",
-    "distill_topic": "11, draft distillation",
-    "distill_producer": "11, draft distillation",
-    "max_new_of": "11, per-record output budgets",
-    "kv_tier": "13, host-RAM KV tier",
-    "prefill_role": "14, disaggregated prefill",
+    "mesh": "mesh and multi-process paths",
+    "tracer": "observability and budgets",
+    "trace_replica": "observability and budgets",
+    "max_new_of": "observability and budgets",
+    "kv_tier": "host-RAM KV tier",
+    "distill_topic": "in-process fleet",
+    "distill_producer": "in-process fleet",
+    "prefill_role": "process fleet and disaggregated prefill",
 }
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str, title: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A, serving follow-up {item})"
+        f"{what} is not ported yet (ROADMAP queue A: {title})"
     )
 
 
@@ -246,7 +271,9 @@ def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg, kernel)
 class ServeMetrics:
     """The serving loop's counters that the ported paths touch (the JAX
     package's ``ServeMetrics`` names). The paged prefix-cache and chunked-
-    prefill counters stay zero on the dense path."""
+    prefill counters stay zero on the dense path, the transaction counters
+    without ``exactly_once``, the journal counters without a journal or
+    resume hints."""
 
     def __init__(self) -> None:
         self.completions = RateMeter()
@@ -260,6 +287,11 @@ class ServeMetrics:
         self.output_send_failures = RateMeter()  # sync send refusals (stall)
         self.dlq_delivery_failures = RateMeter()  # failed quarantine DLQ
         # produces (the server fail-stops on each)
+        # Exactly-once output: one transaction per commit window.
+        self.txn_commits = RateMeter()  # records + offsets committed
+        self.txn_aborts = RateMeter()  # windows aborted (retried next flush)
+        self.txn_held_outputs = Gauge()  # staged outputs above the in-order
+        # watermark, held for a later window
         self.commit_latency = LatencyHistogram()
         self.slot_occupancy = Gauge()  # active slots / pool size, last tick
         self.tick_time = LatencyHistogram()  # per tick block, host observed
@@ -267,6 +299,15 @@ class ServeMetrics:
         self.decoded_tokens = RateMeter()  # tokens produced by decode ticks
         self.prefills = RateMeter()  # dense admission prefill passes
         self.decode_ticks = RateMeter()  # decode ticks run (all layers each)
+        # Decode journal and warm resume.
+        self.warm_resumes = RateMeter()  # partial hints resumed (one
+        # prefill of prompt + emitted tokens each)
+        self.journal_tokens_restored = RateMeter()  # emitted tokens NOT
+        # decoded again thanks to warm resume
+        self.journal_served = RateMeter()  # finished hints re-served with
+        # no decode
+        self.resume_rejected = RateMeter()  # hints discarded (CRC, sampling
+        # or model-version mismatch, or a pool that cannot resume)
         # Paged prefix cache (kv_pages=).
         self.prefix_hits = RateMeter()  # admissions that reused cached blocks
         self.prefix_misses = RateMeter()  # admissions that prefilled in full
@@ -312,6 +353,15 @@ class ServeMetrics:
             "utilization": round(self.chunk_utilization.value, 4),
         }
 
+    def journal_summary(self) -> dict:
+        return {
+            "decoded_tokens": self.decoded_tokens.count,
+            "warm_resumes": self.warm_resumes.count,
+            "tokens_restored": self.journal_tokens_restored.count,
+            "served_from_journal": self.journal_served.count,
+            "resume_rejected": self.resume_rejected.count,
+        }
+
     def cache_summary(self) -> dict:
         hits, misses = self.prefix_hits.count, self.prefix_misses.count
         return {
@@ -342,6 +392,11 @@ class ServeMetrics:
             "output_flush_failures": self.output_flush_failures.count,
             "output_send_failures": self.output_send_failures.count,
             "dlq_delivery_failures": self.dlq_delivery_failures.count,
+            "txn": {
+                "commits": self.txn_commits.count,
+                "aborts": self.txn_aborts.count,
+                "held_outputs": int(self.txn_held_outputs.value),
+            },
             "commit": self.commit_latency.summary(),
             "slot_occupancy": round(self.slot_occupancy.value, 3),
             "ticks": self.tick_time.count,
@@ -352,6 +407,7 @@ class ServeMetrics:
             "decode_ticks": self.decode_ticks.count,
             "prefix_cache": self.cache_summary(),
             "chunked_prefill": self.chunk_summary(),
+            "journal": self.journal_summary(),
             "kv_backend": {
                 **self._kv_backend,
                 "kernel_engaged": int(self.kernel_engaged.value),
@@ -365,17 +421,51 @@ class _PendingPrefill:
     The slot and its blocks are already reserved (table linked, radix
     inserted); ``seq`` is the UNCACHED suffix still to be written —
     ``seq[off:]`` remains — with ``seq[0]`` at logical position
-    ``start``. ``enq_tick`` is the tick counter at admission."""
+    ``start``. ``resume`` carries a warm resume's emitted tokens (the
+    activation restores them instead of sampling token 0), None for a cold
+    admission. ``enq_tick`` is the tick counter at admission."""
 
-    __slots__ = ("slot", "rec", "seq", "off", "start", "enq_tick")
+    __slots__ = ("slot", "rec", "seq", "off", "start", "resume", "enq_tick")
 
-    def __init__(self, slot, rec, seq, start, enq_tick):
+    def __init__(self, slot, rec, seq, start, resume, enq_tick):
         self.slot = slot
         self.rec = rec
         self.seq = seq
         self.off = 0
         self.start = start
+        self.resume = resume
         self.enq_tick = enq_tick
+
+
+class _TxnOutboxProducer:
+    """The quarantine's producer in exactly-once mode: a dead-letter
+    produce is STAGED in the server's outbox, keyed by the poison record's
+    identity (from the ``dlq.*`` provenance headers the quarantine always
+    writes), and produced inside the commit window's transaction, atomic
+    with the offset that retires the record. The handle resolves at once:
+    durability is the transaction commit, which gates every offset."""
+
+    def __init__(self, server: "StreamingGenerator") -> None:
+        self._server = server
+
+    def send(self, topic, value, *, key=None, partition=None,
+             timestamp_ms=None, headers=()):
+        h = dict(headers)
+        ident = (
+            h["dlq.topic"].decode(),
+            int(h["dlq.partition"]),
+            int(h["dlq.offset"]),
+        )
+        self._server._txn_outbox[ident] = dict(
+            topic=topic, value=value, key=key, headers=tuple(headers),
+        )
+        return _ResolvedSend(RecordMetadata(topic, -1, -1))
+
+    def flush(self, timeout_s=None) -> None:
+        pass  # staged sends settle at transaction commit
+
+    def close(self) -> None:
+        pass
 
 
 def _default_decode_prompt(prompt_len: int) -> Callable[[Record], np.ndarray]:
@@ -414,6 +504,12 @@ class StreamingGenerator:
     completion (module docstring), ``encode_output(record, tokens)`` its
     value, ``model_version`` its ``mv`` header; ``max_send_failure_streak``
     consecutive synchronous send failures stop the server.
+    ``exactly_once``: the transactional output mode (module docstring);
+    needs a transactional ``output_producer`` and, with a quarantine, one
+    over that same producer (``ValueError`` otherwise, as in JAX).
+    ``journal``: a ``journal.DecodeJournal`` this server writes;
+    ``add_resume_hints`` feeds it a dead server's entries (module
+    docstring).
     ``temperature``: 0 = greedy; > 0 samples each slot from
     ``filter_logits`` under ``top_k``/``top_p`` with per-record keys
     derived from ``rng`` (module docstring). ``quarantine``: a
@@ -448,8 +544,10 @@ class StreamingGenerator:
         kv_pages: PagedKVConfig | dict | None = None,
         output_producer=None,
         output_topic: str | None = None,
+        exactly_once: bool = False,
         encode_output: Callable[[Record, np.ndarray], bytes] | None = None,
         max_send_failure_streak: int = 64,
+        journal: DecodeJournal | None = None,
         model_version: int = 0,
         device=None,
         **deferred,
@@ -462,7 +560,7 @@ class StreamingGenerator:
         check_sampling_params(top_k, top_p)
         self._rng_words = _rng_words(rng)
         if cfg.is_moe:
-            raise _not_ported("an MoE config", "7, MoE serving")
+            raise _not_ported("an MoE config", "training options")
         if prompt_len + max_new > cfg.max_seq_len:
             raise ValueError("prompt_len + max_new exceeds cfg.max_seq_len")
         if max_new < 2:
@@ -473,6 +571,32 @@ class StreamingGenerator:
             raise ValueError(
                 "output_producer and output_topic must be given together"
             )
+        if exactly_once:
+            if output_producer is None:
+                raise ValueError(
+                    "exactly_once requires output_producer/output_topic "
+                    "(the transaction is the output path)"
+                )
+            missing = [
+                m for m in ("begin", "send_offsets", "commit", "abort")
+                if not callable(getattr(output_producer, m, None))
+            ]
+            if missing:
+                raise ValueError(
+                    "exactly_once requires a transactional producer "
+                    "(source.producer.TransactionalProducer surface); "
+                    f"output_producer lacks {missing}"
+                )
+            if quarantine is not None and (
+                getattr(quarantine, "producer", None) is not output_producer
+            ):
+                raise ValueError(
+                    "exactly_once requires the quarantine to share the "
+                    "transactional output producer (its DLQ produce must "
+                    "ride the same transaction as the offset that retires "
+                    "the poison record); build PoisonQuarantine over the "
+                    "same TransactionalProducer instance"
+                )
         if max_send_failure_streak < 1:
             raise ValueError("max_send_failure_streak must be >= 1")
         if isinstance(kv_pages, dict):
@@ -505,6 +629,26 @@ class StreamingGenerator:
         self._max_send_failure_streak = max_send_failure_streak
         self._send_failure_streak = 0
         self._model_version = int(model_version)
+        # Exactly-once: outputs and DLQ copies staged by record identity,
+        # produced only inside the commit transaction that covers their
+        # offsets (an eager-rebalance re-serve overwrites its own entry);
+        # _txn_committed_wm is the high-water of offsets this server's
+        # committed transactions cover, below which a staged entry is a
+        # duplicate serve and is dropped.
+        self._txn_mode = exactly_once
+        self._txn_outbox: dict[tuple[str, int, int], dict] = {}
+        self._txn_committed_wm: dict = {}
+        if exactly_once and quarantine is not None:
+            quarantine.rebind_producer(_TxnOutboxProducer(self))
+        # Warm resume: the journal this server writes, the hints it may
+        # resume from, finished completions re-served from a journal, and
+        # each slot's token count at its last journal write.
+        self._journal = journal
+        if journal is not None:
+            journal.set_model_version(self._model_version)
+        self._resume_hints: dict[tuple[str, int, int], JournalEntry] = {}
+        self._journal_ready: list[tuple[Record, np.ndarray]] = []
+        self._slot_journaled = np.zeros((slots,), np.int64)
         # Validates the whole combination eagerly (the exclusions raise);
         # _build re-resolves if a too-small paged pool falls back to dense.
         self._kv_backend = resolve_kv_backend(
@@ -708,8 +852,9 @@ class StreamingGenerator:
         REAL table row. Padding rows point at the sink. Returns (ctok,
         ctable, cpos, fin_mask, fin_row, packed, finishers) — finishers
         are (entry, last_row_index) for admissions whose suffix completes
-        in this chunk; ``fin_mask``/``fin_row`` mark their slots so the
-        tick merges token 0 in the same tick."""
+        in this chunk; ``fin_mask``/``fin_row`` mark the cold ones' slots
+        so the tick merges token 0 in the same tick (a warm resume's state
+        is restored on the host, ``_activate_chunk_finishers``)."""
         C, B, nblk = self._prefill_chunk, self._slots, self._blocks_per_slot
         ctok = np.zeros((C,), np.int32)
         cpos = np.zeros((C,), np.int32)
@@ -728,16 +873,19 @@ class StreamingGenerator:
             packed += n
             if e.off == len(e.seq):
                 finishers.append((e, packed - 1))
-                fin_mask[e.slot] = True
-                fin_row[e.slot] = packed - 1
+                if e.resume is None:
+                    fin_mask[e.slot] = True
+                    fin_row[e.slot] = packed - 1
                 self._prefill_queue.pop(0)
         return ctok, ctable, cpos, fin_mask, fin_row, packed, finishers
 
     def _activate_chunk_finishers(self, finishers) -> None:
         """Host bookkeeping for slots whose suffix prefill completed this
         tick: flip them active (their first decode tick is the NEXT tick
-        block; token 0 was merged in this one) and push the device table
-        so their rows unmask from the sink."""
+        block; a cold admission's token 0 was merged in this one), restore
+        a warm resume's state, and push the device table so their rows
+        unmask from the sink."""
+        resumed = []
         for e, _row in finishers:
             self._prefilling[e.slot] = False
             self._active[e.slot] = True
@@ -746,6 +894,10 @@ class StreamingGenerator:
             self.metrics.admission_stall_ticks.add(
                 max(0, self._tick_counter - e.enq_tick - 1)
             )
+            if e.resume is not None:
+                resumed.append((e.slot, e.resume))
+        if resumed:
+            self._restore_resumed(resumed)
         self._table_dev = self._device_table()
 
     @property
@@ -774,7 +926,13 @@ class StreamingGenerator:
         query that attends over them.
 
         LEGACY mode (``prefill_chunk=0``): one suffix prefill per record,
-        then the dense admit's token-0 merge."""
+        then the dense admit's token-0 merge.
+
+        A record with a resume hint prefills ``prompt + emitted[:-1]``
+        instead (its cached prompt prefix still matches) and its decode
+        state is restored on the host, no token 0 drawn; a FINISHED hint
+        takes no slot (the completion re-serves from the journal at the
+        next step)."""
         phys_free = [
             i for i in range(self._slots)
             if not self._active[i] and not self._prefilling[i]
@@ -792,9 +950,11 @@ class StreamingGenerator:
         bs = self._kv_pages.block_size
         nblk = self._blocks_per_slot
         admitted: list[tuple[int, torch.Tensor]] = []  # legacy (slot, logits)
+        resumed: list[tuple[int, np.ndarray]] = []  # legacy (slot, emitted)
         keys_np = np.zeros((self._slots, 2), np.int64)
         key_mask = np.zeros((self._slots,), bool)
         reserved = 0
+        journal_dirty = False
         slot_iter = iter(phys_free)
         while True:
             nxt = self._next_decodable(queue)
@@ -802,12 +962,20 @@ class StreamingGenerator:
                 break
             rec, toks = nxt
             toks = np.asarray(toks, np.int32)
+            kd = self._key_for_journal(rec)
+            hint = self._take_hint(rec)
+            if hint is not None and hint.finished:
+                journal_dirty |= self._serve_from_journal(rec, hint, kd)
+                continue
             i = next(slot_iter, None)
             if i is None:
                 # Unreachable under the caller contract (records <= free
-                # slots): fail loudly rather than drop a record.
+                # slots, finished hints take none): fail loudly rather
+                # than drop a record.
                 raise RuntimeError("paged admission ran out of free slots")
-            matched = self._kv_radix.match(toks)
+            emitted = None if hint is None else np.asarray(hint.tokens, np.int32)
+            seq = toks if emitted is None else np.concatenate([toks, emitted[:-1]])
+            matched = self._kv_radix.match(seq)
             needed = nblk - len(matched)
             short = needed - self._kv_alloc.available()
             if short > 0:
@@ -823,6 +991,8 @@ class StreamingGenerator:
                 # deadlock.
                 if matched:
                     self._kv_alloc.decref(matched)
+                if hint is not None:  # back on the shelf with its record
+                    self._resume_hints[(rec.topic, rec.partition, rec.offset)] = hint
                 self._paged_deferred.append(rec)
                 self._paged_deferred.extend(queue)
                 queue = []
@@ -842,24 +1012,37 @@ class StreamingGenerator:
             else:
                 self.metrics.prefix_misses.add(1)
             self._slot_rec[i] = rec
-            self._slot_emitted[i] = 0
+            key_np = self._hint_key(hint, kd)
             if self._sampled:
-                keys_np[i] = self._record_key_data(rec)
+                keys_np[i] = key_np
                 key_mask[i] = True
+            if hint is None:
+                self._slot_emitted[i] = 0
+                self._slot_journaled[i] = 0
+                if self._journal is not None:
+                    self._journal_record(rec, kd, (), False)
+                    journal_dirty = True
+            else:
+                self._note_resumed(i, rec, emitted, key_np)
+                journal_dirty |= self._journal is not None
             if self._chunked:
                 self._prefilling[i] = True
                 self._prefill_queue.append(_PendingPrefill(
-                    i, rec, toks[start:].copy(), start, self._tick_counter,
+                    i, rec, seq[start:].copy(), start, emitted,
+                    self._tick_counter,
                 ))
                 reserved += 1
                 continue
-            self.metrics.prefill_tokens.add(len(toks) - start)
+            self.metrics.prefill_tokens.add(len(seq) - start)
             self._active[i] = True
             with torch.inference_mode():
                 logits = self._suffix_prefill(
-                    self._table_np[i], toks[start:], start
+                    self._table_np[i], seq[start:], start
                 )
-            admitted.append((i, logits))
+            if hint is None:
+                admitted.append((i, logits))
+            else:
+                resumed.append((i, emitted))
         if queue:  # defensive: slots exhausted with records left
             self._paged_deferred.extend(queue)
         # Count records ENTERING the deferred state, not retry spins.
@@ -867,19 +1050,24 @@ class StreamingGenerator:
         if newly_deferred > 0:
             self.metrics.admission_deferrals.add(newly_deferred)
         self.metrics.cache_pool_occupancy.set(self._kv_alloc.occupancy())
-        filled = len(admitted) + reserved
+        filled = len(admitted) + len(resumed) + reserved
         if filled and in_flight > 0:
             self.metrics.readmissions.add(filled)
         if filled:
             self._merge_keys(keys_np, key_mask)
-        if admitted:
+        if admitted or resumed:
             # Chunked reservations push nothing: prefilling rows stay
             # masked to the sink until activation.
             self._table_dev = self._device_table()
+        if admitted:
             rows = self._h2d(np.asarray([i for i, _ in admitted], np.int64))
             logits = torch.cat([lg for _, lg in admitted])
             with torch.inference_mode():
                 self._merge_token0(rows, self._pick(logits, self._slot_keys[rows]))
+        if resumed:
+            self._restore_resumed(resumed)
+        if journal_dirty:
+            self._journal.flush()
         return filled
 
     @property
@@ -1144,10 +1332,12 @@ class StreamingGenerator:
 
     def admit_records(self, records: list[Record]) -> int:
         """Admit ``records`` into free slots; returns the number of slots
-        filled. Records must already be ``note_fetched``; offer no more
-        than ``free_slots()`` (minus ``pending_admissions`` on the paged
-        pool, where pool pressure can also DEFER records — call with an
-        empty list to re-offer the deferred backlog)."""
+        filled (cold admissions and warm resumes; a FINISHED resume hint
+        re-serves from the journal at the next step and takes no slot).
+        Records must already be ``note_fetched``; offer no more than
+        ``free_slots()`` (minus ``pending_admissions`` on the paged pool,
+        where pool pressure can also DEFER records — call with an empty
+        list to re-offer the deferred backlog)."""
         if self._kv_pages is not None:
             return self._admit_records_paged(records)
         free = [i for i in range(self._slots) if not self._active[i]]
@@ -1159,45 +1349,221 @@ class StreamingGenerator:
         prompts = np.zeros((self._slots, self._prompt_len), np.int32)
         admit_mask = np.zeros((self._slots,), bool)
         keys_np = np.zeros((self._slots, 2), np.int64)
+        key_mask = np.zeros((self._slots,), bool)
         queue = list(records)
         slot_iter = iter(free)
+        resumed = 0
+        journal_dirty = False
         while True:
             nxt = self._next_decodable(queue)
             if nxt is None:
                 break
             rec, toks = nxt
-            i = next(slot_iter)
-            prompts[i] = toks
+            kd = self._key_for_journal(rec)
+            hint = self._take_hint(rec)
+            if hint is not None and hint.finished:
+                journal_dirty |= self._serve_from_journal(rec, hint, kd)
+                continue
+            i = next(slot_iter, None)
+            if i is None:
+                # Unreachable under the caller contract (records <= free
+                # slots, finished hints take none).
+                raise RuntimeError("admission ran out of free slots")
+            key_np = self._hint_key(hint, kd)
             if self._sampled:
-                keys_np[i] = self._record_key_data(rec)
+                keys_np[i] = key_np
+                key_mask[i] = True
+            if hint is not None:
+                with torch.inference_mode():
+                    self._resume_into_slot(i, rec, toks, hint, key_np)
+                resumed += 1
+                journal_dirty |= self._journal is not None
+                continue
+            prompts[i] = toks
             self._slot_rec[i] = rec
             admit_mask[i] = True
             self._active[i] = True
             self._slot_emitted[i] = 0
+            self._slot_journaled[i] = 0
+            if self._journal is not None:
+                self._journal_record(rec, kd, (), False)
+                journal_dirty = True
         admitted = int(admit_mask.sum())
-        if admitted:
+        filled = admitted + resumed
+        if filled:
             if in_flight > 0:
-                self.metrics.readmissions.add(admitted)
-            self._merge_keys(keys_np, admit_mask)
+                self.metrics.readmissions.add(filled)
+            self._merge_keys(keys_np, key_mask)
+        if admitted:
             with torch.inference_mode():
                 self._admit(prompts, admit_mask)
-        return admitted
+        if journal_dirty:
+            self._journal.flush()
+        return filled
+
+    # ------------------------------------------------ journal, warm resume
+
+    def add_resume_hints(self, entries: dict) -> None:
+        """Install journal entries (``DecodeJournal.load`` of a dead
+        server's file) keyed by (topic, partition, offset). A hint is
+        taken when its record is next offered for admission; an unmatched
+        hint sits harmlessly (its payload CRC keeps it off any other
+        record)."""
+        self._resume_hints.update(entries)
+
+    def _take_hint(self, rec: Record) -> JournalEntry | None:
+        """Pop and validate ``rec``'s resume hint; None = admit cold. A
+        hint is rejected (``resume_rejected``) on a payload CRC, sampling
+        or model-version mismatch, a token count out of range, or a
+        partial generation this pool cannot resume; a bare admit-time
+        entry (no tokens) is no rejection."""
+        hint = self._resume_hints.pop((rec.topic, rec.partition, rec.offset), None)
+        if hint is None:
+            return None
+        g = len(hint.tokens)
+        ok = (
+            hint.crc == value_crc(rec.value)
+            and hint.temperature == self._temperature
+            and hint.top_k == self._top_k
+            and hint.top_p == self._top_p
+            and hint.model_version == self._model_version
+            and 1 <= g <= self._max_new
+            and (hint.finished or g < self._max_new)
+            and (hint.finished or self._resume_supported())
+        )
+        if not ok:
+            if g >= 1:
+                self.metrics.resume_rejected.add(1)
+            return None
+        return hint
+
+    def _resume_supported(self) -> bool:
+        """Can a PARTIAL hint warm-resume here? Not on an int8 pool: it
+        gives up the token-exactness warm resume exists to keep (the
+        record replays cold, as in the JAX package)."""
+        return not self._kv_int8
+
+    def _key_for_journal(self, rec: Record):
+        """``rec``'s record key where a journal entry or the sampler needs
+        it, else None (greedy serving without a journal skips the host
+        threefry)."""
+        if self._sampled or self._journal is not None:
+            return self._record_key_data(rec)
+        return None
+
+    @staticmethod
+    def _hint_key(hint: JournalEntry | None, kd):
+        """The key a (resumed) record samples with: the journaled one, so
+        the continuation draws exactly as the dead server would have."""
+        if hint is not None and hint.key_data is not None:
+            return np.asarray(hint.key_data, np.uint32)
+        return kd
+
+    def _journal_record(self, rec, key_data, tokens, finished) -> None:
+        self._journal.record(
+            rec, key_data, tokens=tokens, finished=finished,
+            temperature=self._temperature, top_k=self._top_k,
+            top_p=self._top_p, model_version=self._model_version,
+        )
+
+    def _serve_from_journal(self, rec, hint, kd) -> bool:
+        """Queue a FINISHED hint's tokens for the next step's retirement
+        (no slot, no decode); True when this server's journal took the
+        entry and needs a flush."""
+        out = np.asarray(hint.tokens, np.int32)
+        self._journal_ready.append((rec, out))
+        self.metrics.journal_served.add(1)
+        if self._journal is None:
+            return False
+        self._journal_record(rec, hint.key_data or kd, out, True)
+        return True
+
+    def _note_resumed(self, i: int, rec: Record, emitted, key_np) -> None:
+        """Slot ``i`` resumes ``rec`` after its ``emitted`` tokens."""
+        g = len(emitted)
+        self._slot_emitted[i] = g
+        self._slot_journaled[i] = g
+        self.metrics.warm_resumes.add(1)
+        self.metrics.journal_tokens_restored.add(g)
+        if self._journal is not None:
+            self._journal_record(rec, key_np, emitted, False)
+
+    def _restore_resumed(self, resumed) -> None:
+        """Set each warm-resumed slot's state to what the uncut run holds
+        after its g emitted tokens: last token ``emitted[g-1]``, position
+        P + g - 1 (the next tick writes that position's k/v itself) and
+        the output buffer, zero-padded. ``resumed``: (slot, emitted)."""
+        B, P = self._slots, self._prompt_len
+        mask = np.zeros((B,), bool)
+        last = np.zeros((B,), np.int32)
+        pos = np.zeros((B,), np.int32)
+        gen = np.zeros((B, self._max_new), np.int32)
+        for i, emitted in resumed:
+            mask[i] = True
+            last[i] = emitted[-1]
+            pos[i] = P + len(emitted) - 1
+            gen[i, :len(emitted)] = emitted
+        m = self._h2d(mask)
+        self._last_tok = torch.where(m, self._h2d(last), self._last_tok)
+        self._pos = torch.where(m, self._h2d(pos), self._pos)
+        self._gen = torch.where(m[:, None], self._h2d(gen), self._gen)
+
+    def _resume_into_slot(self, i: int, rec: Record, prompt_toks,
+                          hint: JournalEntry, key_np) -> None:
+        """Dense warm resume: ONE prefill of ``prompt + emitted[:-1]`` (S =
+        P + g - 1 positions) into slot ``i``'s rows of the compute-dtype
+        pool, then the uncut run's state after g tokens. Rows past S keep
+        stale contents; the tick that reaches each writes it first."""
+        emitted = np.asarray(hint.tokens, np.int32)
+        seq = np.concatenate([np.asarray(prompt_toks, np.int32), emitted[:-1]])
+        _logits, ks, vs = prefill_capture(
+            self._params, self._cfg, self._h2d(seq)[None, :], self._model
+        )
+        s, c = len(seq), self._caches
+        c[0][:, i, :s] = ks[:, 0].to(c[0].dtype)
+        c[1][:, i, :s] = vs[:, 0].to(c[1].dtype)
+        self._restore_resumed([(i, emitted)])
+        self._slot_rec[i] = rec
+        self._active[i] = True
+        self._note_resumed(i, rec, emitted, key_np)
 
     @property
     def model_version(self) -> int:
         """The version tag every published output carries (``mv``)."""
         return self._model_version
 
+    def _txn_abort(self) -> None:
+        """Best-effort abort of an in-flight transaction (a dead broker
+        leaves it to the next ``begin`` or the next incarnation's fence).
+        The outbox is untouched: its entries re-send next window."""
+        try:
+            if self._output_producer.abort():
+                self.metrics.txn_aborts.add(1)
+        except Exception:  # noqa: BLE001 - the broker will abort it
+            _logger.debug("defensive transaction abort failed", exc_info=True)
+
     def _retire_completion(self, rec: Record, out: np.ndarray,
                            completions: list) -> None:
-        """The single completion exit: metrics, the output send (fail
-        closed per record), ledger retirement."""
+        """The single completion exit, for tick completions and journal-
+        served ones alike: metrics, the output send (fail closed per
+        record) or, exactly-once, the outbox stage, ledger retirement."""
         self.metrics.completions.add(1)
         self.metrics.tokens.add(len(out))
         if len(out) < self._max_new:
             self.metrics.truncated.add(1)
         sent_ok = True
-        if self._output_producer is not None:
+        if self._txn_mode:
+            # STAGE, don't send: produced inside the commit window's
+            # transaction once the in-order watermark covers this offset,
+            # so output and offset are one broker decision. Keyed by
+            # record identity: a re-serve overwrites its own entry.
+            self._txn_outbox[(rec.topic, rec.partition, rec.offset)] = dict(
+                topic=self._output_topic,
+                value=self._encode_output(rec, out),
+                key=rec.key,
+                headers=(("mv", str(self._model_version).encode()),),
+            )
+        elif self._output_producer is not None:
             # Async send; durability is settled in _commit (flush + per-
             # handle get) BEFORE offsets commit. A SYNCHRONOUS failure
             # (buffer full, closed producer, missing topic) must neither
@@ -1240,8 +1606,13 @@ class StreamingGenerator:
         """One decode tick block over the active slots (paged chunked mode:
         carrying the next chunk of queued suffix tokens); returns the
         completions it retired, in completion order. No-op on an idle
-        pool with an empty chunk queue."""
+        pool with an empty chunk queue and no journal backlog. Completions
+        re-served from a journal come first."""
         completions: list[tuple[Record, np.ndarray]] = []
+        if self._journal_ready:
+            ready, self._journal_ready = self._journal_ready, []
+            for rec, out in ready:
+                self._retire_completion(rec, out, completions)
         run_chunk = self._chunked and bool(self._prefill_queue)
         if self._active.any() or run_chunk:
             B, P = self._slots, self._prompt_len
@@ -1272,20 +1643,37 @@ class StreamingGenerator:
                 )
             crash_hook("mid_tick")
             self.metrics.slot_occupancy.set(float(self._active.mean()))
+            # Counted BEFORE retirement, so a completing slot's final
+            # tokens are journaled while its record is still attached.
             decoded = 0
+            journal_dirty = False
             for i in np.nonzero(self._active)[0]:
                 cnt = int(n_out_h[i] if done_h[i] else pos_h[i] - P + 1)
                 decoded += cnt - int(self._slot_emitted[i])
                 self._slot_emitted[i] = cnt
+                if self._journal is not None:
+                    rec = self._slot_rec[i]
+                    if done_h[i]:
+                        self._journal.finish(rec, gen_h[i, :cnt])
+                        journal_dirty = True
+                    elif cnt - int(self._slot_journaled[i]) >= self._journal.cadence:
+                        self._journal.progress(rec, gen_h[i, :cnt])
+                        self._slot_journaled[i] = cnt
+                        journal_dirty = True
             if decoded > 0:
                 self.metrics.decoded_tokens.add(decoded)
             self.metrics.tokens_per_tick.set(float(decoded))
+            if journal_dirty:
+                # Synchronous at the cadence point: a kill one instruction
+                # later finds these tokens on disk.
+                self._journal.flush()
             for i in np.nonzero(done_h)[0]:
                 rec = self._slot_rec[i]
                 assert rec is not None
                 self._active[i] = False
                 self._slot_rec[i] = None
                 self._slot_emitted[i] = 0
+                self._slot_journaled[i] = 0
                 if self._kv_pages is not None:
                     # Unpin the slot's blocks: uncached ones return to the
                     # free list, cached prefix blocks stay alive on the
@@ -1315,14 +1703,22 @@ class StreamingGenerator:
         return completions
 
     def flush_commits(self) -> bool:
-        """Commit anything emitted since the last commit. False = a
-        survivable commit failure left work pending (retry later)."""
-        if self._uncommitted:
+        """Commit anything emitted since the last commit (exactly-once:
+        also a non-empty outbox, whose held outputs must still reach a
+        committed transaction). False = a survivable commit failure left
+        work pending (retry later)."""
+        if self._uncommitted or (self._txn_mode and self._txn_outbox):
             if self._commit():
                 self._uncommitted = 0
                 return True
             return False
         return True
+
+    @property
+    def pending_commit(self) -> int:
+        """Completions emitted since the last SUCCESSFUL commit — what a
+        flush would cover."""
+        return self._uncommitted
 
     def committable_offsets(self) -> dict:
         """The ledger's committable next-read offsets right now."""
@@ -1362,7 +1758,7 @@ class StreamingGenerator:
                 take = pending[:take_cap]
                 del pending[: len(take)]
                 self.admit_records(take)
-            if not self.has_active():
+            if not self.has_active() and not self._journal_ready:
                 if max_records is not None and served >= max_records:
                     break
                 if not pending:
@@ -1390,8 +1786,12 @@ class StreamingGenerator:
         need not re-raise a record's own failure). A failed flush skips the
         commit and keeps the handles for the next one; a terminally failed
         handle raises ``OutputDeliveryError`` rather than commit past lost
-        output. ``commit_latency`` covers the whole path."""
+        output. ``commit_latency`` covers the whole path. With
+        ``exactly_once`` the commit is one transaction (``_commit_txn``).
+        A successful commit prunes the journal of what it covers."""
         t0 = time.perf_counter()
+        if self._txn_mode:
+            return self._commit_txn(t0)
         if self._output_producer is not None:
             try:
                 self._output_producer.flush()
@@ -1437,12 +1837,110 @@ class StreamingGenerator:
                 "retry at the next flush"
             )
             return False
+        self._prune_journal(snapshot)
         return True
+
+    def _prune_journal(self, snapshot: dict) -> None:
+        """Drop the journal entries a successful commit covers: the file
+        stays bounded by in-flight work."""
+        if self._journal is not None:
+            self._journal.prune(snapshot)
+            self._journal.flush()
+
+    def _commit_txn(self, t0: float) -> bool:
+        """The exactly-once commit: ONE transaction per window — begin,
+        produce every outbox entry the in-order ledger snapshot covers
+        (outputs and DLQ copies alike), stage the snapshot's offsets with
+        the consumer's current group metadata, commit. Entries above the
+        watermark are HELD for a later window. ``CommitFailedError``
+        (rebalance) aborts the window and returns False: the outbox
+        re-sends next window. ``ProducerFencedError`` is terminal: a
+        successor owns this transactional id. Other faults abort
+        defensively and return False."""
+        p = self._output_producer
+        snapshot = self._ledger.snapshot()
+        try:
+            assigned = set(self._consumer.assignment())
+        except Exception:  # noqa: BLE001 - transport hiccup: commit as-is
+            assigned = None
+        outbox = self._txn_outbox
+
+        def tp_of(ident):
+            return TopicPartition(ident[0], ident[1])
+
+        if assigned is not None:
+            snapshot = {tp: off for tp, off in snapshot.items() if tp in assigned}
+            # Entries of departed partitions are stale: their records
+            # committed here already or re-serve on the new owner.
+            for ident in [i for i in outbox if tp_of(i) not in assigned]:
+                del outbox[ident]
+        # A re-serve of a record an earlier window already committed.
+        for ident in [i for i in outbox
+                      if i[2] < self._txn_committed_wm.get(tp_of(i), 0)]:
+            del outbox[ident]
+        sendable = [i for i in outbox if i[2] < snapshot.get(tp_of(i), 0)]
+        if not snapshot and not p.in_transaction:
+            return True  # nothing resolved, nothing dangling
+        try:
+            # begin() also aborts a transaction a lost ack left open.
+            p.begin()
+            for ident in sendable:
+                kw = outbox[ident]
+                p.send(kw["topic"], kw["value"], key=kw["key"],
+                       headers=kw["headers"])
+            if snapshot:
+                p.send_offsets(
+                    self._consumer.group_id, snapshot,
+                    member_id=getattr(self._consumer, "member_id", None),
+                    generation=getattr(self._consumer, "generation", None),
+                )
+            p.commit()
+        except ProducerFencedError:
+            self.metrics.commit_failures.add(1)
+            self.metrics.txn_aborts.add(1)
+            _logger.exception(
+                "transactional producer fenced; failing stop — the "
+                "successor incarnation owns this server's outputs now"
+            )
+            raise
+        except CommitFailedError:
+            self.metrics.commit_failures.add(1)
+            self.metrics.txn_aborts.add(1)
+            self._txn_abort()  # send_offsets may refuse before commit
+            _logger.exception(
+                "transaction aborted on commit failure; the outbox "
+                "re-sends next window"
+            )
+            return False
+        except Exception:  # noqa: BLE001 - transport fault: retry later
+            self.metrics.commit_failures.add(1)
+            self._txn_abort()
+            _logger.exception(
+                "transaction commit failed in flight; aborted "
+                "defensively — the outbox re-sends next flush"
+            )
+            return False
+        for ident in sendable:
+            del outbox[ident]
+        for tp, off in snapshot.items():
+            if off > self._txn_committed_wm.get(tp, 0):
+                self._txn_committed_wm[tp] = off
+        self.metrics.txn_commits.add(1)
+        self.metrics.txn_held_outputs.set(float(len(self._txn_outbox)))
+        self.metrics.commit_latency.observe(time.perf_counter() - t0)
+        self._prune_journal(snapshot)
+        return True
+
+    def sync_journal(self) -> None:
+        """Flush and fsync the decode journal (no-op without one): what is
+        in flight at exit stays warm-resumable by the next owner."""
+        if self._journal is not None:
+            self._journal.sync()
 
     def close(self) -> None:
         """Voluntary shutdown: commit the watermark for everything already
-        completed; in-flight generations stay uncommitted and re-deliver.
-        Idempotent."""
+        completed; in-flight generations stay uncommitted and re-deliver
+        (warm, from the synced journal). Idempotent."""
         if self._closed:
             return
         self._closed = True
@@ -1450,6 +1948,8 @@ class StreamingGenerator:
             self._commit()
         except ConsumerClosedError:
             pass
+        finally:
+            self.sync_journal()
 
     def __enter__(self) -> "StreamingGenerator":
         return self

@@ -78,8 +78,8 @@ def fixed_width(
     if wire_bits is not None:
         # The packed rows need ops/bitpack.py's device-side unpack.
         raise NotImplementedError(
-            "wire_bits= is not ported yet (ROADMAP Queue A, slice 2 "
-            "deferred: ops/bitpack.py)"
+            "wire_bits= is not ported yet (ROADMAP queue A: training "
+            "options, ops/bitpack.py)"
         )
     if wire_bits is not None and wire_dtype is not None:
         raise ValueError("wire_bits and wire_dtype are exclusive")

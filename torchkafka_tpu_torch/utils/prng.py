@@ -110,8 +110,11 @@ def uniform(key_: torch.Tensor, shape) -> torch.Tensor:
 
 
 def gumbel(key_: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.gumbel`` (mode "low"), f32."""
-    return -torch.log(-torch.log(uniform(key_, shape)))
+    """``jax.random.gumbel`` (mode "low"), f32. Both logs run in f64 and
+    the result rounds to f32 once, so the CPU and CUDA paths, whose f32
+    ``log`` round apart, give the same f32 values; within 2 ulp of XLA's
+    f32 evaluation, at the scale of max(|g|, 1)."""
+    return (-torch.log(-torch.log(uniform(key_, shape).double()))).float()
 
 
 def categorical(key_: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
