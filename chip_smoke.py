@@ -103,6 +103,17 @@ Phases, each printing one JSON line:
    by ``StreamingGenerator`` with the int8 pool (a main path: every kernel
    launch count is zeroed just before it and read just after; every K1
    launch on the tensor cores), then again with the bf16 pool;
+8t. serve_traced: the int8 serve run untraced, traced, traced, untraced,
+   each traced run with ``obs.RecordTracer(capacity=1 << 16)`` (token
+   events on): every run's tokens and commits equal the first's, K1 and
+   K4 follow the serve phase's rule, and each of the 32 records is
+   polled, active, finished and committed exactly once with nothing left
+   open. Printed: TTFT, inter-token latency, queue wait and end-to-end
+   p50/p99 from the tracer's histograms (the tracer's clock is the
+   host's: a record is "active" once its first token is enqueued), tok/s
+   traced against untraced. One ``MetricsExporter`` on 127.0.0.1 serves
+   the server's and the tracer's expositions; one scrape must parse under
+   ``tests/test_obs.py``'s exposition grammar with no family twice;
 8a. serve_sampled: the serve phase's model and 32 prompts plus one poison
    record (7 bytes, which ``decode_prompt`` rejects), sampled (temperature
    0.9, top_k 16, top_p 0.95, ``rng=prng.key(11)``) over the TCP broker:
@@ -143,6 +154,32 @@ Phases, each printing one JSON line:
    ticks) times (counts zeroed just before the run, read just after). Then
    the same stream through the gathered read (no K5 launch): identical
    commits and token 0;
+8t'. serve_tiered: the same 1b model, pool and chunked prefill over a
+   stream that thrashes HBM: 384 prompts from 64 tenants (each a fixed
+   96-token system prompt, 6 whole blocks, plus 32 random tokens), each
+   tenant drawn with Zipf(1.1) weights from a fixed seed, keyed by tenant
+   onto 4 partitions, polled 16 at a time (``benchmarks/bench_tiered.py``'s
+   stream at the 1b scale); odd tenants get a 32-token budget
+   (``max_new_of``). The pool keeps about 20 tenants' prefixes (in-flight
+   slots share their tenant's 6 prefix blocks), so the Zipf tail's
+   revisits find their prefix evicted; a block's int8 payload is 811,008
+   bytes. Runs: (HBM only, ``kv_tier={"capacity_bytes": 1 << 30}``, the
+   tier again, HBM only) x ``--tier-rounds`` (default 1); every run
+   traced. Held: every run commits the end offsets; the tier runs make
+   more prefix hits and prefill fewer tokens than the HBM-only runs,
+   demote and promote (tier hits == promotions) within capacity; each odd
+   tenant's completion has exactly 32 tokens and ``output_capped`` counts
+   them; K5 = layers x (decode ticks - chunk ticks), K1 = K4 = 0 (a
+   promotion launches no kernel); a cached block read by
+   ``_tier_read_block`` and written by ``_tier_write_block`` into a fresh
+   block is bitwise equal on all four pools. Printed: hit rates (overall
+   and for the 4 most and 4 least frequent tenants), prefill tokens,
+   TTFT p50/p99, host ms per demotion and promotion, tok/s and the token
+   agreement between the tier and HBM-only runs. Then the witness of that
+   agreement, over the first 128 prompts: HBM only against the tier with
+   K5 and again with the gathered read on every tick, and whether a decode
+   row's q/k/v, MLP and head outputs are bitwise the same at M = 16 (a
+   decode-only tick) and inside M = 272 (a chunk tick);
 8c. serve_paged_f32: 1b width, 2 layers, f32 weights, the same stream
    through K5 and through the gathered read: every token identical;
 8c'. serve_sampled_f32: the tenant stream of 8b plus the poison record,
@@ -158,6 +195,12 @@ Phases, each printing one JSON line:
    the chunked paged compute-dtype pools (the paged resume rides the
    chunk queue), greedy and sampled: both recoveries equal the uncut run
    token for token and in committed watermarks;
+8t''. serve_tiered_f32: 8t' at 1b width, 2 layers, f32, over its first
+   128 prompts: HBM only against the tier, greedy and sampled on the
+   compute-dtype pool, greedy on the int8 pool (K5) and greedy through a
+   disk-spill tier (``capacity_bytes=0`` under a temporary directory):
+   every token and watermark of each tiered run equals its HBM-only
+   run's;
 8d. serve_8b: harness scenario 7 at the 8b scale with an output topic
    (BASELINE config 5), full width and depth, random int8 weights made on
    the card from a seed: 48 prompts of 128 tokens produced round-robin on
@@ -1251,10 +1294,12 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
             "peak_mem_gb": peak}
 
 
-def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
+def serve(torch, cfg, params, prompts, kv_dtype, prof=None, tracer=None, on_done=None):
     """Serve ``prompts`` once through the port's StreamingGenerator; the
     kernel launch counts are zeroed just before ``run`` and read after.
-    ``prof``: an optional profiler context wrapped around ``run``."""
+    ``prof``: an optional profiler context wrapped around ``run``;
+    ``tracer``: the server's ``obs.RecordTracer``; ``on_done(server)`` is
+    called after the run."""
     from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
     from torchkafka_tpu_torch.ops.kvattn import int8_decode_attention_dynlen
     from torchkafka_tpu_torch.serve import StreamingGenerator
@@ -1271,7 +1316,7 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
     server = StreamingGenerator(
         consumer, params, cfg, slots=16, prompt_len=plen, max_new=max_new,
         commit_every=16, ticks_per_sync=max_new - 1, kv_dtype=kv_dtype,
-        kv_kernel=True if kv_dtype else "auto", device="cuda",
+        kv_kernel=True if kv_dtype else "auto", tracer=tracer, device="cuda",
     )
     server.warmup()
     torch.cuda.reset_peak_memory_stats()
@@ -1288,6 +1333,8 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None):
                 "flash_fwd_tc": flash_fwd_bhsd.tc_launches,
                 "kvattn_dynlen": int8_decode_attention_dynlen.launches}
     consumer.close()
+    if on_done is not None:
+        on_done(server)
     tps = [TopicPartition("t7", p) for p in (0, 1)]
     committed = [broker.committed("s7", tp) for tp in tps]
     ends = [broker.end_offset(tp) for tp in tps]
@@ -1332,14 +1379,26 @@ def tenant_prompts(np, vocab: int, n: int = 48, plen: int = 128, sys_len: int = 
     return prompts, [TENANTS[i % len(TENANTS)].encode() for i in range(n)]
 
 
-def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool, parts: int = 4,
-                prof=None):
-    """Serve the tenant stream once through the port's paged
-    StreamingGenerator (int8 pool, radix prefix reuse, chunked prefill),
-    produced keyed by tenant onto ``parts`` partitions. Every kernel launch
-    count is zeroed just before ``run`` and read just after; the peak of
-    live pool blocks is sampled around every tick block. ``prof``: an
-    optional profiler context wrapped around ``run``."""
+def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool = True, parts: int = 4,
+                prof=None, *, kv_dtype="int8", kv_tier=None, tracer=None, budget_of=None,
+                max_poll_records: int = 512, sampled: bool = False):
+    """Serve a tenant stream once through the port's paged
+    StreamingGenerator (blocks of 16, 16 slots' worth of blocks + 24 + 1;
+    radix prefix reuse; chunked prefill), produced keyed by tenant onto
+    ``parts`` partitions. ``kv_dtype`` "int8": the int8 pool, read by K5
+    on decode-only ticks when ``kv_kernel``; None: the compute-dtype
+    pool. ``kv_tier``: the host-RAM tier (None: HBM only), its block reads
+    and writes timed on the host; ``tracer``: the server's
+    ``obs.RecordTracer``; ``budget_of(key)``: a record's output budget
+    (``max_new_of``; None = ``MAX_NEW``); ``sampled``: ``SAMPLING`` with
+    key(11). Every kernel launch count is zeroed just before ``run`` and
+    read just after; the peak of live pool blocks is sampled around every
+    tick block. ``prof``: an optional profiler context wrapped around
+    ``run``. Hard checks: every record served once at its budget's length,
+    committed == end offsets, ``output_capped`` == the records cut short,
+    prefix reuse, K5 = layers x (decode ticks - chunk ticks) (0 without
+    the kernel), K1 = K4 = 0, a traced run balanced, the tier within its
+    capacity. Returns (outputs, row, server)."""
     import numpy as np
 
     from torchkafka_tpu_torch.kvcache import PagedKVConfig
@@ -1351,21 +1410,25 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool, parts: int =
     from torchkafka_tpu_torch.serve import StreamingGenerator
     from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
     from torchkafka_tpu_torch.source.records import TopicPartition
+    from torchkafka_tpu_torch.utils import prng
 
     n, plen = prompts.shape
     slots, ticks = 16, 8
     nblk = -(-(plen + MAX_NEW) // PAGED_BS)
-    pages = PagedKVConfig(block_size=PAGED_BS, num_blocks=slots * nblk + 24 + 1,
-                          prefill_chunk=None)
+    pages = PagedKVConfig(block_size=PAGED_BS, num_blocks=slots * nblk + 24 + 1)
     broker = InMemoryBroker()
     broker.create_topic("t12", partitions=parts)
     for i in range(n):
         broker.produce("t12", prompts[i].tobytes(), key=keys[i])
     consumer = MemoryConsumer(broker, "t12", group_id="s12")
+    sampling = dict(SAMPLING, rng=prng.key(11)) if sampled else {}
     server = StreamingGenerator(
         consumer, params, cfg, slots=slots, prompt_len=plen, max_new=MAX_NEW,
-        commit_every=16, ticks_per_sync=ticks, kv_dtype="int8", kv_kernel=kv_kernel,
-        kv_pages=pages, device="cuda",
+        commit_every=16, max_poll_records=max_poll_records, ticks_per_sync=ticks,
+        kv_dtype=kv_dtype, kv_kernel=kv_kernel if kv_dtype else "auto", kv_pages=pages,
+        kv_tier=kv_tier, tracer=tracer,
+        max_new_of=None if budget_of is None else (lambda rec: budget_of(rec.key)),
+        device="cuda", **sampling,
     )
     server.warmup()
     peak_blocks = [0, 0]  # allocated (slot-held + cached), slot-held
@@ -1384,6 +1447,23 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool, parts: int =
         return out
 
     server.step = sampled_step
+    io = {"demote": [], "promote": []}
+    if kv_tier is not None:
+        radix = server._kv_radix
+        read, write = radix._read_block, radix._write_block
+
+        def timed_read(block):
+            t0 = time.perf_counter()
+            out = read(block)
+            io["demote"].append(time.perf_counter() - t0)
+            return out
+
+        def timed_write(block, payload):
+            t0 = time.perf_counter()
+            write(block, payload)
+            io["promote"].append(time.perf_counter() - t0)
+
+        radix._read_block, radix._write_block = timed_read, timed_write
     kernels = (flash_fwd_bhsd, int8_decode_attention_dynlen, int8_paged_decode_attention)
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels:
@@ -1400,35 +1480,61 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool, parts: int =
     tps = [TopicPartition("t12", p) for p in range(parts)]
     committed = [broker.committed("s12", tp) or 0 for tp in tps]
     ends = [broker.end_offset(tp) for tp in tps]
+    want_len = {}
+    for tp in tps:
+        for r in broker.fetch(tp, 0, 10 * n):
+            budget = budget_of(r.key) if budget_of is not None else None
+            want_len[(r.partition, r.offset)] = max(1, min(budget or MAX_NEW, MAX_NEW))
+    capped = sum(length < MAX_NEW for length in want_len.values())
     m = server.metrics.summary()
     cache, chunks = m["prefix_cache"], m["chunked_prefill"]
-    if len(outs) != n or any(len(o) != MAX_NEW for o in outs.values()):
-        raise AssertionError(f"paged: {len(outs)} completions, lengths "
+    what = "paged" + ("" if kv_tier is None else " (tier)")
+    if len(outs) != n or any(len(o) != want_len[k] for k, o in outs.items()):
+        raise AssertionError(f"{what}: {len(outs)} completions, lengths "
                              f"{sorted({len(o) for o in outs.values()})}")
+    if m["output_capped"] != capped:
+        raise AssertionError(f"{what}: output_capped {m['output_capped']} vs {capped}")
     if committed != ends:
-        raise AssertionError(f"paged: committed {committed} != end offsets {ends}")
+        raise AssertionError(f"{what}: committed {committed} != end offsets {ends}")
     if any(int(o.min()) < 0 or int(o.max()) >= cfg.vocab_size for o in outs.values()):
-        raise AssertionError("paged: token out of the vocabulary")
+        raise AssertionError(f"{what}: token out of the vocabulary")
     if not (cache["hits"] > 0 and cache["prefill_tokens"] < n * plen):
-        raise AssertionError(f"paged: no prefix reuse {cache}")
-    want_k5 = cfg.n_layers * (m["decode_ticks"] - chunks["chunk_ticks"]) if kv_kernel else 0
-    if launches["kvattn_paged"] != want_k5 or (kv_kernel and want_k5 <= 0):
-        raise AssertionError(f"paged: K5 launches {launches} vs {m['decode_ticks']} decode "
+        raise AssertionError(f"{what}: no prefix reuse {cache}")
+    kernel = kv_kernel is True and kv_dtype == "int8"
+    want_k5 = cfg.n_layers * (m["decode_ticks"] - chunks["chunk_ticks"]) if kernel else 0
+    if launches["kvattn_paged"] != want_k5 or (kernel and want_k5 <= 0):
+        raise AssertionError(f"{what}: K5 launches {launches} vs {m['decode_ticks']} decode "
                              f"ticks, {chunks['chunk_ticks']} chunk ticks")
     if launches["flash_fwd"] or launches["kvattn_dynlen"]:
-        raise AssertionError(f"paged: dense-path kernels launched {launches}")
+        raise AssertionError(f"{what}: dense-path kernels launched {launches}")
+    tier = cache["tier"]
+    if kv_tier is not None and tier["occupancy_bytes"] > server._kv_tier.config.capacity_bytes:
+        raise AssertionError(f"{what}: tier over its capacity {tier}")
+
+    def ms(xs):
+        xs = sorted(x * 1e3 for x in xs)
+        return ({"count": len(xs), "p50": xs[len(xs) // 2],
+                 "p99": xs[min(len(xs) - 1, int(0.99 * len(xs)))], "total": sum(xs)}
+                if xs else {"count": 0})
+
     tokens = sum(len(o) for o in outs.values())
     kv_row = cfg.n_kv_heads * 2 * (cfg.head_dim + 4) * cfg.n_layers  # int8 k+v, f32 scales
     row = {"phase": "serve_paged", "model": f"1b width, {cfg.n_layers} layers",
-           "dtype": str(cfg.dtype).replace("torch.", ""), "kv_dtype": "int8",
-           "kv_kernel": kv_kernel, "block_size": PAGED_BS, "num_blocks": pages.num_blocks,
+           "dtype": str(cfg.dtype).replace("torch.", ""), "kv_dtype": kv_dtype or "compute",
+           "kv_kernel": kernel, "sampled": sampled,
+           "kv_tier": None if kv_tier is None else {
+               k: v for k, v in dict(kv_tier).items() if k != "spill_dir"},
+           "block_size": PAGED_BS, "num_blocks": pages.num_blocks,
            "prompts": n, "prompt_len": plen, "max_new": MAX_NEW, "slots": slots,
+           "max_poll_records": max_poll_records,
            "ticks_per_sync": ticks, "completions": len(outs), "tokens": tokens,
            "elapsed_s": elapsed, "tokens_per_s": tokens / elapsed,
-           "committed": committed, "end_offsets": ends,
+           "committed": committed, "end_offsets": ends, "output_capped": m["output_capped"],
            "prefix_hits": cache["hits"], "prefix_misses": cache["misses"],
-           "prefix_tokens_saved": cache["prefix_tokens_saved"],
+           "hit_rate": cache["hit_rate"], "prefix_tokens_saved": cache["prefix_tokens_saved"],
            "prefill_tokens": cache["prefill_tokens"], "prefill_tokens_no_cache": n * plen,
+           "evictions": cache["evictions"], "deferrals": cache["deferrals"], "tier": tier,
+           "tier_io_ms": {"demote": ms(io["demote"]), "promote": ms(io["promote"])},
            "decode_ticks": m["decode_ticks"], "chunk_ticks": chunks["chunk_ticks"],
            "chunk_summary": chunks, "launches": launches,
            "tick_block_ms_p50": m["step_time"]["p50_ms"],
@@ -1437,8 +1543,13 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool, parts: int =
            "dense_block_equivalents": slots * nblk,
            "pool_bytes_paged": pages.num_blocks * PAGED_BS * kv_row,
            "pool_bytes_dense_equivalent": slots * (plen + MAX_NEW) * kv_row,
+           "tenant_cache": m["tenant_cache"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    return outs, row
+    if tracer is not None:
+        row["trace"] = _balanced(tracer, n, what)
+        row["slo_ms"] = _slo_ms(tracer.slo.summary())
+        row["ttft_ms_min_q1_median_q3_max"] = _ttft_spread(tracer)
+    return outs, row, server
 
 
 def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict, dict]:
@@ -1448,8 +1559,8 @@ def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict,
     import numpy as np
 
     prompts, keys = tenant_prompts(np, cfg.vocab_size)
-    outs_k, row_k = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=True)
-    outs_g, row_g = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=False)
+    outs_k, row_k, _ = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=True)
+    outs_g, row_g, _ = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=False)
     if row_g["committed"] != row_k["committed"]:
         raise AssertionError(f"{name}: the gathered read committed other offsets")
     tok0_same = all(int(outs_g[k][0]) == int(outs_k[k][0]) for k in outs_k)
@@ -1463,6 +1574,392 @@ def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict,
     if exact and agree != 1.0:
         raise AssertionError(f"{name}: f32 tokens differ (agreement {agree})")
     return row_k, row_g
+
+
+# --------------------------------------------------- observability and tiers
+
+_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_LABEL = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\["\\n])*"'
+
+
+def conformant(text: str) -> int:
+    """The exposition grammar of ``tests/test_obs.py`` (``_assert_conformant``):
+    every sample parses, carries HELP and TYPE, counters end in _total,
+    values are floats; and no family is defined twice. Returns the sample
+    count."""
+    import re
+
+    sample_re = re.compile(rf"^({_NAME})(\{{{_LABEL}(?:,{_LABEL})*\}})? (\S+)$")
+    helped, typed, samples = set(), {}, 0
+    for line in text.strip().split("\n"):
+        if line.startswith("# HELP "):
+            name, sep, help_text = line[len("# HELP "):].partition(" ")
+            if not (re.fullmatch(_NAME, name) and sep and help_text.strip()):
+                raise AssertionError(f"exposition: bad HELP {line!r}")
+            helped.add(name)
+            continue
+        if line.startswith("# TYPE "):
+            name, _, mtype = line[len("# TYPE "):].partition(" ")
+            if mtype not in ("counter", "gauge") or name in typed:
+                raise AssertionError(f"exposition: bad or repeated TYPE {line!r}")
+            typed[name] = mtype
+            continue
+        if line.startswith("#"):
+            raise AssertionError(f"exposition: unknown comment {line!r}")
+        m = sample_re.match(line)
+        if not m:
+            raise AssertionError(f"exposition: unparsable sample {line!r}")
+        name = m.group(1)
+        float(m.group(3))
+        if name not in helped or name not in typed:
+            raise AssertionError(f"exposition: {name} lacks HELP or TYPE")
+        if typed[name] == "counter" and not name.endswith("_total"):
+            raise AssertionError(f"exposition: counter {name} does not end in _total")
+        samples += 1
+    if not samples:
+        raise AssertionError("exposition: no sample")
+    return samples
+
+
+def np_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def _slo_ms(slo: dict) -> dict:
+    """p50/p99 (ms) and counts of the tracer's cumulative SLO histograms."""
+    return {metric: {key: slo[metric]["all"][key] for key in ("count", "p50_ms", "p99_ms")}
+            for metric in ("ttft", "itl", "queue_wait", "e2e")}
+
+
+def _ttft_spread(tr) -> list:
+    """Each record's poll-to-active time (ms) from the trace events: the
+    minimum, quartiles and maximum (the histograms' p50 and p99 both fall
+    in the last wave when waves queue behind each other)."""
+    polled, active = {}, {}
+    for e in tr.events:
+        if e.stage == "polled":
+            polled.setdefault(e.key, e.t)
+        elif e.stage == "slot_active":
+            active.setdefault(e.key, e.t)
+    xs = sorted((active[k] - polled[k]) * 1e3 for k in active)
+    return [xs[min(len(xs) - 1, int(q * len(xs)))] for q in (0, 0.25, 0.5, 0.75, 1)]
+
+
+def _balanced(tr, n: int, what: str) -> dict:
+    """Every record polled, active, finished and committed exactly once;
+    nothing left open."""
+    from collections import Counter
+
+    per = {stage: Counter(e.key for e in tr.events if e.stage == stage)
+           for stage in ("polled", "slot_active", "finished", "committed")}
+    s = tr.summary()
+    for stage, c in per.items():
+        if len(c) != n or set(c.values()) != {1}:
+            raise AssertionError(f"{what}: {stage} {len(c)} records, counts {set(c.values())}")
+    if s["open_records"] != 0 or s["ring_dropped"] != 0:
+        raise AssertionError(f"{what}: tracer {s['open_records']} open, "
+                             f"{s['ring_dropped']} dropped")
+    return {"events": s["events"], "stages": s["stages"]}
+
+
+def check_serve_traced(torch, cfg, params, prompts) -> tuple[list, dict]:
+    """The serve phase's int8 run untraced, traced, traced, untraced: each
+    traced run with ``RecordTracer(capacity=1 << 16)`` (token events on).
+    Every run's tokens and commits equal the first's; each traced run
+    polls, activates, finishes and commits every record exactly once.
+    One ``MetricsExporter`` on 127.0.0.1 (port 0) serves the last traced
+    run's server and tracer expositions; one scrape must parse under the
+    exposition grammar with no family defined twice."""
+    import urllib.request
+
+    from torchkafka_tpu_torch.obs import MetricsExporter, RecordTracer
+
+    n = prompts.shape[0]
+    rows, runs = [], []
+    for traced in (False, True, True, False):
+        tr = RecordTracer(capacity=1 << 16) if traced else None
+        held = []
+        outs, row = serve(torch, cfg, params, prompts, "int8", tracer=tr,
+                          on_done=held.append)
+        row["phase"], row["traced"] = "serve_traced", traced
+        if traced:
+            row["trace"] = _balanced(tr, n, "serve_traced")
+            row["slo_ms"] = _slo_ms(tr.slo.summary())
+            row["ttft_ms_min_q1_median_q3_max"] = _ttft_spread(tr)
+        runs.append((outs, row, tr, held[0]))
+        rows.append(row)
+    base_outs, base_row = runs[0][0], runs[0][1]
+    for outs, row, _, _ in runs[1:]:
+        if row["committed"] != base_row["committed"]:
+            raise AssertionError("serve_traced: commits differ between runs")
+        if set(outs) != set(base_outs) or any(
+                not np_equal(outs[k], base_outs[k]) for k in base_outs):
+            raise AssertionError("serve_traced: tokens differ between runs")
+    _, _, tr, server = runs[2]
+    with MetricsExporter([server.metrics, tr], host="127.0.0.1", port=0) as exporter:
+        with urllib.request.urlopen(exporter.url, timeout=30) as resp:
+            status, body = resp.status, resp.read().decode()
+    if status != 200 or "# source error" in body:
+        raise AssertionError(f"serve_traced: scrape status {status}")
+    samples = conformant(body)
+    untraced = [r["tokens_per_s"] for r in rows if not r["traced"]]
+    traced = [r["tokens_per_s"] for r in rows if r["traced"]]
+    summary = {"phase": "serve_traced", "runs": "untraced, traced, traced, untraced",
+               "tokens_and_commits_identical": True, "records": n,
+               "tokens_per_s_untraced": untraced, "tokens_per_s_traced": traced,
+               "traced_over_untraced": statistics.mean(traced) / statistics.mean(untraced),
+               "slo_ms": [r["slo_ms"] for r in rows if r["traced"]],
+               "scrape": {"bytes": len(body), "samples": samples,
+                          "families": body.count("# TYPE ")},
+               "nvidia_smi": smi_line()}
+    return rows, summary
+
+
+TIER_TENANTS = 64
+TIER_PROMPTS = 384  # six records a tenant: enough revisits after eviction
+TIER_WITNESS_PROMPTS = 128
+TIER_BUDGET = 32  # odd tenants' per-record output budget
+TIER = {"capacity_bytes": 1 << 30}
+
+
+def zipf_tenant_prompts(np, vocab: int, n: int = TIER_PROMPTS, tenants: int = TIER_TENANTS,
+                        plen: int = 128, sys_len: int = 96):
+    """``benchmarks/bench_tiered.py``'s stream at the 1b scale: ``tenants``
+    tenants, each with a fixed ``sys_len``-token system prompt (whole
+    blocks of 16) followed by random tokens; each prompt's tenant drawn
+    with Zipf(1.1) weights from a fixed seed. Returns (prompts [n, plen],
+    keys, the tenant index of each prompt)."""
+    rng = np.random.default_rng(SEED + 64)
+    system = rng.integers(0, vocab, (tenants, sys_len), dtype=np.int32)
+    w = np.arange(1, tenants + 1, dtype=np.float64) ** -1.1
+    picks = rng.choice(tenants, size=n, p=w / w.sum())
+    prompts = rng.integers(0, vocab, (n, plen), dtype=np.int32)
+    prompts[:, :sys_len] = system[picks]
+    return prompts, [b"tenant-%02d" % t for t in picks], picks
+
+
+def odd_tenant(key: bytes) -> bool:
+    return int(key.rsplit(b"-", 1)[1]) % 2 == 1
+
+
+def tier_budget(key: bytes):
+    """A record's output budget by its key: odd tenants get ``TIER_BUDGET``
+    tokens."""
+    return TIER_BUDGET if odd_tenant(key) else None
+
+
+def _tier_run(torch, cfg, params, prompts, keys, kv_tier=None, **kw):
+    """One traced run of the Zipf tenant stream through ``serve_paged``
+    (polls of 16 records, ``tier_budget``), HBM only or with ``kv_tier``."""
+    from torchkafka_tpu_torch.obs import RecordTracer
+
+    # Polls of one pool's worth of records: one poll of 512 would hand the
+    # records over partition after partition, each tenant's together, and
+    # its prefix would never leave HBM between its visits.
+    outs, row, server = serve_paged(
+        torch, cfg, params, prompts, keys, tracer=RecordTracer(capacity=1 << 18),
+        budget_of=tier_budget, max_poll_records=16,
+        kv_tier=kv_tier, **kw)
+    row.update({"phase": "serve_tiered", "tenants": TIER_TENANTS,
+                "budget_odd_tenants": TIER_BUDGET})
+    return outs, row, server
+
+
+def _agreement(np, a: dict, b: dict) -> float:
+    return float(np.mean([np.mean(a[k] == b[k]) for k in a]))
+
+
+def matmul_rows_witness(torch, cfg, params) -> dict:
+    """Whether a decode row's arithmetic depends on the tick it lands on:
+    layer 0's q/k/v projections and MLP, and the f32 head, over the 16
+    decode rows alone (a decode-only tick, M = 16) and over those rows
+    with the 256 chunk rows below them (a chunk tick, M = 272). Per
+    output: the 16 rows bitwise equal or not, and the largest gap."""
+    from torchkafka_tpu_torch.models.generate import _project_qkv
+    from torchkafka_tpu_torch.models.transformer import _mlp, layer_at, matmul_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 272)
+    x = torch.randn((272, 1, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+    layer = layer_at(params["layers"], 0)
+    ops = {"q": lambda h: _project_qkv(h, layer, cfg)[0],
+           "k": lambda h: _project_qkv(h, layer, cfg)[1],
+           "v": lambda h: _project_qkv(h, layer, cfg)[2],
+           "mlp": lambda h: _mlp(h, layer, cfg),
+           "head": lambda h: matmul_f32(h[:, 0], params["lm_head"], cfg.dtype)}
+    out = {}
+    with torch.inference_mode():
+        for name, op in ops.items():
+            chunk, alone = op(x)[:16], op(x[:16])
+            out[name] = {"rows_bitwise_equal": bool(torch.equal(chunk, alone)),
+                         "max_abs_gap": float((chunk.float() - alone.float()).abs().max())}
+    return out
+
+
+def check_serve_tiered(torch, cfg, params, rounds: int = 1) -> tuple[list, dict]:
+    """The 1b tiered serve: (HBM only, tier, tier, HBM only) x ``rounds``
+    in one call over ``TIER_PROMPTS`` records. Every run commits the same
+    offsets; the tier runs hit the prefix cache more often and prefill
+    fewer tokens than the HBM-only runs, demote and promote (tier hits ==
+    promotions) within capacity; and a direct tier round trip is bitwise
+    on all four pools. Then the witness of why bf16 tier and HBM-only
+    tokens differ: over the first ``TIER_WITNESS_PROMPTS`` records, HBM
+    against tier with K5 and again with the gathered read on every tick,
+    and ``matmul_rows_witness``."""
+    import numpy as np
+
+    prompts, keys, picks = zipf_tenant_prompts(np, cfg.vocab_size)
+    rows, outs = [], []
+    round_trip = None
+    for tiered in (False, True, True, False) * rounds:
+        o, row, server = _tier_run(torch, cfg, params, prompts, keys,
+                                   kv_tier=TIER if tiered else None)
+        if tiered and round_trip is None:
+            round_trip = tier_round_trip(torch, server)
+        del server
+        row["per_tenant_hit_rate"] = _tenant_hit_rates(np, row.pop("tenant_cache"), picks)
+        rows.append(row)
+        outs.append(o)
+    hbm = [r for r in rows if r["kv_tier"] is None]
+    tier = [r for r in rows if r["kv_tier"] is not None]
+    if any(r["committed"] != rows[0]["committed"] for r in rows):
+        raise AssertionError("serve_tiered: commits differ between runs")
+    for t in tier:
+        for h in hbm:
+            if not (t["prefix_hits"] > h["prefix_hits"]
+                    and t["prefill_tokens"] < h["prefill_tokens"]):
+                raise AssertionError(f"serve_tiered: tier {t['prefix_hits']} hits, "
+                                     f"{t['prefill_tokens']} prefill tokens vs HBM "
+                                     f"{h['prefix_hits']}, {h['prefill_tokens']}")
+        ti = t["tier"]
+        if not (ti["demotions"] > 0 and ti["promotions"] > 0
+                and ti["hits"] == ti["promotions"]):
+            raise AssertionError(f"serve_tiered: tier counters {ti}")
+    for h in hbm:
+        if h["tier"]["demotions"] or h["tier"]["promotions"]:
+            raise AssertionError(f"serve_tiered: HBM-only run used a tier {h['tier']}")
+    ih = [i for i, r in enumerate(rows) if r["kv_tier"] is None]
+    it = [i for i, r in enumerate(rows) if r["kv_tier"] is not None]
+    witness_prompts = prompts[:TIER_WITNESS_PROMPTS]
+    witness_keys = keys[:TIER_WITNESS_PROMPTS]
+    witness = {}
+    for kernel in (True, False):
+        pair = [_tier_run(torch, cfg, params, witness_prompts, witness_keys, kv_tier=t,
+                          kv_kernel=kernel)[0] for t in (None, TIER)]
+        witness["k5" if kernel else "gathered"] = _agreement(np, *pair)
+    summary = {"phase": "serve_tiered", "runs": f"(HBM, tier, tier, HBM) x {rounds}",
+               "prompts": len(keys), "commits_identical": True,
+               "hit_rate": {"hbm": [r["hit_rate"] for r in hbm],
+                            "tier": [r["hit_rate"] for r in tier]},
+               "prefix_hits": {"hbm": [r["prefix_hits"] for r in hbm],
+                               "tier": [r["prefix_hits"] for r in tier]},
+               "prefill_tokens": {"hbm": [r["prefill_tokens"] for r in hbm],
+                                  "tier": [r["prefill_tokens"] for r in tier]},
+               "tier_counters": tier[0]["tier"],
+               "ttft_ms": {"hbm": [r["slo_ms"]["ttft"] for r in hbm],
+                           "tier": [r["slo_ms"]["ttft"] for r in tier]},
+               "tokens_per_s": {"hbm": [r["tokens_per_s"] for r in hbm],
+                                "tier": [r["tokens_per_s"] for r in tier]},
+               "tick_block_ms_p50": {"hbm": [r["tick_block_ms_p50"] for r in hbm],
+                                     "tier": [r["tick_block_ms_p50"] for r in tier]},
+               "tier_io_ms": [r["tier_io_ms"] for r in tier],
+               "token_agreement_tier_vs_hbm": _agreement(np, outs[it[0]], outs[ih[0]]),
+               "tier_runs_identical": all(all(np_equal(outs[i][k], outs[it[0]][k])
+                                              for k in outs[i]) for i in it),
+               "hbm_runs_identical": all(all(np_equal(outs[i][k], outs[ih[0]][k])
+                                             for k in outs[i]) for i in ih),
+               "witness": {"prompts": TIER_WITNESS_PROMPTS,
+                           "token_agreement_tier_vs_hbm": witness,
+                           "matmul_rows": matmul_rows_witness(torch, cfg, params)},
+               "k5_launches": {"hbm": [r["launches"]["kvattn_paged"] for r in hbm],
+                               "tier": [r["launches"]["kvattn_paged"] for r in tier]},
+               "round_trip": round_trip, "nvidia_smi": smi_line()}
+    return rows, summary
+
+
+def check_serve_tiered_f32(torch, cfg, params) -> list:
+    """The tiered stream at 1b width, 2 layers, f32, over its first
+    ``TIER_WITNESS_PROMPTS`` records: HBM only against the tier, greedy and
+    sampled on the compute-dtype pool, greedy on the int8 pool (K5), and
+    greedy through a disk-spill tier (``capacity_bytes=0``, every demotion
+    to a temporary directory). Every token and watermark of each tiered
+    run must equal its HBM-only run's."""
+    import tempfile
+
+    import numpy as np
+
+    prompts, keys, _ = zipf_tenant_prompts(np, cfg.vocab_size)
+    prompts, keys = prompts[:TIER_WITNESS_PROMPTS], keys[:TIER_WITNESS_PROMPTS]
+    rows = []
+    base = {}
+    with tempfile.TemporaryDirectory() as spill:
+        cases = (("greedy", None, False, TIER), ("sampled", None, True, TIER),
+                 ("int8", "int8", False, TIER),
+                 ("disk_spill", None, False, {"capacity_bytes": 0, "spill_dir": spill}))
+        for name, kv_dtype, sampled, tier in cases:
+            key = (kv_dtype, sampled)
+            if key not in base:
+                base[key] = _tier_run(torch, cfg, params, prompts, keys,
+                                      kv_dtype=kv_dtype, sampled=sampled)[:2]
+            b_outs, b_row = base[key]
+            outs, row, server = _tier_run(torch, cfg, params, prompts, keys, kv_tier=tier,
+                                          kv_dtype=kv_dtype, sampled=sampled)
+            spills = (server._kv_tier.spills, server._kv_tier.spill_loads)
+            del server
+            same = row["committed"] == b_row["committed"] and all(
+                np_equal(outs[k], b_outs[k]) for k in b_outs)
+            differ = [f"{k}" for k in b_outs if not np_equal(outs[k], b_outs[k])]
+            ti = row["tier"]
+            row.pop("tenant_cache")
+            row.update({"phase": "serve_tiered_f32", "case": name,
+                        "hbm_only": {key2: b_row[key2] for key2 in (
+                            "prefix_hits", "prefill_tokens", "tokens_per_s")},
+                        "identical_to_hbm_only": same, "records_differing": differ[:8],
+                        "spills": spills[0], "spill_loads": spills[1]})
+            rows.append(row)
+            if not same:
+                raise AssertionError(f"serve_tiered_f32 {name}: tiered run differs from "
+                                     f"HBM-only at {len(differ)} records {differ[:8]}")
+            if not (ti["promotions"] > 0 and ti["hits"] == ti["promotions"]):
+                raise AssertionError(f"serve_tiered_f32 {name}: tier counters {ti}")
+            if name == "disk_spill" and not (spills[0] > 0 and spills[1] > 0):
+                raise AssertionError(f"serve_tiered_f32: no disk spill {spills}")
+    return rows
+
+
+def tier_round_trip(torch, server) -> dict:
+    """A cached block's payload read to the host by ``_tier_read_block``
+    and written by ``_tier_write_block`` into a freshly allocated block:
+    every pool's slice must be bitwise the original's."""
+    stack, block = [server._kv_radix._root], None
+    while stack and block is None:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        if node.block > 0:
+            block = node.block
+    if block is None:
+        raise AssertionError("tier round trip: the radix tree holds no block")
+    (fresh,) = server._kv_alloc.alloc(1)
+    server._tier_write_block(fresh, server._tier_read_block(block))
+    torch.cuda.synchronize()
+    same = [torch.equal(p[:, fresh].view(torch.uint8), p[:, block].view(torch.uint8))
+            for p in server._pools]
+    server._kv_alloc.decref([fresh])
+    if len(same) != 4 or not all(same):
+        raise AssertionError(f"tier round trip: pools equal {same}")
+    return {"block": block, "fresh_block": fresh, "pools": len(same), "bitwise": True,
+            "payload_bytes": sum(p[:, block].numel() * p.element_size()
+                                 for p in server._pools)}
+
+
+def _tenant_hit_rates(np, rows_tenant: dict, picks, k: int = 4) -> dict:
+    """Per-tenant hit rates of the ``k`` most and ``k`` least frequent
+    tenants of the stream."""
+    counts = np.bincount(picks, minlength=TIER_TENANTS)
+    seen = [t for t in np.argsort(-counts, kind="stable") if counts[t]]
+    pick = {"most": seen[:k], "least": seen[-k:]}
+    return {side: [{"tenant": int(t), "records": int(counts[t]),
+                    "hit_rate": rows_tenant.get("tenant-%02d" % t, {}).get("hit_rate")}
+                   for t in ts] for side, ts in pick.items()}
 
 
 # Known answers of jax.random under jax 0.9.0 (jax_threefry_partitionable
@@ -2395,7 +2892,7 @@ def profile_paged(torch, cfg, params, row_p) -> dict:
 
     prompts, keys = tenant_prompts(np, cfg.vocab_size)
     prof = _profiler(torch)
-    _, row = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=True, prof=prof)
+    _, row, _ = serve_paged(torch, cfg, params, prompts, keys, kv_kernel=True, prof=prof)
     return profile_summary(prof, "paged int8 serve (K5) under torch.profiler", {
         "decode_ticks": row["decode_ticks"], "chunk_ticks": row["chunk_ticks"],
         "profiled_wall_ms": row["elapsed_s"] * 1e3,
@@ -2413,6 +2910,10 @@ def main() -> int:
                          "serve run and/or five warm-resume prefills under "
                          "torch.profiler and print where the device time goes "
                          "(a serve trace takes minutes)")
+    ap.add_argument("--tier-rounds", type=int, default=1,
+                    help="rounds of (HBM only, tier, tier, HBM only) in the "
+                         "serve_tiered phase (more rounds: tok/s compared over "
+                         "more interleaved runs)")
     args = ap.parse_args()
     import torch
 
@@ -2490,6 +2991,10 @@ def main() -> int:
 
     if args.profile in ("all", "serve"):
         emit(profile_serve(torch, cfg, params, prompts, row_q))
+    rows_tr, sum_tr = check_serve_traced(torch, cfg, params, prompts)
+    for row in rows_tr:
+        emit(row)
+    emit(sum_tr)
     for row in check_serve_sampled(torch, cfg, params, prompts, row_q):
         emit(row)
     row_r = serve_resume(torch, cfg, params, prompts)
@@ -2503,6 +3008,10 @@ def main() -> int:
     emit(row_pg)
     if args.profile in ("all", "paged"):
         emit(profile_paged(torch, cfg, params, row_p))
+    rows_ti, sum_ti = check_serve_tiered(torch, cfg, params, args.tier_rounds)
+    for row in rows_ti:
+        emit(row)
+    emit(sum_ti)
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
@@ -2517,6 +3026,8 @@ def main() -> int:
     for row in check_serve_sampled_f32(torch, cfg32, params32):
         emit(row)
     for row in check_serve_resume_f32(torch, cfg32, params32):
+        emit(row)
+    for row in check_serve_tiered_f32(torch, cfg32, params32):
         emit(row)
     del params32
     torch.cuda.empty_cache()
@@ -2570,6 +3081,7 @@ def main() -> int:
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
          "train_shape": {key: k1["train_shape"][key] for key in (
              "kernel_ms", "simt_bf16_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+         "traced_launches": [r["launches"]["flash_fwd"] for r in rows_tr if r["traced"]],
          "train_launches": row_t["launches"]["flash_fwd"],
          "train_tc_launches": row_t["tc_launches"]["flash_fwd"],
          "resume_launches": row_r["warm"]["launches"]["flash_fwd"],
@@ -2598,6 +3110,7 @@ def main() -> int:
          "source": "torchkafka_tpu_torch/csrc/kvattn_dynlen.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:458",
          "launches": row_q["launches"]["kvattn_dynlen"],
+         "traced_launches": [r["launches"]["kvattn_dynlen"] for r in rows_tr if r["traced"]],
          "max_abs_err": main_pool["max_abs_err"]["bf16"], "ms": main_pool["kernel_ms"],
          "plain_ms": main_pool["plain_ms"], "bound_ms": main_pool["bound_ms"],
          "bound_by": main_pool["bound_by"], "library_ms": None,
@@ -2613,6 +3126,8 @@ def main() -> int:
          "source": "torchkafka_tpu_torch/csrc/kvattn_paged.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:755",
          "launches": row_p["launches"]["kvattn_paged"],
+         "tier_launches": [r["launches"]["kvattn_paged"] for r in rows_ti
+                           if r["kv_tier"] is not None],
          "max_abs_err": main_view["max_abs_err"]["bf16"], "ms": main_view["kernel_ms"],
          "plain_ms": main_view["plain_ms"], "bound_ms": main_view["bound_ms"],
          "bound_by": main_view["bound_by"], "library_ms": None,

@@ -139,6 +139,9 @@ def test_port_never_imports_jax_ast():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     assert ROOT / "torchkafka_tpu_torch" / "journal" / "journal.py" in files
+    for mod in ("slo", "trace", "burn", "exporter"):
+        assert ROOT / "torchkafka_tpu_torch" / "obs" / f"{mod}.py" in files
+    assert ROOT / "torchkafka_tpu_torch" / "kvcache" / "tier.py" in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
     assert bad == []
@@ -154,6 +157,7 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.source.cluster, torchkafka_tpu_torch.source.kafka\n"
         "import torchkafka_tpu_torch.source.checkpoint_wire, torchkafka_tpu_torch.resilience\n"
         "import torchkafka_tpu_torch.journal\n"
+        "import torchkafka_tpu_torch.obs, torchkafka_tpu_torch.kvcache.tier\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
         "print(bad)\n"

@@ -161,7 +161,7 @@ def test_resolve_compute_and_dense_layouts():
     assert bk.describe() == {
         "layout": "paged", "kv_dtype": "compute", "kernel": False,
         "kernel_disabled_reason": "auto: kv_dtype is not 'int8'",
-        "chunked": False, "device": "cpu",
+        "chunked": False, "device": "cpu", "data": 1, "tp": 1,
     }
     dense = _resolve(kv_dtype="int8")
     assert dense.layout == "dense" and dense.kernel and not dense.chunked

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import torchkafka_tpu as tk
+import torchkafka_tpu_torch as ptk
 from torchkafka_tpu.models import transformer as jt
 from torchkafka_tpu.models.generate import generate as jax_generate
 from torchkafka_tpu.serve import StreamingGenerator as JaxServer
@@ -100,30 +101,71 @@ def _server(model, **kw):
     return StreamingGenerator(consumer, params, pcfg, **{**base, **kw})
 
 
+# Cases of served arguments that the JAX server rejects as well, with the
+# same exception (test_served_arguments_raise_as_jax): a TierConfig field
+# that does not exist, a TierConfig without its capacity, and the tracer,
+# its replica tag and the output budget beside a knob out of range.
+SERVED_REJECTED = {
+    "kw1": ({"kv_pages": {"block_size": 4, "num_blocks": 16},
+             "kv_tier": {"host_bytes": 1}}, TypeError),
+    "kw2": ({"kv_tier": {}}, TypeError),
+    "kw4": ({"trace_replica": "r0", "max_new": 1}, ValueError),
+    "kw5": ({"tracer": ptk.RecordTracer(), "ticks_per_sync": 0}, ValueError),
+    "kw10": ({"max_new_of": lambda r: 2, "prompt_len": 10**4}, ValueError),
+}
+
+
 # The ids keep each case's position in the list. Sampling, the quarantine,
 # the journal and exactly-once output are served now: their cases test the
 # new checks (bad knobs raise ValueError at construction, exactly_once
 # without an output producer raises ValueError as in JAX, an rng that is
-# no key raises TypeError) or a still-deferred argument.
+# no key raises TypeError) or a still-deferred argument. So are the
+# tracer, budgets and the host-RAM tier: kw1, kw2, kw4, kw5 and kw10 are
+# the SERVED_REJECTED cases.
 @pytest.mark.parametrize("kw,exc", [
     ({"mesh": object()}, NotImplementedError),
-    ({"kv_pages": {"block_size": 4, "num_blocks": 16},
-      "kv_tier": {"host_bytes": 1}}, NotImplementedError),
-    ({"kv_tier": {}}, NotImplementedError),
+    SERVED_REJECTED["kw1"],
+    SERVED_REJECTED["kw2"],
     ({"prefill_role": True}, NotImplementedError),
-    ({"trace_replica": "r0"}, NotImplementedError),
-    ({"tracer": object()}, NotImplementedError),
+    SERVED_REJECTED["kw4"],
+    SERVED_REJECTED["kw5"],
     ({"exactly_once": True}, ValueError),
     ({"top_k": 0}, ValueError),
     ({"distill_producer": object()}, NotImplementedError),
     ({"distill_topic": "d"}, NotImplementedError),
-    ({"max_new_of": lambda r: 2}, NotImplementedError),
+    SERVED_REJECTED["kw10"],
     ({"temperature": 0.7, "top_p": 1.5}, ValueError),
     ({"rng": object()}, TypeError),
 ], ids=[f"kw{i}" for i in range(13)])
 def test_unsupported_arguments_raise(model, kw, exc):
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None):
         _server(model, **kw)
+
+
+@pytest.mark.parametrize("case", list(SERVED_REJECTED))
+def test_served_arguments_raise_as_jax(model, case):
+    """The JAX server raises the same exception for the same arguments."""
+    jcfg, jparams, *_ = model
+    kw, exc = SERVED_REJECTED[case]
+    kw = {k: tk.RecordTracer() if isinstance(v, ptk.RecordTracer) else v
+          for k, v in kw.items()}
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t", partitions=1)
+    consumer = tk.MemoryConsumer(broker, "t", group_id="g")
+    base = dict(slots=2, prompt_len=P, max_new=MAX_NEW)
+    with pytest.raises(exc):
+        JaxServer(consumer, jparams, jcfg, **{**base, **kw})
+
+
+@pytest.mark.parametrize("kw", [
+    {"tracer": ptk.RecordTracer(), "trace_replica": 1},
+    {"max_new_of": lambda r: 2},
+    {"kv_pages": {"block_size": 4, "num_blocks": 16}, "kv_tier": {"capacity_bytes": 1}},
+], ids=["tracer", "max_new_of", "kv_tier"])
+def test_observability_budget_and_tier_arguments_go_through(model, kw):
+    summary = _server(model, **kw).metrics.summary()
+    assert summary["output_capped"] == 0
+    assert summary["prefix_cache"]["tier"]["demotions"] == 0
 
 
 def _queue_a_titles() -> list[str]:

@@ -194,17 +194,32 @@ def test_kernel_reads_every_decode_only_tick(model, monkeypatch):
     assert len(calls) == SHAPE["n_layers"] * (m["decode_ticks"] - chunk_ticks) > 0
 
 
-@pytest.mark.parametrize("kv_dtype", [None, "int8"])
-def test_recycled_blocks_ignore_stale_tail(model, kv_dtype):
+@pytest.mark.parametrize("kv_dtype,tiered", [
+    (None, False), ("int8", False), (None, True), ("int8", True),
+], ids=["None", "int8", "None-tiered", "int8-tiered"])
+def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered):
     """The sink invariant as an asserted property: after every admission,
     poison EVERY pool position except the live slots' readable prefix —
     freed blocks re-allocated later, the sink block, each slot's
     not-yet-written tail. Outputs must equal an unpoisoned run's, because
     every position is written before it first becomes readable. (No
-    prefix sharing here: a poisoned cached block would change outputs.)"""
+    prefix sharing here: a poisoned cached block would change outputs.)
+
+    Tiered: three prompts served three times each over a pool with one
+    spare block, so cached prefixes are demoted to the host tier and
+    promoted back into recycled blocks; the blocks the radix tree holds
+    in the pool are spared too (they are readable by a later match), and
+    every promotion must overwrite its poisoned block whole."""
     _, _, pcfg, params, _, _ = model
-    prompts = np.random.default_rng(9).integers(0, SHAPE["vocab_size"], (6, P),
-                                                dtype=np.int32)
+    if tiered:
+        families = np.random.default_rng(9).integers(
+            0, SHAPE["vocab_size"], (3, P), dtype=np.int32)
+        prompts = families[np.arange(9) % 3]
+    else:
+        prompts = np.random.default_rng(9).integers(0, SHAPE["vocab_size"], (6, P),
+                                                    dtype=np.int32)
+    tier = {"kv_tier": {"capacity_bytes": 1 << 20}} if tiered else {}
+    promotions = []
 
     def drive(poison):
         broker = InMemoryBroker()
@@ -215,7 +230,7 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype):
         server = StreamingGenerator(
             consumer, params, pcfg, slots=2, prompt_len=P, max_new=MAX_NEW,
             ticks_per_sync=TICKS, kv_dtype=kv_dtype,
-            kv_pages={"block_size": BS, "num_blocks": 14}, device="cpu",
+            kv_pages={"block_size": BS, "num_blocks": 14}, device="cpu", **tier,
         )
         out = {}
         while len(out) < len(prompts):
@@ -224,19 +239,36 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype):
                 server.note_fetched(recs)
                 server.admit_records(recs)
                 if poison:
-                    _poison(server)
+                    _poison(server, keep_cached=tiered)
             for rec, toks in server.step():
                 out[(rec.partition, rec.offset)] = toks.tolist()
         server.flush_commits()
         consumer.close()
+        promotions.append(server.metrics.summary()["prefix_cache"]["tier"]["promotions"])
         return out
 
     got, ref = drive(True), drive(False)
     assert len(ref) == len(prompts) and got == ref
+    if tiered:
+        assert promotions[0] > 0 and promotions[0] == promotions[1]
 
 
-def _poison(s):
+def _radix_blocks(s):
+    """The pool blocks the radix tree maps (in HBM, not in the tier)."""
+    out, stack = set(), [s._kv_radix._root]
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        if node.block >= 0:
+            out.add(node.block)
+    return out
+
+
+def _poison(s, keep_cached=False):
     keep = np.zeros((s._kv_pages.num_blocks, BS), bool)
+    if keep_cached:
+        for b in _radix_blocks(s):
+            keep[b] = True
     pos = s._pos.numpy()
     for i in range(s._slots):
         if s._active[i]:

@@ -42,7 +42,16 @@ from torchkafka_tpu_torch.errors import (
     TransactionStateError,
 )
 from torchkafka_tpu_torch.journal import DecodeJournal, JournalEntry
+from torchkafka_tpu_torch.kvcache import HostTier, TierConfig
 from torchkafka_tpu_torch.models.transformer import make_train_step
+from torchkafka_tpu_torch.obs import (
+    BurnRateMonitor,
+    MetricsExporter,
+    ObsConfig,
+    RecordTrace,
+    RecordTracer,
+    SLOTarget,
+)
 from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.pipeline import KafkaStream, stream
 from torchkafka_tpu_torch.resilience import (
@@ -100,6 +109,7 @@ __all__ = [
     "BrokerClient",
     "BrokerServer",
     "BrokerUnavailableError",
+    "BurnRateMonitor",
     "ChaosConsumer",
     "ChaosProducer",
     "ChaosTransport",
@@ -112,6 +122,7 @@ __all__ = [
     "DecodeJournal",
     "FencedMemberError",
     "FollowerReplica",
+    "HostTier",
     "InMemoryBroker",
     "JournalEntry",
     "JournalLockedError",
@@ -123,6 +134,8 @@ __all__ = [
     "ManualClock",
     "MemoryConsumer",
     "MemoryProducer",
+    "MetricsExporter",
+    "ObsConfig",
     "OffsetLedger",
     "OutputDeliveryError",
     "PoisonQuarantine",
@@ -133,13 +146,17 @@ __all__ = [
     "QuorumLostError",
     "Record",
     "RecordMetadata",
+    "RecordTrace",
+    "RecordTracer",
     "ReplicationConfig",
     "Replicator",
     "ResilientConsumer",
     "RetryPolicy",
+    "SLOTarget",
     "ShutdownSignal",
     "StaleEpochError",
     "StreamCheckpointer",
+    "TierConfig",
     "TopicPartition",
     "TpuKafkaError",
     "TransactionStateError",

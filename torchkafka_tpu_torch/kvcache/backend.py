@@ -51,7 +51,9 @@ class KVBackend:
     ``kernel_disabled_reason``: why it does not, when int8 was asked for
     with ``kv_kernel`` True or "auto". ``chunked``: paged admission
     prefills through the fused chunk tick (``prefill_chunk`` != 0).
-    ``device``: "cuda" or "cpu"."""
+    ``device``: "cuda" or "cpu". ``describe()`` reports the mesh extents
+    ``data`` and ``tp`` of the JAX package's payload as 1: one device,
+    meshes are not ported."""
 
     layout: str
     int8: bool
@@ -73,6 +75,8 @@ class KVBackend:
             "kernel_disabled_reason": self.kernel_disabled_reason,
             "chunked": self.chunked,
             "device": self.device,
+            "data": 1,
+            "tp": 1,
         }
 
 

@@ -1,8 +1,8 @@
 """Host-side radix tree over prompt token prefixes → physical block runs.
 
 Copy of ``torchkafka_tpu/kvcache/radix.py`` (jax-free), its import
-re-rooted. The ``tier``/``read_block``/``write_block`` hooks stay; the
-port's server passes none yet (the host-RAM tier is not ported).
+re-rooted. The port's server passes ``tier``/``read_block``/``write_block``
+when it is given ``kv_tier=``.
 
 Cross-request prefix reuse for the paged serving pool (SGLang's
 RadixAttention shape, block-granular): prompts streamed from a Kafka

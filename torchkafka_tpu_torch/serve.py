@@ -104,9 +104,32 @@ them (``_commit_txn``). A read_committed consumer of the output topic
 sees each completion once; a successor built with the same transactional
 id fences this server and aborts its open transaction.
 
+Record tracing (``tracer=obs.RecordTracer(...)``, ``trace_replica``): the
+server emits each record's lifecycle events where the JAX server does
+(polled, deferred, prefill_queued, chunk_scheduled, warm_resumed,
+slot_active, journal_served, tokens, finished, quarantined, dropped,
+dlq_failed, and ``note_commit`` after every successful commit), so a trace
+of the same run equals the JAX package's event for event. The host loop's
+phases open ``utils.tracing`` spans (admit, chunk_pack, tick, sync,
+commit) on a ``torch.profiler`` timeline. ``metrics.render_prometheus()``
+is the JAX package's exposition.
+
+Per-record output budgets (``max_new_of(record) -> n | None``): after the
+tick block's one host sync, a slot whose token count reaches
+``max(1, min(n, max_new))`` is finished at exactly that count, like a
+device ``done`` (``metrics.output_capped`` counts the slots the device had
+not finished). The tick itself never changes.
+
+Host-RAM KV tier (``kv_tier=kvcache.TierConfig(...)`` or its dict, with
+``kv_pages``): the radix cache demotes an evicted block's payload to a
+bounded host store (``kvcache.HostTier``, optional disk spill) instead of
+freeing it, and a match that walks past the blocks in HBM promotes stored
+payloads back into fresh blocks (``_tier_read_block``/
+``_tier_write_block``: one host copy per pool at one block index). Bytes
+round-trip exactly, so a promotion is the re-prefill it replaces.
+
 Still raising ``NotImplementedError`` with their ROADMAP queue A title
-(``_DEFERRED``): mesh, tracing and per-record budgets, the host-RAM KV
-tier, draft distillation and disaggregated prefill.
+(``_DEFERRED``): mesh, draft distillation and disaggregated prefill.
 """
 
 from __future__ import annotations
@@ -135,6 +158,7 @@ from torchkafka_tpu_torch.kvcache.blocks import (
     PagedKVConfig,
 )
 from torchkafka_tpu_torch.kvcache.radix import RadixCache
+from torchkafka_tpu_torch.kvcache.tier import HostTier, TierConfig
 from torchkafka_tpu_torch.models.generate import (
     _attend_cached,
     _attn_tail,
@@ -152,6 +176,7 @@ from torchkafka_tpu_torch.models.transformer import (
     layer_at,
     matmul_f32,
 )
+from torchkafka_tpu_torch.obs.trace import _default_tenant
 from torchkafka_tpu_torch.ops.kvattn import (
     block_table_attention,
     block_table_attention_q8,
@@ -162,9 +187,15 @@ from torchkafka_tpu_torch.ops.kvattn import (
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
 from torchkafka_tpu_torch.source.producer import RecordMetadata, _ResolvedSend
 from torchkafka_tpu_torch.source.records import Record, TopicPartition
-from torchkafka_tpu_torch.utils import prng
+from torchkafka_tpu_torch.utils import prng, tracing
 from torchkafka_tpu_torch.utils.devices import resolve_device
-from torchkafka_tpu_torch.utils.metrics import Gauge, LatencyHistogram, RateMeter
+from torchkafka_tpu_torch.utils.metrics import (
+    Gauge,
+    LatencyHistogram,
+    RateMeter,
+    format_labels,
+    render_exposition,
+)
 
 _logger = logging.getLogger(__name__)
 
@@ -174,10 +205,6 @@ _logger = logging.getLogger(__name__)
 # none is silently ignored.
 _DEFERRED = {
     "mesh": "mesh and multi-process paths",
-    "tracer": "observability and budgets",
-    "trace_replica": "observability and budgets",
-    "max_new_of": "observability and budgets",
-    "kv_tier": "host-RAM KV tier",
     "distill_topic": "in-process fleet",
     "distill_producer": "in-process fleet",
     "prefill_role": "process fleet and disaggregated prefill",
@@ -188,6 +215,15 @@ def _not_ported(what: str, title: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue A: {title})"
     )
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t`` that shares no memory with it (numpy has
+    no bfloat16: a bf16 tensor travels as its int16 bit patterns)."""
+    t = t.to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
 
 
 def _pick_slots(logits, key_data, idx, *, temperature, top_k, top_p):
@@ -269,77 +305,232 @@ def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg, kernel)
 
 
 class ServeMetrics:
-    """The serving loop's counters that the ported paths touch (the JAX
-    package's ``ServeMetrics`` names). The paged prefix-cache and chunked-
-    prefill counters stay zero on the dense path, the transaction counters
-    without ``exactly_once``, the journal counters without a journal or
-    resume hints."""
+    """Observability for the serving loop: the JAX package's
+    ``ServeMetrics`` (same counters, ``summary()`` keys and Prometheus
+    families), plus the port's ``decoded_tokens``, ``prefills`` and
+    ``decode_ticks`` summary keys. The disaggregation and distillation
+    counters stay zero until the fleet is ported (ROADMAP queue A)."""
 
     def __init__(self) -> None:
         self.completions = RateMeter()
         self.tokens = RateMeter()
         self.truncated = RateMeter()  # stopped by EOS before max_new
-        self.readmissions = RateMeter()  # slots refilled while others decode
+        self.readmissions = RateMeter()  # slots refilled MID-STREAM (while
+        # other generations were in flight) — continuous batching's defining
+        # behavior; 0 in lockstep-equivalent runs
         self.dropped = RateMeter()  # undecodable prompts retired
         self.quarantined = RateMeter()  # poison prompts dead-lettered
         self.commit_failures = RateMeter()
         self.output_flush_failures = RateMeter()  # output topic not durable
         self.output_send_failures = RateMeter()  # sync send refusals (stall)
-        self.dlq_delivery_failures = RateMeter()  # failed quarantine DLQ
-        # produces (the server fail-stops on each)
-        # Exactly-once output: one transaction per commit window.
-        self.txn_commits = RateMeter()  # records + offsets committed
-        self.txn_aborts = RateMeter()  # windows aborted (retried next flush)
-        self.txn_held_outputs = Gauge()  # staged outputs above the in-order
-        # watermark, held for a later window
-        self.commit_latency = LatencyHistogram()
+        self.dlq_delivery_failures = RateMeter()  # quarantine DLQ produces
+        # that FAILED (the serve path fail-stops on them, but the count
+        # outlives the crash on /metrics — a broken DLQ must page, not
+        # only kill)
+        # Exactly-once output (exactly_once=True): one transaction per
+        # commit window. All zero in at-least-once mode.
+        self.txn_commits = RateMeter()  # transactions committed (records
+        # + offsets atomic)
+        self.txn_aborts = RateMeter()  # transactions aborted (survivable
+        # commit failure, send fault, or defensive abort)
+        self.txn_held_outputs = Gauge()  # outbox entries a commit could
+        # NOT yet publish: finished out of completion order, their
+        # offsets above the in-order watermark — published by a later
+        # window the moment the watermark passes them
+        self.commit_latency = LatencyHistogram()  # full commit path: output
+        # flush + durability waits + offset commit (see _commit docstring)
         self.slot_occupancy = Gauge()  # active slots / pool size, last tick
-        self.tick_time = LatencyHistogram()  # per tick block, host observed
+        # Per-tick serving step time (host-observed: chunk pack + device
+        # dispatch + sync) and tokens surfaced per tick block — the
+        # device-side "where did the tick go" companion to the obs
+        # layer's host-side record spans.
+        self.tick_time = LatencyHistogram()
         self.tokens_per_tick = Gauge()
-        self.decoded_tokens = RateMeter()  # tokens produced by decode ticks
         self.prefills = RateMeter()  # dense admission prefill passes
         self.decode_ticks = RateMeter()  # decode ticks run (all layers each)
-        # Decode journal and warm resume.
-        self.warm_resumes = RateMeter()  # partial hints resumed (one
-        # prefill of prompt + emitted tokens each)
-        self.journal_tokens_restored = RateMeter()  # emitted tokens NOT
-        # decoded again thanks to warm resume
-        self.journal_served = RateMeter()  # finished hints re-served with
-        # no decode
-        self.resume_rejected = RateMeter()  # hints discarded (CRC, sampling
-        # or model-version mismatch, or a pool that cannot resume)
-        # Paged prefix cache (kv_pages=).
+        self.output_capped = RateMeter()  # slots force-finished by a
+        # per-record output budget (max_new_of) at sync granularity
+        # Paged prefix cache (kv_pages=, torchkafka_tpu/kvcache): all zero
+        # on the dense path.
         self.prefix_hits = RateMeter()  # admissions that reused cached blocks
         self.prefix_misses = RateMeter()  # admissions that prefilled in full
         self.prefix_tokens_saved = RateMeter()  # prompt tokens NOT re-prefilled
         self.prefill_tokens = RateMeter()  # prompt tokens actually prefilled
         self.cache_evictions = RateMeter()  # cached blocks LRU-evicted
-        self.admission_deferrals = RateMeter()  # records deferred on pool
-        # pressure (re-offered FIFO once blocks free)
+        self.admission_deferrals = RateMeter()  # admissions deferred on pool
+        # pressure (records re-offered FIFO once blocks free)
         self.cache_fallbacks = RateMeter()  # paged → dense cache-off fallbacks
         self.cache_pool_occupancy = Gauge()  # allocated / usable blocks
-        # Chunked prefill (kv_pages with prefill_chunk != 0).
-        self.chunk_ticks = RateMeter()  # tick blocks that carried chunk rows
-        self.admission_stall_ticks = RateMeter()  # extra ticks admissions
-        # queued beyond the one-tick minimum
-        self.admission_queue_tokens = Gauge()  # suffix tokens still queued
-        self.chunk_utilization = Gauge()  # prefill tokens / (chunk ticks x
-        # chunk width)
+        # Tiered radix cache (kv_tier=, kvcache/tier.py): cold prefix
+        # blocks demoted to host RAM instead of freed, promoted back on
+        # radix hit. All zero without a tier.
+        self.radix_demotions = RateMeter()  # blocks demoted HBM → host tier
+        self.radix_promotions = RateMeter()  # blocks promoted tier → HBM
+        self.tier_hits = RateMeter()  # prefix walks extended by the tier
+        self.tier_occupancy_bytes = Gauge()  # host-RAM tier payload bytes
+        # Disaggregated prefill (fleet/prefill.py): records held for a
+        # prefill-worker handoff and slots admitted by adopting one
+        # (decode never ran the prompt pass). All zero in monolithic
+        # serving.
+        self.prefill_routed = RateMeter()  # records first held awaiting a
+        # handoff (the admission-queue routing decision)
+        self.adopted_slots = RateMeter()  # slots filled by handoff adoption
+        self.handoffs_published = RateMeter()  # prefill-role only: filled-KV
+        # handoffs published onto the transfer plane
+        # Online draft distillation (torchkafka_tpu/distill): the serve →
+        # distill-topic → trainer → checkpoint-topic → swap loop. All
+        # zero without a distill topic / spec serving.
+        self.distill_published = RateMeter()  # committed completions
+        # framed onto the distill topic (txn: counted at commit)
+        self.distill_steps = RateMeter()  # trainer train steps (trainer
+        # role only)
+        self.distill_records = RateMeter()  # corpus records consumed into
+        # train batches (trainer role only)
+        self.spec_alpha_window = Gauge()  # windowed live acceptance α the
+        # DistillController gates refreshes on (NaN-free: 0 until the
+        # first window closes)
+        self.draft_version = Gauge()  # draft checkpoint version currently
+        # proposing (0 = the built-in / construction-time draft)
+        self._draft_refreshes: dict[str, RateMeter] = {}  # draft
+        # hot-swaps by reason ("alpha_drop", "forced", ...)
+        # Chunked prefill (kv_pages with prefill_chunk != 0): admission
+        # enqueues uncached suffixes and every tick carries a bounded
+        # chunk of them alongside decode. All zero in legacy/dense modes.
+        self.chunk_ticks = RateMeter()  # ticks that carried prefill chunk rows
+        self.admission_stall_ticks = RateMeter()  # EXTRA ticks admissions
+        # queued beyond the one-tick minimum (0 when every admission's
+        # suffix fits the chunk a single tick carries — the prompt-storm
+        # regression bound)
+        self.admission_queue_tokens = Gauge()  # uncached suffix tokens still
+        # queued for chunk prefill, sampled after each tick
+        self.chunk_utilization = Gauge()  # cumulative prefill tokens /
+        # (chunk ticks x chunk width): how full the static chunk rides
+        # Decode journal / warm failover (torchkafka_tpu/journal): all zero
+        # without a journal or resume hints.
+        self.decoded_tokens = RateMeter()  # tokens produced by decode ticks
+        # (prefilled/journal-restored tokens excluded — the cold-vs-warm
+        # replay differential reads exactly this)
+        self.warm_resumes = RateMeter()  # redelivered prompts resumed from
+        # a journal hint (prompt + emitted tokens prefilled in one dispatch)
+        self.journal_tokens_restored = RateMeter()  # emitted tokens NOT
+        # re-decoded thanks to warm resume
+        self.journal_served = RateMeter()  # finished-but-uncommitted
+        # completions re-served straight from the journal (zero re-decode)
+        self.resume_rejected = RateMeter()  # hints discarded (payload CRC /
+        # sampling-contract mismatch, or an unsupported pool mode)
+        # Per-tenant prefix-cache counters (lazy label children, tenant =
+        # record key): the "cache hit by tenant locality" observable the
+        # traffic bench reads. Empty on the dense path.
+        self._tenant_prefix_hits: dict[str, RateMeter] = {}
+        self._tenant_prefix_misses: dict[str, RateMeter] = {}
+        # The resolved KV backend (kvcache.resolve_kv_backend): which
+        # pool layout/dtype actually serves, whether the Pallas read
+        # engaged, and — when it did not — the machine-readable reason,
+        # so the kv_kernel="auto" threshold decision is observable on
+        # /metrics instead of silent.
         self.kernel_engaged = Gauge()
+        self._kernel_disabled: dict[str, RateMeter] = {}
         self._kv_backend: dict = {}
 
-    def note_backend(self, backend: KVBackend) -> None:
+    def note_backend(self, backend: "KVBackend") -> None:
+        """Record the resolved backend (called once per build; a paged
+        pool that falls back to dense re-notes the dense resolution)."""
         self._kv_backend = backend.describe()
         self.kernel_engaged.set(1.0 if backend.kernel else 0.0)
+        reason = backend.kernel_disabled_reason
+        if reason is not None:
+            self._kernel_disabled.setdefault(reason, RateMeter()).add(1)
+
+    def kernel_disabled_summary(self) -> dict:
+        return {r: m.count for r, m in sorted(self._kernel_disabled.items())}
+
+    def tenant_prefix_hits(self, tenant: str) -> RateMeter:
+        return self._tenant_prefix_hits.setdefault(tenant, RateMeter())
+
+    def draft_refreshes(self, reason: str) -> RateMeter:
+        return self._draft_refreshes.setdefault(reason, RateMeter())
+
+    def distill_summary(self) -> dict:
+        return {
+            "published": self.distill_published.count,
+            "steps": self.distill_steps.count,
+            "records": self.distill_records.count,
+            "alpha_window": round(self.spec_alpha_window.value, 4),
+            "draft_version": int(self.draft_version.value),
+            "refreshes": {
+                r: m.count for r, m in sorted(self._draft_refreshes.items())
+            },
+        }
+
+    def tenant_prefix_misses(self, tenant: str) -> RateMeter:
+        return self._tenant_prefix_misses.setdefault(tenant, RateMeter())
+
+    def tenant_cache_summary(self) -> dict:
+        out = {}
+        for t in sorted(
+            set(self._tenant_prefix_hits) | set(self._tenant_prefix_misses)
+        ):
+            hits = self.tenant_prefix_hits(t).count
+            misses = self.tenant_prefix_misses(t).count
+            out[t] = {
+                "hits": hits,
+                "misses": misses,
+                "hit_rate": (
+                    round(hits / (hits + misses), 4)
+                    if hits + misses else None
+                ),
+            }
+        return out
 
     def reset(self) -> None:
-        """Zero the rate clocks (run() start), so warmup time does not
-        dilute the rates."""
+        """Zero the rate clocks — called at run() start so compile/warmup
+        time (minutes on remote-compile transports) doesn't dilute rates."""
         for m in (
             self.completions, self.tokens, self.truncated,
             self.readmissions, self.dropped, self.commit_failures,
         ):
             m.reset()
+
+    def summary(self) -> dict:
+        return {
+            "completions": self.completions.count,
+            "completions_per_s": self.completions.rate(),
+            "tokens": self.tokens.count,
+            "tokens_per_s": self.tokens.rate(),
+            "truncated_by_eos": self.truncated.count,
+            "readmissions": self.readmissions.count,
+            "dropped": self.dropped.count,
+            "quarantined": self.quarantined.count,
+            "commit_failures": self.commit_failures.count,
+            "output_flush_failures": self.output_flush_failures.count,
+            "output_send_failures": self.output_send_failures.count,
+            "dlq_delivery_failures": self.dlq_delivery_failures.count,
+            "txn": {
+                "commits": self.txn_commits.count,
+                "aborts": self.txn_aborts.count,
+                "held_outputs": int(self.txn_held_outputs.value),
+            },
+            "commit": self.commit_latency.summary(),
+            "slot_occupancy": round(self.slot_occupancy.value, 3),
+            "ticks": self.tick_time.count,
+            "step_time": self.tick_time.summary(),
+            "tokens_per_tick": round(self.tokens_per_tick.value, 2),
+            "decoded_tokens": self.decoded_tokens.count,
+            "prefills": self.prefills.count,
+            "decode_ticks": self.decode_ticks.count,
+            "output_capped": self.output_capped.count,
+            "prefix_cache": self.cache_summary(),
+            "tenant_cache": self.tenant_cache_summary(),
+            "disagg": self.disagg_summary(),
+            "distill": self.distill_summary(),
+            "chunked_prefill": self.chunk_summary(),
+            "journal": self.journal_summary(),
+            "kv_backend": {
+                **self._kv_backend,
+                "kernel_engaged": int(self.kernel_engaged.value),
+                "kernel_disabled": self.kernel_disabled_summary(),
+            },
+        }
 
     def chunk_summary(self) -> dict:
         ticks = self.chunk_ticks.count
@@ -376,43 +567,118 @@ class ServeMetrics:
             "deferrals": self.admission_deferrals.count,
             "fallbacks": self.cache_fallbacks.count,
             "pool_occupancy": round(self.cache_pool_occupancy.value, 3),
+            "tier": {
+                "demotions": self.radix_demotions.count,
+                "promotions": self.radix_promotions.count,
+                "hits": self.tier_hits.count,
+                "occupancy_bytes": int(self.tier_occupancy_bytes.value),
+            },
         }
 
-    def summary(self) -> dict:
+    def disagg_summary(self) -> dict:
         return {
-            "completions": self.completions.count,
-            "completions_per_s": self.completions.rate(),
-            "tokens": self.tokens.count,
-            "tokens_per_s": self.tokens.rate(),
-            "truncated_by_eos": self.truncated.count,
-            "readmissions": self.readmissions.count,
-            "dropped": self.dropped.count,
-            "quarantined": self.quarantined.count,
-            "commit_failures": self.commit_failures.count,
-            "output_flush_failures": self.output_flush_failures.count,
-            "output_send_failures": self.output_send_failures.count,
-            "dlq_delivery_failures": self.dlq_delivery_failures.count,
-            "txn": {
-                "commits": self.txn_commits.count,
-                "aborts": self.txn_aborts.count,
-                "held_outputs": int(self.txn_held_outputs.value),
-            },
-            "commit": self.commit_latency.summary(),
-            "slot_occupancy": round(self.slot_occupancy.value, 3),
-            "ticks": self.tick_time.count,
-            "step_time": self.tick_time.summary(),
-            "tokens_per_tick": round(self.tokens_per_tick.value, 2),
-            "decoded_tokens": self.decoded_tokens.count,
-            "prefills": self.prefills.count,
-            "decode_ticks": self.decode_ticks.count,
-            "prefix_cache": self.cache_summary(),
-            "chunked_prefill": self.chunk_summary(),
-            "journal": self.journal_summary(),
-            "kv_backend": {
-                **self._kv_backend,
-                "kernel_engaged": int(self.kernel_engaged.value),
-            },
+            "prefill_routed": self.prefill_routed.count,
+            "adopted_slots": self.adopted_slots.count,
+            "handoffs_published": self.handoffs_published.count,
         }
+
+    def render_prometheus(self, prefix: str = "torchkafka_serve") -> str:
+        """Prometheus text exposition — same conventions (and shared
+        renderer) as StreamMetrics.render_prometheus."""
+        s = self.summary()
+        pc = s["prefix_cache"]
+        jn = s["journal"]
+        cp = s["chunked_prefill"]
+        kb = s["kv_backend"]
+        return render_exposition(prefix, [
+            # The resolved KV backend as an info-style gauge (value 1,
+            # identity in the labels) plus the kernel engagement pair —
+            # the "which pool actually serves, and why not the kernel"
+            # observables.
+            ("kv_backend_info", "gauge", [
+                (format_labels(
+                    layout=str(kb.get("layout", "dense")),
+                    kv_dtype=str(kb.get("kv_dtype", "compute")),
+                    sharding=f"data={kb.get('data', 1)},tp={kb.get('tp', 1)}",
+                ), 1),
+            ]),
+            ("kv_kernel_engaged", "gauge", kb["kernel_engaged"]),
+            ("kv_kernel_disabled_total", "counter", [
+                (format_labels(reason=r), v)
+                for r, v in kb["kernel_disabled"].items()
+            ] or 0),
+            ("chunk_ticks_total", "counter", cp["chunk_ticks"]),
+            ("admission_stall_ticks_total", "counter", cp["stall_ticks"]),
+            ("admission_queue_tokens", "gauge", cp["queue_tokens"]),
+            ("chunk_utilization", "gauge", cp["utilization"]),
+            ("prefill_tokens_per_chunk_tick", "gauge",
+             cp["prefill_tokens_per_tick"] or 0.0),
+            ("decoded_tokens_total", "counter", jn["decoded_tokens"]),
+            ("warm_resumes_total", "counter", jn["warm_resumes"]),
+            ("journal_tokens_restored_total", "counter", jn["tokens_restored"]),
+            ("journal_served_total", "counter", jn["served_from_journal"]),
+            ("resume_rejected_total", "counter", jn["resume_rejected"]),
+            ("completions_total", "counter", s["completions"]),
+            ("tokens_total", "counter", s["tokens"]),
+            ("truncated_by_eos_total", "counter", s["truncated_by_eos"]),
+            ("slot_readmissions_total", "counter", s["readmissions"]),
+            ("dropped_prompts_total", "counter", s["dropped"]),
+            ("quarantined_prompts_total", "counter", s["quarantined"]),
+            ("commit_failures_total", "counter", s["commit_failures"]),
+            ("output_flush_failures_total", "counter", s["output_flush_failures"]),
+            ("output_send_failures_total", "counter", s["output_send_failures"]),
+            ("dlq_delivery_failures_total", "counter", s["dlq_delivery_failures"]),
+            ("txn_commits_total", "counter", s["txn"]["commits"]),
+            ("txn_aborts_total", "counter", s["txn"]["aborts"]),
+            ("txn_held_outputs", "gauge", s["txn"]["held_outputs"]),
+            ("commit_latency_p50_milliseconds", "gauge", s["commit"]["p50_ms"]),
+            ("commit_latency_p99_milliseconds", "gauge", s["commit"]["p99_ms"]),
+            ("completions_per_second", "gauge", s["completions_per_s"]),
+            ("tokens_per_second", "gauge", s["tokens_per_s"]),
+            ("slot_occupancy", "gauge", s["slot_occupancy"]),
+            ("serve_ticks_total", "counter", s["ticks"]),
+            ("step_time_ms", "gauge", [
+                ('percentile="p50"', s["step_time"]["p50_ms"]),
+                ('percentile="p99"', s["step_time"]["p99_ms"]),
+            ]),
+            ("tokens_per_tick", "gauge", s["tokens_per_tick"]),
+            ("output_capped_total", "counter", s["output_capped"]),
+            ("tenant_prefix_cache_hits_total", "counter", [
+                (format_labels(tenant=t), v["hits"])
+                for t, v in s["tenant_cache"].items()
+            ] or 0),
+            ("tenant_prefix_cache_misses_total", "counter", [
+                (format_labels(tenant=t), v["misses"])
+                for t, v in s["tenant_cache"].items()
+            ] or 0),
+            ("prefix_cache_hits_total", "counter", pc["hits"]),
+            ("prefix_cache_misses_total", "counter", pc["misses"]),
+            ("prefix_tokens_saved_total", "counter", pc["prefix_tokens_saved"]),
+            ("prefill_tokens_total", "counter", pc["prefill_tokens"]),
+            ("kvcache_evictions_total", "counter", pc["evictions"]),
+            ("admission_deferrals_total", "counter", pc["deferrals"]),
+            ("kvcache_fallbacks_total", "counter", pc["fallbacks"]),
+            ("prefix_cache_hit_rate", "gauge", pc["hit_rate"] or 0.0),
+            ("kvcache_pool_occupancy", "gauge", pc["pool_occupancy"]),
+            ("radix_demotions_total", "counter", pc["tier"]["demotions"]),
+            ("radix_promotions_total", "counter", pc["tier"]["promotions"]),
+            ("tier_hits_total", "counter", pc["tier"]["hits"]),
+            ("tier_occupancy_bytes", "gauge", pc["tier"]["occupancy_bytes"]),
+            ("prefill_routed_total", "counter", s["disagg"]["prefill_routed"]),
+            ("adopted_slots_total", "counter", s["disagg"]["adopted_slots"]),
+            ("prefill_handoffs_published_total", "counter",
+             s["disagg"]["handoffs_published"]),
+            ("distill_published_total", "counter",
+             s["distill"]["published"]),
+            ("distill_steps_total", "counter", s["distill"]["steps"]),
+            ("distill_records_total", "counter", s["distill"]["records"]),
+            ("spec_alpha_window", "gauge", s["distill"]["alpha_window"]),
+            ("draft_version", "gauge", s["distill"]["draft_version"]),
+            ("draft_refreshes_total", "counter", [
+                (format_labels(reason=r), v)
+                for r, v in s["distill"]["refreshes"].items()
+            ] or 0),
+        ])
 
 
 class _PendingPrefill:
@@ -510,6 +776,13 @@ class StreamingGenerator:
     ``journal``: a ``journal.DecodeJournal`` this server writes;
     ``add_resume_hints`` feeds it a dead server's entries (module
     docstring).
+    ``tracer``: an ``obs.RecordTracer`` given each record's lifecycle
+    events, tagged with ``trace_replica`` (module docstring); None costs
+    one ``is not None`` test per site. ``max_new_of``: the per-record
+    output budget (module docstring). ``kv_tier``: a
+    ``kvcache.TierConfig`` (or its dict) for the host-RAM tier under the
+    paged pool's radix cache; it requires ``kv_pages`` (``ValueError``
+    otherwise, as in JAX).
     ``temperature``: 0 = greedy; > 0 samples each slot from
     ``filter_logits`` under ``top_k``/``top_p`` with per-record keys
     derived from ``rng`` (module docstring). ``quarantine``: a
@@ -542,6 +815,7 @@ class StreamingGenerator:
         kv_dtype: str | None = None,
         kv_kernel: bool | str = "auto",
         kv_pages: PagedKVConfig | dict | None = None,
+        kv_tier: TierConfig | dict | None = None,
         output_producer=None,
         output_topic: str | None = None,
         exactly_once: bool = False,
@@ -549,6 +823,9 @@ class StreamingGenerator:
         max_send_failure_streak: int = 64,
         journal: DecodeJournal | None = None,
         model_version: int = 0,
+        tracer=None,
+        trace_replica: int | None = None,
+        max_new_of: Callable[[Record], int | None] | None = None,
         device=None,
         **deferred,
     ) -> None:
@@ -601,6 +878,17 @@ class StreamingGenerator:
             raise ValueError("max_send_failure_streak must be >= 1")
         if isinstance(kv_pages, dict):
             kv_pages = PagedKVConfig(**kv_pages)
+        if isinstance(kv_tier, dict):
+            kv_tier = TierConfig(**kv_tier)
+        if kv_tier is not None and kv_pages is None:
+            raise ValueError("kv_tier requires kv_pages (it tiers the "
+                             "paged radix cache)")
+        self._kv_tier_cfg = kv_tier
+        self._kv_tier: HostTier | None = None
+        self._tier_seen = [0, 0, 0]  # demotions/promotions/hits mirrored
+        self._tracer = tracer
+        self._trace_replica = trace_replica
+        self._max_new_of = max_new_of
         self._device = resolve_device(device)
         self._consumer = consumer
         self._params = _params_to(params, self._device)
@@ -735,7 +1023,12 @@ class StreamingGenerator:
             return False
         self._blocks_per_slot = nblk
         self._kv_alloc = BlockAllocator(pages.num_blocks)
-        self._kv_radix = RadixCache(self._kv_alloc, pages.block_size)
+        if self._kv_tier_cfg is not None:
+            self._kv_tier = HostTier(self._kv_tier_cfg)
+        self._kv_radix = RadixCache(
+            self._kv_alloc, pages.block_size, tier=self._kv_tier,
+            read_block=self._tier_read_block, write_block=self._tier_write_block,
+        )
         self._table_np = np.zeros((self._slots, nblk), np.int32)  # all sink
         # The auto chunk width covers every admission one serving quantum
         # can offer (<= slots records of <= prompt_len uncached tokens),
@@ -769,6 +1062,41 @@ class StreamingGenerator:
                 torch.zeros(shape, dtype=cfg.dtype, device=dev),
             )
         self._table_dev = self._device_table()
+
+    # The host-RAM tier's pool I/O (kv_tier=): the radix cache calls these
+    # to DEMOTE an evicted block's payload to host memory and to PROMOTE a
+    # stored payload back into a fresh block. One payload = each pool's
+    # slice at one block index (2 on compute-dtype pools, 4 on int8).
+    # Both copies are ordered on the current stream with the ticks: the
+    # read's device-to-host copy waits for every write enqueued before it,
+    # and the promotion's write is enqueued before the tick that reads the
+    # block, so neither needs an event of its own.
+
+    def _tier_read_block(self, block: int) -> tuple:
+        return tuple(_host_copy(p[:, block]) for p in self._pools)
+
+    def _tier_write_block(self, block: int, payload) -> None:
+        for p, a in zip(self._pools, payload):
+            src = self._h2d(a)  # a snapshot: the tier may hand ``a`` out again
+            p[:, block] = src if src.dtype == p.dtype else src.view(p.dtype)
+
+    def _sync_tier_metrics(self) -> None:
+        """Mirror the radix/tier counters onto ``metrics`` (the radix cache
+        owns them; deltas keep repeated syncs idempotent)."""
+        if self._kv_tier is None:
+            return
+        r = self._kv_radix
+        sd, sp, sh = self._tier_seen
+        if r.demotions > sd:
+            self.metrics.radix_demotions.add(r.demotions - sd)
+        if r.promotions > sp:
+            self.metrics.radix_promotions.add(r.promotions - sp)
+        if r.tier_hits > sh:
+            self.metrics.tier_hits.add(r.tier_hits - sh)
+        self._tier_seen = [r.demotions, r.promotions, r.tier_hits]
+        self.metrics.tier_occupancy_bytes.set(
+            float(self._kv_tier.occupancy_bytes)
+        )
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
         """Snapshot a host array, then copy it to the device: the tensor
@@ -866,6 +1194,9 @@ class StreamingGenerator:
         while packed < C and self._prefill_queue:
             e = self._prefill_queue[0]
             n = min(C - packed, len(e.seq) - e.off)
+            if e.off == 0 and self._tracer is not None:
+                # The record's first suffix tokens ride this fused tick.
+                self._tracer.chunk_scheduled(e.rec, replica=self._trace_replica)
             ctok[packed:packed + n] = e.seq[e.off:e.off + n]
             cpos[packed:packed + n] = e.start + e.off + np.arange(n)
             ctable[packed:packed + n] = self._table_np[e.slot]
@@ -889,6 +1220,12 @@ class StreamingGenerator:
         for e, _row in finishers:
             self._prefilling[e.slot] = False
             self._active[e.slot] = True
+            if self._tracer is not None:
+                # Token 0 was drawn in this tick (cold) or restored from
+                # the journal (warm): time to first token closes here.
+                self._tracer.slot_active(
+                    e.rec, replica=self._trace_replica, warm=e.resume is not None
+                )
             # Extra ticks spent queued beyond the one-tick minimum — 0 when
             # the admission's whole suffix rode the first chunk.
             self.metrics.admission_stall_ticks.add(
@@ -993,6 +1330,8 @@ class StreamingGenerator:
                     self._kv_alloc.decref(matched)
                 if hint is not None:  # back on the shelf with its record
                     self._resume_hints[(rec.topic, rec.partition, rec.offset)] = hint
+                if self._tracer is not None:
+                    self._tracer.deferred(rec, replica=self._trace_replica)
                 self._paged_deferred.append(rec)
                 self._paged_deferred.extend(queue)
                 queue = []
@@ -1006,11 +1345,14 @@ class StreamingGenerator:
             # filled, safe by chunk-queue FIFO).
             cacheable = RadixCache.matchable_blocks(len(toks), bs)
             self._kv_radix.insert(toks, row[:cacheable])
+            tenant = _default_tenant(rec)
             if matched:
                 self.metrics.prefix_hits.add(1)
+                self.metrics.tenant_prefix_hits(tenant).add(1)
                 self.metrics.prefix_tokens_saved.add(start)
             else:
                 self.metrics.prefix_misses.add(1)
+                self.metrics.tenant_prefix_misses(tenant).add(1)
             self._slot_rec[i] = rec
             key_np = self._hint_key(hint, kd)
             if self._sampled:
@@ -1031,11 +1373,15 @@ class StreamingGenerator:
                     i, rec, seq[start:].copy(), start, emitted,
                     self._tick_counter,
                 ))
+                if self._tracer is not None:
+                    self._tracer.prefill_queued(
+                        rec, len(seq) - start, replica=self._trace_replica
+                    )
                 reserved += 1
                 continue
             self.metrics.prefill_tokens.add(len(seq) - start)
             self._active[i] = True
-            with torch.inference_mode():
+            with torch.inference_mode(), tracing.span(tracing.SPAN_ADMIT):
                 logits = self._suffix_prefill(
                     self._table_np[i], seq[start:], start
                 )
@@ -1050,6 +1396,7 @@ class StreamingGenerator:
         if newly_deferred > 0:
             self.metrics.admission_deferrals.add(newly_deferred)
         self.metrics.cache_pool_occupancy.set(self._kv_alloc.occupancy())
+        self._sync_tier_metrics()
         filled = len(admitted) + len(resumed) + reserved
         if filled and in_flight > 0:
             self.metrics.readmissions.add(filled)
@@ -1064,8 +1411,18 @@ class StreamingGenerator:
             logits = torch.cat([lg for _, lg in admitted])
             with torch.inference_mode():
                 self._merge_token0(rows, self._pick(logits, self._slot_keys[rows]))
+            if self._tracer is not None:
+                for i, _ in admitted:
+                    self._tracer.slot_active(
+                        self._slot_rec[i], replica=self._trace_replica
+                    )
         if resumed:
             self._restore_resumed(resumed)
+            if self._tracer is not None:
+                for i, _ in resumed:
+                    self._tracer.slot_active(
+                        self._slot_rec[i], replica=self._trace_replica, warm=True
+                    )
         if journal_dirty:
             self._journal.flush()
         return filled
@@ -1292,6 +1649,9 @@ class StreamingGenerator:
         slot."""
         crash_hook("post_poll")
         self._ledger.fetched_many(records)
+        if self._tracer is not None:
+            for r in records:
+                self._tracer.polled(r, replica=self._trace_replica)
 
     def _next_decodable(self, queue: list[Record]):
         """Pop ``queue`` until a record decodes → (record, tokens), or None.
@@ -1313,10 +1673,18 @@ class StreamingGenerator:
                             resolved = self._quarantine.note_failure(rec, exc)
                         except OutputDeliveryError:
                             self.metrics.dlq_delivery_failures.add(1)
+                            if self._tracer is not None:
+                                self._tracer.dlq_failed(
+                                    rec, replica=self._trace_replica
+                                )
                             raise
                         if not resolved:
                             continue  # budget left: re-attempt in place
                         self.metrics.quarantined.add(1)
+                        if self._tracer is not None:
+                            self._tracer.quarantined(
+                                rec, replica=self._trace_replica
+                            )
                         # The DLQ copy is acknowledged; the offset has not
                         # retired yet (redelivery re-quarantines).
                         crash_hook("post_dlq_pre_retire")
@@ -1325,6 +1693,8 @@ class StreamingGenerator:
                             "dropping undecodable prompt %s@%s:%s",
                             rec.topic, rec.partition, rec.offset,
                         )
+                        if self._tracer is not None:
+                            self._tracer.dropped(rec, replica=self._trace_replica)
                     self._ledger.dropped(rec)
                     self.metrics.dropped.add(1)
                     break  # next record
@@ -1395,8 +1765,13 @@ class StreamingGenerator:
                 self.metrics.readmissions.add(filled)
             self._merge_keys(keys_np, key_mask)
         if admitted:
-            with torch.inference_mode():
+            with torch.inference_mode(), tracing.span(tracing.SPAN_ADMIT):
                 self._admit(prompts, admit_mask)
+            if self._tracer is not None:
+                for i in np.nonzero(admit_mask)[0]:
+                    self._tracer.slot_active(
+                        self._slot_rec[i], replica=self._trace_replica
+                    )
         if journal_dirty:
             self._journal.flush()
         return filled
@@ -1473,6 +1848,8 @@ class StreamingGenerator:
         out = np.asarray(hint.tokens, np.int32)
         self._journal_ready.append((rec, out))
         self.metrics.journal_served.add(1)
+        if self._tracer is not None:
+            self._tracer.journal_served(rec, len(out), replica=self._trace_replica)
         if self._journal is None:
             return False
         self._journal_record(rec, hint.key_data or kd, out, True)
@@ -1485,6 +1862,8 @@ class StreamingGenerator:
         self._slot_journaled[i] = g
         self.metrics.warm_resumes.add(1)
         self.metrics.journal_tokens_restored.add(g)
+        if self._tracer is not None:
+            self._tracer.warm_resumed(rec, g, replica=self._trace_replica)
         if self._journal is not None:
             self._journal_record(rec, key_np, emitted, False)
 
@@ -1526,6 +1905,8 @@ class StreamingGenerator:
         self._slot_rec[i] = rec
         self._active[i] = True
         self._note_resumed(i, rec, emitted, key_np)
+        if self._tracer is not None:
+            self._tracer.slot_active(rec, replica=self._trace_replica, warm=True)
 
     @property
     def model_version(self) -> int:
@@ -1551,6 +1932,8 @@ class StreamingGenerator:
         self.metrics.tokens.add(len(out))
         if len(out) < self._max_new:
             self.metrics.truncated.add(1)
+        if self._tracer is not None:
+            self._tracer.finished(rec, len(out), replica=self._trace_replica)
         sent_ok = True
         if self._txn_mode:
             # STAGE, don't send: produced inside the commit window's
@@ -1620,15 +2003,18 @@ class StreamingGenerator:
             tick_t0 = time.perf_counter()
             finishers = None
             with torch.inference_mode():
-                chunk = None
                 if run_chunk:
-                    *ops, packed, finishers = self._pack_chunk()
-                    chunk = tuple(self._h2d(a) for a in ops)
-                done, n_out = self._tick_block(self._h2d(self._active), chunk)
+                    with tracing.span(tracing.SPAN_CHUNK_PACK):
+                        *ops, packed, finishers = self._pack_chunk()
+                with tracing.span(tracing.SPAN_TICK):
+                    chunk = tuple(self._h2d(a) for a in ops) if run_chunk else None
+                    done, n_out = self._tick_block(self._h2d(self._active), chunk)
                 # ONE host sync per tick block: done/n_out/pos/gen together.
-                packed_h = torch.cat([
-                    done.to(torch.int32), n_out, self._pos, self._gen.reshape(-1)
-                ]).cpu().numpy()
+                with tracing.span(tracing.SPAN_SYNC):
+                    packed_h = torch.cat([
+                        done.to(torch.int32), n_out, self._pos,
+                        self._gen.reshape(-1),
+                    ]).cpu().numpy()
             done_h = packed_h[:B].astype(bool)
             n_out_h, pos_h = packed_h[B:2 * B], packed_h[2 * B:3 * B]
             gen_h = packed_h[3 * B:].reshape(B, self._max_new)
@@ -1649,7 +2035,25 @@ class StreamingGenerator:
             journal_dirty = False
             for i in np.nonzero(self._active)[0]:
                 cnt = int(n_out_h[i] if done_h[i] else pos_h[i] - P + 1)
-                decoded += cnt - int(self._slot_emitted[i])
+                if self._max_new_of is not None:
+                    budget = self._max_new_of(self._slot_rec[i])
+                    if budget is not None:
+                        budget = max(1, min(int(budget), self._max_new))
+                        if cnt >= budget:
+                            # Budget reached (a tick block may overshoot it
+                            # by up to ticks_per_sync - 1 tokens, which are
+                            # cut): finish the slot like a device done.
+                            cnt = budget
+                            if not done_h[i]:
+                                self.metrics.output_capped.add(1)
+                            done_h[i] = True
+                            n_out_h[i] = budget
+                new_toks = cnt - int(self._slot_emitted[i])
+                decoded += new_toks
+                if self._tracer is not None and new_toks > 0:
+                    self._tracer.tokens(
+                        self._slot_rec[i], new_toks, replica=self._trace_replica
+                    )
                 self._slot_emitted[i] = cnt
                 if self._journal is not None:
                     rec = self._slot_rec[i]
@@ -1824,7 +2228,8 @@ class StreamingGenerator:
                 return True
         crash_hook("pre_commit")
         try:
-            self._consumer.commit(snapshot)
+            with tracing.span(tracing.SPAN_COMMIT):
+                self._consumer.commit(snapshot)
             self.metrics.commit_latency.observe(time.perf_counter() - t0)
         except CommitFailedError:
             self.metrics.commit_failures.add(1)
@@ -1837,6 +2242,9 @@ class StreamingGenerator:
                 "retry at the next flush"
             )
             return False
+        if self._tracer is not None:
+            # Durably committed: close every covered record's e2e span.
+            self._tracer.note_commit(snapshot)
         self._prune_journal(snapshot)
         return True
 
@@ -1928,6 +2336,8 @@ class StreamingGenerator:
         self.metrics.txn_commits.add(1)
         self.metrics.txn_held_outputs.set(float(len(self._txn_outbox)))
         self.metrics.commit_latency.observe(time.perf_counter() - t0)
+        if self._tracer is not None:
+            self._tracer.note_commit(snapshot)
         self._prune_journal(snapshot)
         return True
 
