@@ -201,6 +201,33 @@ Phases, each printing one JSON line:
    disk-spill tier (``capacity_bytes=0`` under a temporary directory):
    every token and watermark of each tiered run equals its HBM-only
    run's;
+8s. serve_spec: the serve phase's model and 32 prompts over the bf16 dense
+   pool, served plainly (63 ticks a block) and by
+   ``SpecStreamingGenerator`` (k = 4, 13 rounds a block: harness scenario
+   7 ``--spec``) with the perfect draft (the target itself) and the
+   12-layer self-draft, in turns: plain, perfect, self, self, perfect,
+   plain; then the self-draft's 12 layers served plainly. Each run:
+   32/32 completions of 64 tokens, committed == end offsets and equal to
+   the first plain run's, token 0 identical to it, K1 = (24 + draft
+   layers) x prefills all on the tensor cores, K4 = K5 = 0, proposals
+   made. Printed: tok/s, the speculation counters and α, tokens a
+   slot-round, host ms a tick block and a round, the token agreement with
+   plain (bf16: the verify runs the target's GEMMs at 80 rows, plain
+   decode at 16), and bench_spec's terms t_target, t_draft, c =
+   t_draft / t_target, t_round and v = (t_round - 5 t_draft) / t_target
+   from the tick-block times;
+8s'. serve_spec_paged: serve_paged's tenant stream through the bf16
+   compute-dtype paged chunked pool, plain and then speculative
+   (self-draft, k = 4): 48/48 completions, committed == end offsets and
+   equal, prefix hits and fewer prefill tokens than 48 x 128, K1 = K4 =
+   K5 = 0, token 0 identical, proposals made;
+8s''. serve_spec_f32: 1b width, 2 layers, f32, 32 prompts: plain dense,
+   then speculative with the perfect and the 1-layer self-draft on the
+   dense, the legacy paged (``prefill_chunk=0``) and the chunked paged
+   pool, every token and watermark equal to the plain run's and the
+   perfect draft's α 1.0; then serve_resume's killed-and-resumed
+   exactly-once run, greedy, through the speculative server on the dense
+   and the chunked paged pool: both recoveries equal the uncut run;
 8d. serve_8b: harness scenario 7 at the 8b scale with an output topic
    (BASELINE config 5), full width and depth, random int8 weights made on
    the card from a seed: 48 prompts of 128 tokens produced round-robin on
@@ -1294,14 +1321,23 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
             "peak_mem_gb": peak}
 
 
-def serve(torch, cfg, params, prompts, kv_dtype, prof=None, tracer=None, on_done=None):
-    """Serve ``prompts`` once through the port's StreamingGenerator; the
-    kernel launch counts are zeroed just before ``run`` and read after.
-    ``prof``: an optional profiler context wrapped around ``run``;
-    ``tracer``: the server's ``obs.RecordTracer``; ``on_done(server)`` is
-    called after the run."""
+def serve(torch, cfg, params, prompts, kv_dtype, prof=None, tracer=None, on_done=None,
+          server_cls=None, **server_kw):
+    """Serve ``prompts`` once through the port's StreamingGenerator (or
+    ``server_cls``, with ``server_kw`` over the defaults: 16 slots,
+    ``MAX_NEW`` - 1 ticks a block); the kernel launch counts are zeroed
+    just before ``run`` and read after. ``prof``: an optional profiler
+    context wrapped around ``run``; ``tracer``: the server's
+    ``obs.RecordTracer``; ``on_done(server)`` is called after the run.
+    Hard checks: every record once with ``MAX_NEW`` tokens, committed ==
+    end offsets, K1 = (layers + draft layers) x prefills on the dense
+    pool (0 on a paged one), all on the tensor cores in bf16, K4 = layers
+    x decode ticks on the int8 pool (0 otherwise)."""
     from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
-    from torchkafka_tpu_torch.ops.kvattn import int8_decode_attention_dynlen
+    from torchkafka_tpu_torch.ops.kvattn import (
+        int8_decode_attention_dynlen,
+        int8_paged_decode_attention,
+    )
     from torchkafka_tpu_torch.serve import StreamingGenerator
     from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
     from torchkafka_tpu_torch.source.records import TopicPartition
@@ -1313,16 +1349,16 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None, tracer=None, on_done
         broker.produce("t7", prompts[i].tobytes(), partition=i % 2)
     consumer = MemoryConsumer(broker, "t7", group_id="s7")
     max_new = MAX_NEW
-    server = StreamingGenerator(
-        consumer, params, cfg, slots=16, prompt_len=plen, max_new=max_new,
-        commit_every=16, ticks_per_sync=max_new - 1, kv_dtype=kv_dtype,
-        kv_kernel=True if kv_dtype else "auto", tracer=tracer, device="cuda",
-    )
+    kw = dict(slots=16, prompt_len=plen, max_new=max_new, commit_every=16,
+              ticks_per_sync=max_new - 1, kv_dtype=kv_dtype,
+              kv_kernel=True if kv_dtype else "auto", tracer=tracer, device="cuda")
+    server = (server_cls or StreamingGenerator)(consumer, params, cfg, **{**kw, **server_kw})
     server.warmup()
     torch.cuda.reset_peak_memory_stats()
-    flash_fwd_bhsd.launches = 0
+    kernels = (flash_fwd_bhsd, int8_decode_attention_dynlen, int8_paged_decode_attention)
+    for fn in kernels:
+        fn.launches = 0
     flash_fwd_bhsd.tc_launches = 0
-    int8_decode_attention_dynlen.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with prof if prof is not None else contextlib.nullcontext():
@@ -1331,7 +1367,8 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None, tracer=None, on_done
     elapsed = time.perf_counter() - t0
     launches = {"flash_fwd": flash_fwd_bhsd.launches,
                 "flash_fwd_tc": flash_fwd_bhsd.tc_launches,
-                "kvattn_dynlen": int8_decode_attention_dynlen.launches}
+                "kvattn_dynlen": int8_decode_attention_dynlen.launches,
+                "kvattn_paged": int8_paged_decode_attention.launches}
     consumer.close()
     if on_done is not None:
         on_done(server)
@@ -1346,13 +1383,22 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None, tracer=None, on_done
     if any(int(o.min()) < 0 or int(o.max()) >= cfg.vocab_size for o in outs.values()):
         raise AssertionError("token out of the vocabulary")
     nl = cfg.n_layers
-    if launches["flash_fwd"] != nl * m["prefills"] or m["prefills"] == 0:
+    draft_cfg = getattr(server, "_draft_cfg", None)
+    k1_layers = nl + (draft_cfg.n_layers if draft_cfg is not None else 0)
+    paged = server._kv_pages is not None
+    if paged:
+        if launches["flash_fwd"]:
+            raise AssertionError(f"flash launches {launches} on the paged pool")
+    elif launches["flash_fwd"] != k1_layers * m["prefills"] or m["prefills"] == 0:
         raise AssertionError(f"flash launches {launches} vs {m['prefills']} prefills")
-    if launches["flash_fwd_tc"] != launches["flash_fwd"]:  # bf16, D=128: the tensor cores
+    if (cfg.dtype == torch.bfloat16  # bf16, D=128: the tensor cores
+            and launches["flash_fwd_tc"] != launches["flash_fwd"]):
         raise AssertionError(f"flash tensor-core launches {launches}")
     want_k4 = nl * m["decode_ticks"] if kv_dtype else 0
     if launches["kvattn_dynlen"] != want_k4 or (kv_dtype and want_k4 == 0):
         raise AssertionError(f"kvattn launches {launches} vs {m['decode_ticks']} ticks")
+    if launches["kvattn_paged"]:
+        raise AssertionError(f"K5 launched {launches}")
     tokens = sum(len(o) for o in outs.values())
     row = {"phase": "serve", "model": "1b", "kv_dtype": kv_dtype or "bf16",
            "completions": len(outs), "tokens": tokens, "elapsed_s": elapsed,
@@ -1361,6 +1407,10 @@ def serve(torch, cfg, params, prompts, kv_dtype, prof=None, tracer=None, on_done
            "decode_ticks": m["decode_ticks"], "launches": launches,
            "tick_block_ms_p50": m["step_time"]["p50_ms"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if hasattr(server, "spec_stats"):
+        row["spec"] = server.spec_stats()
+        row["decoded_tokens"] = m["decoded_tokens"]
+        row["tick_blocks"] = m["ticks"]
     return outs, row
 
 
@@ -1381,7 +1431,8 @@ def tenant_prompts(np, vocab: int, n: int = 48, plen: int = 128, sys_len: int = 
 
 def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool = True, parts: int = 4,
                 prof=None, *, kv_dtype="int8", kv_tier=None, tracer=None, budget_of=None,
-                max_poll_records: int = 512, sampled: bool = False):
+                max_poll_records: int = 512, sampled: bool = False, server_cls=None,
+                **server_kw):
     """Serve a tenant stream once through the port's paged
     StreamingGenerator (blocks of 16, 16 slots' worth of blocks + 24 + 1;
     radix prefix reuse; chunked prefill), produced keyed by tenant onto
@@ -1398,7 +1449,9 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool = True, parts
     committed == end offsets, ``output_capped`` == the records cut short,
     prefix reuse, K5 = layers x (decode ticks - chunk ticks) (0 without
     the kernel), K1 = K4 = 0, a traced run balanced, the tier within its
-    capacity. Returns (outputs, row, server)."""
+    capacity. ``server_cls``: another server class (the speculative one),
+    given ``server_kw``; its pool covers a slot's ``plen + MAX_NEW + k``
+    positions. Returns (outputs, row, server)."""
     import numpy as np
 
     from torchkafka_tpu_torch.kvcache import PagedKVConfig
@@ -1414,7 +1467,7 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool = True, parts
 
     n, plen = prompts.shape
     slots, ticks = 16, 8
-    nblk = -(-(plen + MAX_NEW) // PAGED_BS)
+    nblk = -(-(plen + MAX_NEW + server_kw.get("k", 0)) // PAGED_BS)
     pages = PagedKVConfig(block_size=PAGED_BS, num_blocks=slots * nblk + 24 + 1)
     broker = InMemoryBroker()
     broker.create_topic("t12", partitions=parts)
@@ -1422,13 +1475,13 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool = True, parts
         broker.produce("t12", prompts[i].tobytes(), key=keys[i])
     consumer = MemoryConsumer(broker, "t12", group_id="s12")
     sampling = dict(SAMPLING, rng=prng.key(11)) if sampled else {}
-    server = StreamingGenerator(
+    server = (server_cls or StreamingGenerator)(
         consumer, params, cfg, slots=slots, prompt_len=plen, max_new=MAX_NEW,
         commit_every=16, max_poll_records=max_poll_records, ticks_per_sync=ticks,
         kv_dtype=kv_dtype, kv_kernel=kv_kernel if kv_dtype else "auto", kv_pages=pages,
         kv_tier=kv_tier, tracer=tracer,
         max_new_of=None if budget_of is None else (lambda rec: budget_of(rec.key)),
-        device="cuda", **sampling,
+        device="cuda", **sampling, **server_kw,
     )
     server.warmup()
     peak_blocks = [0, 0]  # allocated (slot-held + cached), slot-held
@@ -1545,6 +1598,9 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool = True, parts
            "pool_bytes_dense_equivalent": slots * (plen + MAX_NEW) * kv_row,
            "tenant_cache": m["tenant_cache"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if hasattr(server, "spec_stats"):
+        row["spec"] = server.spec_stats()
+        row["decoded_tokens"] = m["decoded_tokens"]
     if tracer is not None:
         row["trace"] = _balanced(tracer, n, what)
         row["slo_ms"] = _slo_ms(tracer.slo.summary())
@@ -2316,12 +2372,13 @@ def _prompt_index(broker, tps) -> dict:
             for r in broker.fetch(tp, 0, 1000) if r.key != b"poison"}
 
 
-def _resume_server(cfg, params, broker, jpath, commit_every, **kw):
+def _resume_server(cfg, params, broker, jpath, commit_every, server_cls=None, **kw):
     """The exactly-once journaled server of the resume phases: a
     ``TransactionalProducer`` (transactional id "serve-resume", so a
     successor fences its predecessor), a ``PoisonQuarantine`` over that
     same producer, a ``DecodeJournal`` at ``jpath``; the journal's flushes
-    are timed on the host into ``server.flush_s``."""
+    are timed on the host into ``server.flush_s``. ``server_cls``: another
+    server class (the speculative one), given ``kw``."""
     from torchkafka_tpu_torch.journal import DecodeJournal
     from torchkafka_tpu_torch.resilience import PoisonQuarantine
     from torchkafka_tpu_torch.serve import StreamingGenerator
@@ -2331,7 +2388,7 @@ def _resume_server(cfg, params, broker, jpath, commit_every, **kw):
     consumer = MemoryConsumer(broker, "prompts", group_id="resume")
     producer = TransactionalProducer(broker, "serve-resume")
     journal = DecodeJournal(jpath, cadence=RESUME_CADENCE)
-    server = StreamingGenerator(
+    server = (server_cls or StreamingGenerator)(
         consumer, params, cfg, slots=16, prompt_len=128, max_new=MAX_NEW,
         commit_every=commit_every, ticks_per_sync=RESUME_TICKS,
         output_producer=producer, output_topic="completions", exactly_once=True,
@@ -2406,7 +2463,8 @@ def _committed_once(what, broker, n, tps):
     return {int(r.key): np.frombuffer(r.value, np.int32) for r in recs}, committed
 
 
-def serve_resume(torch, cfg, params, prompts, *, pages=None, sampled=True):
+def serve_resume(torch, cfg, params, prompts, *, pages=None, sampled=True, server_cls=None,
+                 phase=None, **server_kw):
     """A killed-and-resumed exactly-once serve (``_resume_server``) of
     ``prompts`` plus the poison record, over an ``InMemoryBroker``, in
     five runs: the uncut run; A, killed (``_drive``) with nothing
@@ -2421,10 +2479,13 @@ def serve_resume(torch, cfg, params, prompts, *, pages=None, sampled=True):
     journal holds equals the uncut run's tokens (the same program up to
     the kill); B warm serves A's finished entries from the journal,
     resumes every partial entry, decodes sum(MAX_NEW - g) + MAX_NEW per
-    cold admission, fewer than B cold; K1 = layers x (prefills + resumes),
-    all on the tensor cores in bf16 (0 on the paged pool, whose prefill is
-    the chunk tick), K4 = K5 = 0; commits > 0; at f32 both recoveries
-    equal the uncut run token for token. Returns the row."""
+    cold admission, fewer than B cold; K1 = (layers + draft layers) x
+    (prefills + resumes), all on the tensor cores in bf16 (0 on the paged
+    pool, whose prefill is the chunk tick), K4 = K5 = 0; commits > 0; at
+    f32 both recoveries equal the uncut run token for token.
+    ``server_cls``/``server_kw``: another server (the speculative one)
+    and its arguments; ``phase``: the row's phase name. Returns the
+    row."""
     import tempfile
 
     import numpy as np
@@ -2441,7 +2502,7 @@ def serve_resume(torch, cfg, params, prompts, *, pages=None, sampled=True):
 
     n, plen = prompts.shape
     nl = cfg.n_layers
-    kw = {"kv_pages": pages}
+    kw = {"kv_pages": pages, "server_cls": server_cls, **server_kw}
     if sampled:
         kw.update(rng=prng.key(11), **SAMPLING)
     what = (f"serve_resume {'paged' if pages else 'dense'} "
@@ -2564,8 +2625,10 @@ def serve_resume(torch, cfg, params, prompts, *, pages=None, sampled=True):
         raise AssertionError(f"{what}: warm decoded {jw}, cold {jc}")
     for run in (warm, cold):
         m = run["server"].metrics.summary()
-        want_l = {"flash_fwd": 0 if pages else nl * (m["prefills"]
-                                                     + m["journal"]["warm_resumes"]),
+        draft_cfg = getattr(run["server"], "_draft_cfg", None)
+        k1_layers = nl + (draft_cfg.n_layers if draft_cfg is not None else 0)
+        want_l = {"flash_fwd": 0 if pages else k1_layers * (
+                      m["prefills"] + m["journal"]["warm_resumes"]),
                   "kvattn_dynlen": 0, "kvattn_paged": 0}
         if any(run["launches"][k] != v for k, v in want_l.items()):
             raise AssertionError(f"{what}: launches {run['launches']}, want {want_l}")
@@ -2591,7 +2654,8 @@ def serve_resume(torch, cfg, params, prompts, *, pages=None, sampled=True):
     flush_w = warm["server"].flush_s
     ms = lambda xs, q: 1e3 * float(np.quantile(xs, q)) if xs else None  # noqa: E731
     return {
-        "phase": "serve_resume" if cfg.dtype == torch.bfloat16 else "serve_resume_f32",
+        "phase": phase or ("serve_resume" if cfg.dtype == torch.bfloat16
+                           else "serve_resume_f32"),
         "model": f"1b width, {nl} layers", "dtype": str(cfg.dtype)[6:],
         "pool": "paged" if pages else "dense", "kv_dtype": "compute",
         "sampling": SAMPLING if sampled else "greedy", "prompts": n, "prompt_len": plen,
@@ -2660,6 +2724,174 @@ def check_serve_resume_f32(torch, cfg, params) -> list:
             if not (row["warm_equals_uncut"] and row["cold_equals_uncut"]):
                 raise AssertionError(f"serve_resume_f32: {row}")
             rows.append(row)
+    return rows
+
+
+# ------------------------------------------------------ speculative serving
+
+SPEC_K = 4  # draft tokens a verify (harness scenario 7 --spec)
+SPEC_ROUNDS = -(-(MAX_NEW - 1) // (SPEC_K + 1))  # 13: a full-accept generation's rounds
+
+
+def _against_plain(np, name, outs, row, plain_outs, plain_row, exact: bool) -> None:
+    """A run against the plain run of the same stream: equal commits and
+    token 0 (and, ``exact``, every token); the agreement is recorded."""
+    if row["committed"] != plain_row["committed"]:
+        raise AssertionError(f"{name}: committed {row['committed']} != plain "
+                             f"{plain_row['committed']}")
+    row["token0_identical_to_plain"] = all(
+        int(outs[key][0]) == int(plain_outs[key][0]) for key in plain_outs)
+    row["token_agreement_with_plain"] = float(np.mean(
+        [np.mean(outs[key] == plain_outs[key]) for key in plain_outs]))
+    if not row["token0_identical_to_plain"]:
+        raise AssertionError(f"{name}: token 0 differs from the plain run")
+    if exact and row["token_agreement_with_plain"] != 1.0:
+        raise AssertionError(f"{name}: tokens differ from the plain run "
+                             f"({row['token_agreement_with_plain']})")
+
+
+def _spec_fields(row, ticks: int) -> None:
+    """Rounds, α and tokens a slot-round of a speculative run; host ms a
+    tick block and a round (tick) from the block's p50."""
+    row["ms_per_round_p50"] = row["tick_block_ms_p50"] / ticks
+    st = row.get("spec")
+    if st is None:
+        return
+    if st["proposed"] <= 0:
+        raise AssertionError(f"speculative run proposed nothing: {st}")
+    slot_rounds = st["proposed"] / st["k"]
+    row["tokens_per_slot_round"] = row["decoded_tokens"] / slot_rounds
+
+
+def check_serve_spec(torch, cfg, params, prompts) -> list:
+    """The serve phase's 1b model and 32 prompts, bf16 dense pool, plain
+    (``MAX_NEW`` - 1 ticks a block) and speculative (k = ``SPEC_K``,
+    ``SPEC_ROUNDS`` rounds a block) with the perfect draft and the
+    12-layer self-draft, in turns: plain, perfect, self, self, perfect,
+    plain; then the self-draft's 12 layers served plainly (t_draft).
+    Each run: ``serve``'s checks (K1 = (24 + draft layers) x prefills on
+    the tensor cores, K4 = K5 = 0), commits and token 0 equal to the
+    first plain run's, proposals made. bench_spec's cost terms from the
+    host-observed tick-block times: t_target and t_draft (ms a plain
+    tick), c = t_draft / t_target, t_round (ms a self-draft round) and
+    v = (t_round - (k + 1) t_draft) / t_target."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.models.spec_decode import truncated_draft
+    from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
+
+    t0 = time.perf_counter()
+    spec = dict(server_cls=SpecStreamingGenerator, k=SPEC_K, ticks_per_sync=SPEC_ROUNDS)
+    runs = {"plain": {}, "perfect": dict(spec, draft_params=params, draft_cfg=cfg),
+            "self": spec}
+    rows, plain = [], None
+    for name in ("plain", "perfect", "self", "self", "perfect", "plain"):
+        outs, row = serve(torch, cfg, params, prompts, None, **runs[name])
+        row.update(phase="serve_spec", run=name,
+                   draft_layers=row.get("spec", {}).get("draft_layers"),
+                   ticks_per_sync=SPEC_ROUNDS if name != "plain" else MAX_NEW - 1)
+        _spec_fields(row, row["ticks_per_sync"])
+        if plain is None:
+            plain = (outs, row)
+        _against_plain(np, f"serve_spec {name}", outs, row, *plain, exact=False)
+        rows.append(row)
+    dparams, dcfg = truncated_draft(params, cfg, cfg.n_layers // 2)
+    _, row_d = serve(torch, dcfg, dparams, prompts, None)
+    row_d.update(phase="serve_spec", run="draft_alone", model=f"1b, first {dcfg.n_layers} layers",
+                 ticks_per_sync=MAX_NEW - 1)
+    _spec_fields(row_d, MAX_NEW - 1)
+    rows.append(row_d)
+
+    def mean(name, key):
+        return statistics.mean(r[key] for r in rows if r["run"] == name)
+
+    t_target, t_draft = mean("plain", "ms_per_round_p50"), row_d["ms_per_round_p50"]
+    t_round = mean("self", "ms_per_round_p50")
+    rows.append({
+        "phase": "serve_spec_summary", "k": SPEC_K, "rounds_per_block": SPEC_ROUNDS,
+        "draft_layers": cfg.n_layers // 2,
+        "tokens_per_s": {n: [r["tokens_per_s"] for r in rows if r["run"] == n]
+                         for n in ("plain", "perfect", "self", "draft_alone")},
+        "acceptance": {n: [r["spec"]["acceptance"] for r in rows if r["run"] == n]
+                       for n in ("perfect", "self")},
+        "t_target_ms": t_target, "t_draft_ms": t_draft, "c": t_draft / t_target,
+        "t_round_ms": t_round, "v": (t_round - (SPEC_K + 1) * t_draft) / t_target,
+        "seconds": time.perf_counter() - t0, "nvidia_smi": smi_line(),
+    })
+    return rows
+
+
+def check_serve_spec_paged(torch, cfg, params) -> list:
+    """serve_paged's 48-prompt tenant stream through the bf16 compute-dtype
+    paged chunked pool (blocks of 16), plain and then speculative
+    (self-draft, k = ``SPEC_K``): ``serve_paged``'s checks (prefix hits,
+    fewer prefill tokens than 48 x 128, K1 = K4 = K5 = 0), commits and
+    token 0 equal, proposals made."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
+
+    t0 = time.perf_counter()
+    prompts, keys = tenant_prompts(np, cfg.vocab_size)
+    outs_p, row_p, _ = serve_paged(torch, cfg, params, prompts, keys, kv_dtype=None)
+    outs_s, row_s, _ = serve_paged(torch, cfg, params, prompts, keys, kv_dtype=None,
+                                   server_cls=SpecStreamingGenerator, k=SPEC_K)
+    for run, row in (("plain", row_p), ("self", row_s)):
+        row.update(phase="serve_spec_paged", run=run)
+        _spec_fields(row, row["ticks_per_sync"])
+    _against_plain(np, "serve_spec_paged", outs_s, row_s, outs_p, row_p, exact=False)
+    row_s["seconds"] = time.perf_counter() - t0
+    return [row_p, row_s]
+
+
+def check_serve_spec_f32(torch, cfg, params) -> list:
+    """At 1b width, 2 layers, f32: 32 prompts served plainly on the dense
+    pool, then speculatively (k = ``SPEC_K``) with the perfect draft and
+    the 1-layer self-draft on the dense, the legacy paged
+    (``prefill_chunk=0``) and the chunked paged pool: every token and
+    watermark equal to the plain run's, the perfect draft's α 1.0. Then
+    ``serve_resume`` greedy through the speculative server on the dense
+    and the chunked paged pool: both recoveries equal the uncut run."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.kvcache import PagedKVConfig
+    from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
+
+    t0 = time.perf_counter()
+    prompts = np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, (32, 128), dtype=np.int32)
+    nblk = -(-(128 + MAX_NEW + SPEC_K) // PAGED_BS)
+
+    def pages(chunk):
+        return PagedKVConfig(block_size=PAGED_BS, num_blocks=16 * nblk + 25,
+                             prefill_chunk=chunk)
+
+    plain_outs, plain_row = serve(torch, cfg, params, prompts, None)
+    rows = []
+    for pool, kv_pages in (("dense", None), ("paged_legacy", pages(0)),
+                           ("paged_chunked", pages(None))):
+        for draft, dkw in (("perfect", dict(draft_params=params, draft_cfg=cfg)),
+                           ("self", dict(draft_layers=1))):
+            outs, row = serve(torch, cfg, params, prompts, None,
+                              server_cls=SpecStreamingGenerator, k=SPEC_K,
+                              ticks_per_sync=SPEC_ROUNDS, kv_pages=kv_pages, **dkw)
+            row.update(phase="serve_spec_f32", model=f"1b width, {cfg.n_layers} layers",
+                       dtype="float32", pool=pool, run=draft)
+            _spec_fields(row, SPEC_ROUNDS)
+            _against_plain(np, f"serve_spec_f32 {pool} {draft}", outs, row, plain_outs,
+                           plain_row, exact=True)
+            if draft == "perfect" and row["spec"]["acceptance"] != 1.0:
+                raise AssertionError(f"serve_spec_f32 {pool}: perfect draft α {row['spec']}")
+            rows.append(row)
+    for pool in (None, pages(None)):
+        row = serve_resume(torch, cfg, params, prompts, pages=pool, sampled=False,
+                           server_cls=SpecStreamingGenerator, phase="serve_spec_f32",
+                           k=SPEC_K)
+        if not (row["warm_equals_uncut"] and row["cold_equals_uncut"]):
+            raise AssertionError(f"serve_spec_f32 resume: {row}")
+        row["run"] = "resume"
+        rows.append(row)
+    rows[-1]["seconds"] = time.perf_counter() - t0
     return rows
 
 
@@ -3012,6 +3244,11 @@ def main() -> int:
     for row in rows_ti:
         emit(row)
     emit(sum_ti)
+    rows_sp = check_serve_spec(torch, cfg, params, prompts)
+    for row in rows_sp:
+        emit(row)
+    for row in check_serve_spec_paged(torch, cfg, params):
+        emit(row)
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
@@ -3028,6 +3265,8 @@ def main() -> int:
     for row in check_serve_resume_f32(torch, cfg32, params32):
         emit(row)
     for row in check_serve_tiered_f32(torch, cfg32, params32):
+        emit(row)
+    for row in check_serve_spec_f32(torch, cfg32, params32):
         emit(row)
     del params32
     torch.cuda.empty_cache()
@@ -3085,6 +3324,8 @@ def main() -> int:
          "train_launches": row_t["launches"]["flash_fwd"],
          "train_tc_launches": row_t["tc_launches"]["flash_fwd"],
          "resume_launches": row_r["warm"]["launches"]["flash_fwd"],
+         "spec_launches": [r["launches"]["flash_fwd"] for r in rows_sp
+                           if r.get("spec") is not None],
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},

@@ -4,10 +4,11 @@
   (``TestDecodeJournal``, ``TestCrashPoints``) run over the port: the
   module's source is loaded with the package name re-rooted onto
   ``torchkafka_tpu_torch`` and the two classes are collected here. Its
-  speculative-serving and fleet cases wait for those ports (ROADMAP queue
-  A); the import of the speculative server is dropped from the source.
+  fleet cases wait for the fleet's port (ROADMAP queue A).
 - The warm-failover differential, ``test_journal.py``'s ``_kill_run``
-  driven through both packages from the same parameters at f32: a first
+  driven through both packages from the same parameters at f32, with the
+  plain and the speculative server (greedy, dense and chunked paged; a
+  resume prefills both models' cache rows): a first
   server journals, decodes a few ticks and dies without committing or
   flushing; a second one, hinted from the journal file on disk, serves
   everything. Completions, committed watermarks, the journal counters and
@@ -34,20 +35,19 @@ import torchkafka_tpu_torch as ptk
 from torchkafka_tpu.journal import DecodeJournal as JaxJournal
 from torchkafka_tpu.models import transformer as jt
 from torchkafka_tpu.serve import StreamingGenerator as JaxServer
+from torchkafka_tpu.serve_spec import SpecStreamingGenerator as JaxSpec
 from torchkafka_tpu_torch.journal import DecodeJournal, JournalEntry, value_crc
 from torchkafka_tpu_torch.models import transformer as pt
 from torchkafka_tpu_torch.serve import StreamingGenerator
+from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
 from torchkafka_tpu_torch.utils import prng
 
 _REF = pathlib.Path(__file__).with_name("test_journal.py")
 _mod = types.ModuleType("_port_journal")
 _mod.__file__ = str(_REF)
 sys.modules[_mod.__name__] = _mod
-_src = _REF.read_text().replace(
-    "from torchkafka_tpu.serve_spec import SpecStreamingGenerator\n", ""
-)
-exec(compile(_src.replace("torchkafka_tpu", "torchkafka_tpu_torch"), str(_REF),
-             "exec"), _mod.__dict__)
+exec(compile(_REF.read_text().replace("torchkafka_tpu", "torchkafka_tpu_torch"),
+             str(_REF), "exec"), _mod.__dict__)
 assert _mod.tk is ptk and _mod.DecodeJournal is DecodeJournal
 
 TestDecodeJournal = _mod.TestDecodeJournal
@@ -61,6 +61,7 @@ PAGES = {"block_size": 4, "num_blocks": SLOTS * -(-(P + MAX_NEW) // 4) + 9}
 SAMPLED = {"temperature": 0.9, "top_k": 16, "rng": 11}
 PAGED_SAMPLED = {"temperature": 0.7, "top_p": 0.9, "rng": 5}
 PKG = {"jax": (tk, JaxServer, JaxJournal), "port": (ptk, StreamingGenerator, DecodeJournal)}
+SPEC = {"jax": JaxSpec, "port": SpecStreamingGenerator}
 
 
 @pytest.fixture(scope="module")
@@ -122,9 +123,12 @@ def _kill_run(pkg, model, jpath, cadence, kill_steps=KILL_STEPS, *, warm=True,
     close, commit or flush; the second, hinted from the journal on disk
     (``hints_from``: another file, loaded by ``pkg``'s journal) when
     ``warm``, serves everything, with ``resume_kw`` over the first's
-    arguments. Returns (completions, watermarks, journal counters, the
-    dying server's journal bytes)."""
+    arguments; ``spec=True``: the speculative server. Returns
+    (completions, watermarks, journal counters, the dying server's journal
+    bytes)."""
     mod, Server, Journal = PKG[pkg]
+    if kw.pop("spec", False):
+        Server = SPEC[pkg]
     cfg, params = model[pkg]
     broker = mod.InMemoryBroker()
     _produce(broker, n)
@@ -226,6 +230,20 @@ def test_sampled_paged_matches_jax(model, jax_runs, tmp_path):
     count = _differential(model, jax_runs, tmp_path, 4, kv_pages=PAGES,
                           **PAGED_SAMPLED)
     assert count["warm_resumes"] > 0
+
+
+@pytest.mark.parametrize("pages", [None, PAGES], ids=["dense", "paged"])
+def test_spec_matches_jax(model, jax_runs, tmp_path, pages):
+    """``test_journal.py``'s two speculative cases: the dense resume
+    prefills both models' cache rows, the paged one rides the chunk queue
+    through both models' pools, and accept/rollback continues from the
+    journaled position. The completions and watermarks also equal the
+    plain server's uncut run."""
+    kw = {"kv_pages": pages} if pages else {}
+    count = _differential(model, jax_runs, tmp_path, 4, spec=True, k=2, **kw)
+    assert count["warm_resumes"] > 0
+    (got, wm, _, _), _ = jax_runs.kill(4, spec=True, k=2, **kw)
+    assert (got, wm) == jax_runs.ref()
 
 
 @pytest.mark.parametrize("pages", [None, {**PAGES, "prefill_chunk": None}],

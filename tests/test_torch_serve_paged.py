@@ -20,6 +20,7 @@ from torchkafka_tpu.serve import StreamingGenerator as JaxServer
 from torchkafka_tpu_torch import serve as port_serve
 from torchkafka_tpu_torch.models import transformer as pt
 from torchkafka_tpu_torch.serve import StreamingGenerator
+from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
 from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
 from torchkafka_tpu_torch.source.records import TopicPartition
 
@@ -194,10 +195,11 @@ def test_kernel_reads_every_decode_only_tick(model, monkeypatch):
     assert len(calls) == SHAPE["n_layers"] * (m["decode_ticks"] - chunk_ticks) > 0
 
 
-@pytest.mark.parametrize("kv_dtype,tiered", [
-    (None, False), ("int8", False), (None, True), ("int8", True),
-], ids=["None", "int8", "None-tiered", "int8-tiered"])
-def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered):
+@pytest.mark.parametrize("kv_dtype,tiered,spec", [
+    (None, False, False), ("int8", False, False), (None, True, False),
+    ("int8", True, False), (None, False, True),
+], ids=["None", "int8", "None-tiered", "int8-tiered", "spec"])
+def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec):
     """The sink invariant as an asserted property: after every admission,
     poison EVERY pool position except the live slots' readable prefix —
     freed blocks re-allocated later, the sink block, each slot's
@@ -209,7 +211,13 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered):
     spare block, so cached prefixes are demoted to the host tier and
     promoted back into recycled blocks; the blocks the radix tree holds
     in the pool are spared too (they are readable by a later match), and
-    every promotion must overwrite its poisoned block whole."""
+    every promotion must overwrite its poisoned block whole.
+
+    Spec: the speculative server (k=2), whose four pools (target and
+    draft) are all poisoned; the verify and the draft write past the
+    watermark, and inactive rows write k+1 positions into the sink. The
+    counters must be equal too: the draft's pools decide only the
+    acceptance."""
     _, _, pcfg, params, _, _ = model
     if tiered:
         families = np.random.default_rng(9).integers(
@@ -219,7 +227,8 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered):
         prompts = np.random.default_rng(9).integers(0, SHAPE["vocab_size"], (6, P),
                                                     dtype=np.int32)
     tier = {"kv_tier": {"capacity_bytes": 1 << 20}} if tiered else {}
-    promotions = []
+    extra = {"k": 2} if spec else {}
+    promotions, stats = [], []
 
     def drive(poison):
         broker = InMemoryBroker()
@@ -227,10 +236,11 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered):
         for i in range(len(prompts)):
             broker.produce("p", prompts[i].tobytes(), partition=i % 2)
         consumer = MemoryConsumer(broker, "p", group_id="gs")
-        server = StreamingGenerator(
+        server = (SpecStreamingGenerator if spec else StreamingGenerator)(
             consumer, params, pcfg, slots=2, prompt_len=P, max_new=MAX_NEW,
             ticks_per_sync=TICKS, kv_dtype=kv_dtype,
-            kv_pages={"block_size": BS, "num_blocks": 14}, device="cpu", **tier,
+            kv_pages={"block_size": BS, "num_blocks": 15 if spec else 14},
+            device="cpu", **tier, **extra,
         )
         out = {}
         while len(out) < len(prompts):
@@ -245,12 +255,16 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered):
         server.flush_commits()
         consumer.close()
         promotions.append(server.metrics.summary()["prefix_cache"]["tier"]["promotions"])
+        if spec:
+            stats.append(server.spec_stats())
         return out
 
     got, ref = drive(True), drive(False)
     assert len(ref) == len(prompts) and got == ref
     if tiered:
         assert promotions[0] > 0 and promotions[0] == promotions[1]
+    if spec:  # a stale draft read would move the acceptance, not the tokens
+        assert stats[0] == stats[1] and stats[0]["proposed"] > 0
 
 
 def _radix_blocks(s):
@@ -275,7 +289,7 @@ def _poison(s, keep_cached=False):
             for p in range(int(pos[i])):  # readable: [0, pos)
                 keep[s._table_np[i, p // BS], p % BS] = True
     stale = torch.from_numpy(~keep)
-    if len(s._pools) == 2:  # compute dtype: [L, NB, bs, K, Dh]
+    if s._pools[0].dtype != torch.int8:  # compute dtype: [L, NB, bs, K, Dh]
         for pool in s._pools:
             pool[:, stale] = 1e9
     else:  # int8, K-major per block: [L, NB, K, bs, (Dh)]

@@ -304,6 +304,33 @@ def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg, kernel)
                           k_scale=ck_s, v_scale=cv_s)
 
 
+def _paged_sweep(x, positions, tables, layers, pools, cfg, *, kernel=False,
+                 pos_b=None):
+    """All layers' write-then-attend over a paged pool for a batch of query
+    rows. x: [R, S, D]; positions: [R, S]; tables: [R, nblk] PER-ROW block
+    tables (decode rows carry the slot table, chunk rows their own freshly
+    linked rows), so one call serves any mix. ``layers``: one model's
+    layer views; ``pools``: that model's pools, [L, NB, ...] each (two in
+    the compute dtype, or the int8 pool's four). ``kernel``: S=1 rows read
+    through the block-table kernel at watermarks ``pos_b`` (int8 pool
+    only)."""
+    int8 = pools[0].dtype == torch.int8
+    for i, layer in enumerate(layers):
+        q, k, v = _project_qkv(x, layer, cfg)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        pl = [p[i] for p in pools]
+        if kernel:
+            paged_write_q8(*pl, tables, positions, k, v)
+            attn = int8_paged_decode_attention(q, *pl, tables, pos_b)
+            x = _attn_tail(x, attn, layer, cfg)
+        elif int8:
+            x = block_table_attention_q8(x, q, k, v, *pl, tables, positions, layer, cfg)
+        else:
+            x = block_table_attention(x, q, k, v, *pl, tables, positions, layer, cfg)
+    return x
+
+
 class ServeMetrics:
     """Observability for the serving loop: the JAX package's
     ``ServeMetrics`` (same counters, ``summary()`` keys and Prometheus
@@ -1123,33 +1150,6 @@ class StreamingGenerator:
             self._kv_alloc.decref(row)
         self._table_np[i, :] = SINK_BLOCK
 
-    def _paged_layers(self, x, positions, tables, *, kernel=False, pos_b=None):
-        """All layers' write-then-attend over the paged pool for a batch of
-        query rows. x: [R, S, D]; positions: [R, S]; tables: [R, nblk] PER-
-        ROW block tables (decode rows carry the slot table, chunk rows
-        their own freshly linked rows), so one call serves any mix.
-        ``kernel``: S=1 rows read through the block-table kernel at
-        watermarks ``pos_b`` (int8 pool only)."""
-        cfg = self._cfg
-        for i, layer in enumerate(self._layers):
-            q, k, v = _project_qkv(x, layer, cfg)
-            q = _rope(q, positions, cfg.rope_theta)
-            k = _rope(k, positions, cfg.rope_theta)
-            pools = [p[i] for p in self._pools]
-            if kernel:
-                paged_write_q8(*pools, tables, positions, k, v)
-                attn = int8_paged_decode_attention(q, *pools, tables, pos_b)
-                x = _attn_tail(x, attn, layer, cfg)
-            elif self._kv_int8:
-                x = block_table_attention_q8(
-                    x, q, k, v, *pools, tables, positions, layer, cfg
-                )
-            else:
-                x = block_table_attention(
-                    x, q, k, v, *pools, tables, positions, layer, cfg
-                )
-        return x
-
     def _head(self, x_last) -> torch.Tensor:
         """Final norm + LM head on [R, D] rows → f32 logits [R, V]."""
         x = _rms_norm(x_last, self._params["ln_f"])
@@ -1169,7 +1169,8 @@ class StreamingGenerator:
         x = self._embed(self._h2d(toks)[None, :])  # [1, S, D]
         positions = (start + torch.arange(s, device=self._device))[None, :]
         table = self._h2d(table_row)[None, :]
-        x = self._paged_layers(x, positions.to(torch.int32), table)
+        x = _paged_sweep(x, positions.to(torch.int32), table, self._layers,
+                         self._pools, self._cfg)
         return self._head(x[:, -1])
 
     def _pack_chunk(self):
@@ -1512,9 +1513,9 @@ class StreamingGenerator:
         cfg = self._cfg
         x = self._embed(last_tok)[:, None, :]
         if self._kv_pages is not None:
-            x = self._paged_layers(
-                x, pos[:, None], self._table_dev, kernel=self._kv_backend.kernel,
-                pos_b=pos,
+            x = _paged_sweep(
+                x, pos[:, None], self._table_dev, self._layers, self._pools, cfg,
+                kernel=self._kv_backend.kernel, pos_b=pos,
             )
             return self._head(x[:, 0])
         c = self._caches
@@ -1568,7 +1569,7 @@ class StreamingGenerator:
         decode-only, and finally token 0 of every slot whose suffix
         completed (``fin_mask``; its last token at chunk row ``fin_row``)
         is merged in, ready to decode in the next tick block."""
-        B, P = self._slots, self._prompt_len
+        B = self._slots
         dev = self._device
         last_tok, pos, gen = self._last_tok, self._pos, self._gen
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -1577,9 +1578,10 @@ class StreamingGenerator:
         if chunk is not None:
             ctok, ctable, cpos, fin_mask, fin_row = chunk
             x = self._embed(torch.cat([last_tok, ctok]))[:, None, :]
-            x = self._paged_layers(
+            x = _paged_sweep(
                 x, torch.cat([pos, cpos])[:, None],
-                torch.cat([self._table_dev, ctable]),
+                torch.cat([self._table_dev, ctable]), self._layers, self._pools,
+                self._cfg,
             )
             logits = self._head(x[:, 0])  # [B + C, V]
             chunk_logits = logits[B:]
@@ -1594,14 +1596,25 @@ class StreamingGenerator:
                 logits, act, last_tok, pos, gen, done, n_out
             )
         if chunk is not None:
-            tok0 = self._pick(chunk_logits[fin_row], self._slot_keys)
-            last_tok = torch.where(fin_mask, tok0, last_tok)
-            pos = torch.where(fin_mask, P, pos)
-            col0 = torch.where(fin_mask, tok0, gen[:, 0])
-            gen = torch.where(fin_mask[:, None], 0, gen)
-            gen[:, 0] = col0
+            last_tok, pos, gen = self._merge_chunk_token0(
+                chunk_logits, fin_mask, fin_row, last_tok, pos, gen
+            )
         self._last_tok, self._pos, self._gen = last_tok, pos, gen
         return done, n_out
+
+    def _merge_chunk_token0(self, chunk_logits, fin_mask, fin_row, last_tok,
+                            pos, gen):
+        """Token 0 of every slot whose suffix completed in this tick's chunk
+        (``fin_mask``; its last token at chunk row ``fin_row`` of
+        ``chunk_logits`` [C, V]) merged into the slot state (last token,
+        pos, gen), ready to decode in the next tick block."""
+        tok0 = self._pick(chunk_logits[fin_row], self._slot_keys)
+        last_tok = torch.where(fin_mask, tok0, last_tok)
+        pos = torch.where(fin_mask, self._prompt_len, pos)
+        col0 = torch.where(fin_mask, tok0, gen[:, 0])
+        gen = torch.where(fin_mask[:, None], 0, gen)
+        gen[:, 0] = col0
+        return last_tok, pos, gen
 
     def warmup(self) -> None:
         """Load the kernels and warm the library handles before the first
