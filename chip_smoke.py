@@ -163,9 +163,10 @@ Phases, each printing one JSON line:
    (``max_new_of``). The pool keeps about 20 tenants' prefixes (in-flight
    slots share their tenant's 6 prefix blocks), so the Zipf tail's
    revisits find their prefix evicted; a block's int8 payload is 811,008
-   bytes. Runs: (HBM only, ``kv_tier={"capacity_bytes": 1 << 30}``, the
-   tier again, HBM only) x ``--tier-rounds`` (default 1); every run
-   traced. Held: every run commits the end offsets; the tier runs make
+   bytes. Runs: (HBM only, ``kv_tier={"capacity_bytes": 1 << 30}``) x
+   ``--tier-rounds`` (default 1; two of each in turns before the fleet
+   phases took their time); every run traced. Held: every run commits
+   the end offsets; the tier runs make
    more prefix hits and prefill fewer tokens than the HBM-only runs,
    demote and promote (tier hits == promotions) within capacity; each odd
    tenant's completion has exactly 32 tokens and ``output_capped`` counts
@@ -205,8 +206,9 @@ Phases, each printing one JSON line:
    pool, served plainly (63 ticks a block) and by
    ``SpecStreamingGenerator`` (k = 4, 13 rounds a block: harness scenario
    7 ``--spec``) with the perfect draft (the target itself) and the
-   12-layer self-draft, in turns: plain, perfect, self, self, perfect,
-   plain; then the self-draft's 12 layers served plainly. Each run:
+   12-layer self-draft, in turns: plain, perfect, self, plain (the
+   second speculative pair was cut for time); then the self-draft's 12
+   layers served plainly. Each run:
    32/32 completions of 64 tokens, committed == end offsets and equal to
    the first plain run's, token 0 identical to it, K1 = (24 + draft
    layers) x prefills all on the tensor cores, K4 = K5 = 0, proposals
@@ -228,6 +230,58 @@ Phases, each printing one JSON line:
    perfect draft's α 1.0; then serve_resume's killed-and-resumed
    exactly-once run, greedy, through the speculative server on the dense
    and the chunked paged pool: both recoveries equal the uncut run;
+8f. serve_fleet: harness scenario 10 at 1b on the card: 64 prompts of
+   128 tokens keyed ``throttled`` (lane batch, every third) and ``open``
+   (lane interactive), which keyed production puts on partitions 3 and 0
+   of 4; a 2-replica ``fleet.ServingFleet`` of 8 slots each on the int8
+   pool (K1 + K4), ``QoSConfig(tenant_rates={"throttled": 4.0},
+   burst=1.0, max_queue_depth=64, resume_queue_depth=16)``, commits every
+   4 completions, 8 ticks a block, a ``journal_dir`` and one seeded
+   ``ReplicaChaos`` kill, every commit audited against the completions
+   the fleet registered; the QoS clock is synthetic (0.4 s a scheduling
+   round, about what a round of two 1b replicas takes), so the schedule
+   and the kill repeat exactly. In turns with a 16-slot single server on
+   the same stream: single, fleet, fleet, single. Held: every prompt
+   served at least once, committed == end offsets and equal to the
+   single server's, the merged ``watermarks()`` equal to the broker's,
+   at least one duplicate and one journal handoff, the survivor served
+   or resumed at least one record from the victim's journal, token 0 of
+   every copy equal to the single server's, K1 = 24 x (prefills + warm
+   resumes) and K4 = 24 x decode ticks summed over the replicas. Then a
+   drain after 32 completions and a second fleet on the same group:
+   every prompt once, none by both. Memory: one 8-slot server's bytes
+   against a 2-replica fleet's (the second replica adds its pool, not a
+   copy of the weights). Printed: tok/s of each run, per-replica
+   completions, duplicates, tokens restored and decoded again, lane
+   waits (synthetic seconds), backpressure pauses, commit p50/p99;
+8f'. serve_fleet_rollout: the same fleet without the kill and an output
+   topic whose values name their prompt: (a) an in-process rollout to
+   version 1 = the same weights (canary slice 8, no diff allowed) must
+   promote on both replicas; (b) version 1 = weights of another seed
+   (canary slice 2) must roll back with no output of version 1 ever
+   produced; two thirds
+   of the stream arrive before the rollout, the rest after it is done.
+   (c) The weights of another seed published with ``publish_checkpoint``
+   (~2.5 GB), fetched CRC-checked by a ``RolloutWorker`` on each replica
+   under a ``BrokerRolloutDriver`` (canary gate open) and rebuilt onto
+   the card bitwise equal; served after the swap. Every commit is
+   recorded with the version live on its replica, and in every run each
+   output record's ``mv`` header is the version of the commit that closed
+   its prompt's window; K1/K4 hold over the replicas and the canary
+   shadows. Printed: publish and
+   fetch+rebuild seconds, ``swap_params`` ms, and first a
+   ``batch_invariance`` line: whether a record's prefill logits and k/v
+   are bitwise the same alone as in a batch of 8, and a head GEMM row at
+   M = 1 as at M = 8;
+8f''. serve_fleet_f32: 1b width, 2 layers, f32: the single server against
+   the killed, journaled fleet on the compute-dtype pool (partial hints
+   resume warm): every token of every copy equal; a clean rollout's
+   outputs equal the fleet's without one; a speculative fleet (k = 4, the
+   perfect draft) publishing each committed completion to a distill topic
+   (frames == completions, each its prompt and tokens), then a draft
+   refresh through ``start_distill`` during a kill: every completion
+   equal; a ``FleetAutoscaler`` loop driven by ``WorkloadGenerator``
+   under a ``ManualClock`` scales up and down and replays byte for byte;
 8d. serve_8b: harness scenario 7 at the 8b scale with an output topic
    (BASELINE config 5), full width and depth, random int8 weights made on
    the card from a seed: 48 prompts of 128 tokens produced round-robin on
@@ -244,7 +298,8 @@ Phases, each printing one JSON line:
 8e. serve_8b_f32: the same stream and checks at 8b width, 2 layers, f32
    compute over the int8 weights, through K4 and through the plain M-major
    read: every token identical;
-9. kernels: one line for every ported kernel (all eight);
+9. kernels: one line for every ported kernel (all eight; K1 and K4 with
+   the fleet runs' launches, ``fleet_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Float32 matmuls run in full precision (TF32 off for matmul and cuDNN).
@@ -1852,7 +1907,7 @@ def matmul_rows_witness(torch, cfg, params) -> dict:
 
 
 def check_serve_tiered(torch, cfg, params, rounds: int = 1) -> tuple[list, dict]:
-    """The 1b tiered serve: (HBM only, tier, tier, HBM only) x ``rounds``
+    """The 1b tiered serve: (HBM only, tier) x ``rounds``
     in one call over ``TIER_PROMPTS`` records. Every run commits the same
     offsets; the tier runs hit the prefix cache more often and prefill
     fewer tokens than the HBM-only runs, demote and promote (tier hits ==
@@ -1866,7 +1921,7 @@ def check_serve_tiered(torch, cfg, params, rounds: int = 1) -> tuple[list, dict]
     prompts, keys, picks = zipf_tenant_prompts(np, cfg.vocab_size)
     rows, outs = [], []
     round_trip = None
-    for tiered in (False, True, True, False) * rounds:
+    for tiered in (False, True) * rounds:
         o, row, server = _tier_run(torch, cfg, params, prompts, keys,
                                    kv_tier=TIER if tiered else None)
         if tiered and round_trip is None:
@@ -1902,7 +1957,7 @@ def check_serve_tiered(torch, cfg, params, rounds: int = 1) -> tuple[list, dict]
         pair = [_tier_run(torch, cfg, params, witness_prompts, witness_keys, kv_tier=t,
                           kv_kernel=kernel)[0] for t in (None, TIER)]
         witness["k5" if kernel else "gathered"] = _agreement(np, *pair)
-    summary = {"phase": "serve_tiered", "runs": f"(HBM, tier, tier, HBM) x {rounds}",
+    summary = {"phase": "serve_tiered", "runs": f"(HBM, tier) x {rounds}",
                "prompts": len(keys), "commits_identical": True,
                "hit_rate": {"hbm": [r["hit_rate"] for r in hbm],
                             "tier": [r["hit_rate"] for r in tier]},
@@ -2767,8 +2822,9 @@ def check_serve_spec(torch, cfg, params, prompts) -> list:
     """The serve phase's 1b model and 32 prompts, bf16 dense pool, plain
     (``MAX_NEW`` - 1 ticks a block) and speculative (k = ``SPEC_K``,
     ``SPEC_ROUNDS`` rounds a block) with the perfect draft and the
-    12-layer self-draft, in turns: plain, perfect, self, self, perfect,
-    plain; then the self-draft's 12 layers served plainly (t_draft).
+    12-layer self-draft, in turns: plain, perfect, self, plain (two more
+    speculative turns before the fleet phases took their time); then the
+    self-draft's 12 layers served plainly (t_draft).
     Each run: ``serve``'s checks (K1 = (24 + draft layers) x prefills on
     the tensor cores, K4 = K5 = 0), commits and token 0 equal to the
     first plain run's, proposals made. bench_spec's cost terms from the
@@ -2785,7 +2841,7 @@ def check_serve_spec(torch, cfg, params, prompts) -> list:
     runs = {"plain": {}, "perfect": dict(spec, draft_params=params, draft_cfg=cfg),
             "self": spec}
     rows, plain = [], None
-    for name in ("plain", "perfect", "self", "self", "perfect", "plain"):
+    for name in ("plain", "perfect", "self", "plain"):
         outs, row = serve(torch, cfg, params, prompts, None, **runs[name])
         row.update(phase="serve_spec", run=name,
                    draft_layers=row.get("spec", {}).get("draft_layers"),
@@ -2892,6 +2948,791 @@ def check_serve_spec_f32(torch, cfg, params) -> list:
         row["run"] = "resume"
         rows.append(row)
     rows[-1]["seconds"] = time.perf_counter() - t0
+    return rows
+
+
+# ---------------------------------------------------------------- the fleet
+
+FLEET_N = 64  # scenario 10's stream at 1b: 64 prompts of 128 tokens
+FLEET_PARTS = 4
+FLEET_SLOTS = 8  # each of the two replicas; the single server has 16
+FLEET_COMMIT = 4  # completions a replica commits at
+FLEET_TICKS = 8  # decode ticks a block, in the fleet and the single server
+FLEET_DT = 0.4  # synthetic seconds a scheduling round: ~ two replicas x 8 ticks at 1b
+FLEET_QOS = dict(tenant_rates={"throttled": 4.0}, burst=1.0, max_queue_depth=64,
+                 resume_queue_depth=16)
+FLEET_CHAOS = dict(seed=2, min_completions=40, max_completions=48)
+FLEET_CANARY = 8  # canary slice: completions the candidate shadow-decodes
+
+
+class RoundClock:
+    """The fleet's synthetic clock: ``FLEET_DT`` a scheduling round,
+    advanced by the serve loop's ``on_round``. The token buckets and lane
+    waits read it, so the admission schedule, the completion order and the
+    seeded kill's victim and moment are the same in every run, on any
+    device (no EOS: a slot's length never depends on its tokens)."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def on_round(self, _fleet, _served) -> None:
+        self.t += FLEET_DT
+
+
+def fleet_stream(np, vocab: int, n: int = FLEET_N, plen: int = 128):
+    """Scenario 10's stream: every third prompt keyed ``throttled`` (lane
+    batch), the others ``open`` (lane interactive); keyed production puts
+    the two tenants on partitions 3 and 0 of 4 (crc32), one per replica."""
+    prompts = np.random.default_rng(SEED + 21).integers(0, vocab, (n, plen),
+                                                        dtype=np.int32)
+    return prompts, [b"throttled" if i % 3 == 0 else b"open" for i in range(n)]
+
+
+def produce_stream(broker, topic: str, prompts, keys, start: int = 0,
+                   stop: int | None = None) -> dict:
+    """Produce prompts [start, stop) of the stream keyed (the topic is made
+    at ``start`` 0); → {(partition, offset): prompt index}."""
+    if start == 0:
+        broker.create_topic(topic, partitions=FLEET_PARTS)
+    where = {}
+    for i in range(start, len(keys) if stop is None else stop):
+        key = keys[i]
+        lane = b"batch" if key == b"throttled" else b"interactive"
+        rec = broker.produce(topic, prompts[i].tobytes(), key=key,
+                             headers=(("lane", lane),))
+        where[(rec.partition, rec.offset)] = i
+    return where
+
+
+def _zero_launches():
+    from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
+    from torchkafka_tpu_torch.ops.kvattn import (
+        int8_decode_attention_dynlen,
+        int8_paged_decode_attention,
+    )
+
+    fns = {"flash_fwd": flash_fwd_bhsd, "kvattn_dynlen": int8_decode_attention_dynlen,
+           "kvattn_paged": int8_paged_decode_attention}
+    for fn in fns.values():
+        fn.launches = 0
+    flash_fwd_bhsd.tc_launches = 0
+
+    def read() -> dict:
+        out = {k: fn.launches for k, fn in fns.items()}
+        out["flash_fwd_tc"] = flash_fwd_bhsd.tc_launches
+        return out
+
+    return read
+
+
+def _check_launches(what, cfg, launches, gens, shadows=(), cuda=True) -> dict:
+    """K1 = layers x (prefills + warm resumes) and K4 = layers x decode
+    ticks summed over ``gens`` (replicas) and ``shadows`` (canary servers)
+    on the dense int8 pool (K4 = 0 on a compute-dtype pool); K5 = 0; bf16
+    K1 on the tensor cores. → the expected counts."""
+    import torch
+
+    nl = cfg.n_layers
+    ms = [g.metrics for g in list(gens) + list(shadows)]
+    int8 = [g._kv_int8 for g in list(gens) + list(shadows)]
+    want = {
+        "flash_fwd": nl * sum(m.prefills.count + m.warm_resumes.count for m in ms),
+        "kvattn_dynlen": nl * sum(m.decode_ticks.count for m, q in zip(ms, int8) if q),
+        "kvattn_paged": 0,
+    }
+    if not cuda:
+        return want
+    got = {k: launches[k] for k in want}
+    if got != want or want["flash_fwd"] == 0:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    if cfg.dtype == torch.bfloat16 and launches["flash_fwd_tc"] != launches["flash_fwd"]:
+        raise AssertionError(f"{what}: tensor-core K1 {launches}")
+    return want
+
+
+def fleet_single(torch, cfg, params, prompts, keys, device, kv_dtype, **kw):
+    """The 16-slot single server over the fleet's stream → ({(p, o):
+    tokens}, row)."""
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    broker = InMemoryBroker()
+    produce_stream(broker, "t10", prompts, keys)
+    consumer = MemoryConsumer(broker, "t10", group_id="single")
+    server = StreamingGenerator(
+        consumer, params, cfg, slots=2 * FLEET_SLOTS, prompt_len=prompts.shape[1],
+        max_new=MAX_NEW, commit_every=FLEET_COMMIT, ticks_per_sync=FLEET_TICKS,
+        kv_dtype=kv_dtype, kv_kernel=True if kv_dtype else "auto", device=device, **kw)
+    server.warmup()
+    read = _zero_launches()
+    t0 = time.perf_counter()
+    outs = {(r.partition, r.offset): o for r, o in server.run(max_records=len(keys))}
+    _sync(torch, device)
+    elapsed = time.perf_counter() - t0
+    launches = read()
+    consumer.close()
+    tps = [TopicPartition("t10", p) for p in range(FLEET_PARTS)]
+    committed = [broker.committed("single", tp) or 0 for tp in tps]
+    ends = [broker.end_offset(tp) for tp in tps]
+    if len(outs) != len(keys) or committed != ends:
+        raise AssertionError(f"single server: {len(outs)} completions, committed "
+                             f"{committed} != {ends}")
+    _check_launches("single server", cfg, launches, [server], cuda=device == "cuda")
+    tokens = sum(len(o) for o in outs.values())
+    return outs, {"run": "single", "slots": 2 * FLEET_SLOTS, "elapsed_s": elapsed,
+                  "tokens_per_s": tokens / elapsed, "committed": committed,
+                  "launches": launches}
+
+
+def _sync(torch, device) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def make_fleet(cfg, params, broker, plen, device, *, kv_dtype, group="fleet",
+               journal_dir=None, gen_kwargs=None, generator_cls=None):
+    """The 2-replica ``ServingFleet`` over topic "t10" of ``broker`` (8 slots
+    each, QoS in front, the synthetic round clock), every commit audited
+    (``fleet/drill.py``) and recorded with the version live on its
+    replica; commits an earlier fleet left on the group are exempt.
+    → (fleet, clock, audit)."""
+    from torchkafka_tpu_torch.fleet import QoSConfig, ServingFleet
+    from torchkafka_tpu_torch.fleet.drill import audited_consumer
+    from torchkafka_tpu_torch.source.memory import MemoryConsumer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    audit = {"completed": None, "commits": [], "floor": {
+        p: broker.committed(group, TopicPartition("t10", p)) or 0
+        for p in range(FLEET_PARTS)}}
+    cls = audited_consumer(MemoryConsumer, audit)
+    clock = RoundClock()
+    kw = {"kv_dtype": kv_dtype, "kv_kernel": True if kv_dtype else "auto",
+          "ticks_per_sync": FLEET_TICKS, "device": device, **(gen_kwargs or {})}
+    extra = {} if generator_cls is None else {"generator_cls": generator_cls}
+    fleet = ServingFleet(
+        lambda rid: cls(broker, "t10", group_id=group, member_id=f"{group}-r{rid:03d}"),
+        params, cfg, replicas=2, prompt_len=plen, max_new=MAX_NEW, slots=FLEET_SLOTS,
+        qos=QoSConfig(**FLEET_QOS), commit_every=FLEET_COMMIT, clock=clock,
+        gen_kwargs=kw, journal_dir=journal_dir, **extra)
+    audit["completed"] = fleet.completed
+    audit["version_of"] = lambda member: next(
+        r for r in fleet.replicas if f"{group}-r{r.id:03d}" == member).gen.model_version
+    return fleet, clock, audit
+
+
+def fleet_run(torch, cfg, params, prompts, keys, device, *, kv_dtype, group="fleet",
+              chaos=None, journal_dir=None, broker=None, gen_kwargs=None,
+              generator_cls=None, on_round=None, on_yield=None, stop_at=None,
+              close=True, mem=None):
+    """One serve of the stream by ``make_fleet``'s fleet. ``chaos``:
+    ``ReplicaChaos`` kwargs; ``stop_at``: drain after that many
+    completions; ``mem``: a dict that gets the bytes the fleet's build
+    allocated on the card (``fleet_bytes``). → dict(outs [(rid, p, o,
+    tokens)], fleet, broker, row, watermarks, audit)."""
+    from torchkafka_tpu_torch.fleet import ReplicaChaos
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker
+
+    if broker is None:
+        broker = InMemoryBroker()
+        produce_stream(broker, "t10", prompts, keys)
+    if mem is not None:
+        _sync(torch, device)
+        before = torch.cuda.memory_allocated()
+    fleet, clock, audit = make_fleet(cfg, params, broker, prompts.shape[1], device,
+                                     kv_dtype=kv_dtype, group=group, journal_dir=journal_dir,
+                                     gen_kwargs=gen_kwargs, generator_cls=generator_cls)
+    if mem is not None:
+        _sync(torch, device)
+        mem["fleet_bytes"] = torch.cuda.memory_allocated() - before
+    fleet.warmup()
+    killer = ReplicaChaos(**chaos) if chaos else None
+
+    def round_hook(f, served):
+        clock.on_round(f, served)
+        if on_round is not None:
+            on_round(f, served)
+
+    read = _zero_launches()
+    outs = []
+    t0 = time.perf_counter()
+    for rid, rec, toks in fleet.serve(idle_timeout_ms=500, chaos=killer,
+                                      on_round=round_hook):
+        outs.append((rid, rec.partition, rec.offset, toks))
+        if on_yield is not None:
+            on_yield(rid, rec, toks)
+        if stop_at is not None and len(outs) == stop_at:
+            fleet.drain()
+    _sync(torch, device)
+    elapsed = time.perf_counter() - t0
+    launches = read()
+    s = fleet.metrics.summary(fleet.replicas)
+    tokens = sum(len(o[3]) for o in outs)
+    row = {"run": "fleet", "replicas": 2, "slots": FLEET_SLOTS, "elapsed_s": elapsed,
+           "tokens_per_s": tokens / elapsed, "completions": len(outs),
+           "per_replica": {str(r): {"completions": v["completions"]}
+                           for r, v in s["replicas"].items()},
+           "duplicates": s["duplicates"], "replica_deaths": s["replica_deaths"],
+           "journal": s["journal"], "killed": killer.killed if killer else None,
+           "lane_wait_p50_synthetic_s": {k: v["p50_ms"] / 1e3 for k, v in s["lanes"].items()},
+           "tenants": {t: {k: v[k] for k in ("admitted", "throttled")}
+                       for t, v in s["tenants"].items()},
+           "backpressure_pauses": s["backpressure_pauses"],
+           "commit_ms": {k: s["commit"].get(k) for k in ("p50_ms", "p99_ms")},
+           "decode_ticks": sum(r.gen.metrics.decode_ticks.count for r in fleet.replicas),
+           "prefills": sum(r.gen.metrics.prefills.count for r in fleet.replicas),
+           "launches": launches}
+    watermarks = fleet.watermarks()
+    if close:
+        fleet.close()
+    return {"outs": outs, "fleet": fleet, "broker": broker, "row": row,
+            "watermarks": watermarks, "audit": audit}
+
+
+def _fleet_committed(broker, group="fleet"):
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    tps = [TopicPartition("t10", p) for p in range(FLEET_PARTS)]
+    return ([broker.committed(group, tp) or 0 for tp in tps],
+            [broker.end_offset(tp) for tp in tps])
+
+
+def _held_fleet(what, run, where, group="fleet") -> dict:
+    """Every prompt completed at least once, committed == end offsets, the
+    merged watermarks equal the broker's commits. → {(p, o): [tokens...]}."""
+    committed, ends = _fleet_committed(run["broker"], group)
+    if committed != ends:
+        raise AssertionError(f"{what}: committed {committed} != end offsets {ends}")
+    got: dict = {}
+    for _rid, p, o, toks in run["outs"]:
+        got.setdefault((p, o), []).append(toks)
+    if set(got) != set(where):
+        raise AssertionError(f"{what}: {len(set(where) - set(got))} prompts never served")
+    wm = {tp.partition: off for tp, off in run["watermarks"].items()}
+    if any(wm.get(p, 0) != committed[p] for p in range(FLEET_PARTS) if committed[p]):
+        raise AssertionError(f"{what}: merged watermarks {wm} != committed {committed}")
+    run["row"]["committed"] = committed
+    return got
+
+
+def _equal_to_single(np, what, got, single, exact: bool) -> dict:
+    """Each copy's token 0 (every token when ``exact``) equals the single
+    server's; → the agreement printed."""
+    agree = []
+    for key, copies in got.items():
+        ref = single[key]
+        for toks in copies:
+            if int(toks[0]) != int(ref[0]) or (exact and not np_equal(toks, ref)):
+                raise AssertionError(f"{what}: prompt {key} differs from the single server")
+            agree.append(float(np.mean(toks == ref)))
+    return {"token0_identical": True, "token_agreement": float(np.mean(agree))}
+
+
+def batch_invariance(torch, cfg, params) -> dict:
+    """Whether one record's prefill (logits, k, v) is bitwise the same
+    alone as in a batch of 8, and one row of the head GEMM at M = 1 as at
+    M = 8: what a canary shadow decoding one record at a time can
+    reproduce of its replica's batches (why the shadow keeps the
+    replica's slot count)."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.models.generate import prefill_capture, prefill_model
+
+    model = prefill_model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (8, 128), dtype=np.int32)).cuda()
+    with torch.inference_mode():
+        lb, kb, vb = prefill_capture(params, cfg, toks, model)
+        l1, k1, v1 = prefill_capture(params, cfg, toks[3:4], model)
+        head = params["lm_head"]
+        x = torch.randn(8, cfg.d_model, device="cuda", dtype=cfg.dtype)
+        h8 = x @ head
+        h1 = x[3:4] @ head
+    return {"phase": "batch_invariance",
+            "prefill_logits_bitwise": bool(torch.equal(lb[3:4], l1)),
+            "prefill_kv_bitwise": bool(torch.equal(kb[:, 3:4], k1) and torch.equal(vb[:, 3:4], v1)),
+            "prefill_argmax_equal": bool(torch.equal(lb[3:4].argmax(-1), l1.argmax(-1))),
+            "head_gemm_m1_vs_m8_bitwise": bool(torch.equal(h8[3:4], h1)),
+            "prefill_logits_max_abs_diff": float((lb[3:4] - l1).abs().max())}
+
+
+def check_serve_fleet(torch, cfg, params, device="cuda") -> list:
+    """Scenario 10 at 1b on one card: the single server and the 2-replica
+    fleet in turns (single, fleet, fleet, single), each fleet run with a
+    journal and one seeded kill; then a drain and a second fleet on the
+    same group. Memory: one 8-slot server against a fleet of two."""
+    import tempfile
+
+    import numpy as np
+
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+
+    t0 = time.perf_counter()
+    prompts, keys = fleet_stream(np, cfg.vocab_size)
+    where = produce_stream(InMemoryBroker(), "t10", prompts, keys)
+    rows = []
+    mem = {}
+    if device == "cuda":
+        # One 8-slot server's bytes; the first fleet run records its own
+        # build's, and the difference must be one pool: the params tree is
+        # shared by the replicas, never copied.
+        _sync(torch, device)
+        base = torch.cuda.memory_allocated()
+        b = InMemoryBroker()
+        b.create_topic("m", partitions=1)
+        one = StreamingGenerator(MemoryConsumer(b, "m", group_id="m"), params, cfg,
+                                 slots=FLEET_SLOTS, prompt_len=128, max_new=MAX_NEW,
+                                 kv_dtype="int8", kv_kernel=True, device=device)
+        mem["pool_bytes"] = sum(c.numel() * c.element_size() for c in one._caches)
+        mem["one_server_bytes"] = torch.cuda.memory_allocated() - base
+        del one
+        torch.cuda.empty_cache()
+    single = {}
+    for turn in ("single", "fleet", "fleet", "single"):
+        if turn == "single":
+            outs, row = fleet_single(torch, cfg, params, prompts, keys, device, "int8")
+            if single and any(not np_equal(outs[k], single[k]) for k in outs):
+                raise AssertionError("serve_fleet: the two single runs differ")
+            single = single or outs
+            rows.append({"phase": "serve_fleet", "model": "1b", **row})
+            continue
+        first = device == "cuda" and "fleet_bytes" not in mem
+        with tempfile.TemporaryDirectory() as jdir:
+            run = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype="int8",
+                            chaos=FLEET_CHAOS, journal_dir=jdir,
+                            mem=mem if first else None)
+        if first:
+            extra = mem["fleet_bytes"] - mem["one_server_bytes"]
+            mem["second_replica_bytes"] = extra
+            if abs(extra - mem["pool_bytes"]) > 64 << 20:  # the weights are ~2.5 GB
+                raise AssertionError(f"serve_fleet: the second replica took {extra} "
+                                     f"bytes, its pool {mem['pool_bytes']}: {mem}")
+        got = _held_fleet("serve_fleet", run, where)
+        row = run["row"]
+        j = row["journal"]
+        if row["duplicates"] < 1 or j["handoffs"] < 1 or row["replica_deaths"] != 1:
+            raise AssertionError(f"serve_fleet: the kill served no duplicate: {row}")
+        survivor = [r for r in run["fleet"].replicas if r.state != "dead"][0]
+        sj = survivor.gen.metrics.journal_summary()
+        if sj["warm_resumes"] + sj["served_from_journal"] < 1:
+            raise AssertionError(f"serve_fleet: the survivor resumed nothing warm: {sj}")
+        row["survivor_journal"] = sj
+        row["tokens_restored"] = j["tokens_restored"]
+        row["tokens_decoded_again"] = (
+            sum(r.gen.metrics.decoded_tokens.count for r in run["fleet"].replicas)
+            - len(where) * (MAX_NEW - 1))
+        row.update(_equal_to_single(np, "serve_fleet", got, single, exact=False))
+        _check_launches("serve_fleet", cfg, row["launches"],
+                        [r.gen for r in run["fleet"].replicas], cuda=device == "cuda")
+        rows.append({"phase": "serve_fleet", "model": "1b", **row})
+    # Drain after half the prompts; a second fleet on the same group.
+    b = InMemoryBroker()
+    produce_stream(b, "t10", prompts, keys)
+    first = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype="int8",
+                      broker=b, group="drain", stop_at=FLEET_N // 2)
+    states = [r.state for r in first["fleet"].replicas]
+    second = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype="int8",
+                       broker=b, group="drain")
+    k1 = {(p, o) for _r, p, o, _t in first["outs"]}
+    k2 = {(p, o) for _r, p, o, _t in second["outs"]}
+    committed, ends = _fleet_committed(b, "drain")
+    if states != ["done", "done"] or k1 | k2 != set(where) or k1 & k2 or committed != ends:
+        raise AssertionError(f"serve_fleet drain: states {states}, {len(k1)} + {len(k2)} "
+                             f"served, {len(k1 & k2)} by both, committed {committed}")
+    rows.append({"phase": "serve_fleet", "model": "1b", "run": "drain_restart",
+                 "first": len(k1), "second": len(k2), "served_by_both": 0,
+                 "drained_states": states, "committed": committed,
+                 "tokens_per_s": [first["row"]["tokens_per_s"], second["row"]["tokens_per_s"]]})
+    fleet_tps = [r["tokens_per_s"] for r in rows if r.get("run") == "fleet"]
+    single_tps = [r["tokens_per_s"] for r in rows if r.get("run") == "single"]
+    rows.append({"phase": "serve_fleet", "summary": True, "memory": mem,
+                 "fleet_tokens_per_s": fleet_tps, "single_tokens_per_s": single_tps,
+                 "fleet_over_single": statistics.mean(fleet_tps) / statistics.mean(single_tps),
+                 "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def _tree_leaves(tree, path=""):
+    """(path, tensor) of every leaf, ``QTensor`` pairs included, in the
+    checkpoint wire's order, on the tensors' own device."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, tuple):
+        for i, x in enumerate(tree):
+            yield from _tree_leaves(x, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _tagged_output(rec, toks) -> bytes:
+    """Output values carry their prompt's (partition, offset) ahead of the
+    tokens, so every output record names the record it answers."""
+    import numpy as np
+
+    return np.asarray([rec.partition, rec.offset], np.int32).tobytes() + \
+        np.asarray(toks, np.int32).tobytes()
+
+
+def _versions_by_window(what, run, n) -> dict:
+    """The output topic of ``run``: every one of the ``n`` prompts
+    answered, and each output record's ``mv`` header the version live on
+    the replica at the commit that closed its prompt's window
+    (``fleet/drill.py``'s ``window_versions`` over the audited commits).
+    → {"windows": windows holding outputs, "by_version": {mv: outputs}}."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.fleet.drill import window_versions
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    broker = run["broker"]
+    tp = TopicPartition("out", 0)
+    outputs = []
+    for r in broker.fetch(tp, 0, broker.end_offset(tp)):
+        p, o = (int(x) for x in np.frombuffer(r.value[:8], np.int32))
+        outputs.append((p, o, int(dict(r.headers)["mv"])))
+    if len({(p, o) for p, o, _mv in outputs}) < n:
+        raise AssertionError(f"{what}: {len(outputs)} outputs for {n} prompts")
+    try:
+        return window_versions(run["audit"]["commits"], outputs)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+
+
+def _shadow_spy(fleet) -> list:
+    """Wrap every replica's ``spawn_shadow`` to keep the canary servers it
+    builds (their launches count on the main path too)."""
+    shadows = []
+    for rep in fleet.replicas:
+        orig = rep.gen.spawn_shadow
+
+        def spawn(params, version, orig=orig):
+            s = orig(params, version)
+            shadows.append(s)
+            return s
+
+        rep.gen.spawn_shadow = spawn
+    return shadows
+
+
+def _rollout_run(torch, cfg, params, v1, prompts, keys, device, *, kv_dtype,
+                 canary=FLEET_CANARY, max_diffs=0):
+    """An in-process rollout to version 1 (``v1``) on the fleet without
+    chaos, with an output topic: two thirds of the stream are produced at
+    the start, the last third once the rollout is done (promoted or rolled
+    back), so traffic after it shows which version serves. → (run, the
+    in-process rollout, its canary shadows)."""
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker
+    from torchkafka_tpu_torch.source.producer import MemoryProducer
+
+    broker = InMemoryBroker()
+    early = 2 * len(keys) // 3
+    produce_stream(broker, "t10", prompts, keys, stop=early)
+    broker.create_topic("out", partitions=1)
+    state = {}
+
+    def on_round(f, served):
+        if "drv" not in state:
+            state["shadows"] = _shadow_spy(f)
+            state["drv"] = f.start_rollout(1, {0: params, 1: v1}, canary_slice=canary,
+                                           max_canary_diffs=max_diffs)
+        state["drv"].on_round(f, served)
+        if state["drv"].done and not state.get("late"):
+            state["late"] = True
+            produce_stream(broker, "t10", prompts, keys, start=early)
+
+    def on_yield(rid, rec, toks):
+        state["drv"].observe(rid, rec, toks)
+
+    run = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype=kv_dtype,
+                    broker=broker, on_round=on_round, on_yield=on_yield, close=False,
+                    gen_kwargs={"output_producer": MemoryProducer(broker),
+                                "output_topic": "out", "encode_output": _tagged_output})
+    drv = state["drv"]
+    for _ in range(20):  # the tail of a rollout may ride an idle fleet
+        if drv.done:
+            break
+        drv.on_round(run["fleet"], len(run["outs"]))
+    run["fleet"].close()
+    return run, drv, state["shadows"]
+
+
+def check_serve_fleet_rollout(torch, cfg, params, device="cuda") -> list:
+    """The rolling hot-swap at 1b on the fleet without chaos: (a) a clean
+    in-process rollout (version 1 = the same weights) promotes on both
+    replicas with no canary diff; (b) a divergent one (weights of another
+    seed) rolls back and no output of version 1 reaches the output topic;
+    (c) version 1 published on a checkpoint topic, fetched CRC-checked by
+    one ``RolloutWorker`` a replica under a ``BrokerRolloutDriver`` and
+    rebuilt onto the card bitwise equal to it, then served."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.fleet import BrokerRolloutDriver, RolloutController, RolloutWorker
+    from torchkafka_tpu_torch.models.zoo import random_serving_params
+    from torchkafka_tpu_torch.source import checkpoint_wire as cw
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker
+    from torchkafka_tpu_torch.source.producer import MemoryProducer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    v1 = random_serving_params(gen, cfg, device=device)
+    rows = [batch_invariance(torch, cfg, params)] if device == "cuda" else []
+    # 36 and 24 prompts: the canary replica's first wave (8 of the ``open``
+    # tenant's records, two thirds of the stream before the rollout) fills
+    # the canary slice.
+    # A divergent candidate differs on its first record, so its canary
+    # slice is 2.
+    for name, cand, n, canary in (("clean", params, 36, FLEET_CANARY),
+                                  ("divergent", v1, 24, 2)):
+        prompts, keys = fleet_stream(np, cfg.vocab_size, n=n)
+        where = produce_stream(InMemoryBroker(), "t10", prompts, keys)
+        run, drv, shadows = _rollout_run(torch, cfg, params, cand, prompts, keys, device,
+                                         kv_dtype="int8", canary=canary)
+        _held_fleet(f"serve_fleet_rollout {name}", run, where)
+        ctl, f = drv.controller, run["fleet"]
+        versions = [r.gen.model_version for r in f.replicas]
+        windows = _versions_by_window(f"serve_fleet_rollout {name}", run, len(where))
+        counts = windows["by_version"]
+        diffs = f.metrics.canary_token_diffs.count
+        if name == "clean" and (ctl.phase != "complete" or versions != [1, 1] or diffs
+                                or not counts.get(1)):
+            raise AssertionError(f"clean rollout: {ctl.phase}, {versions}, {diffs} diffs, "
+                                 f"outputs by version {counts}")
+        if name == "divergent" and (ctl.phase != "rolled_back" or versions != [0, 0]
+                                    or 1 in counts or diffs < 1):
+            raise AssertionError(f"divergent rollout: {ctl.phase}, {versions}, {diffs} "
+                                 f"diffs, outputs by version {counts}")
+        _check_launches(f"serve_fleet_rollout {name}", cfg, run["row"]["launches"],
+                        [r.gen for r in f.replicas], shadows, cuda=device == "cuda")
+        rows.append({"phase": "serve_fleet_rollout", "run": name, "rollout": ctl.phase,
+                     "versions": versions, "canary_diffs": diffs,
+                     "canary_slice": ctl.canary_slice, "outputs_by_version": counts,
+                     "commit_windows": windows["windows"],
+                     "shadow_prefills": sum(s.metrics.prefills.count for s in shadows),
+                     **{k: run["row"][k] for k in ("elapsed_s", "tokens_per_s",
+                                                   "launches", "committed")}})
+    # (c) the broker path.
+    prompts, keys = fleet_stream(np, cfg.vocab_size, n=24)
+    where = produce_stream(InMemoryBroker(), "t10", prompts, keys)
+    broker = InMemoryBroker()
+    early = 2 * len(keys) // 3
+    produce_stream(broker, "t10", prompts, keys, stop=early)
+    for topic in ("out", "ckpt", "ctl"):
+        broker.create_topic(topic, partitions=1)
+    _sync(torch, device)
+    t_pub = time.perf_counter()
+    frames = cw.publish_checkpoint(broker, "ckpt", 1, v1, chunk_bytes=16 << 20)
+    publish_s = time.perf_counter() - t_pub
+    state = {}
+    swap_ms, fetch_s = [], []
+
+    def on_round(f, served):
+        if "drv" not in state:
+            ctl = RolloutController([f"r{r.id}" for r in f.replicas], 1,
+                                    canary_slice=2, max_canary_diffs=2,
+                                    metrics=f.metrics)
+            state["drv"] = BrokerRolloutDriver(broker, "ctl", ctl)
+            state["workers"] = {r.id: RolloutWorker(broker, "ctl", "ckpt", f"r{r.id}", r,
+                                                    boot_params=params, metrics=f.metrics)
+                                for r in f.replicas}
+            for w in state["workers"].values():
+                resolve = w._resolve
+
+                def timed_resolve(version, resolve=resolve, w=w):
+                    fresh = version not in w._params_by_version
+                    ts = time.perf_counter()
+                    out = resolve(version)
+                    _sync(torch, device)
+                    if fresh:  # a fetch over the wire and a rebuild on the card
+                        fetch_s.append(time.perf_counter() - ts)
+                    return out
+
+                w._resolve = timed_resolve
+            state["shadows"] = _shadow_spy(f)
+            for rep in f.replicas:
+                orig = rep.gen.swap_params
+
+                def timed(p, v, orig=orig):
+                    _sync(torch, device)
+                    ts = time.perf_counter()
+                    orig(p, v)
+                    _sync(torch, device)
+                    swap_ms.append((time.perf_counter() - ts) * 1e3)
+
+                rep.gen.swap_params = timed
+            state["drv"].start()
+        state["drv"].pump()
+        for w in state["workers"].values():
+            w.pump([])
+        if state["drv"].done and not state.get("late"):
+            state["late"] = True
+            produce_stream(broker, "t10", prompts, keys, start=early)
+
+    def on_yield(rid, rec, toks):
+        state["workers"][rid].pump([(rec, toks)])
+
+    run = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype="int8",
+                    broker=broker, on_round=on_round, on_yield=on_yield, close=False,
+                    gen_kwargs={"output_producer": MemoryProducer(broker),
+                                "output_topic": "out", "encode_output": _tagged_output})
+    for _ in range(40):
+        if state["drv"].done:
+            break
+        on_round(run["fleet"], len(run["outs"]))
+    f = run["fleet"]
+    f.close()
+    _held_fleet("serve_fleet_rollout broker", run, where)
+    ctl = state["drv"].controller
+    versions = [r.gen.model_version for r in f.replicas]
+    windows = _versions_by_window("serve_fleet_rollout broker", run, len(where))
+    counts = windows["by_version"]
+    trees = [w._params_by_version.get(1) for w in state["workers"].values()]
+    want = list(_tree_leaves(v1))
+    bitwise = all(
+        t is not None and [n for n, _ in _tree_leaves(t)] == [n for n, _ in want]
+        and all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                for (_, a), (_, b) in zip(_tree_leaves(t), want))
+        for t in trees)
+    on_card = all(r.gen._params["embed"].device.type == device for r in f.replicas)
+    if ctl.phase != "complete" or versions != [1, 1] or not bitwise or not on_card \
+            or not counts.get(1):
+        raise AssertionError(f"broker rollout: {ctl.phase}, {versions}, bitwise {bitwise}, "
+                             f"on the card {on_card}, outputs by version {counts}")
+    _check_launches("serve_fleet_rollout broker", cfg, run["row"]["launches"],
+                    [r.gen for r in f.replicas], state["shadows"], cuda=device == "cuda")
+    nbytes = sum(a.numel() * a.element_size() for _n, a in want)
+    rows.append({"phase": "serve_fleet_rollout", "run": "broker", "rollout": ctl.phase,
+                 "versions": versions, "rebuilt_bitwise": bitwise, "frames": frames,
+                 "checkpoint_bytes": nbytes, "publish_s": publish_s,
+                 "fetch_rebuild_s": fetch_s, "swap_params_ms": swap_ms,
+                 "canary_diffs": f.metrics.canary_token_diffs.count,
+                 "outputs_by_version": counts, "commit_windows": windows["windows"],
+                 "seconds": time.perf_counter() - t0,
+                 **{k: run["row"][k] for k in ("elapsed_s", "tokens_per_s", "launches",
+                                               "committed")}})
+    return rows
+
+
+def check_serve_fleet_f32(torch, cfg, params, device="cuda") -> list:
+    """At 1b width, 2 layers, f32: (1) the single server against the fleet
+    with a journal and the seeded kill on the compute-dtype pool (partial
+    hints resume warm there): every token of every copy equal; (2) a clean
+    rollout's outputs equal the fleet's without one; (3) a speculative
+    fleet (k = 4, the perfect draft) publishing to a distill topic, then
+    a draft refresh through ``start_distill`` while a replica is killed:
+    every completion equal; (4) a ``FleetAutoscaler`` loop driven by the
+    workload generator under a manual clock scales up and down and
+    replays byte for byte."""
+    import tempfile
+
+    import numpy as np
+
+    from torchkafka_tpu_torch.distill import DistillPolicy, decode_completion
+    from torchkafka_tpu_torch.fleet.drill import autoscaled_run
+    from torchkafka_tpu_torch.models.zoo import random_serving_params
+    from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker
+    from torchkafka_tpu_torch.source.producer import MemoryProducer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    t0 = time.perf_counter()
+    prompts, keys = fleet_stream(np, cfg.vocab_size)
+    where = produce_stream(InMemoryBroker(), "t10", prompts, keys)
+    single, srow = fleet_single(torch, cfg, params, prompts, keys, device, None)
+    rows = [{"phase": "serve_fleet_f32", **srow}]
+    with tempfile.TemporaryDirectory() as jdir:
+        run = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype=None,
+                        chaos=FLEET_CHAOS, journal_dir=jdir)
+    got = _held_fleet("serve_fleet_f32", run, where)
+    row = run["row"]
+    _equal_to_single(np, "serve_fleet_f32", got, single, exact=True)
+    if row["duplicates"] < 1 or row["journal"]["warm_resumes"] < 1:
+        raise AssertionError(f"serve_fleet_f32: no warm resume after the kill: {row}")
+    _check_launches("serve_fleet_f32", cfg, row["launches"],
+                    [r.gen for r in run["fleet"].replicas], cuda=device == "cuda")
+    rows.append({"phase": "serve_fleet_f32", **row, "every_token_equal": True})
+    # (2) a clean rollout against none, both with the tagged output topic.
+    plain = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype=None)
+    ro, drv, _shadows = _rollout_run(torch, cfg, params, params, prompts, keys, device,
+                                     kv_dtype=None, canary=4)
+    pg = _held_fleet("serve_fleet_f32 plain", plain, where)
+    rg = _held_fleet("serve_fleet_f32 rollout", ro, where)
+    same = all(np_equal(rg[k][0], pg[k][0]) for k in where)
+    if drv.controller.phase != "complete" or not same:
+        raise AssertionError(f"serve_fleet_f32 rollout: {drv.controller.phase}, equal {same}")
+    windows = _versions_by_window("serve_fleet_f32", ro, len(where))
+    rows.append({"phase": "serve_fleet_f32", "run": "clean_rollout",
+                 "rollout": drv.controller.phase, "equal_to_no_rollout": same,
+                 "outputs_by_version": windows["by_version"],
+                 "commit_windows": windows["windows"]})
+    # (3) the speculative fleet: the distill publisher, then a refresh under a kill.
+    spec_kw = {"k": SPEC_K, "draft_params": params, "draft_cfg": cfg}
+    b = InMemoryBroker()
+    produce_stream(b, "t10", prompts, keys)
+    for topic in ("out", "distill"):
+        b.create_topic(topic, partitions=1)
+    spec = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype=None, broker=b,
+                     generator_cls=SpecStreamingGenerator,
+                     gen_kwargs={**spec_kw, "output_producer": MemoryProducer(b),
+                                 "output_topic": "out", "distill_topic": "distill"})
+    sg = _held_fleet("serve_fleet_f32 spec", spec, where)
+    _equal_to_single(np, "serve_fleet_f32 spec", sg, single, exact=True)
+    tp = TopicPartition("distill", 0)
+    frames = [decode_completion(r.value) for r in b.fetch(tp, 0, b.end_offset(tp))]
+    published = sum(r.gen.metrics.distill_published.count for r in spec["fleet"].replicas)
+    by_prompt = {bytes(np.asarray(fr["prompt"], np.int32).tobytes()): fr for fr in frames}
+    ok = published == len(frames) == len(where) and all(
+        np_equal(np.asarray(by_prompt[prompts[i].tobytes()]["tokens"]), sg[k][0])
+        for k, i in where.items())
+    if not ok:
+        raise AssertionError(f"serve_fleet_f32 distill: {published} published, "
+                             f"{len(frames)} frames for {len(where)} prompts")
+    draft1 = random_serving_params(torch.Generator(device=device).manual_seed(SEED + 2),
+                                   cfg, device=device)
+    state = {}
+
+    def hook(f, served):
+        if "drv" not in state:
+            state["drv"] = f.start_distill(
+                policy=DistillPolicy(window_rounds=4, min_proposed=8, cooldown_s=0.0,
+                                     refresh_on_publish=True),
+                versions={1: draft1})
+        if served >= 6:
+            state["drv"].note_version(1)
+        state["drv"].on_round(f, served)
+
+    with tempfile.TemporaryDirectory() as jdir:
+        refresh = fleet_run(torch, cfg, params, prompts, keys, device, kv_dtype=None,
+                            generator_cls=SpecStreamingGenerator, gen_kwargs=spec_kw,
+                            chaos=FLEET_CHAOS, journal_dir=jdir, on_round=hook)
+    rg = _held_fleet("serve_fleet_f32 refresh", refresh, where)
+    ctl = state["drv"].controller
+    same = all(np_equal(t, sg[k][0]) for k, copies in rg.items() for t in copies)
+    if ctl.applied_version != 1 or not refresh["row"]["killed"] or not same:
+        raise AssertionError(f"serve_fleet_f32 refresh: applied {ctl.applied_version}, "
+                             f"killed {refresh['row']['killed']}, equal {same}")
+    rows.append({"phase": "serve_fleet_f32", "run": "spec_distill",
+                 "distill_frames": len(frames), "distill_published": published,
+                 "refresh_applied": ctl.applied_version, "refreshes": ctl.refreshes,
+                 "killed": refresh["row"]["killed"], "equal_to_no_refresh": same,
+                 "spec": [r.gen.spec_stats() for r in spec["fleet"].replicas],
+                 "spec_refresh": [r.gen.spec_stats() for r in refresh["fleet"].replicas]})
+    # (4) the autoscaler under the workload generator's manual clock.
+    a, b2 = (autoscaled_run(cfg, params, prompt_len=16, max_new=8,
+                            gen_kwargs={"device": device}) for _ in range(2))
+    br = a["ctrl"]["by_reason"]
+    if a != b2 or not br.get("decode/up/queue") or not br.get("decode/down/idle") \
+            or a["committed"] != a["ends"]:
+        raise AssertionError(f"serve_fleet_f32 autoscaler: replay equal {a == b2}, {br}, "
+                             f"committed {a['committed']} != {a['ends']}")
+    rows.append({"phase": "serve_fleet_f32", "run": "autoscaler", "decisions": br,
+                 "joins": a["joins"], "completions": len(a["order"]),
+                 "replays_identical": True, "digest": a["digest"],
+                 "seconds": time.perf_counter() - t0})
     return rows
 
 
@@ -3143,9 +3984,9 @@ def main() -> int:
                          "torch.profiler and print where the device time goes "
                          "(a serve trace takes minutes)")
     ap.add_argument("--tier-rounds", type=int, default=1,
-                    help="rounds of (HBM only, tier, tier, HBM only) in the "
-                         "serve_tiered phase (more rounds: tok/s compared over "
-                         "more interleaved runs)")
+                    help="rounds of (HBM only, tier) in the serve_tiered phase "
+                         "(more rounds: tok/s compared over more interleaved "
+                         "runs)")
     args = ap.parse_args()
     import torch
 
@@ -3249,6 +4090,12 @@ def main() -> int:
         emit(row)
     for row in check_serve_spec_paged(torch, cfg, params):
         emit(row)
+    rows_fl = check_serve_fleet(torch, cfg, params)
+    for row in rows_fl:
+        emit(row)
+    rows_ro = check_serve_fleet_rollout(torch, cfg, params)
+    for row in rows_ro:
+        emit(row)
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
@@ -3267,6 +4114,8 @@ def main() -> int:
     for row in check_serve_tiered_f32(torch, cfg32, params32):
         emit(row)
     for row in check_serve_spec_f32(torch, cfg32, params32):
+        emit(row)
+    for row in check_serve_fleet_f32(torch, cfg32, params32):
         emit(row)
     del params32
     torch.cuda.empty_cache()
@@ -3295,6 +4144,12 @@ def main() -> int:
 
     def path_8b(kernel):
         return sum(row["launches"][kernel] for row in rows_8b)
+
+    def fleet_launches(kernel):
+        """Each 1b fleet run's launches: serve_fleet's two killed runs, then
+        the clean, divergent and broker rollouts (canary shadows included)."""
+        return [r["launches"][kernel] for r in rows_fl + rows_ro
+                if r.get("run") in ("fleet", "clean", "divergent", "broker")]
 
     def full_split(which):
         """K7's or K8's split and span times at the 192 pool, and at 2048."""
@@ -3326,6 +4181,7 @@ def main() -> int:
          "resume_launches": row_r["warm"]["launches"]["flash_fwd"],
          "spec_launches": [r["launches"]["flash_fwd"] for r in rows_sp
                            if r.get("spec") is not None],
+         "fleet_launches": fleet_launches("flash_fwd"),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -3352,6 +4208,7 @@ def main() -> int:
          "replaces": "torchkafka_tpu/ops/kvattn.py:458",
          "launches": row_q["launches"]["kvattn_dynlen"],
          "traced_launches": [r["launches"]["kvattn_dynlen"] for r in rows_tr if r["traced"]],
+         "fleet_launches": fleet_launches("kvattn_dynlen"),
          "max_abs_err": main_pool["max_abs_err"]["bf16"], "ms": main_pool["kernel_ms"],
          "plain_ms": main_pool["plain_ms"], "bound_ms": main_pool["bound_ms"],
          "bound_by": main_pool["bound_by"], "library_ms": None,

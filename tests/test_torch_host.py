@@ -142,6 +142,9 @@ def test_port_never_imports_jax_ast():
     for mod in ("slo", "trace", "burn", "exporter"):
         assert ROOT / "torchkafka_tpu_torch" / "obs" / f"{mod}.py" in files
     assert ROOT / "torchkafka_tpu_torch" / "kvcache" / "tier.py" in files
+    for mod in ("fleet/fleet.py", "fleet/rollout.py", "fleet/autoscale.py",
+                "workload/generator.py", "distill/controller.py", "distill/wire.py"):
+        assert ROOT / "torchkafka_tpu_torch" / mod in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
     assert bad == []
@@ -158,6 +161,8 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.source.checkpoint_wire, torchkafka_tpu_torch.resilience\n"
         "import torchkafka_tpu_torch.journal\n"
         "import torchkafka_tpu_torch.obs, torchkafka_tpu_torch.kvcache.tier\n"
+        "import torchkafka_tpu_torch.fleet, torchkafka_tpu_torch.workload\n"
+        "import torchkafka_tpu_torch.distill\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
         "print(bad)\n"

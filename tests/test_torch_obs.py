@@ -2,11 +2,11 @@
 
 - ``test_obs.py``'s host cases run over the port: the module's source is
   loaded with the package name re-rooted onto ``torchkafka_tpu_torch``
-  (its fleet imports dropped: the fleet is not ported) and its tracer,
-  windowed-histogram, burn-rate, exporter and ingest-lag classes are
-  collected here, with its exposition-conformance cases for every
-  non-fleet source and its label-escaping case on the server's
-  exposition in place of the fleet's.
+  and its tracer, windowed-histogram, burn-rate, exporter and ingest-lag
+  classes are collected here, with its exposition-conformance cases for
+  every source (the fleet's and the traced fleet's included) and its
+  label-escaping case on the server's exposition. Its traced fleets run
+  in ``test_torch_fleet.py``, against the JAX fleet.
 - Differentials at f32, one seeded broker content through both servers,
   each traced under a manual clock that steps 1 ms a reading: the event
   lists and the JSONL exports are equal for dense greedy, chunked paged
@@ -46,10 +46,7 @@ _REF = pathlib.Path(__file__).with_name("test_obs.py")
 _mod = types.ModuleType("_port_obs")
 _mod.__file__ = str(_REF)
 sys.modules[_mod.__name__] = _mod
-_src = "".join(
-    line for line in _REF.read_text().splitlines(keepends=True)
-    if not line.startswith("from torchkafka_tpu.fleet")
-)
+_src = _REF.read_text()
 # The port's KVBackend names its device and has no mesh extents (one
 # device; its ``describe()`` reports data = tp = 1).
 _MESH = "chunked=True, data=2, tp=2,"
@@ -69,8 +66,9 @@ TestIngestLagClock = _mod.TestIngestLagClock
 @pytest.mark.parametrize("render", [
     _mod._stream_metrics, _mod._serve_metrics, _mod._resilience_metrics,
     _mod._slo_tracer, _mod._burn_monitor, _mod._windowed_slo_tracer,
-    _mod._broker_metrics,
-], ids=["stream", "serve", "resilience", "slo", "burn", "windowed-slo", "broker"])
+    _mod._broker_metrics, _mod._fleet_metrics, _mod._traced_fleet_metrics,
+], ids=["stream", "serve", "resilience", "slo", "burn", "windowed-slo", "broker",
+        "fleet", "traced-fleet"])
 def test_exposition_conformance(render):
     _mod._assert_conformant(render())
 

@@ -6,7 +6,8 @@ checkpoint wire against the JAX package's.
   the quarantine and ``KafkaStream``'s quarantine policy) run over the
   port: the module's source is loaded with the package name re-rooted
   onto ``torchkafka_tpu_torch`` and its classes are collected here, over a
-  port broker. Its serving-fleet soak is not ported (ROADMAP queue A).
+  port broker. Its serving-fleet soak runs over the port's fleet in
+  ``test_torch_fleet.py``.
 - Differentials, one seeded sequence through both packages: chaos
   schedules, records and commits; retry backoffs and breaker states; DLQ
   records byte for byte (headers included) from ``KafkaStream`` and from

@@ -112,6 +112,10 @@ SERVED_REJECTED = {
     "kw4": ({"trace_replica": "r0", "max_new": 1}, ValueError),
     "kw5": ({"tracer": ptk.RecordTracer(), "ticks_per_sync": 0}, ValueError),
     "kw10": ({"max_new_of": lambda r: 2, "prompt_len": 10**4}, ValueError),
+    # The distill publisher: in transactional mode without the output
+    # producer, and at-least-once without any producer.
+    "kw8": ({"distill_topic": "d", "exactly_once": True}, ValueError),
+    "kw9": ({"distill_topic": "d"}, ValueError),
 }
 
 
@@ -121,7 +125,8 @@ SERVED_REJECTED = {
 # without an output producer raises ValueError as in JAX, an rng that is
 # no key raises TypeError) or a still-deferred argument. So are the
 # tracer, budgets and the host-RAM tier: kw1, kw2, kw4, kw5 and kw10 are
-# the SERVED_REJECTED cases.
+# the SERVED_REJECTED cases, and so are the distill publisher's kw8 and kw9
+# (once deferred, now served).
 @pytest.mark.parametrize("kw,exc", [
     ({"mesh": object()}, NotImplementedError),
     SERVED_REJECTED["kw1"],
@@ -131,8 +136,8 @@ SERVED_REJECTED = {
     SERVED_REJECTED["kw5"],
     ({"exactly_once": True}, ValueError),
     ({"top_k": 0}, ValueError),
-    ({"distill_producer": object()}, NotImplementedError),
-    ({"distill_topic": "d"}, NotImplementedError),
+    SERVED_REJECTED["kw8"],
+    SERVED_REJECTED["kw9"],
     SERVED_REJECTED["kw10"],
     ({"temperature": 0.7, "top_p": 1.5}, ValueError),
     ({"rng": object()}, TypeError),
@@ -181,15 +186,26 @@ def _queue_a_titles() -> list[str]:
 
 def test_every_deferral_names_a_queue_a_title(model):
     """Each still-deferred argument's error names the title of the ROADMAP
-    queue A item that ports it, never a bare item number."""
+    queue A item that ports it, never a bare item number: the server's and
+    the fleet's (disaggregated prefill adoption)."""
     from torchkafka_tpu_torch import serve
+    from torchkafka_tpu_torch.fleet import ServingFleet
 
     titles = _queue_a_titles()
     assert len(titles) >= 8
+    raised = []
     for name in serve._DEFERRED:
         with pytest.raises(NotImplementedError) as info:
             _server(model, **{name: object()})
-        msg = str(info.value).lower()
+        raised.append((name, info.value))
+    _, _, pcfg, params, _, _ = model
+    with pytest.raises(NotImplementedError) as info:
+        ServingFleet(lambda rid: None, params, pcfg, prompt_len=P,
+                     max_new=MAX_NEW, handoff_consumer_factory=lambda rid: None,
+                     gen_kwargs={"device": "cpu"})
+    raised.append(("handoff_consumer_factory", info.value))
+    for name, exc in raised:
+        msg = str(exc).lower()
         assert any(t in msg for t in titles), (name, msg, titles)
 
 

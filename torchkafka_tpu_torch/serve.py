@@ -128,8 +128,21 @@ payloads back into fresh blocks (``_tier_read_block``/
 ``_tier_write_block``: one host copy per pool at one block index). Bytes
 round-trip exactly, so a promotion is the re-prefill it replaces.
 
+Distill publisher (``distill_topic=``, ``distill_producer=``): each
+completion is framed for the draft-distillation corpus
+(``distill.wire.encode_completion``: prompt ids, tokens, tenant key,
+model version) and staged by record identity; the frame is produced only
+with the commit that covers its offset — inside the commit window's
+transaction under ``exactly_once``, after the offset commit succeeds
+otherwise (frames of revoked partitions pruned) — so the corpus holds
+committed tokens only (``metrics.distill_published``).
+
+Fleet surface (``fleet.ServingFleet`` drives it): ``note_partitions_revoked``
+after a rebalance, ``swap_params`` (the rolling hot-swap's in-place weight
+rebind) and the canary's ``spawn_shadow``/``shadow_decode``.
+
 Still raising ``NotImplementedError`` with their ROADMAP queue A title
-(``_DEFERRED``): mesh, draft distillation and disaggregated prefill.
+(``_DEFERRED``): mesh and disaggregated prefill.
 """
 
 from __future__ import annotations
@@ -205,8 +218,6 @@ _logger = logging.getLogger(__name__)
 # none is silently ignored.
 _DEFERRED = {
     "mesh": "mesh and multi-process paths",
-    "distill_topic": "in-process fleet",
-    "distill_producer": "in-process fleet",
     "prefill_role": "process fleet and disaggregated prefill",
 }
 
@@ -336,7 +347,8 @@ class ServeMetrics:
     ``ServeMetrics`` (same counters, ``summary()`` keys and Prometheus
     families), plus the port's ``decoded_tokens``, ``prefills`` and
     ``decode_ticks`` summary keys. The disaggregation and distillation
-    counters stay zero until the fleet is ported (ROADMAP queue A)."""
+    counters stay zero until the process fleet is ported (ROADMAP queue A);
+    ``distill_published`` counts the distill publisher's frames."""
 
     def __init__(self) -> None:
         self.completions = RateMeter()
@@ -730,6 +742,29 @@ class _PendingPrefill:
         self.enq_tick = enq_tick
 
 
+class _ShadowConsumer:
+    """The canary shadow server's consumer-shaped null object: never a
+    group member, never polls, owns no partitions, so the shadow's commit
+    path is a no-op (an empty assignment drops every ledger partition from
+    the snapshot) and nothing a shadow decodes can reach a broker. See
+    ``StreamingGenerator.spawn_shadow``."""
+
+    def poll(self, max_records: int = 1, timeout_ms: int = 0) -> list:
+        return []
+
+    def assignment(self):
+        return frozenset()
+
+    def commit(self, offsets) -> None:
+        pass
+
+    def heartbeat(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class _TxnOutboxProducer:
     """The quarantine's producer in exactly-once mode: a dead-letter
     produce is STAGED in the server's outbox, keyed by the poison record's
@@ -800,6 +835,9 @@ class StreamingGenerator:
     ``exactly_once``: the transactional output mode (module docstring);
     needs a transactional ``output_producer`` and, with a quarantine, one
     over that same producer (``ValueError`` otherwise, as in JAX).
+    ``distill_topic``/``distill_producer``: the distill publisher (module
+    docstring); at-least-once it needs ``distill_producer`` or
+    ``output_producer`` (``ValueError`` otherwise, as in JAX).
     ``journal``: a ``journal.DecodeJournal`` this server writes;
     ``add_resume_hints`` feeds it a dead server's entries (module
     docstring).
@@ -853,6 +891,8 @@ class StreamingGenerator:
         tracer=None,
         trace_replica: int | None = None,
         max_new_of: Callable[[Record], int | None] | None = None,
+        distill_topic: str | None = None,
+        distill_producer=None,
         device=None,
         **deferred,
     ) -> None:
@@ -900,6 +940,12 @@ class StreamingGenerator:
                     "ride the same transaction as the offset that retires "
                     "the poison record); build PoisonQuarantine over the "
                     "same TransactionalProducer instance"
+                )
+        if distill_topic is not None and not exactly_once:
+            if distill_producer is None and output_producer is None:
+                raise ValueError(
+                    "distill_topic requires a producer (distill_producer "
+                    "or output_producer) in at-least-once mode"
                 )
         if max_send_failure_streak < 1:
             raise ValueError("max_send_failure_streak must be >= 1")
@@ -955,6 +1001,18 @@ class StreamingGenerator:
         self._txn_committed_wm: dict = {}
         if exactly_once and quarantine is not None:
             quarantine.rebind_producer(_TxnOutboxProducer(self))
+        # Distill frames staged by record identity, produced only with the
+        # commit that covers them (in its transaction, or after the offset
+        # commit succeeds): the corpus never holds an uncommitted token.
+        self._distill_topic = distill_topic
+        self._distill_producer = distill_producer
+        self._distill_outbox: dict[tuple[str, int, int], bytes] = {}
+        if distill_topic is not None:
+            from torchkafka_tpu_torch.distill.wire import encode_completion
+
+            self._encode_distill = encode_completion
+        else:
+            self._encode_distill = None
         # Warm resume: the journal this server writes, the hints it may
         # resume from, finished completions re-served from a journal, and
         # each slot's token count at its last journal write.
@@ -995,7 +1053,7 @@ class StreamingGenerator:
         B, M, max_new = self._slots, self._max_len, self._max_new
         nl, kh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         self._model = prefill_model(cfg)
-        self._layers = [layer_at(self._params["layers"], i) for i in range(nl)]
+        self._bind_params(self._params)
         self._rows = torch.arange(B, device=dev)
         self._last_tok = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._pos = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -1650,6 +1708,11 @@ class StreamingGenerator:
 
     # ------------------------------------------ external admission surface
 
+    @property
+    def slots(self) -> int:
+        """Size of the decode slot pool."""
+        return self._slots
+
     def free_slots(self) -> int:
         return int((~(self._active | self._prefilling)).sum())
 
@@ -1665,6 +1728,30 @@ class StreamingGenerator:
         if self._tracer is not None:
             for r in records:
                 self._tracer.polled(r, replica=self._trace_replica)
+
+    def note_partitions_revoked(self, tps) -> None:
+        """A rebalance took these partitions away: reset their ledger state
+        and drop their deferred paged admissions. Without the reset, records
+        fetched here but served by the new owner stay pending forever, and
+        if a partition comes back (a scale-down returning a scale-up's
+        range) the stale entries would hold the snapshot below the group's
+        committed watermark and the next commit would regress it. Records
+        already decoding in slots are left alone: their completions resolve
+        against the dropped partition as no-ops, and a copy the new owner
+        serves is the ordinary at-least-once duplicate."""
+        tps = set(tps)
+        if not tps:
+            return
+        self._ledger.drop(tps)
+        if self._paged_deferred:
+            kept = [r for r in self._paged_deferred if r.tp not in tps]
+            dropped = len(self._paged_deferred) - len(kept)
+            if dropped:
+                self._paged_deferred = kept
+                _logger.info(
+                    "dropped %d deferred admission(s) for revoked "
+                    "partitions", dropped,
+                )
 
     def _next_decodable(self, queue: list[Record]):
         """Pop ``queue`` until a record decodes → (record, tokens), or None.
@@ -1926,6 +2013,99 @@ class StreamingGenerator:
         """The version tag every published output carries (``mv``)."""
         return self._model_version
 
+    def swap_params(self, params, version: int) -> None:
+        """Hot-swap the serving weights in place: the pools, slots,
+        consumer and lease are untouched. The caller must have quiesced
+        (no active or prefilling slot) and closed the commit window
+        (``flush_commits``), so no window ever holds outputs of two model
+        versions (``RuntimeError`` otherwise). The journal's model version
+        is synced BEFORE the rebind: a kill at ``rollout_pre_swap`` leaves
+        the old version durable, one at ``swap_mid_apply`` the new, never
+        half of each. ``params`` is placed on this server's device (leaves
+        already there are kept, not copied), then ``self._params`` and the
+        per-layer views derived from it are rebound together, so nothing
+        reads the old weights after this call."""
+        if self.has_active():
+            raise RuntimeError(
+                "swap_params requires a quiesced server (drain in-flight "
+                "generations first — the warm-drain discipline)"
+            )
+        if self._uncommitted or (self._txn_mode and self._txn_outbox):
+            raise RuntimeError(
+                "swap_params requires a closed commit window "
+                "(flush_commits first) — a window must never span model "
+                "versions"
+            )
+        version = int(version)
+        crash_hook("rollout_pre_swap")
+        if self._journal is not None:
+            self._journal.set_model_version(version)
+            self._journal.sync()
+        crash_hook("swap_mid_apply")
+        self._bind_params(_params_to(params, self._device))
+        self._model_version = version
+        if self._tracer is not None:
+            self._tracer.swapped(version, replica=self._trace_replica)
+
+    def _bind_params(self, params) -> None:
+        """Serve ``params`` (on this server's device): the tree and the
+        per-layer views every sweep reads, rebound together."""
+        self._params = params
+        self._layers = [
+            layer_at(params["layers"], i) for i in range(self._cfg.n_layers)
+        ]
+
+    def spawn_shadow(self, params, version: int) -> "StreamingGenerator":
+        """A scratch server over CANDIDATE weights for canary shadow
+        serving: this server's config, slot count, prompt decoding,
+        sampling contract, record-key base, output budget and KV dtype and
+        kernel, on the same device, so for any record its output is what
+        the candidate would commit here; but no consumer group, producer or
+        journal, so nothing a shadow decodes reaches the committed view.
+        The dense pool serves regardless of paging (paged and dense serve
+        the same tokens). The JAX package's shadow has one slot and the
+        compute-dtype pool; the port keeps the incumbent's ``kv_dtype``/
+        ``kv_kernel`` (an int8 pool does not serve the compute-dtype pool's
+        tokens) and its slot count (in bf16 a decode row's GEMMs round
+        apart at M = 1 and M = 8 on the card), so a canary of the
+        incumbent's own weights compares like with like."""
+        return StreamingGenerator(
+            _ShadowConsumer(), params, self._cfg,
+            slots=self._slots,
+            prompt_len=self._prompt_len,
+            max_new=self._max_new,
+            eos_id=self._eos_id,
+            commit_every=2**31 - 1,
+            decode_prompt=self._decode_prompt,
+            ticks_per_sync=1,
+            temperature=self._temperature,
+            top_k=self._top_k,
+            top_p=self._top_p,
+            rng=np.asarray(self._rng_words, np.uint32),
+            kv_dtype=self._kv_dtype,
+            kv_kernel=self._kv_kernel_opt,
+            max_new_of=self._max_new_of,
+            model_version=int(version),
+            device=self._device,
+        )
+
+    def shadow_decode(self, rec: Record) -> np.ndarray | None:
+        """Decode ``rec`` to completion on this server as a shadow pass
+        (the canary calls it on a ``spawn_shadow`` server). Returns the
+        tokens, or None for an undecodable record. The record is ledger-
+        registered here but never committed anywhere."""
+        self.note_fetched([rec])
+        if self.admit_records([rec]) == 0 and not self._journal_ready:
+            return None
+        out: np.ndarray | None = None
+        while self.has_active() or self._journal_ready:
+            for done_rec, toks in self.step():
+                if (done_rec.offset == rec.offset
+                        and done_rec.topic == rec.topic
+                        and done_rec.partition == rec.partition):
+                    out = toks
+        return out
+
     def _txn_abort(self) -> None:
         """Best-effort abort of an in-flight transaction (a dead broker
         leaves it to the next ``begin`` or the next incarnation's fence).
@@ -1947,6 +2127,16 @@ class StreamingGenerator:
             self.metrics.truncated.add(1)
         if self._tracer is not None:
             self._tracer.finished(rec, len(out), replica=self._trace_replica)
+        if self._distill_topic is not None:
+            # Framed now (tokens in hand), produced only with the commit
+            # that covers the offset. Keyed by record identity: a re-serve
+            # overwrites the identical frame.
+            self._distill_outbox[(rec.topic, rec.partition, rec.offset)] = (
+                self._encode_distill(
+                    self._decode_prompt(rec), out,
+                    tenant=rec.key, model_version=self._model_version,
+                )
+            )
         sent_ok = True
         if self._txn_mode:
             # STAGE, don't send: produced inside the commit window's
@@ -2258,8 +2448,37 @@ class StreamingGenerator:
         if self._tracer is not None:
             # Durably committed: close every covered record's e2e span.
             self._tracer.note_commit(snapshot)
+        if self._distill_topic is not None and self._distill_outbox:
+            self._publish_distill(snapshot, assigned)
         self._prune_journal(snapshot)
         return True
+
+    def _publish_distill(self, snapshot: dict, assigned) -> None:
+        """At-least-once: produce the staged distill frames the commit that
+        just SUCCEEDED covers (never before it: a crash before the commit
+        publishes nothing, and the re-delivered records' regenerated
+        completions frame the only copy). Frames of partitions this server
+        no longer owns are dropped (their new owner frames them). A send
+        fault keeps the frame for the next commit's retry."""
+        prod = self._distill_producer or self._output_producer
+        outbox = self._distill_outbox
+        if assigned is not None:
+            for ident in [i for i in outbox
+                          if TopicPartition(i[0], i[1]) not in assigned]:
+                del outbox[ident]
+        covered = [i for i in outbox
+                   if i[2] < snapshot.get(TopicPartition(i[0], i[1]), 0)]
+        for ident in covered:
+            try:
+                prod.send(self._distill_topic, outbox[ident])
+            except Exception:  # noqa: BLE001 - retry at the next commit
+                _logger.warning(
+                    "distill frame publish failed; retrying at the next "
+                    "commit", exc_info=True,
+                )
+                break
+            del outbox[ident]
+            self.metrics.distill_published.add(1)
 
     def _prune_journal(self, snapshot: dict) -> None:
         """Drop the journal entries a successful commit covers: the file
@@ -2292,14 +2511,22 @@ class StreamingGenerator:
         if assigned is not None:
             snapshot = {tp: off for tp, off in snapshot.items() if tp in assigned}
             # Entries of departed partitions are stale: their records
-            # committed here already or re-serve on the new owner.
+            # committed here already or re-serve on the new owner (whose
+            # distill frame is then the only copy).
             for ident in [i for i in outbox if tp_of(i) not in assigned]:
                 del outbox[ident]
+                self._distill_outbox.pop(ident, None)
         # A re-serve of a record an earlier window already committed.
         for ident in [i for i in outbox
                       if i[2] < self._txn_committed_wm.get(tp_of(i), 0)]:
             del outbox[ident]
+            self._distill_outbox.pop(ident, None)
         sendable = [i for i in outbox if i[2] < snapshot.get(tp_of(i), 0)]
+        # Distill frames the snapshot covers ride the same transaction as
+        # the outputs and offsets: an aborted window's frames are invisible.
+        d_sendable = [
+            i for i in self._distill_outbox if i[2] < snapshot.get(tp_of(i), 0)
+        ] if self._distill_topic is not None else []
         if not snapshot and not p.in_transaction:
             return True  # nothing resolved, nothing dangling
         try:
@@ -2309,6 +2536,8 @@ class StreamingGenerator:
                 kw = outbox[ident]
                 p.send(kw["topic"], kw["value"], key=kw["key"],
                        headers=kw["headers"])
+            for ident in d_sendable:
+                p.send(self._distill_topic, self._distill_outbox[ident])
             if snapshot:
                 p.send_offsets(
                     self._consumer.group_id, snapshot,
@@ -2343,6 +2572,10 @@ class StreamingGenerator:
             return False
         for ident in sendable:
             del outbox[ident]
+        for ident in d_sendable:
+            self._distill_outbox.pop(ident, None)
+        if d_sendable:
+            self.metrics.distill_published.add(len(d_sendable))
         for tp, off in snapshot.items():
             if off > self._txn_committed_wm.get(tp, 0):
                 self._txn_committed_wm[tp] = off

@@ -26,6 +26,17 @@ bytes, so last-wins assembly is deterministic.
 Arrays travel in the tree's flatten order (dict keys sorted, sequence
 elements by index) so every process — publisher on one machine, replica
 on another — maps name ↔ bytes identically without negotiation.
+
+Port of ``torchkafka_tpu/source/checkpoint_wire.py``. The frame layout,
+CRCs and chunking are the JAX package's, so a numpy-only tree encodes to
+the same bytes. The port's trees are torch trees: leaves may be CPU or
+CUDA tensors (``QTensor`` pairs included), each copied to the host by
+``flatten_params``. NumPy has no bfloat16, so a bf16 leaf travels as its
+16-bit patterns under the logical dtype ``bfloat16`` in the manifest,
+which is what the JAX package writes for its bf16 arrays (the ml_dtypes
+name); ``fetch_checkpoint`` returns such an array as a CPU bf16 tensor.
+``rebuild_tree`` places each array on its incumbent leaf's device in the
+leaf's dtype, so the caller gets a tree it can serve at once.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import json
 import zlib
 
 import numpy as np
+import torch
 
 from torchkafka_tpu_torch.errors import CheckpointWireError
 from torchkafka_tpu_torch.source.records import TopicPartition
@@ -44,12 +56,48 @@ _CHUNK_MAGIC = b"CKCH"
 DEFAULT_CHUNK_BYTES = 1 << 18
 
 
-def flatten_params(tree) -> list[tuple[str, np.ndarray]]:
+_BF16 = "bfloat16"
+
+
+def _host_leaf(node):
+    """A leaf as the wire carries it: a numpy array, or a CPU bf16 tensor
+    (numpy has no bf16). Tensors are detached and copied to the host."""
+    if isinstance(node, torch.Tensor):
+        t = node.detach().to("cpu")
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+    return np.asarray(node)
+
+
+def _dtype_name(a) -> str:
+    """The manifest's dtype name of a host leaf, or of an incumbent leaf:
+    numpy's name, ``bfloat16`` for bf16 tensors, and a tensor's numpy
+    counterpart's name otherwise."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return _BF16
+        return str(torch.empty((), dtype=a.dtype).numpy().dtype)
+    return str(np.asarray(a).dtype)
+
+
+def _wire_dtype(name: str) -> np.dtype:
+    """The numpy dtype a manifest's array is read with: bf16 payloads are
+    read as their int16 bit patterns."""
+    return np.dtype(np.int16) if name == _BF16 else np.dtype(name)
+
+
+def _raw_bytes(a) -> bytes:
+    if isinstance(a, torch.Tensor):  # bf16: its bit patterns
+        return a.contiguous().view(torch.int16).numpy().tobytes()
+    return np.ascontiguousarray(a).tobytes()
+
+
+def flatten_params(tree) -> list[tuple[str, object]]:
     """The deterministic tree walk: nested dicts by sorted key, lists and
-    tuples by index, leaves as numpy arrays — the single flatten order
-    both ends of the wire share. Paths join with ``/`` (key names in the
-    model trees never contain it)."""
-    flat: list[tuple[str, np.ndarray]] = []
+    tuples (``QTensor`` pairs too) by index, leaves on the host as numpy
+    arrays, or CPU bf16 tensors — the single flatten order both ends of
+    the wire share. Paths join with ``/`` (key names in the model trees
+    never contain it)."""
+    flat: list[tuple[str, object]] = []
 
     def walk(node, path: str) -> None:
         if isinstance(node, dict):
@@ -59,18 +107,20 @@ def flatten_params(tree) -> list[tuple[str, np.ndarray]]:
             for i, item in enumerate(node):
                 walk(item, f"{path}/{i}" if path else str(i))
         else:
-            flat.append((path, np.asarray(node)))
+            flat.append((path, _host_leaf(node)))
 
     walk(tree, "")
     return flat
 
 
-def rebuild_tree(template, flat: dict[str, np.ndarray]):
+def rebuild_tree(template, flat: dict):
     """Rebuild a params tree with the SAME structure as ``template`` but
     the wire's arrays as leaves — the incumbent tree is the schema, so a
-    checkpoint that drops, adds, or reshapes an array is rejected
-    (``CheckpointWireError``) before any weight is touched. Returns a new
-    tree; the caller owns device placement."""
+    checkpoint that drops, adds, reshapes or retypes an array is rejected
+    (``CheckpointWireError``) before any weight is touched. A tensor leaf
+    of ``template`` comes back as a tensor on that leaf's device in its
+    dtype (bf16 bit patterns reinterpreted); a numpy leaf as the wire's
+    numpy array. Returns a new tree; ``template`` is only read."""
     used: set[str] = set()
 
     def walk(node, path: str):
@@ -84,20 +134,26 @@ def rebuild_tree(template, flat: dict[str, np.ndarray]):
                 walk(item, f"{path}/{i}" if path else str(i))
                 for i, item in enumerate(node)
             ]
+            if hasattr(node, "_fields"):  # a NamedTuple (QTensor)
+                return type(node)(*rebuilt)
             return type(node)(rebuilt) if isinstance(node, tuple) else rebuilt
-        leaf = np.asarray(node)
         arr = flat.get(path)
         if arr is None:
             raise CheckpointWireError(
                 f"checkpoint is missing array {path!r}"
             )
-        if tuple(arr.shape) != tuple(leaf.shape) or arr.dtype != leaf.dtype:
+        want, got = _dtype_name(node), _dtype_name(arr)
+        shape = tuple(node.shape) if hasattr(node, "shape") else np.shape(node)
+        if tuple(arr.shape) != tuple(shape) or got != want:
             raise CheckpointWireError(
-                f"checkpoint array {path!r} is {arr.dtype}{arr.shape}, "
-                f"incumbent is {leaf.dtype}{tuple(leaf.shape)}"
+                f"checkpoint array {path!r} is {got}{tuple(arr.shape)}, "
+                f"incumbent is {want}{tuple(shape)}"
             )
         used.add(path)
-        return arr
+        if not isinstance(node, torch.Tensor):
+            return arr
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
+        return t.to(node.device, copy=True)
 
     tree = walk(template, "")
     extra = set(flat) - used
@@ -162,7 +218,7 @@ def encode_manifest(
         "version": int(version),
         "kind": kind,
         "arrays": [
-            {"name": name, "dtype": str(a.dtype), "shape": list(a.shape)}
+            {"name": name, "dtype": _dtype_name(a), "shape": list(a.shape)}
             for name, a in arrays
         ],
         "chunk_bytes": int(chunk_bytes),
@@ -184,10 +240,12 @@ def decode_manifest(data: bytes) -> dict:
         version = int(header["version"])
         kind = str(header["kind"])
         arrays = [
-            (str(m["name"]), np.dtype(m["dtype"]), tuple(
+            (str(m["name"]), str(m["dtype"]), tuple(
                 int(x) for x in m["shape"]))
             for m in header["arrays"]
         ]
+        for _, dt, _shape in arrays:
+            _wire_dtype(dt)
         chunk_crcs = [int(c) for c in header["chunk_crcs"]]
         n_chunks = int(header["n_chunks"])
         out = {
@@ -210,8 +268,8 @@ def decode_manifest(data: bytes) -> dict:
             f"{len(chunk_crcs)} CRCs"
         )
     declared = sum(
-        dt.itemsize * int(np.prod(shape, dtype=np.int64)) if shape
-        else dt.itemsize
+        _wire_dtype(dt).itemsize * int(np.prod(shape, dtype=np.int64))
+        if shape else _wire_dtype(dt).itemsize
         for _, dt, shape in out["arrays"]
     )
     if declared != out["total_bytes"]:
@@ -267,9 +325,7 @@ def checkpoint_frames(
     if chunk_bytes < 1:
         raise ValueError(f"chunk_bytes must be >= 1, got {chunk_bytes}")
     flat = flatten_params(params)
-    payload = b"".join(
-        np.ascontiguousarray(a).tobytes() for _, a in flat
-    )
+    payload = b"".join(_raw_bytes(a) for _, a in flat)
     chunks = [
         payload[i:i + chunk_bytes]
         for i in range(0, len(payload), chunk_bytes)
@@ -313,7 +369,8 @@ def fetch_checkpoint(
     before slicing into named arrays. ANY defect — missing manifest,
     missing chunk, torn frame, CRC mismatch, size drift — raises
     ``CheckpointWireError``; the caller keeps the incumbent weights.
-    Returns ``(name → array, manifest)``."""
+    Returns ``(name → array, manifest)``; a bf16 array is a CPU bf16
+    tensor, every other a numpy array."""
     version = int(version)
     tp = TopicPartition(topic, 0)
     try:
@@ -368,20 +425,24 @@ def fetch_checkpoint(
         raise CheckpointWireError(
             f"version {version} assembled payload fails CRC"
         )
-    flat: dict[str, np.ndarray] = {}
+    flat: dict = {}
     off = 0
-    for name, dt, shape in manifest["arrays"]:
+    for name, dtn, shape in manifest["arrays"]:
+        dt = _wire_dtype(dtn)
         n = (
             dt.itemsize * int(np.prod(shape, dtype=np.int64))
             if shape else dt.itemsize
         )
         try:
-            flat[name] = np.frombuffer(
+            arr = np.frombuffer(
                 payload, dtype=dt, count=n // dt.itemsize, offset=off,
             ).reshape(shape).copy()
         except ValueError as exc:
             raise CheckpointWireError(
                 f"version {version} array {name!r} unreadable: {exc}"
             ) from exc
+        flat[name] = (
+            torch.from_numpy(arr).view(torch.bfloat16) if dtn == _BF16 else arr
+        )
         off += n
     return flat, manifest
