@@ -206,11 +206,11 @@ Phases, each printing one JSON line:
    pool, served plainly (63 ticks a block) and by
    ``SpecStreamingGenerator`` (k = 4, 13 rounds a block: harness scenario
    7 ``--spec``) with the perfect draft (the target itself) and the
-   12-layer self-draft, in turns: plain, perfect, self, plain (the
-   second speculative pair was cut for time); then the self-draft's 12
+   half-depth self-draft, in turns: plain, perfect, self, plain (the
+   second speculative pair was cut for time); then the self-draft's
    layers served plainly. Each run:
    32/32 completions of 64 tokens, committed == end offsets and equal to
-   the first plain run's, token 0 identical to it, K1 = (24 + draft
+   the first plain run's, token 0 identical to it, K1 = (layers + draft
    layers) x prefills all on the tensor cores, K4 = K5 = 0, proposals
    made. Printed: tok/s, the speculation counters and α, tokens a
    slot-round, host ms a tick block and a round, the token agreement with
@@ -246,8 +246,8 @@ Phases, each printing one JSON line:
    single server's, the merged ``watermarks()`` equal to the broker's,
    at least one duplicate and one journal handoff, the survivor served
    or resumed at least one record from the victim's journal, token 0 of
-   every copy equal to the single server's, K1 = 24 x (prefills + warm
-   resumes) and K4 = 24 x decode ticks summed over the replicas. Then a
+   every copy equal to the single server's, K1 = layers x (prefills +
+   warm resumes) and K4 = layers x decode ticks summed over the replicas. Then a
    drain after 32 completions and a second fleet on the same group:
    every prompt once, none by both. Memory: one 8-slot server's bytes
    against a 2-replica fleet's (the second replica adds its pool, not a
@@ -262,7 +262,7 @@ Phases, each printing one JSON line:
    produced; two thirds
    of the stream arrive before the rollout, the rest after it is done.
    (c) The weights of another seed published with ``publish_checkpoint``
-   (~2.5 GB), fetched CRC-checked by a ``RolloutWorker`` on each replica
+   (~0.64 GB at 4 layers), fetched CRC-checked by a ``RolloutWorker`` on each replica
    under a ``BrokerRolloutDriver`` (canary gate open) and rebuilt onto
    the card bitwise equal; served after the swap. Every commit is
    recorded with the version live on its replica, and in every run each
@@ -283,24 +283,79 @@ Phases, each printing one JSON line:
    equal; a ``FleetAutoscaler`` loop driven by ``WorkloadGenerator``
    under a ``ManualClock`` scales up and down and replays byte for byte;
 8d. serve_8b: harness scenario 7 at the 8b scale with an output topic
-   (BASELINE config 5), full width and depth, random int8 weights made on
-   the card from a seed: 48 prompts of 128 tokens produced round-robin on
+   (BASELINE config 5), full width at 16 of its 32 layers, random int8
+   weights made on the card from a seed: 48 prompts of 128 tokens produced round-robin on
    two partitions, 16 slots, 64 new tokens, the dense int8 pool, each
    completion published to "completions" keyed by its prompt before its
    offset commits. Run twice, with the K4 read and then with the plain
    M-major read (kv_kernel=False); each run serves 48/48 completions of 64
    tokens, commits the end offsets, publishes exactly 48 records equal to
-   the completions, and launches K1 = 32 × prefills (all on the tensor
-   cores; none in the f32 run below), K4 = 32 × decode ticks
+   the completions, and launches K1 = layers × prefills (all on the tensor
+   cores; none in the f32 run below), K4 = layers × decode ticks
    (0 in the second run) and K6-K8 never (counts zeroed just before each
    run, read just after); the two runs commit the same offsets and agree
    on token 0;
 8e. serve_8b_f32: the same stream and checks at 8b width, 2 layers, f32
    compute over the int8 weights, through K4 and through the plain M-major
    read: every token identical;
+8g. serve_disagg (after serve_fleet_rollout): disaggregated prefill at
+   serve_paged's model and pool (1b bf16, int8 chunked paged, blocks of
+   16, all 24 layers) over its 48-prompt tenant stream: a ``ServingFleet``
+   of two 8-slot decode replicas with ``handoff_consumer_factory`` (one
+   private handoff group each, ``route_patience`` 2 rounds) and one
+   ``PrefillPool`` worker in its own group, pumped every round and closed
+   once 6 handoffs are published (harness scenario 21's mid-storm loss of
+   the prefill worker); the rest fall back to local prefills. Held: every
+   prompt served once, committed == end offsets == the monolithic paged
+   serve's, >= 6 slots adopted, the prefill group's commits covering only
+   published handoffs, no adopted record queued for a local prefill and
+   the replicas' prefill tokens exactly the fallbacks' (from the fleet's
+   trace), K5 = 24 x decode-only ticks over every server, K1 = K4 = 0,
+   token 0 equal to the monolithic serve's. Printed: handoff bytes,
+   publish-to-adopt ms (trace clock), decode tick p50/p99 with the
+   prefill worker beside the monolithic serve's, the token agreement;
+8h. serve_procfleet: the process fleet (``fleet.ProcessFleet``, worker
+   processes ``python -m torchkafka_tpu_torch.fleet.proc`` on the card)
+   at the 1b, 24 layers, f32 as ``fleet.proc.build_model`` gives
+   (weights drawn on the CPU from the seed in every process): serve_fleet's
+   64 prompts of 128 (two tenants, each record keyed by tenant and index,
+   prompt i on partition i % 4) over the ``BrokerServer`` TCP broker; 2
+   replica processes of 8 slots (dense f32 pools, a journal, respawn), one
+   SIGKILLed mid-round while its journal holds generations with tokens
+   (wave 1); the same processes on wave 2; one after ``scale(1)`` on
+   wave 3. Held: ``fully_committed``, every
+   copy byte-identical to the port's in-process 8-slot server on the same
+   weights, the victim fenced (its generation refused a commit) with its
+   journal handed over and resumes counted, each dumping child's K1 = 24 x
+   (prefills + warm resumes) from its own counters. Printed: tok/s from the
+   produce (worker start excluded), each child's tick p50/p99,
+   duplicates, kill to respawn-ready seconds, 2 processes over 1 (waves 2
+   and 3);
+8i. serve_procfleet_f32 (after serve_fleet_f32): 1b width, 2 layers, f32,
+   real processes: (a) scenario 21's shape, ``ProcessFleet(replicas=2,
+   prefill_replicas=1)`` over a paged compute-dtype pool, the prefill
+   worker SIGKILLed after 6 handoffs: every completion byte-identical to
+   the in-process monolithic paged server, nothing lost, adoptions, the
+   prefill group's commits covering only published handoffs; (b) the
+   distill role: one replica and a ``DistillTrainer`` worker training the
+   1-layer draft on the card (K1-K3 = steps in its dump), versions 1 and 2
+   fetchable, ``kill_distill`` respawns it and it trains again;
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
-   the fleet runs' launches, ``fleet_launches``);
+   the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
+   processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
+   ``disagg_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
+
+Depth cuts (the time of phases 8g-8i): serve_traced, serve_sampled,
+serve_resume (its ``resume_prefill_device_ms`` stays at 24 layers),
+serve_tiered, serve_spec, serve_spec_paged, serve_fleet and
+serve_fleet_rollout run the 1b widths at ``CUT_LAYERS`` = 4 of its 24
+layers (views of the first 4 layers' weights; their rows carry
+``"layers": 4``, and their launch checks use 4); serve_8b runs the 8b
+widths at ``CUT_LAYERS_8B`` = 16 of its 32 layers (K1 and K4 = 16 x ...).
+Every
+phase row carries ``phase_s`` (seconds since the previous line: the first
+row of a phase carries the phase) and ``at_s`` (seconds since the start).
 
 Float32 matmuls run in full precision (TF32 off for matmul and cuDNN).
 Any failure raises and exits non-zero without the last line; so does a
@@ -312,6 +367,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -322,9 +378,32 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 SEED = 0
 MAX_NEW = 64  # scenario 7's full size: 64 new tokens per prompt
+CUT_LAYERS = 4  # depth of the traced, sampled, resumed, tiered, speculative, fleet paths
+CUT_LAYERS_8B = 16  # depth of the 8b path (of 32; its widths unchanged)
+
+
+_CLOCK = {"start": time.perf_counter()}
+_CLOCK["last"] = _CLOCK["start"]
+
+
+def cut_depth(cfg, params):
+    """(cfg, params) at ``CUT_LAYERS`` layers: the first layers' weights as
+    views, every width the model's."""
+    from torchkafka_tpu_torch.models.spec_decode import truncated_draft
+
+    params_cut, cfg_cut = truncated_draft(params, cfg, CUT_LAYERS)
+    return cfg_cut, params_cut
 
 
 def emit(obj) -> None:
+    """Print one JSON line. A phase row (a dict with "phase") also gets
+    ``phase_s``, the seconds since the previous line (the rows of one
+    phase print together, so its first row carries the phase's time), and
+    ``at_s``, the seconds since the script started."""
+    now = time.perf_counter()
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "phase_s": now - _CLOCK["last"], "at_s": now - _CLOCK["start"]}
+    _CLOCK["last"] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1663,10 +1742,11 @@ def serve_paged(torch, cfg, params, prompts, keys, kv_kernel: bool = True, parts
     return outs, row, server
 
 
-def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict, dict]:
+def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict, dict, dict]:
     """The tenant stream through the block-table kernel (K5) and again
     through the gathered read: committed offsets and token 0 must be
-    identical; ``exact`` (f32) requires every token identical."""
+    identical; ``exact`` (f32) requires every token identical. → (K5 row,
+    gathered row, the K5 run's outputs)."""
     import numpy as np
 
     prompts, keys = tenant_prompts(np, cfg.vocab_size)
@@ -1684,7 +1764,7 @@ def check_serve_paged(torch, cfg, params, name: str, exact: bool) -> tuple[dict,
         raise AssertionError(f"{name}: token 0 differs between the kernel and gathered reads")
     if exact and agree != 1.0:
         raise AssertionError(f"{name}: f32 tokens differ (agreement {agree})")
-    return row_k, row_g
+    return row_k, row_g, outs_k
 
 
 # --------------------------------------------------- observability and tiers
@@ -2822,10 +2902,10 @@ def check_serve_spec(torch, cfg, params, prompts) -> list:
     """The serve phase's 1b model and 32 prompts, bf16 dense pool, plain
     (``MAX_NEW`` - 1 ticks a block) and speculative (k = ``SPEC_K``,
     ``SPEC_ROUNDS`` rounds a block) with the perfect draft and the
-    12-layer self-draft, in turns: plain, perfect, self, plain (two more
+    half-depth self-draft, in turns: plain, perfect, self, plain (two more
     speculative turns before the fleet phases took their time); then the
-    self-draft's 12 layers served plainly (t_draft).
-    Each run: ``serve``'s checks (K1 = (24 + draft layers) x prefills on
+    self-draft's layers served plainly (t_draft).
+    Each run: ``serve``'s checks (K1 = (layers + draft layers) x prefills on
     the tensor cores, K4 = K5 = 0), commits and token 0 equal to the
     first plain run's, proposals made. bench_spec's cost terms from the
     host-observed tick-block times: t_target and t_draft (ms a plain
@@ -3140,6 +3220,7 @@ def fleet_run(torch, cfg, params, prompts, keys, device, *, kv_dtype, group="fle
         broker = InMemoryBroker()
         produce_stream(broker, "t10", prompts, keys)
     if mem is not None:
+        gc.collect()  # garbage of earlier phases freed now, not during the build
         _sync(torch, device)
         before = torch.cuda.memory_allocated()
     fleet, clock, audit = make_fleet(cfg, params, broker, prompts.shape[1], device,
@@ -3280,6 +3361,7 @@ def check_serve_fleet(torch, cfg, params, device="cuda") -> list:
         # One 8-slot server's bytes; the first fleet run records its own
         # build's, and the difference must be one pool: the params tree is
         # shared by the replicas, never copied.
+        gc.collect()
         _sync(torch, device)
         base = torch.cuda.memory_allocated()
         b = InMemoryBroker()
@@ -3308,7 +3390,7 @@ def check_serve_fleet(torch, cfg, params, device="cuda") -> list:
         if first:
             extra = mem["fleet_bytes"] - mem["one_server_bytes"]
             mem["second_replica_bytes"] = extra
-            if abs(extra - mem["pool_bytes"]) > 64 << 20:  # the weights are ~2.5 GB
+            if abs(extra - mem["pool_bytes"]) > 64 << 20:  # the weights are ~0.64 GB
                 raise AssertionError(f"serve_fleet: the second replica took {extra} "
                                      f"bytes, its pool {mem['pool_bytes']}: {mem}")
         got = _held_fleet("serve_fleet", run, where)
@@ -3736,6 +3818,621 @@ def check_serve_fleet_f32(torch, cfg, params, device="cuda") -> list:
     return rows
 
 
+# ------------------------------------------ process fleet and disaggregation
+
+PROC_SLOTS = 8  # each replica process, as serve_fleet's replicas
+PROC_SESSION_S = 30.0  # a lease outlives a slow start; the reaper sees a death at once
+PROC_WAIT_S = 420.0  # the longest wait of a process phase (startup included)
+DISAGG_SLOTS = 8  # each decode replica and the prefill worker of serve_disagg
+DISAGG_PATIENCE = 2  # rounds a decode replica holds a record for its handoff
+DISAGG_CLOSE_AFTER = 6  # handoffs published before the prefill worker closes
+PREFILL_TRACE_TAG = 9  # the prefill worker's replica tag on the shared trace
+PROCFLEET_F32_N = 24  # serve_procfleet_f32's stream (scenario 21's oversubscription)
+
+
+def procfleet_model(cfg) -> dict:
+    """``fleet.proc.build_model``'s spec of ``cfg``'s shape (f32, seed
+    ``SEED``)."""
+    return {"seed": SEED, "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+            "n_layers": cfg.n_layers, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+            "max_seq_len": cfg.max_seq_len}
+
+
+def procfleet_stream(np, vocab: int, n: int = FLEET_N, plen: int = 128):
+    """serve_fleet's prompts and tenants, each record keyed by its tenant
+    and index (``throttled-i``, ``open-i``) so that an output names its
+    prompt, prompt i on partition i % 4."""
+    prompts, keys = fleet_stream(np, vocab, n, plen)
+    return prompts, [b"%s-%d" % (k, i) for i, k in enumerate(keys)]
+
+
+def produce_keyed(broker, topic: str, prompts, keys, parts: int = FLEET_PARTS) -> None:
+    for i, key in enumerate(keys):
+        broker.produce(topic, prompts[i].tobytes(), partition=i % parts, key=key)
+
+
+def reference_outputs(cfg, params, prompts, keys, device, *, slots, ticks,
+                      **kw) -> dict:
+    """The port's in-process server over the keyed stream (one partition
+    per prompt index mod 4) → {key: tokens}."""
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+
+    broker = InMemoryBroker()
+    broker.create_topic("ref", partitions=FLEET_PARTS)
+    produce_keyed(broker, "ref", prompts, keys)
+    consumer = MemoryConsumer(broker, "ref", group_id="ref")
+    server = StreamingGenerator(consumer, params, cfg, slots=slots,
+                                prompt_len=prompts.shape[1], max_new=MAX_NEW,
+                                commit_every=FLEET_COMMIT, ticks_per_sync=ticks,
+                                device=device, **kw)
+    out = {rec.key: toks for rec, toks in server.run(max_records=len(keys))}
+    consumer.close()
+    if set(out) != set(keys):
+        raise AssertionError(f"reference: {len(out)} of {len(keys)} served")
+    return out
+
+
+def _identical(what, results, ref, np) -> dict:
+    """Every copy of every completion on the fleet's output topic equals
+    the reference; → duplicates and tokens."""
+    if set(results) != set(ref):
+        raise AssertionError(f"{what}: {len(set(ref) - set(results))} prompts never "
+                             "served")
+    for key, copies in results.items():
+        for member, toks in copies:
+            if not np_equal(np.asarray(toks), np.asarray(ref[key])):
+                raise AssertionError(f"{what}: {key!r} via {member} differs from the "
+                                     "in-process server")
+    return {"duplicates": sum(len(c) - 1 for c in results.values()),
+            "tokens": sum(len(t) for c in results.values() for _m, t in c)}
+
+
+def _child_k1(what, dumps, n_layers, cuda=True) -> list:
+    """Each dumping decode child's K1 = layers x (prefills + warm
+    resumes), from its own counters (held on the card: a CPU tensor
+    launches nothing); → per child (member, K1, prefills, warm resumes)."""
+    out = []
+    for d in dumps:
+        want = n_layers * (d["prefills"] + d["warm_resumes"])
+        if cuda and d["launches"]["flash_fwd"] != want:
+            raise AssertionError(f"{what}: child {d['member']} launched K1 "
+                                 f"{d['launches']}, want {want}")
+        out.append({"member": d["member"], "flash_fwd": d["launches"]["flash_fwd"],
+                    "prefills": d["prefills"], "warm_resumes": d["warm_resumes"]})
+    if cuda and not sum(c["flash_fwd"] for c in out):
+        raise AssertionError(f"{what}: no child launched K1: {out}")
+    return out
+
+
+def _wave(fleet, prompts, wave: int, *, keys=None):
+    """Produce wave ``wave`` of the keyed stream (keys ``...-w<wave>``) onto
+    the fleet's topic; → its keys and the produce time."""
+    keys = [b"%s-w%d" % (k, wave) for k in keys]
+    produce_keyed(fleet.broker, "pf", prompts, keys)
+    return keys, time.perf_counter()
+
+
+def _served(fleet, keys, what: str, deadline: float) -> float:
+    """Wait until every key of a wave is on the output topic; → the time."""
+    while not set(keys) <= set(fleet.results()):
+        fleet.poll_once()
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"serve_procfleet {what}: not served\n" + fleet.diagnose())
+        time.sleep(0.02)
+    return time.perf_counter()
+
+
+def check_serve_procfleet(torch, cfg, device="cuda") -> list:
+    """Item 6's process fleet at ``cfg``'s shape (the 1b), f32 as
+    ``fleet.proc.build_model`` gives, over the ``BrokerServer`` TCP
+    broker: one ``ProcessFleet`` of 2 replica processes of 8 slots (dense
+    f32 pools, a journal, respawn) serves serve_fleet's 64 prompts of 128
+    (two tenants, each record keyed by tenant, index and wave, prompt i on
+    partition i % 4) three times: wave 1 with one SIGKILL mid-round, once
+    outputs exist and the victim's journal on disk holds generations with
+    tokens (served-but-uncommitted work; the replacement respawns); wave 2
+    on the two warm processes; then ``scale(1)`` drains one and wave 3
+    runs on the other. Held: nothing lost (``fully_committed``), every copy
+    byte-identical to the port's in-process 8-slot server on the same
+    weights, the victim fenced with its journal handed over and resumes
+    counted, its generation refused a commit, each dumping child's K1 =
+    layers x (prefills + warm resumes) from its own counters. Tok/s count
+    from each wave's produce (worker start excluded)."""
+    import tempfile
+
+    import numpy as np
+
+    from torchkafka_tpu_torch.errors import CommitFailedError
+    from torchkafka_tpu_torch.fleet import ProcessFleet
+    from torchkafka_tpu_torch.fleet.proc import build_model
+    from torchkafka_tpu_torch.journal import DecodeJournal
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    t0 = time.perf_counter()
+    spec = procfleet_model(cfg)
+    prompts, base = procfleet_stream(np, spec["vocab_size"])
+    pcfg, params = build_model(spec, device)
+    t_ref = time.perf_counter()
+    one = reference_outputs(pcfg, params, prompts, base, device, slots=PROC_SLOTS,
+                            ticks=FLEET_TICKS)
+    ref = {b"%s-w%d" % (k, w): one[k] for k in base for w in (1, 2, 3)}
+    ref_s = time.perf_counter() - t_ref
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rows = []
+    with tempfile.TemporaryDirectory() as wd:
+        fleet = ProcessFleet(
+            spec, topic="pf", prompt_len=prompts.shape[1], max_new=MAX_NEW, workdir=wd,
+            replicas=2, partitions=FLEET_PARTS, slots=PROC_SLOTS,
+            commit_every=FLEET_COMMIT, ticks_per_sync=FLEET_TICKS,
+            session_timeout_s=PROC_SESSION_S, heartbeat_interval_s=0.2, respawn=True,
+            group="pf", device=device)
+        try:
+            ts = time.perf_counter()
+            fleet.start()
+            fleet.wait_ready(timeout_s=PROC_WAIT_S)
+            ready_s = time.perf_counter() - ts
+            deadline = time.monotonic() + PROC_WAIT_S
+            # Wave 1: the kill, mid-round: the victim's journal on disk holds
+            # generations with tokens (uncommitted work a survivor resumes).
+            keys, t1 = _wave(fleet, prompts, 1, keys=base)
+
+            def in_flight(inc) -> bool:
+                return any(not e.finished and len(e.tokens) >= 1
+                           for e in DecodeJournal.load(inc.journal_path).values())
+
+            victim = None
+            while victim is None:
+                fleet.poll_once()
+                if set(keys) <= set(fleet.results()):
+                    raise AssertionError("serve_procfleet: the storm drained before "
+                                         "a kill window")
+                for inc in fleet.live():
+                    if fleet.results() and in_flight(inc):
+                        victim = fleet.kill_replica(inc.idx)
+                        t_kill = time.perf_counter()
+                        break
+                if time.monotonic() > deadline:
+                    raise TimeoutError("serve_procfleet: no kill window\n"
+                                       + fleet.diagnose())
+                time.sleep(0.01)
+            t_served = _served(fleet, keys, "wave 1", deadline)
+            ready_tp = TopicPartition(fleet.ready_topic, 0)
+            while True:  # the replacement's ready marker
+                fleet.poll_once()
+                ready = {r.value.decode() for r in fleet.broker.fetch(ready_tp, 0, 10**5)}
+                fresh = [i for i in fleet.live() if i.idx == victim["idx"]
+                         and i.member != victim["member"] and i.member in ready]
+                if fresh:
+                    respawn_ready_s = time.perf_counter() - t_kill
+                    break
+                if time.monotonic() > deadline:
+                    raise TimeoutError("serve_procfleet: no respawn\n" + fleet.diagnose())
+                time.sleep(0.02)
+            rows.append({"run": "2_process_kill", "wave": 1, "elapsed_s": t_served - t1,
+                         "victim": victim["member"], "kill_at_s": t_kill - t1,
+                         "kill_to_respawn_ready_s": respawn_ready_s})
+            # Wave 2: two warm processes (the survivor and the replacement).
+            keys, t2 = _wave(fleet, prompts, 2, keys=base)
+            rows.append({"run": "2_process", "wave": 2,
+                         "elapsed_s": _served(fleet, keys, "wave 2", deadline) - t2})
+            # Wave 3: one process, the newest drained by scale(1).
+            fleet.scale(1)
+            fleet.wait(lambda f: sum(i.running for i in f.incarnations) == 1,
+                       timeout_s=PROC_WAIT_S)
+            keys, t3 = _wave(fleet, prompts, 3, keys=base)
+            rows.append({"run": "1_process", "wave": 3,
+                         "elapsed_s": _served(fleet, keys, "wave 3", deadline) - t3})
+            fleet.drain()
+            fleet.wait(lambda f: all(not i.running for i in f.incarnations),
+                       timeout_s=PROC_WAIT_S)
+            fleet.poll_once()
+            if not fleet.fully_committed():
+                raise AssertionError("serve_procfleet: prompts lost\n" + fleet.diagnose())
+            results = fleet.results()
+            held = _identical("serve_procfleet", results, ref, np)
+            dumps = [d for d in fleet.worker_metrics() if d.get("role") is None]
+            vic = next(i for i in fleet.incarnations if i.member == victim["member"])
+            warm = sum(d["warm_resumes"] + d["served_from_journal"] for d in dumps)
+            if (vic.fence_reason != "process_death" or vic.handoff_entries < 1
+                    or warm < 1 or len(fleet.incarnations) != 3):
+                raise AssertionError(f"serve_procfleet: failover {vic}, warm {warm}\n"
+                                     + fleet.diagnose())
+            try:  # the zombie's generation can never commit
+                fleet.broker.commit("pf", {TopicPartition("pf", 0): 1},
+                                    member_id=victim["member"],
+                                    generation=victim["generation"])
+                fenced = False
+            except CommitFailedError:
+                fenced = True
+            if not fenced:
+                raise AssertionError("serve_procfleet: the killed generation committed")
+            summary = {
+                "phase": "serve_procfleet", "summary": True, "model": "1b",
+                "dtype": "float32", "layers": spec["n_layers"], "slots": PROC_SLOTS,
+                "start_to_ready_s": ready_s, "zombie_fenced": True,
+                "handoff_entries": vic.handoff_entries, **held,
+                "incarnations": [i.member for i in fleet.incarnations],
+                "exit_codes": {i.member: i.exit_code for i in fleet.incarnations},
+                "child_launches": _child_k1("serve_procfleet", dumps, spec["n_layers"],
+                                            cuda=device == "cuda"),
+                "tick_ms": {d["member"]: {"p50": d["step_p50_ms"], "p99": d["step_p99_ms"]}
+                            for d in dumps},
+                "journal": {d["member"]: {k: d[k] for k in (
+                    "warm_resumes", "tokens_restored", "served_from_journal",
+                    "resume_rejected")} for d in dumps},
+                "fully_committed": True,
+            }
+        finally:
+            fleet.close()
+    for row in rows:
+        copies = [c for k, cs in results.items() if k.endswith(b"-w%d" % row["wave"])
+                  for c in cs]
+        row.update({"phase": "serve_procfleet", "model": "1b", "dtype": "float32",
+                    "layers": spec["n_layers"], "completions": len(copies),
+                    "duplicates": len(copies) - len(base),
+                    "tokens_per_s": sum(len(t) for _m, t in copies) / row["elapsed_s"],
+                    "unique_tokens_per_s": len(base) * MAX_NEW / row["elapsed_s"]})
+    summary.update({"two_over_one_process": rows[1]["unique_tokens_per_s"]
+                    / rows[2]["unique_tokens_per_s"],
+                    "reference_server_s": ref_s, "seconds": time.perf_counter() - t0})
+    return rows + [summary]
+
+
+def check_serve_disagg(torch, cfg, params, ref, device="cuda") -> list:
+    """Disaggregated prefill at serve_paged's model and pool (int8 chunked
+    paged, blocks of 16): its 48-prompt tenant stream served by a
+    ``ServingFleet`` of two 8-slot decode replicas adopting handoffs
+    (``handoff_consumer_factory``) from one ``PrefillPool`` worker in its
+    own group, pumped every round; the worker closes once
+    ``DISAGG_CLOSE_AFTER`` handoffs are published, and the rest fall back
+    to local prefills after ``DISAGG_PATIENCE`` rounds. Held: every prompt
+    served once and committed, at least ``DISAGG_CLOSE_AFTER`` slots
+    adopted, the prefill group's commits covering only published handoffs,
+    no adopted record queued for a local prefill and the replicas'
+    prefill tokens those of the fallbacks, K5 = layers x decode-only ticks
+    over every server; commits equal to the monolithic paged int8 serve of
+    the stream (``ref``: serve_paged's K5 run, (outputs, row)), whose
+    tokens the printed agreement compares."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.fleet import PrefillPool, ServingFleet
+    from torchkafka_tpu_torch.fleet.drill import audited_consumer
+    from torchkafka_tpu_torch.fleet.prefill import decode_handoff
+    from torchkafka_tpu_torch.obs import ObsConfig
+    from torchkafka_tpu_torch.obs.trace import PREFILL_HANDOFF, PREFILL_QUEUED, SLOT_ADOPTED
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    t0 = time.perf_counter()
+    prompts, keys = tenant_prompts(np, cfg.vocab_size)
+    n, plen = prompts.shape
+    outs_m, row_m = ref
+    nblk = -(-(plen + MAX_NEW) // PAGED_BS)
+    pages = {"block_size": PAGED_BS, "num_blocks": DISAGG_SLOTS * nblk + 24 + 1}
+    pool_kw = {"kv_dtype": "int8", "kv_kernel": True}
+    broker = InMemoryBroker()
+    broker.create_topic("t12", partitions=4)
+    for i in range(n):
+        broker.produce("t12", prompts[i].tobytes(), key=keys[i])
+    broker.create_topic("ho", partitions=1)
+    audit = {"completed": None, "commits": [], "floor": {}}
+    cls = audited_consumer(MemoryConsumer, audit)
+    fleet = ServingFleet(
+        lambda rid: cls(broker, "t12", group_id="dg", member_id=f"dg-r{rid:03d}"),
+        params, cfg, replicas=2, prompt_len=plen, max_new=MAX_NEW, slots=DISAGG_SLOTS,
+        commit_every=FLEET_COMMIT, obs=ObsConfig(token_events=False),
+        gen_kwargs={"kv_pages": pages, "ticks_per_sync": 8, "device": device, **pool_kw},
+        handoff_consumer_factory=lambda rid: MemoryConsumer(
+            broker, "ho", group_id=f"dg-ho-{rid}", member_id=f"dg-ho-{rid}"),
+        route_patience=DISAGG_PATIENCE)
+    audit["completed"] = fleet.completed
+    audit["version_of"] = lambda member: 0
+    pool = PrefillPool(broker, "t12", "dg-prefill", "ho", params, cfg, workers=1,
+                       slots=DISAGG_SLOTS, prompt_len=plen, max_new=MAX_NEW, kv_pages=pages,
+                       commit_every=2, gen_kwargs={
+                           **pool_kw, "device": device, "tracer": fleet.tracer,
+                           "trace_replica": PREFILL_TRACE_TAG})
+    prefill_gen = pool.workers[0].gen
+    fleet.warmup()
+    pool.warmup()
+    state = {"open": True, "rounds": 0}
+
+    def on_round(_f, _served):
+        state["rounds"] += 1
+        if state["open"]:
+            pool.pump_once()
+            if prefill_gen.metrics.handoffs_published.count >= DISAGG_CLOSE_AFTER:
+                pool.close()  # unpublished prompts stay uncommitted in its group
+                state["open"] = False
+                state["closed_at_round"] = state["rounds"]
+
+    read = _zero_launches()
+    outs = {}
+    t1 = time.perf_counter()
+    for _rid, rec, toks in fleet.serve(idle_timeout_ms=500, on_round=on_round):
+        if (rec.partition, rec.offset) in outs:
+            raise AssertionError(f"serve_disagg: {rec.partition}:{rec.offset} served twice")
+        outs[(rec.partition, rec.offset)] = toks
+    _sync(torch, device)
+    elapsed = time.perf_counter() - t1
+    launches = read()
+    gens = [r.gen for r in fleet.replicas] + [prefill_gen]
+    s = fleet.metrics.summary(fleet.replicas)
+    tps = [TopicPartition("t12", p) for p in range(4)]
+    committed = [broker.committed("dg", tp) or 0 for tp in tps]
+    ends = [broker.end_offset(tp) for tp in tps]
+    handoffs = broker.fetch(TopicPartition("ho", 0), 0, 10**5)
+    published = {decode_handoff(r.value).key for r in handoffs}
+    adopted = s["disagg"]["adopted_slots"]
+    ev = list(fleet.tracer.events)
+    queued = {(e.topic, e.partition, e.offset): dict(e.attrs)["suffix_tokens"]
+              for e in ev if e.stage == PREFILL_QUEUED
+              and dict(e.attrs)["replica"] != PREFILL_TRACE_TAG}
+    adopted_keys = {(e.topic, e.partition, e.offset): e.t for e in ev
+                    if e.stage == SLOT_ADOPTED}
+    handed_at = {(e.topic, e.partition, e.offset): e.t for e in ev
+                 if e.stage == PREFILL_HANDOFF}
+    decode_prefill = sum(r.gen.metrics.prefill_tokens.count for r in fleet.replicas)
+    fleet.close()
+    if len(outs) != n or committed != ends:
+        raise AssertionError(f"serve_disagg: {len(outs)} of {n} served, committed "
+                             f"{committed} != {ends}")
+    if committed != row_m["committed"]:
+        raise AssertionError(f"serve_disagg: commits {committed} != monolithic "
+                             f"{row_m['committed']}")
+    if adopted < DISAGG_CLOSE_AFTER or len(adopted_keys) != adopted:
+        raise AssertionError(f"serve_disagg: {adopted} slots adopted")
+    for p, tp in enumerate(tps):
+        for off in range(broker.committed("dg-prefill", tp) or 0):
+            if ("t12", p, off) not in published:
+                raise AssertionError(f"serve_disagg: the prefill group committed "
+                                     f"{p}:{off} with no handoff published")
+    if set(queued) & set(adopted_keys) or sum(queued.values()) != decode_prefill \
+            or len(queued) != n - adopted:
+        raise AssertionError(f"serve_disagg: {len(queued)} local prefills "
+                             f"({sum(queued.values())} tokens, replicas counted "
+                             f"{decode_prefill}) beside {adopted} adoptions")
+    want_k5 = cfg.n_layers * sum(g.metrics.decode_ticks.count - g.metrics.chunk_ticks.count
+                                 for g in gens)
+    if device == "cuda" and (launches["kvattn_paged"] != want_k5 or want_k5 == 0
+                             or launches["flash_fwd"] != 0 or launches["kvattn_dynlen"] != 0):
+        raise AssertionError(f"serve_disagg: launches {launches}, want K5 {want_k5}")
+    tok0 = all(int(outs[k][0]) == int(outs_m[k][0]) for k in outs_m)
+    agree = float(np.mean([np.mean(outs[k] == outs_m[k]) for k in outs_m]))
+    if not tok0:
+        raise AssertionError("serve_disagg: token 0 differs from the monolithic serve")
+    lag = [1e3 * (adopted_keys[k] - handed_at[k]) for k in adopted_keys if k in handed_at]
+    ticks = [r.gen.metrics.tick_time.summary() for r in fleet.replicas]
+    tokens = sum(len(t) for t in outs.values())
+    return [{"phase": "serve_disagg", "model": "1b", "kv_dtype": "int8", "pool": "paged",
+             "slots": DISAGG_SLOTS, "replicas": 2, "prefill_workers": 1,
+             "completions": len(outs), "committed": committed,
+             "elapsed_s": elapsed, "tokens_per_s": tokens / elapsed,
+             "handoffs_published": len(handoffs), "adopted_slots": adopted,
+             "prefill_routed": s["disagg"]["prefill_routed"],
+             "fallback_prefills": len(queued), "decode_prefill_tokens": decode_prefill,
+             "prefill_worker_tokens": prefill_gen.metrics.prefill_tokens.count,
+             "closed_at_round": state.get("closed_at_round"),
+             "rounds": state["rounds"],
+             "handoff_bytes": sum(len(r.value) for r in handoffs),
+             "handoff_bytes_each": sorted({len(r.value) for r in handoffs}),
+             "publish_to_adopt_ms": {"p50": statistics.median(lag) if lag else None,
+                                     "max": max(lag) if lag else None, "n": len(lag)},
+             "decode_tick_ms": {"with_prefill_worker": {
+                                    f"r{i}": {"p50": t["p50_ms"], "p99": t["p99_ms"]}
+                                    for i, t in enumerate(ticks)},
+                                "monolithic": {k: row_m.get(k) for k in (
+                                    "tick_block_ms_p50", "tick_block_ms_p99")}},
+             "token0_identical_to_monolithic": tok0,
+             "token_agreement_with_monolithic": agree,
+             "launches": launches, "want_kvattn_paged": want_k5,
+             "seconds": time.perf_counter() - t0}]
+
+
+class CheckpointWatch:
+    """The checkpoint versions whose manifest and every chunk are on a
+    topic, read incrementally (each frame decoded once), so a wait for a
+    publish does not re-read the whole topic every poll."""
+
+    def __init__(self, topic: str) -> None:
+        self.topic, self.pos = topic, 0
+        self.n_chunks: dict = {}
+        self.chunks: dict = {}
+
+    def complete(self, broker) -> set:
+        from torchkafka_tpu_torch.source.checkpoint_wire import (
+            _CHUNK_MAGIC,
+            _MANIFEST_MAGIC,
+            decode_chunk,
+            decode_manifest,
+        )
+        from torchkafka_tpu_torch.source.records import TopicPartition
+
+        tp = TopicPartition(self.topic, 0)
+        end = broker.end_offset(tp)
+        for rec in broker.fetch(tp, self.pos, end - self.pos) if end > self.pos else ():
+            value = rec.value or b""
+            if value[:4] == _MANIFEST_MAGIC:
+                m = decode_manifest(value)
+                self.n_chunks[m["version"]] = m["n_chunks"]
+                self.chunks[m["version"]] = set()
+            elif value[:4] == _CHUNK_MAGIC:
+                v, idx, _payload = decode_chunk(value)
+                self.chunks.setdefault(v, set()).add(idx)
+        self.pos = max(self.pos, end)
+        return {v for v, n in self.n_chunks.items() if len(self.chunks.get(v, ())) >= n}
+
+
+def check_serve_procfleet_f32(torch, cfg, device="cuda") -> list:
+    """At ``cfg``'s shape (the 1b widths at 2 layers), f32, as real
+    processes:
+    (a) harness scenario 21's shape — ``ProcessFleet(replicas=2,
+    prefill_replicas=1)`` over a paged compute-dtype pool, the prefill
+    worker SIGKILLed once handoffs are on the plane, held records falling
+    back after the routing patience: every completion byte-identical to an
+    in-process monolithic paged server, nothing lost, adoptions before the
+    kill, the prefill group's commits covering only published handoffs;
+    (b) ``test_distill.py``'s distill role — one replica and one
+    ``DistillTrainer`` worker training the 1-layer draft on the card,
+    publishing versions 1 and 2 (fetchable), respawned after
+    ``kill_distill`` and training again; each dumping child's K1 (decode)
+    and K1-K3 (distill: layers x steps) from its own counters."""
+    import tempfile
+
+    import numpy as np
+
+    from torchkafka_tpu_torch.fleet import ProcessFleet
+    from torchkafka_tpu_torch.fleet.proc import build_model
+    from torchkafka_tpu_torch.source.checkpoint_wire import fetch_checkpoint
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    t0 = time.perf_counter()
+    spec = procfleet_model(cfg)
+    layers = cfg.n_layers
+    n, slots = PROCFLEET_F32_N, 4
+    prompts, _tenants = tenant_prompts(np, cfg.vocab_size, n=n)
+    keys = [str(i).encode() for i in range(n)]
+    nblk = -(-(prompts.shape[1] + MAX_NEW) // PAGED_BS)
+    pages = {"block_size": PAGED_BS, "num_blocks": slots * nblk + 24 + 1}
+    pcfg, params = build_model(spec, device)
+    ref = reference_outputs(pcfg, params, prompts, keys, device, slots=slots, ticks=1,
+                            kv_pages=dict(pages))
+    del params
+    rows = []
+    # (a) disaggregated prefill across processes, the prefill worker killed.
+    with tempfile.TemporaryDirectory() as wd:
+        fleet = ProcessFleet(
+            spec, topic="t21", prompt_len=prompts.shape[1], max_new=MAX_NEW, workdir=wd,
+            replicas=2, partitions=FLEET_PARTS, slots=slots, commit_every=FLEET_COMMIT,
+            session_timeout_s=PROC_SESSION_S, heartbeat_interval_s=0.2,
+            journal_cadence=2, respawn=False, group="s21", kv_pages=pages,
+            prefill_replicas=1, route_patience=1500, device=device)
+        try:
+            ta = time.perf_counter()
+            fleet.start()
+            fleet.wait_ready(timeout_s=PROC_WAIT_S)
+            ready_s = time.perf_counter() - ta
+            produce_keyed(fleet.broker, "t21", prompts, keys)
+            ho = TopicPartition(fleet.handoff_topic, 0)
+            deadline = time.monotonic() + PROC_WAIT_S
+            while fleet.broker.end_offset(ho) < DISAGG_CLOSE_AFTER:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("serve_procfleet_f32: no handoffs\n"
+                                       + fleet.diagnose())
+                time.sleep(0.005)
+            victim = fleet.kill_prefill(0)
+            at_kill = fleet.broker.end_offset(ho)
+            fleet.wait(lambda f: set(f.results()) == set(keys), timeout_s=PROC_WAIT_S)
+            fleet.drain()
+            fleet.wait(lambda f: all(not i.running for i in f.incarnations),
+                       timeout_s=PROC_WAIT_S)
+            fleet.poll_once()
+            if not fleet.fully_committed():
+                raise AssertionError("serve_procfleet_f32: prompts lost\n"
+                                     + fleet.diagnose())
+            held = _identical("serve_procfleet_f32", fleet.results(), ref, np)
+            published = {r.key for r in fleet.broker.fetch(ho, 0, 10**5)}
+            for p in range(FLEET_PARTS):
+                tp = TopicPartition("t21", p)
+                for off in range(fleet.broker.committed("s21-prefill", tp) or 0):
+                    if str(off * FLEET_PARTS + p).encode() not in published:
+                        raise AssertionError("serve_procfleet_f32: the prefill group "
+                                             "committed an unpublished handoff")
+            dumps = [d for d in fleet.worker_metrics() if d.get("role") is None]
+            adopted = sum(d["adopted_slots"] for d in dumps)
+            if adopted < 1 or len(dumps) != 2:
+                raise AssertionError(f"serve_procfleet_f32: {adopted} adopted, dumps "
+                                     f"{dumps}")
+            for d in dumps:  # paged compute-dtype pools: no K1, no K5
+                if d["launches"]["flash_fwd"] or d["launches"]["kvattn_paged"]:
+                    raise AssertionError(f"serve_procfleet_f32: {d['launches']}")
+            rows.append({"phase": "serve_procfleet_f32", "run": "disagg_kill_prefill",
+                         "layers": layers, "start_to_ready_s": ready_s,
+                         "victim": victim["member"], "handoffs_at_kill": at_kill,
+                         "handoffs": len(published), "adopted_slots": adopted,
+                         "fallback_prefill_tokens": sum(d["prefill_tokens"] for d in dumps),
+                         "prefill_routed": sum(d["prefill_routed"] for d in dumps),
+                         "decode_tick_ms_p99": max(d["step_p99_ms"] or 0.0 for d in dumps),
+                         "child_launches": {d["member"]: d["launches"] for d in dumps},
+                         **held, "fully_committed": True,
+                         "seconds": time.perf_counter() - ta})
+        finally:
+            fleet.close()
+    # (b) the distill role on the card, killed and respawned.
+    with tempfile.TemporaryDirectory() as wd:
+        fleet = ProcessFleet(
+            spec, topic="dp", prompt_len=prompts.shape[1], max_new=MAX_NEW, workdir=wd,
+            replicas=1, distill_replicas=1, distill_topic="dd", publish_every=2,
+            draft_layers=1, distill_batch=2, partitions=2, slots=2, commit_every=2,
+            journal_cadence=1, session_timeout_s=PROC_SESSION_S,
+            heartbeat_interval_s=0.2, respawn=True, group="dg", device=device)
+        try:
+            tb = time.perf_counter()
+            fleet.start()
+            fleet.wait_ready(timeout_s=PROC_WAIT_S)
+            for i in range(8):
+                fleet.broker.produce("dp", prompts[i].tobytes(), partition=i % 2,
+                                     key=str(i).encode())
+            fleet.wait(lambda f: f.fully_committed(), timeout_s=PROC_WAIT_S)
+            watch = CheckpointWatch("fleet-ckpt")
+            fleet.wait(lambda f: {1, 2} <= watch.complete(f.broker), timeout_s=PROC_WAIT_S)
+            for version in (1, 2):  # each fetchable, CRCs and all
+                if fetch_checkpoint(fleet.broker, "fleet-ckpt", version)[1]["kind"] != "draft":
+                    raise AssertionError(f"serve_procfleet_f32: version {version} kind")
+            forensics = fleet.kill_distill()
+            fleet.wait(lambda f: len(f.live("distill")) == 1
+                       and f.live("distill")[0].member != forensics["member"],
+                       timeout_s=PROC_WAIT_S)
+            fleet.wait_ready(timeout_s=PROC_WAIT_S)
+            # One batch for the respawned trainer: it trains on the card
+            # (its launches in its dump) without a third publish.
+            for i in range(8, 10):
+                fleet.broker.produce("dp", prompts[i].tobytes(), partition=i % 2,
+                                     key=str(i).encode())
+            fleet.wait(lambda f: f.fully_committed(), timeout_s=PROC_WAIT_S)
+            dd = TopicPartition("dd", 0)
+            fleet.wait(lambda f: f.broker.end_offset(dd) >= 10
+                       and (f.broker.committed("dg-distill", dd) or 0) >= 10,
+                       timeout_s=PROC_WAIT_S)
+            fleet.drain()
+            fleet.wait(lambda f: all(not i.running for i in f.incarnations),
+                       timeout_s=PROC_WAIT_S)
+            fleet.poll_once()
+            codes = {i.member: i.exit_code for i in fleet.incarnations}
+            if codes.pop(forensics["member"]) != -9 or any(c != 0 for c in codes.values()):
+                raise AssertionError(f"serve_procfleet_f32 distill: exits {codes}")
+            dumps = fleet.worker_metrics()
+            distill = [d for d in dumps if d.get("role") == "distill"]
+            decode = [d for d in dumps if d.get("role") is None]
+            if not distill or sum(d["steps"] for d in distill) < 1:
+                raise AssertionError(f"serve_procfleet_f32 distill: dumps {dumps}")
+            for d in distill:  # the 1-layer draft's K1-K3 = steps each
+                want = {k: d["draft_layers"] * d["steps"]
+                        for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+                if device == "cuda" and {k: d["launches"][k] for k in want} != want:
+                    raise AssertionError(f"serve_procfleet_f32 distill: launches "
+                                         f"{d['launches']}, want {want}")
+            rows.append({"phase": "serve_procfleet_f32", "run": "distill_role",
+                         "layers": layers, "draft_layers": 1,
+                         "versions_fetchable": [1, 2], "victim": forensics["member"],
+                         "exit_codes": codes,
+                         "distill": [{k: d[k] for k in ("member", "steps", "records",
+                                                        "published", "loss", "launches")}
+                                     for d in distill],
+                         "decode_child_launches": _child_k1("serve_procfleet_f32", decode,
+                                                            layers, cuda=device == "cuda"),
+                         "seconds": time.perf_counter() - tb})
+        finally:
+            fleet.close()
+    rows.append({"phase": "serve_procfleet_f32", "summary": True,
+                 "seconds": time.perf_counter() - t0})
+    return rows
+
+
 def serve_8b(torch, cfg, params, prompts, kv_kernel: bool, prof=None):
     """Scenario 7 at the 8b scale with an output topic (BASELINE config 5):
     ``prompts`` produced round-robin on two partitions, each keyed by its
@@ -4064,47 +4761,57 @@ def main() -> int:
 
     if args.profile in ("all", "serve"):
         emit(profile_serve(torch, cfg, params, prompts, row_q))
-    rows_tr, sum_tr = check_serve_traced(torch, cfg, params, prompts)
-    for row in rows_tr:
-        emit(row)
-    emit(sum_tr)
-    for row in check_serve_sampled(torch, cfg, params, prompts, row_q):
-        emit(row)
-    row_r = serve_resume(torch, cfg, params, prompts)
+    # Depth cuts: the traced, sampled, resumed, tiered, speculative and
+    # fleet paths run the 1b widths at CUT_LAYERS of its 24 layers (views
+    # of the first layers' weights), the time the process-fleet phases
+    # need.
+    cfg_cut, params_cut = cut_depth(cfg, params)
+    rows_tr, sum_tr = check_serve_traced(torch, cfg_cut, params_cut, prompts)
+    for row in rows_tr + [sum_tr]:
+        emit({**row, "layers": CUT_LAYERS})
+    for row in check_serve_sampled(torch, cfg_cut, params_cut, prompts, row_q):
+        emit({**row, "layers": CUT_LAYERS})
+    row_r = serve_resume(torch, cfg_cut, params_cut, prompts)
     row_r["resume_prefill_device_ms"] = resume_prefill_times(torch, cfg, params)
-    emit(row_r)
+    emit({**row_r, "layers": CUT_LAYERS})
     if args.profile in ("all", "resume"):
         emit(profile_resume(torch, cfg, params, row_r))
 
-    row_p, row_pg = check_serve_paged(torch, cfg, params, "serve_paged", exact=False)
+    row_p, row_pg, outs_p = check_serve_paged(torch, cfg, params, "serve_paged",
+                                              exact=False)
     emit(row_p)
     emit(row_pg)
     if args.profile in ("all", "paged"):
         emit(profile_paged(torch, cfg, params, row_p))
-    rows_ti, sum_ti = check_serve_tiered(torch, cfg, params, args.tier_rounds)
-    for row in rows_ti:
-        emit(row)
-    emit(sum_ti)
-    rows_sp = check_serve_spec(torch, cfg, params, prompts)
-    for row in rows_sp:
-        emit(row)
-    for row in check_serve_spec_paged(torch, cfg, params):
-        emit(row)
-    rows_fl = check_serve_fleet(torch, cfg, params)
+    rows_ti, sum_ti = check_serve_tiered(torch, cfg_cut, params_cut, args.tier_rounds)
+    for row in rows_ti + [sum_ti]:
+        emit({**row, "layers": CUT_LAYERS})
+    rows_sp = check_serve_spec(torch, cfg_cut, params_cut, prompts)
+    for row in rows_sp + check_serve_spec_paged(torch, cfg_cut, params_cut):
+        emit({**row, "layers": CUT_LAYERS})
+    rows_fl = check_serve_fleet(torch, cfg_cut, params_cut)
     for row in rows_fl:
-        emit(row)
-    rows_ro = check_serve_fleet_rollout(torch, cfg, params)
+        emit({**row, "layers": CUT_LAYERS})
+    rows_ro = check_serve_fleet_rollout(torch, cfg_cut, params_cut)
     for row in rows_ro:
+        emit({**row, "layers": CUT_LAYERS})
+    del params_cut
+    rows_dg = check_serve_disagg(torch, cfg, params, (outs_p, row_p))
+    for row in rows_dg:
         emit(row)
     del params
+    torch.cuda.empty_cache()
+    rows_pf = check_serve_procfleet(torch, cfg)
+    for row in rows_pf:
+        emit(row)
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
                                 param_dtype=torch.float32)
     params32 = random_serving_params(
         torch.Generator(device="cuda").manual_seed(SEED), cfg32, device="cuda"
     )
-    row_f, row_fg = check_serve_paged(torch, cfg32, params32, "serve_paged_f32",
-                                      exact=True)
+    row_f, row_fg, _ = check_serve_paged(torch, cfg32, params32, "serve_paged_f32",
+                                         exact=True)
     emit(row_f)
     emit(row_fg)
     for row in check_serve_sampled_f32(torch, cfg32, params32):
@@ -4119,8 +4826,13 @@ def main() -> int:
         emit(row)
     del params32
     torch.cuda.empty_cache()
+    rows_pf32 = check_serve_procfleet_f32(torch, cfg32)
+    for row in rows_pf32:
+        emit(row)
+    torch.cuda.empty_cache()
 
-    cfg8 = zoo_config("8b", max_seq_len=128 + MAX_NEW)
+    cfg8 = dataclasses.replace(zoo_config("8b", max_seq_len=128 + MAX_NEW),
+                               n_layers=CUT_LAYERS_8B)
     rows_8b, params8, prompts8 = check_serve_8b(torch, cfg8, "serve_8b", exact=False)
     for row in rows_8b:
         emit(row)
@@ -4150,6 +4862,20 @@ def main() -> int:
         the clean, divergent and broker rollouts (canary shadows included)."""
         return [r["launches"][kernel] for r in rows_fl + rows_ro
                 if r.get("run") in ("fleet", "clean", "divergent", "broker")]
+
+    distill_rows = [r for r in rows_pf32 if r.get("run") == "distill_role"]
+
+    def child_launches(kernel):
+        """K1-K3 as the worker processes counted them (their metrics
+        dumps): serve_procfleet's replica children, then the distill
+        child of serve_procfleet_f32."""
+        out = {"replica_children": [c["flash_fwd"] for r in rows_pf
+                                    for c in r.get("child_launches", ())]}
+        if kernel != "flash_fwd":
+            out = {}
+        out["distill_children"] = [d["launches"][kernel] for r in distill_rows
+                                   for d in r["distill"]]
+        return out
 
     def full_split(which):
         """K7's or K8's split and span times at the 192 pool, and at 2048."""
@@ -4182,6 +4908,7 @@ def main() -> int:
          "spec_launches": [r["launches"]["flash_fwd"] for r in rows_sp
                            if r.get("spec") is not None],
          "fleet_launches": fleet_launches("flash_fwd"),
+         "process_launches": child_launches("flash_fwd"),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -4193,7 +4920,8 @@ def main() -> int:
          "max_abs_err": k23["max_abs_err"]["main_bf16"]["dq"],
          "ms": k23["dq"]["kernel_ms"], "plain_ms": k23["dq"]["plain_ms"],
          "bound_ms": k23["dq"]["bound_ms"], "bound_by": k23["dq"]["bound_by"],
-         "library_ms": k23["library_ms_sdpa_bwd"]},
+         "library_ms": k23["library_ms_sdpa_bwd"],
+         "process_launches": child_launches("flash_dq")},
         {"name": "flash_dkv", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:252",
@@ -4202,7 +4930,8 @@ def main() -> int:
          "max_abs_err": max(k23["max_abs_err"]["main_bf16"][x] for x in ("dk", "dv")),
          "ms": k23["dkv"]["kernel_ms"], "plain_ms": k23["dkv"]["plain_ms"],
          "bound_ms": k23["dkv"]["bound_ms"], "bound_by": k23["dkv"]["bound_by"],
-         "library_ms": k23["library_ms_sdpa_bwd"]},
+         "library_ms": k23["library_ms_sdpa_bwd"],
+         "process_launches": child_launches("flash_dkv")},
         {"name": "kvattn_dynlen", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/kvattn_dynlen.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:458",
@@ -4226,6 +4955,7 @@ def main() -> int:
          "launches": row_p["launches"]["kvattn_paged"],
          "tier_launches": [r["launches"]["kvattn_paged"] for r in rows_ti
                            if r["kv_tier"] is not None],
+         "disagg_launches": rows_dg[0]["launches"]["kvattn_paged"],
          "max_abs_err": main_view["max_abs_err"]["bf16"], "ms": main_view["kernel_ms"],
          "plain_ms": main_view["plain_ms"], "bound_ms": main_view["bound_ms"],
          "bound_by": main_view["bound_by"], "library_ms": None,

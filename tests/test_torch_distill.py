@@ -2,10 +2,14 @@
 publisher against the JAX package's.
 
 - ``test_distill.py`` runs over the port: the module's source is loaded
-  with the package name re-rooted onto ``torchkafka_tpu_torch`` (without
-  ``DistillTrainer``: the trainer is not ported) and its wire and
-  controller classes are collected here. Its refresh-under-chaos case
-  runs below as a differential against the JAX fleet.
+  with the package name re-rooted onto ``torchkafka_tpu_torch`` (trained
+  leaves read detached) and its wire, controller and trainer classes
+  are collected here, with ``TestProcessDistillRole`` on port worker
+  processes serving and training on the CPU (every wait bounded at
+  60 s). Its refresh-under-chaos case runs below as a differential
+  against the JAX fleet.
+- ``DistillTrainer`` of both packages over one corpus: equal reports,
+  losses equal to f32 rounding.
 - Differentials at f32, one seeded broker content through both packages'
   2-replica fleets with ``distill_topic``: the frames on the distill
   topic are byte-equal to JAX's, at-least-once (produced after the
@@ -19,6 +23,8 @@ publisher against the JAX package's.
 - The publisher's validation is JAX's: ``distill_topic`` without a
   producer in at-least-once mode raises ``ValueError``.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -40,14 +46,39 @@ from _torch_fleet_common import (
 from _torch_fleet_common import one_torch_thread  # noqa: F401 - autouse fixture
 
 _mod = load_rerooted("test_distill", replace=[
-    ("    DistillTrainer,\n", ""),
     ("        from torchkafka_tpu.fleet import ReplicaChaos, ServingFleet\n",
      "        from torchkafka_tpu.fleet import ReplicaChaos\n"),
+    # The port's trained leaves are autograd leaves: read them detached.
+    ("    return jax.tree_util.tree_leaves(\n"
+     "        jax.tree_util.tree_map(np.asarray, tree)\n    )\n",
+     "    return [t.detach().numpy() for t in _tree.tree_leaves(tree)]\n"),
+    ('            np.asarray(trainer.draft_params["embed"]),\n',
+     '            trainer.draft_params["embed"].detach().numpy(),\n'),
+    ("        host = jax.tree_util.tree_map(np.asarray, trainer.draft_params)\n",
+     "        host = _tree.tree_map(lambda t: t.detach().clone(),\n"
+     "                              trainer.draft_params)\n"),
+    # The distill role's workers serve and train on the CPU, every wait
+    # bounded at 60 s.
+    ('            heartbeat_interval_s=0.2, respawn=True, group="dg",\n',
+     '            heartbeat_interval_s=0.2, respawn=True, group="dg",\n'
+     '            device="cpu",\n'),
+    ("timeout_s=300", "timeout_s=60"),
+    ("timeout_s=120", "timeout_s=60"),
 ])
+_mod._tree = importlib.import_module("torchkafka_tpu_torch.utils.tree")
 
 model = _mod.model
 TestDistillWire = _mod.TestDistillWire
 TestDistillController = _mod.TestDistillController
+TestDistillTrainer = _mod.TestDistillTrainer
+TestProcessDistillRole = _mod.TestProcessDistillRole
+
+
+@pytest.fixture(autouse=True)
+def one_thread_workers(monkeypatch):
+    """Worker processes inherit the environment: one intra-op thread
+    each."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
 
 @pytest.fixture(scope="module")
@@ -173,3 +204,31 @@ def test_refresh_under_chaos_matches_jax(pkgs):
     assert {(r[2], r[3]) for r in got["records"]} == set(base)
     for r in got["records"]:
         assert r[4] == base[(r[2], r[3])], r[:4]
+
+
+def _train(pkg, pkgs):
+    """``pkg``'s ``DistillTrainer`` over one seeded corpus → its report."""
+    mod = MOD[pkg]
+    cfg, params = pkgs[pkg]
+    broker = mod.InMemoryBroker()
+    broker.create_topic("d", partitions=1)
+    for frame in _mod._frames(12):
+        broker.produce("d", frame)
+    consumer = mod.MemoryConsumer(broker, "d", group_id="tr")
+    trainer = sub(pkg, "distill").DistillTrainer(
+        consumer, params, cfg, seq_len=P + MAX_NEW, batch_size=4,
+        draft_layers=1, learning_rate=5e-3)
+    report = trainer.run(idle_timeout_ms=50)
+    consumer.close()
+    return report
+
+
+def test_distill_trainer_matches_jax(pkgs):
+    """Both packages' trainers over the same target and corpus: equal
+    reports, the last step's loss equal to f32 rounding (the port's AdamW
+    carries optax's weight decay of 1e-4)."""
+    jrep, prep = _train("jax", pkgs), _train("port", pkgs)
+    assert {k: v for k, v in prep.items() if k != "loss"} == {
+        k: v for k, v in jrep.items() if k != "loss"}
+    assert prep["steps"] == 3 and prep["records"] == 12
+    np.testing.assert_allclose(prep["loss"], jrep["loss"], rtol=1e-4)

@@ -22,8 +22,10 @@ package's.
   soak of ``test_resilience.py`` (outage plus poison over a fleet) runs
   over the port.
 - ``note_partitions_revoked``: a scale-down that hands a partition back
-  never regresses its committed watermark; ``handoff_consumer_factory``
-  raises ``NotImplementedError`` naming its ROADMAP queue A title.
+  never regresses its committed watermark.
+- ``handoff_consumer_factory``: a paged fleet adopting from a
+  ``PrefillPool`` equals the JAX fleet in completions, state, disagg
+  counters and commits, with no prompt pass on a replica.
 """
 
 import numpy as np
@@ -31,7 +33,9 @@ import pytest
 
 import torchkafka_tpu_torch as ptk
 from _torch_fleet_common import (
+    MAX_NEW,
     MOD,
+    P,
     PKGS,
     StepClock,
     audited_consumer,
@@ -360,11 +364,45 @@ def test_traced_paged_chaos_fleet_matches_jax(pkgs, tmp_path):
     assert len(runs["port"][3]) == 1
 
 
-def test_handoff_consumer_factory_names_its_queue_a_title(pkgs):
-    with pytest.raises(NotImplementedError,
-                       match="process fleet and disaggregated prefill"):
-        fleet("port", pkgs["port"], ptk.InMemoryBroker(),
-              handoff_consumer_factory=lambda rid: None)
+def _adopting_fleet(pkg, model):
+    """A 2-replica paged fleet adopting from one in-process prefill
+    worker (``PrefillPool``) pumped every round: (record, fleet summary,
+    disagg counters, committed offsets)."""
+    mod, pre = MOD[pkg], sub(pkg, "fleet.prefill")
+    cfg, params = model
+    broker = mod.InMemoryBroker()
+    produce(broker, 12, parts=2)
+    broker.create_topic("ho", partitions=1)
+    pages = {"block_size": 4, "num_blocks": 24}
+    gen_kw = {"kv_pages": pages}
+    pool_kw = {"gen_kwargs": {"device": "cpu"}} if pkg == "port" else {}
+    pool = pre.PrefillPool(broker, "p", "fleet-prefill", "ho", params, cfg,
+                           workers=1, slots=2, prompt_len=P, max_new=MAX_NEW,
+                           kv_pages=pages, commit_every=2, **pool_kw)
+    f = fleet(pkg, model, broker, gen_kwargs=gen_kw, route_patience=64,
+              handoff_consumer_factory=lambda rid: mod.MemoryConsumer(
+                  broker, "ho", group_id=f"ho-{rid}", member_id=f"ho-{rid}"))
+    got = [record(*c) for c in f.serve(idle_timeout_ms=300,
+                                       on_round=lambda _f, _s: pool.pump_once())]
+    disagg = f.metrics.summary(f.replicas)["disagg"]
+    prefill_tokens = [r.gen.metrics.prefill_tokens.count for r in f.replicas]
+    state = summary(f)
+    f.close()
+    pool.close()
+    return got, state, disagg, prefill_tokens, committed(pkg, broker, "fleet", 2)
+
+
+def test_handoff_consumer_factory_adopts_like_jax(pkgs):
+    """``ServingFleet(handoff_consumer_factory=)``: each replica tails the
+    handoff topic in its own group and adopts the prefill worker's KV; the
+    completions, fleet state, disagg counters and commits equal the JAX
+    fleet's, and no replica runs a prompt pass."""
+    got = _adopting_fleet("port", pkgs["port"])
+    assert got == _adopting_fleet("jax", pkgs["jax"])
+    records, _state, disagg, prefill_tokens, done = got
+    assert len({(r[2], r[3]) for r in records}) == 12
+    assert disagg["adopted_slots"] == 12 and prefill_tokens == [0, 0]
+    assert done == [6, 6]
 
 
 def test_replicas_share_the_params_tree(pkgs):
@@ -382,9 +420,7 @@ def test_fleet_exports_match_jax_names():
     from torchkafka_tpu import fleet as jf
     from torchkafka_tpu_torch import fleet as pf
 
-    unported = {"PrefillPool", "PrefillRouter", "PrefillWorker", "ProcessFleet",
-                "decode_handoff", "encode_handoff", "sweep_expired"}
-    assert set(pf.__all__) == set(jf.__all__) - unported
+    assert set(pf.__all__) == set(jf.__all__)
     assert np.all([hasattr(pf, n) for n in pf.__all__])
 
 

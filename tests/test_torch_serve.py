@@ -116,6 +116,8 @@ SERVED_REJECTED = {
     # producer, and at-least-once without any producer.
     "kw8": ({"distill_topic": "d", "exactly_once": True}, ValueError),
     "kw9": ({"distill_topic": "d"}, ValueError),
+    # The disaggregated prefill role without chunked pages.
+    "kw3": ({"prefill_role": True}, ValueError),
 }
 
 
@@ -126,12 +128,12 @@ SERVED_REJECTED = {
 # no key raises TypeError) or a still-deferred argument. So are the
 # tracer, budgets and the host-RAM tier: kw1, kw2, kw4, kw5 and kw10 are
 # the SERVED_REJECTED cases, and so are the distill publisher's kw8 and kw9
-# (once deferred, now served).
+# and the prefill role's kw3 (once deferred, now served).
 @pytest.mark.parametrize("kw,exc", [
     ({"mesh": object()}, NotImplementedError),
     SERVED_REJECTED["kw1"],
     SERVED_REJECTED["kw2"],
-    ({"prefill_role": True}, NotImplementedError),
+    SERVED_REJECTED["kw3"],
     SERVED_REJECTED["kw4"],
     SERVED_REJECTED["kw5"],
     ({"exactly_once": True}, ValueError),
@@ -186,10 +188,8 @@ def _queue_a_titles() -> list[str]:
 
 def test_every_deferral_names_a_queue_a_title(model):
     """Each still-deferred argument's error names the title of the ROADMAP
-    queue A item that ports it, never a bare item number: the server's and
-    the fleet's (disaggregated prefill adoption)."""
+    queue A item that ports it, never a bare item number."""
     from torchkafka_tpu_torch import serve
-    from torchkafka_tpu_torch.fleet import ServingFleet
 
     titles = _queue_a_titles()
     assert len(titles) >= 8
@@ -198,12 +198,6 @@ def test_every_deferral_names_a_queue_a_title(model):
         with pytest.raises(NotImplementedError) as info:
             _server(model, **{name: object()})
         raised.append((name, info.value))
-    _, _, pcfg, params, _, _ = model
-    with pytest.raises(NotImplementedError) as info:
-        ServingFleet(lambda rid: None, params, pcfg, prompt_len=P,
-                     max_new=MAX_NEW, handoff_consumer_factory=lambda rid: None,
-                     gen_kwargs={"device": "cpu"})
-    raised.append(("handoff_consumer_factory", info.value))
     for name, exc in raised:
         msg = str(exc).lower()
         assert any(t in msg for t in titles), (name, msg, titles)

@@ -195,11 +195,14 @@ def test_kernel_reads_every_decode_only_tick(model, monkeypatch):
     assert len(calls) == SHAPE["n_layers"] * (m["decode_ticks"] - chunk_ticks) > 0
 
 
-@pytest.mark.parametrize("kv_dtype,tiered,spec", [
-    (None, False, False), ("int8", False, False), (None, True, False),
-    ("int8", True, False), (None, False, True),
-], ids=["None", "int8", "None-tiered", "int8-tiered", "spec"])
-def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec):
+@pytest.mark.parametrize("kv_dtype,tiered,spec,adopt", [
+    (None, False, False, False), ("int8", False, False, False),
+    (None, True, False, False), ("int8", True, False, False),
+    (None, False, True, False), (None, False, False, True),
+    ("int8", False, False, True),
+], ids=["None", "int8", "None-tiered", "int8-tiered", "spec", "adopt",
+        "int8-adopt"])
+def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec, adopt):
     """The sink invariant as an asserted property: after every admission,
     poison EVERY pool position except the live slots' readable prefix —
     freed blocks re-allocated later, the sink block, each slot's
@@ -217,7 +220,13 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec):
     draft) are all poisoned; the verify and the draft write past the
     watermark, and inactive rows write k+1 positions into the sink. The
     counters must be equal too: the draft's pools decide only the
-    acceptance."""
+    acceptance.
+
+    Adopt: every prompt's handoff, cut by a prefill-role server (its pool
+    poisoned the same way after each admission), is installed on the
+    decode server before it serves, so each admission copies whole
+    prompt blocks into recycled, poisoned blocks; every slot must adopt,
+    with no prompt pass."""
     _, _, pcfg, params, _, _ = model
     if tiered:
         families = np.random.default_rng(9).integers(
@@ -228,7 +237,32 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec):
                                                     dtype=np.int32)
     tier = {"kv_tier": {"capacity_bytes": 1 << 20}} if tiered else {}
     extra = {"k": 2} if spec else {}
-    promotions, stats = [], []
+    promotions, stats, adopted = [], [], []
+
+    def handoffs(broker, poison):
+        """Each prompt's handoff from a prefill-role server in its own
+        group (``fleet.prefill.PrefillWorker``'s loop, unpublished)."""
+        consumer = MemoryConsumer(broker, "p", group_id="pf")
+        pre = StreamingGenerator(
+            consumer, params, pcfg, slots=2, prompt_len=P, max_new=MAX_NEW,
+            ticks_per_sync=1, kv_dtype=kv_dtype,
+            kv_pages={"block_size": BS, "num_blocks": 14}, prefill_role=True,
+            device="cpu",
+        )
+        out = {}
+        while len(out) < len(prompts):
+            recs = consumer.poll(max_records=pre.free_slots(), timeout_ms=0)
+            if recs:
+                pre.note_fetched(recs)
+                pre.admit_records(recs)
+                if poison:
+                    _poison(pre)
+            pre.step()
+            for rec, hand in pre.take_prefilled():
+                pre.note_handoff_published(rec, blocks=hand.prompt_blocks)
+                out[hand.key] = hand
+        consumer.close()
+        return out
 
     def drive(poison):
         broker = InMemoryBroker()
@@ -242,6 +276,8 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec):
             kv_pages={"block_size": BS, "num_blocks": 15 if spec else 14},
             device="cpu", **tier, **extra,
         )
+        if adopt:
+            server.add_prefill_handoffs(handoffs(broker, poison))
         out = {}
         while len(out) < len(prompts):
             recs = consumer.poll(max_records=server.free_slots(), timeout_ms=0)
@@ -257,6 +293,8 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec):
         promotions.append(server.metrics.summary()["prefix_cache"]["tier"]["promotions"])
         if spec:
             stats.append(server.spec_stats())
+        adopted.append((server.metrics.adopted_slots.count,
+                        server.metrics.prefill_tokens.count))
         return out
 
     got, ref = drive(True), drive(False)
@@ -265,6 +303,8 @@ def test_recycled_blocks_ignore_stale_tail(model, kv_dtype, tiered, spec):
         assert promotions[0] > 0 and promotions[0] == promotions[1]
     if spec:  # a stale draft read would move the acceptance, not the tokens
         assert stats[0] == stats[1] and stats[0]["proposed"] > 0
+    if adopt:  # every slot adopted, no prompt pass, in both runs
+        assert adopted == [(len(prompts), 0)] * 2
 
 
 def _radix_blocks(s):

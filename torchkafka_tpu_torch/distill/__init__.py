@@ -1,14 +1,23 @@
-"""Online draft distillation: the serving fleet teaches its own
-speculative draft from live traffic.
+"""Online draft distillation — the serving fleet teaches its own
+speculative draft from live traffic. Port of ``torchkafka_tpu/distill``.
 
-Port of ``torchkafka_tpu/distill``'s serving half: the distill-topic wire
-(``wire.py``, a copy) and the refresh controller with its in-process
-loop (``controller.py``). The server publishes committed completions
-(``StreamingGenerator(distill_topic=...)``) and
-``ServingFleet.start_distill`` closes the loop through
-``swap_draft_params``. The trainer (``DistillTrainer``) and its worker
-process (``run_distill_worker``) are not ported yet (ROADMAP queue A:
-process fleet and disaggregated prefill).
+The closed loop, each leg an existing subsystem pointed at the next:
+
+    serve (exactly-once txn window)
+      └─ distill topic (wire.py — committed completions, CRC-framed)
+           └─ DistillTrainer (trainer.py — KafkaStream + make_train_step
+              over the layer-truncated draft)
+                └─ checkpoint topic (source/checkpoint_wire.py —
+                   versioned, torn-publish-rejecting)
+                     └─ DistillController (controller.py — windowed
+                        live-α gate, hysteresis, typed trace decisions)
+                          └─ swap_draft_params (serve_spec.py — between
+                             ticks, no quiesce) ─ back to serve
+
+Committed tokens are invariant around the whole cycle: the corpus only
+ever holds committed tokens (publisher rides the commit window), and a
+draft refresh only changes the PROPOSER (the target's verification
+commits) — both ends differential-tested and SIGKILL-matrixed.
 """
 
 from torchkafka_tpu_torch.distill.controller import (
@@ -16,17 +25,21 @@ from torchkafka_tpu_torch.distill.controller import (
     DistillPolicy,
     InProcessDistillDriver,
 )
+from torchkafka_tpu_torch.distill.trainer import DistillTrainer
 from torchkafka_tpu_torch.distill.wire import (
     decode_completion,
     distill_processor,
     encode_completion,
 )
+from torchkafka_tpu_torch.distill.worker import run_distill_worker
 
 __all__ = [
     "DistillController",
     "DistillPolicy",
+    "DistillTrainer",
     "InProcessDistillDriver",
     "decode_completion",
     "distill_processor",
     "encode_completion",
+    "run_distill_worker",
 ]

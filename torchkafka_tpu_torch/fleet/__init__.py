@@ -1,13 +1,11 @@
 """Serving fleet: partitioned multi-replica serving with QoS admission,
-replica failover, graceful drain, elastic membership, autoscaling and the
-rolling hot-swap (see fleet/fleet.py for the design).
+replica failover, and graceful drain (see fleet/fleet.py for the design).
+``ProcessFleet`` (fleet/supervisor.py) is the REAL-PROCESS deployment of
+the same group: one OS process per replica over the socket broker, with
+heartbeat leases, zombie fencing, and cross-process warm failover.
 
-Port of ``torchkafka_tpu/fleet``'s in-process part. The real-process
-fleet (``ProcessFleet``, ``sweep_expired``) and disaggregated prefill
-(``PrefillPool``/``Router``/``Worker``, ``encode_handoff``/
-``decode_handoff``) are not ported yet (ROADMAP queue A: process fleet
-and disaggregated prefill). ``SupervisorAutoscaler`` is duck-typed on
-that supervisor and is exported for it.
+Port of ``torchkafka_tpu/fleet``: the same exports, the worker processes
+and disaggregated prefill on the port's server.
 """
 
 from torchkafka_tpu_torch.fleet.autoscale import (
@@ -20,6 +18,20 @@ from torchkafka_tpu_torch.fleet.autoscale import (
 )
 from torchkafka_tpu_torch.fleet.fleet import ReplicaChaos, ServingFleet
 from torchkafka_tpu_torch.fleet.metrics import FleetMetrics
+from torchkafka_tpu_torch.fleet.prefill import (
+    PrefillPool,
+    PrefillRouter,
+    PrefillWorker,
+    decode_handoff,
+    encode_handoff,
+)
+from torchkafka_tpu_torch.fleet.rollout import (
+    BrokerRolloutDriver,
+    InProcessRolloutDriver,
+    RolloutController,
+    RolloutWorker,
+)
+from torchkafka_tpu_torch.fleet.supervisor import ProcessFleet, sweep_expired
 from torchkafka_tpu_torch.fleet.qos import (
     BATCH,
     INTERACTIVE,
@@ -31,32 +43,33 @@ from torchkafka_tpu_torch.fleet.qos import (
     default_tenant,
 )
 from torchkafka_tpu_torch.fleet.replica import Replica
-from torchkafka_tpu_torch.fleet.rollout import (
-    BrokerRolloutDriver,
-    InProcessRolloutDriver,
-    RolloutController,
-    RolloutWorker,
-)
 
 __all__ = [
     "AdmissionQueue",
     "AutoscaleController",
     "BATCH",
     "BrokerRolloutDriver",
+    "InProcessRolloutDriver",
+    "RolloutController",
+    "RolloutWorker",
     "FleetAutoscaler",
     "FleetMetrics",
     "INTERACTIVE",
-    "InProcessRolloutDriver",
+    "PrefillPool",
+    "PrefillRouter",
+    "PrefillWorker",
+    "ProcessFleet",
     "QoSConfig",
-    "Replica",
-    "ReplicaChaos",
     "RolePolicy",
     "RoleSignals",
-    "RolloutController",
-    "RolloutWorker",
     "ScaleDecision",
-    "ServingFleet",
     "SupervisorAutoscaler",
+    "decode_handoff",
+    "encode_handoff",
+    "Replica",
+    "ReplicaChaos",
+    "ServingFleet",
+    "sweep_expired",
     "TenantBuckets",
     "TokenBucket",
     "default_lane",

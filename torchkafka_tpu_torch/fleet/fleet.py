@@ -50,9 +50,7 @@ Port notes: every replica builds its own pools on the one device and
 shares the caller's ``params`` tree (the servers keep the leaves that
 already sit on their device, so N replicas hold one copy of the
 weights); replicas run in turn on the calling thread, so their kernel
-launches interleave on one CUDA stream. Disaggregated prefill adoption
-(``handoff_consumer_factory``) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP queue A title.
+launches interleave on one CUDA stream.
 """
 
 from __future__ import annotations
@@ -66,6 +64,7 @@ import numpy as np
 
 from torchkafka_tpu_torch.commit.ledger import merged_watermarks
 from torchkafka_tpu_torch.fleet.metrics import FleetMetrics
+from torchkafka_tpu_torch.fleet.prefill import PrefillRouter, drain_handoffs
 from torchkafka_tpu_torch.fleet.qos import AdmissionQueue, QoSConfig, TenantBuckets
 from torchkafka_tpu_torch.fleet.replica import (
     DEAD,
@@ -74,7 +73,7 @@ from torchkafka_tpu_torch.fleet.replica import (
     Replica,
 )
 from torchkafka_tpu_torch.journal import DecodeJournal
-from torchkafka_tpu_torch.serve import StreamingGenerator, _not_ported
+from torchkafka_tpu_torch.serve import StreamingGenerator
 from torchkafka_tpu_torch.source.records import Record
 
 _logger = logging.getLogger(__name__)
@@ -207,9 +206,14 @@ class ServingFleet:
         lane/tenant/replica, and ``metrics.summary()`` gains an ``slo``
         section. None (default): zero tracing, guard-only cost.
 
-        ``handoff_consumer_factory``: disaggregated-prefill adoption,
-        not ported yet: anything but None raises ``NotImplementedError``
-        (``route_patience`` is accepted for signature parity and unused).
+        ``handoff_consumer_factory``: disaggregated-prefill adoption for
+        an in-process fleet — ``(rid) -> Consumer`` tailing the handoff
+        topic (one PRIVATE group per replica: handoffs broadcast).
+        Each replica then routes admission through a ``PrefillRouter``
+        (``route_patience`` hold decisions before the local-prefill
+        fallback) and the serve loop drains arrived handoffs onto the
+        generator's shelf every round. Requires paged generators
+        (``gen_kwargs={"kv_pages": ...}``).
 
         ``slo_targets``: a list of ``obs.SLOTarget`` — builds a
         ``BurnRateMonitor`` over the tracer's windowed SLO view
@@ -221,11 +225,6 @@ class ServingFleet:
         becomes the AdmissionQueue overload hook: batch-lane admission
         DEFERS while the SLO burns, instead of the whole fleet
         collapsing together. ``fleet.monitor`` exposes it."""
-        if handoff_consumer_factory is not None:
-            raise _not_ported(
-                "handoff_consumer_factory=",
-                "process fleet and disaggregated prefill",
-            )
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         self._qos = qos or QoSConfig()
@@ -281,6 +280,9 @@ class ServingFleet:
         self._generator_cls = generator_cls
         self._max_poll_records = max_poll_records
         self._gen_kwargs = dict(gen_kwargs or {})
+        self._handoff_factory = handoff_consumer_factory
+        self._route_patience = route_patience
+        self._handoff_tails: dict[int, object] = {}
         self._journal_cadence = journal_cadence
         self._warmed = False
         self._journal_paths: dict[int, str] = {}
@@ -321,9 +323,11 @@ class ServingFleet:
 
     def _build_replica(self) -> Replica:
         """Construct and register one replica (the next free id): its
-        group-managed consumer, generator and admission queue. Used by
-        the constructor AND by ``scale_to`` mid-serve (the new consumer's
-        join triggers the rebalance that hands it partitions)."""
+        group-managed consumer, generator, admission queue — and, for a
+        disaggregated fleet, its private handoff tail + PrefillRouter.
+        Used by the constructor AND by ``scale_to`` mid-serve (the new
+        consumer's join triggers the rebalance that hands it
+        partitions)."""
         rid = len(self.replicas)
         consumer = self._factory(rid)
         kw = dict(self._gen_kwargs)
@@ -346,6 +350,12 @@ class ServingFleet:
             commit_every=2**31 - 1,
             **kw,
         )
+        prefill_router = None
+        if self._handoff_factory is not None:
+            self._handoff_tails[rid] = self._handoff_factory(rid)
+            prefill_router = PrefillRouter(
+                gen, patience=self._route_patience
+            ).should_hold
         queue = AdmissionQueue(
             self._qos, self._buckets, self.metrics, self._clock,
             tracer=self.tracer, replica=rid,
@@ -357,6 +367,7 @@ class ServingFleet:
                 self.monitor.note_deferred
                 if self.monitor is not None else None
             ),
+            prefill_router=prefill_router,
         )
         rep = Replica(
             rid, gen, consumer, queue, self._qos, self.metrics,
@@ -528,6 +539,7 @@ class ServingFleet:
         partitions; the hint is consumed there (CRC-checked), and stale
         copies on the other survivors sit harmlessly."""
         self.replicas[rid].kill()
+        self._close_handoff_tail(rid)
         self.metrics.replica_deaths.add(1)
         self.metrics.replica_fences.add(1)
         if self.tracer is not None:
@@ -556,10 +568,21 @@ class ServingFleet:
             "survivor(s) for warm resume", rid, len(hints), len(survivors),
         )
 
+    def _close_handoff_tail(self, rid: int) -> None:
+        tail = self._handoff_tails.pop(rid, None)
+        if tail is None:
+            return
+        try:
+            tail.close()
+        except Exception:  # noqa: BLE001 - teardown best-effort
+            _logger.exception("handoff tail close failed for replica %d", rid)
+
     def close(self) -> None:
         """Graceful stop outside serve(): commit completed work, leave."""
         for rep in self.replicas:
             rep.close()
+        for rid in list(self._handoff_tails):
+            self._close_handoff_tail(rid)
 
     def __enter__(self) -> "ServingFleet":
         return self
@@ -624,6 +647,13 @@ class ServingFleet:
             for rep in self.replicas:
                 if not rep.runnable:
                     continue
+                tail = self._handoff_tails.get(rep.id)
+                if tail is not None:
+                    # Disaggregated adoption: arrived handoffs land on
+                    # the generator's shelf BEFORE this round's
+                    # admission sweep, so the router releases their
+                    # records the same round.
+                    drain_handoffs(tail, rep.gen)
                 completions = rep.pump()
                 # Register BEFORE the flush below: every commit must only
                 # ever cover completions already in self.completed.
@@ -636,6 +666,7 @@ class ServingFleet:
                 rep.maybe_flush()
                 if rep.drain_idle:
                     rep.finish_drain()
+                    self._close_handoff_tail(rep.id)
                     self.metrics.drains.add(1)
                 if completions:
                     progressed = True

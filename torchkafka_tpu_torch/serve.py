@@ -141,12 +141,26 @@ Fleet surface (``fleet.ServingFleet`` drives it): ``note_partitions_revoked``
 after a rebalance, ``swap_params`` (the rolling hot-swap's in-place weight
 rebind) and the canary's ``spawn_shadow``/``shadow_decode``.
 
-Still raising ``NotImplementedError`` with their ROADMAP queue A title
-(``_DEFERRED``): mesh and disaggregated prefill.
+Disaggregated prefill (``prefill_role=True``; ``fleet/prefill.py`` owns
+the transfer plane): a prefill worker runs the chunked prefill, draws token
+0 in the chunk tick, and cuts each finished slot into a ``PrefillHandoff``
+(record identity, payload CRC, sampling contract, record key, token 0 and
+the prompt blocks of every pool, copied to the host) instead of decoding
+it; the record retires in the worker's ledger only at
+``note_handoff_published``. A decode server given handoffs
+(``add_prefill_handoffs``) adopts one at admission: the payload is copied
+into the slot's fresh blocks (radix-matched blocks already hold the same
+bytes) and the slot resumes as after one emitted token, with no prompt
+pass; a handoff that fails its checks counts ``resume_rejected`` and the
+record prefills locally.
+
+Still raising ``NotImplementedError`` with its ROADMAP queue A title
+(``_DEFERRED``): mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 import zlib
@@ -198,6 +212,7 @@ from torchkafka_tpu_torch.ops.kvattn import (
     paged_write_q8,
 )
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
+from torchkafka_tpu_torch.source.checkpoint_wire import _dtype_name, _host_leaf
 from torchkafka_tpu_torch.source.producer import RecordMetadata, _ResolvedSend
 from torchkafka_tpu_torch.source.records import Record, TopicPartition
 from torchkafka_tpu_torch.utils import prng, tracing
@@ -218,7 +233,6 @@ _logger = logging.getLogger(__name__)
 # none is silently ignored.
 _DEFERRED = {
     "mesh": "mesh and multi-process paths",
-    "prefill_role": "process fleet and disaggregated prefill",
 }
 
 
@@ -742,6 +756,48 @@ class _PendingPrefill:
         self.enq_tick = enq_tick
 
 
+@dataclasses.dataclass
+class PrefillHandoff:
+    """One prompt's filled KV, from a prefill worker to a decode replica
+    (disaggregated prefill).
+
+    A prefill worker (``prefill_role=True``) fills a slot's prompt blocks
+    through the chunked prefill, draws token 0 with the record's key, and
+    cuts this unit: record identity and payload CRC (a handoff never adopts
+    onto another record), the sampling contract, the record key, token 0,
+    and the ``prompt_blocks`` blocks covering positions [0, prompt_len)
+    of every pool. ``fleet/prefill.py`` owns its wire encoding. A decode
+    replica adopts it: the payloads go into fresh blocks and the slot
+    resumes as after one emitted token, with no prompt pass.
+
+    ``pools``: one host array per pool tensor, sliced to the prompt's
+    blocks on axis 1 — 2 on compute-dtype pools, 4 (payload and scale,
+    k and v) on int8 pools; a bf16 pool's arrays are CPU bf16 tensors."""
+
+    topic: str
+    partition: int
+    offset: int
+    crc: int
+    key_data: tuple
+    temperature: float
+    top_k: int | None
+    top_p: float | None
+    token0: int
+    prompt_blocks: int
+    pools: tuple
+
+    @property
+    def key(self) -> tuple[str, int, int]:
+        return (self.topic, self.partition, self.offset)
+
+    def payload_bytes(self) -> int:
+        return sum(
+            a.numel() * a.element_size() if isinstance(a, torch.Tensor)
+            else a.nbytes
+            for a in self.pools
+        )
+
+
 class _ShadowConsumer:
     """The canary shadow server's consumer-shaped null object: never a
     group member, never polls, owns no partitions, so the shadow's commit
@@ -893,6 +949,7 @@ class StreamingGenerator:
         max_new_of: Callable[[Record], int | None] | None = None,
         distill_topic: str | None = None,
         distill_producer=None,
+        prefill_role: bool = False,
         device=None,
         **deferred,
     ) -> None:
@@ -956,6 +1013,19 @@ class StreamingGenerator:
         if kv_tier is not None and kv_pages is None:
             raise ValueError("kv_tier requires kv_pages (it tiers the "
                              "paged radix cache)")
+        # prefill_role: a disaggregated prefill worker (module docstring).
+        # The handoff is cut from the chunked prefill, so it needs chunked
+        # pages.
+        if prefill_role and (kv_pages is None or kv_pages.prefill_chunk == 0):
+            raise ValueError(
+                "prefill_role requires kv_pages in chunked mode (the handoff "
+                "is cut from the chunked-prefill machinery)"
+            )
+        self._prefill_role = bool(prefill_role)
+        self._prefilled_ready: list[tuple[Record, PrefillHandoff]] = []
+        # Decode side: handoffs installed by add_prefill_handoffs, taken at
+        # admission.
+        self._prefill_handoffs: dict[tuple[str, int, int], PrefillHandoff] = {}
         self._kv_tier_cfg = kv_tier
         self._kv_tier: HostTier | None = None
         self._tier_seen = [0, 0, 0]  # demotions/promotions/hits mirrored
@@ -1064,6 +1134,11 @@ class StreamingGenerator:
             if self._paged_setup():
                 self._build_paged()
                 return
+            if self._prefill_role:
+                raise ValueError(
+                    "prefill_role cannot fall back to dense serving — size "
+                    "kv_pages to hold at least one slot"
+                )
             self._kv_backend = resolve_kv_backend(
                 cfg, kv_dtype=self._kv_dtype, kv_kernel=self._kv_kernel_opt,
                 max_len=M, device=dev,
@@ -1182,6 +1257,122 @@ class StreamingGenerator:
         self.metrics.tier_occupancy_bytes.set(
             float(self._kv_tier.occupancy_bytes)
         )
+
+    # ------------------------------------------------ disaggregated prefill
+    #
+    # Prefill side (prefill_role=True): a finished suffix prefill is cut
+    # into a PrefillHandoff instead of decoding. Decode side: handoffs
+    # installed by add_prefill_handoffs are adopted at admission.
+
+    def _prompt_block_count(self) -> int:
+        """Blocks covering positions [0, prompt_len), the straddling last
+        block included (its tail past prompt_len is never read before the
+        decode writes it)."""
+        return (self._prompt_len - 1) // self._kv_pages.block_size + 1
+
+    def _extract_prompt_blocks(self, slot: int) -> tuple[int, tuple]:
+        """The slot's prompt blocks of every pool, on the host (bf16 as CPU
+        tensors); ``index_select`` copies, so none shares the pool."""
+        nb_p = self._prompt_block_count()
+        ids = self._h2d(self._table_np[slot, :nb_p].astype(np.int64))
+        return nb_p, tuple(_host_leaf(p.index_select(1, ids)) for p in self._pools)
+
+    def _harvest_prefilled(self, finishers) -> None:
+        """Prefill-role epilogue of a chunk tick: each slot whose suffix
+        completed this tick (token 0 already drawn in the tick with the
+        record's key) is cut into a handoff and released; nothing decodes
+        here."""
+        last = self._last_tok.cpu().numpy()
+        released = False
+        for e, _row in finishers:
+            i = e.slot
+            rec = self._slot_rec[i]
+            if rec is None or not self._active[i]:
+                continue
+            nb_p, pools = self._extract_prompt_blocks(i)
+            kd = self._record_key_data(rec)
+            self._prefilled_ready.append((rec, PrefillHandoff(
+                rec.topic, rec.partition, rec.offset, value_crc(rec.value),
+                tuple(int(x) for x in kd.ravel()),
+                self._temperature, self._top_k, self._top_p,
+                int(last[i]), nb_p, pools,
+            )))
+            self._active[i] = False
+            self._slot_rec[i] = None
+            self._slot_emitted[i] = 0
+            self._slot_journaled[i] = 0
+            self._release_slot_blocks(i)
+            released = True
+        if released:
+            self._table_dev = self._device_table()
+            self.metrics.cache_pool_occupancy.set(self._kv_alloc.occupancy())
+
+    def take_prefilled(self) -> list[tuple[Record, PrefillHandoff]]:
+        """Pop the harvested handoffs (prefill role). The caller publishes
+        each and then confirms with ``note_handoff_published``; only that
+        retires the record here, so a death between harvest and publish
+        re-delivers the prompt to the next prefill incarnation."""
+        ready, self._prefilled_ready = self._prefilled_ready, []
+        return ready
+
+    def note_handoff_published(self, rec: Record, blocks: int = 0) -> None:
+        """The handoff for ``rec`` is on the transfer plane: retire the
+        record in the prefill group's ledger."""
+        self.metrics.handoffs_published.add(1)
+        if self._tracer is not None:
+            self._tracer.prefill_handoff(rec, blocks, replica=self._trace_replica)
+        self._ledger.emitted(rec)
+        self._uncommitted += 1
+
+    def add_prefill_handoffs(self, entries: dict) -> None:
+        """Install decoded ``PrefillHandoff`` units keyed by (topic,
+        partition, offset), taken when the record is next admitted. Each
+        is checked at adoption, so a stale or foreign handoff falls back
+        to a local prefill and never reaches a slot."""
+        self._prefill_handoffs.update(entries)
+
+    def has_prefill_handoff(self, key: tuple[str, int, int]) -> bool:
+        """Routing probe (``fleet.prefill.PrefillRouter``): is a handoff
+        ready for this record identity?"""
+        return key in self._prefill_handoffs
+
+    def _take_handoff(self, rec: Record) -> PrefillHandoff | None:
+        """Pop and check ``rec``'s handoff; None = prefill locally. CRC,
+        sampling contract, prompt-block count, array count, shapes and
+        dtypes must match this server's pools; a mismatch counts
+        ``resume_rejected``."""
+        if self._kv_pages is None or not self._chunked:
+            return None
+        hand = self._prefill_handoffs.pop((rec.topic, rec.partition, rec.offset), None)
+        if hand is None:
+            return None
+        nb_p = self._prompt_block_count()
+        ok = (
+            hand.crc == value_crc(rec.value)
+            and hand.temperature == self._temperature
+            and hand.top_k == self._top_k
+            and hand.top_p == self._top_p
+            and hand.prompt_blocks == nb_p
+            and len(hand.pools) == len(self._pools)
+        ) and all(
+            tuple(a.shape) == (p.shape[0], nb_p) + tuple(p.shape[2:])
+            and _dtype_name(a) == _dtype_name(p)
+            for a, p in zip(hand.pools, self._pools)
+        )
+        if not ok:
+            self.metrics.resume_rejected.add(1)
+            return None
+        return hand
+
+    def _adopt_upload(self, block_ids: list[int], payloads: tuple) -> None:
+        """Copy an adopted handoff's payload blocks into the pools: one
+        indexed copy a pool. Each payload is snapshotted before its copy
+        (the handoff's arrays may alias a message buffer)."""
+        ids = self._h2d(np.asarray(block_ids, np.int64))
+        for p, a in zip(self._pools, payloads):
+            src = (a.to(self._device, copy=True) if isinstance(a, torch.Tensor)
+                   else self._h2d(a))
+            p.index_copy_(1, ids, src)
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
         """Snapshot a host array, then copy it to the device: the tensor
@@ -1347,6 +1538,7 @@ class StreamingGenerator:
         nblk = self._blocks_per_slot
         admitted: list[tuple[int, torch.Tensor]] = []  # legacy (slot, logits)
         resumed: list[tuple[int, np.ndarray]] = []  # legacy (slot, emitted)
+        adopted: list[tuple[int, np.ndarray]] = []  # (slot, [token 0])
         keys_np = np.zeros((self._slots, 2), np.int64)
         key_mask = np.zeros((self._slots,), bool)
         reserved = 0
@@ -1360,6 +1552,7 @@ class StreamingGenerator:
             toks = np.asarray(toks, np.int32)
             kd = self._key_for_journal(rec)
             hint = self._take_hint(rec)
+            hand = self._take_handoff(rec) if hint is None else None
             if hint is not None and hint.finished:
                 journal_dirty |= self._serve_from_journal(rec, hint, kd)
                 continue
@@ -1389,6 +1582,8 @@ class StreamingGenerator:
                     self._kv_alloc.decref(matched)
                 if hint is not None:  # back on the shelf with its record
                     self._resume_hints[(rec.topic, rec.partition, rec.offset)] = hint
+                if hand is not None:  # the deferred re-offer re-adopts
+                    self._prefill_handoffs[(rec.topic, rec.partition, rec.offset)] = hand
                 if self._tracer is not None:
                     self._tracer.deferred(rec, replica=self._trace_replica)
                 self._paged_deferred.append(rec)
@@ -1397,6 +1592,41 @@ class StreamingGenerator:
                 break
             row = matched + priv
             self._table_np[i, :] = row
+            if hand is not None:
+                # ADOPTION: the prefill worker computed this prompt's KV.
+                # Copy the unmatched blocks' payloads in (matched blocks
+                # hold the same bytes) and activate with the handoff's
+                # token 0, as a warm resume after one token: no prompt
+                # pass runs here.
+                nb_p = hand.prompt_blocks
+                up = row[len(matched):nb_p]
+                if up:
+                    self._adopt_upload(up, tuple(
+                        a[:, len(matched):nb_p] for a in hand.pools
+                    ))
+                # Payload copied, slot not active, record in no ledger
+                # snapshot: a death here re-delivers and re-adopts (or
+                # re-prefills) to the same bytes.
+                crash_hook("decode_adopt_pre_activate")
+                cacheable = RadixCache.matchable_blocks(len(toks), bs)
+                self._kv_radix.insert(toks, row[:cacheable])
+                self._slot_rec[i] = rec
+                key_np = (np.asarray(hand.key_data, np.uint32)
+                          if hand.key_data else kd)
+                if self._sampled:
+                    keys_np[i] = key_np
+                    key_mask[i] = True
+                self._active[i] = True
+                self._slot_emitted[i] = 1
+                self._slot_journaled[i] = 1
+                adopted.append((i, np.asarray([hand.token0], np.int32)))
+                self.metrics.adopted_slots.add(1)
+                if self._tracer is not None:
+                    self._tracer.adopted(rec, replica=self._trace_replica)
+                if self._journal is not None:
+                    self._journal_record(rec, key_np, (hand.token0,), False)
+                    journal_dirty = True
+                continue
             start = len(matched) * bs
             # Register the prompt's matchable whole blocks for reuse
             # (existing nodes are the ones just matched; new nodes adopt
@@ -1456,14 +1686,15 @@ class StreamingGenerator:
             self.metrics.admission_deferrals.add(newly_deferred)
         self.metrics.cache_pool_occupancy.set(self._kv_alloc.occupancy())
         self._sync_tier_metrics()
-        filled = len(admitted) + len(resumed) + reserved
+        filled = len(admitted) + len(resumed) + len(adopted) + reserved
         if filled and in_flight > 0:
             self.metrics.readmissions.add(filled)
         if filled:
             self._merge_keys(keys_np, key_mask)
-        if admitted or resumed:
+        if admitted or resumed or adopted:
             # Chunked reservations push nothing: prefilling rows stay
-            # masked to the sink until activation.
+            # masked to the sink until activation. Adopted slots activate
+            # now, so their rows unmask with this push.
             self._table_dev = self._device_table()
         if admitted:
             rows = self._h2d(np.asarray([i for i, _ in admitted], np.int64))
@@ -1475,12 +1706,20 @@ class StreamingGenerator:
                     self._tracer.slot_active(
                         self._slot_rec[i], replica=self._trace_replica
                     )
-        if resumed:
-            self._restore_resumed(resumed)
+        if resumed or adopted:
+            # An adoption restores one emitted token (the handoff's token
+            # 0): the warm-resume state after g = 1.
+            self._restore_resumed(resumed + adopted)
             if self._tracer is not None:
                 for i, _ in resumed:
                     self._tracer.slot_active(
                         self._slot_rec[i], replica=self._trace_replica, warm=True
+                    )
+                for i, _ in adopted:
+                    # The adopted record's first token exists now: time to
+                    # first token closes here (not warm).
+                    self._tracer.slot_active(
+                        self._slot_rec[i], replica=self._trace_replica
                     )
         if journal_dirty:
             self._journal.flush()
@@ -2297,6 +2536,11 @@ class StreamingGenerator:
                 # pre-activation active set): completed prefills activate
                 # for the NEXT tick block.
                 self._activate_chunk_finishers(finishers)
+                if self._prefill_role:
+                    # Disaggregated prefill: nothing decodes here. Cut the
+                    # activated slots into handoffs and free them before
+                    # any decode tick could run.
+                    self._harvest_prefilled(finishers)
             if run_chunk:
                 self.metrics.admission_queue_tokens.set(float(sum(
                     len(e.seq) - e.off for e in self._prefill_queue
