@@ -103,12 +103,12 @@ Phases, each printing one JSON line:
    by ``StreamingGenerator`` with the int8 pool (a main path: every kernel
    launch count is zeroed just before it and read just after; every K1
    launch on the tensor cores), then again with the bf16 pool;
-8t. serve_traced: the int8 serve run untraced, traced, traced, untraced,
-   each traced run with ``obs.RecordTracer(capacity=1 << 16)`` (token
-   events on): every run's tokens and commits equal the first's, K1 and
-   K4 follow the serve phase's rule, and each of the 32 records is
-   polled, active, finished and committed exactly once with nothing left
-   open. Printed: TTFT, inter-token latency, queue wait and end-to-end
+8t. serve_traced: the int8 serve run untraced, then traced with
+   ``obs.RecordTracer(capacity=1 << 16)`` (token events on; the second
+   in-turn pair was cut for the harness phase's time): the traced run's
+   tokens and commits equal the untraced run's, K1 and K4 follow the
+   serve phase's rule, and each of the 32 records is polled, active,
+   finished and committed exactly once with nothing left open. Printed: TTFT, inter-token latency, queue wait and end-to-end
    p50/p99 from the tracer's histograms (the tracer's clock is the
    host's: a record is "active" once its first token is enqueued), tok/s
    traced against untraced. One ``MetricsExporter`` on 127.0.0.1 serves
@@ -206,9 +206,9 @@ Phases, each printing one JSON line:
    pool, served plainly (63 ticks a block) and by
    ``SpecStreamingGenerator`` (k = 4, 13 rounds a block: harness scenario
    7 ``--spec``) with the perfect draft (the target itself) and the
-   half-depth self-draft, in turns: plain, perfect, self, plain (the
-   second speculative pair was cut for time); then the self-draft's
-   layers served plainly. Each run:
+   half-depth self-draft: plain, perfect, self (the closing plain run was
+   cut for the harness phase's time); then the self-draft's layers served
+   plainly. Each run:
    32/32 completions of 64 tokens, committed == end offsets and equal to
    the first plain run's, token 0 identical to it, K1 = (layers + draft
    layers) x prefills all on the tensor cores, K4 = K5 = 0, proposals
@@ -240,8 +240,9 @@ Phases, each printing one JSON line:
    ``ReplicaChaos`` kill, every commit audited against the completions
    the fleet registered; the QoS clock is synthetic (0.4 s a scheduling
    round, about what a round of two 1b replicas takes), so the schedule
-   and the kill repeat exactly. In turns with a 16-slot single server on
-   the same stream: single, fleet, fleet, single. Held: every prompt
+   and the kill repeat exactly. After a 16-slot single server on the same
+   stream: single, fleet (the second in-turn pair was cut for the harness
+   phase's time). Held: every prompt
    served at least once, committed == end offsets and equal to the
    single server's, the merged ``watermarks()`` equal to the broker's,
    at least one duplicate and one journal handoff, the survivor served
@@ -323,8 +324,10 @@ Phases, each printing one JSON line:
    replica processes of 8 slots (dense f32 pools, a journal, respawn), one
    SIGKILLed mid-round while its journal holds generations with tokens
    (wave 1); the same processes on wave 2; one after ``scale(1)`` on
-   wave 3. Held: ``fully_committed``, every
-   copy byte-identical to the port's in-process 8-slot server on the same
+   wave 3. Held: ``fully_committed``, the duplicates over the three
+   waves at most the group's rebalances from wave 1 to the drain x 2 x
+   (4 + 8) (harness scenario 17's bound, replicas x (commit_every +
+   slots), a rebalance), every copy byte-identical to the port's in-process 8-slot server on the same
    weights, the victim fenced (its generation refused a commit) with its
    journal handed over and resumes counted, each dumping child's K1 = 24 x
    (prefills + warm resumes) from its own counters. Printed: tok/s from the
@@ -340,10 +343,25 @@ Phases, each printing one JSON line:
    distill role: one replica and a ``DistillTrainer`` worker training the
    1-layer draft on the card (K1-K3 = steps in its dump), versions 1 and 2
    fetchable, ``kill_distill`` respawns it and it trains again;
+8j. harness (after serve_8b_f32): the port's harness entry point
+   (``harness.run_scenario``, what ``python -m torchkafka_tpu_torch.harness``
+   calls) on the card: scenario 7 at the 1b, 24 layers, on the int8 pool
+   read by K4, with ``decode_roofline`` (replays of one CUDA graph of the
+   63-tick decode block between CUDA events, windows of 8 and 24 blocks,
+   three of each), scenario 5 at the 1b (lockstep generate, the device
+   split by CUDA events) and scenarios 1, 2, 6 and 9 at tiny size. Held:
+   committed == records, no commit failure or drop; the roofline timed
+   from the graph with its slope held and 0 < hbm_roofline_pct <= 105;
+   the captured block's K4 = 24 x ticks_per_sync; the eager K4 = 24 x
+   the eager decode ticks (serving plus warmup's block); K1 = 24 x
+   prefills on the tensor cores; scenario 9's K1 = K2 = K3. Then a
+   2-layer f32 server probed by the roofline serves the same tokens and
+   commits as one never probed;
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
-   ``disagg_launches``);
+   ``disagg_launches``; K1-K4 with the harness phase's by scenario,
+   ``harness_launches``, K4 with the captured block's and the replays);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Depth cuts (the time of phases 8g-8i): serve_traced, serve_sampled,
@@ -1854,12 +1872,12 @@ def _balanced(tr, n: int, what: str) -> dict:
 
 
 def check_serve_traced(torch, cfg, params, prompts) -> tuple[list, dict]:
-    """The serve phase's int8 run untraced, traced, traced, untraced: each
-    traced run with ``RecordTracer(capacity=1 << 16)`` (token events on).
-    Every run's tokens and commits equal the first's; each traced run
-    polls, activates, finishes and commits every record exactly once.
-    One ``MetricsExporter`` on 127.0.0.1 (port 0) serves the last traced
-    run's server and tracer expositions; one scrape must parse under the
+    """The serve phase's int8 run untraced, then traced with
+    ``RecordTracer(capacity=1 << 16)`` (token events on). The traced run's
+    tokens and commits equal the untraced run's; it polls, activates,
+    finishes and commits every record exactly once. One
+    ``MetricsExporter`` on 127.0.0.1 (port 0) serves the traced run's
+    server and tracer expositions; one scrape must parse under the
     exposition grammar with no family defined twice."""
     import urllib.request
 
@@ -1867,7 +1885,7 @@ def check_serve_traced(torch, cfg, params, prompts) -> tuple[list, dict]:
 
     n = prompts.shape[0]
     rows, runs = [], []
-    for traced in (False, True, True, False):
+    for traced in (False, True):
         tr = RecordTracer(capacity=1 << 16) if traced else None
         held = []
         outs, row = serve(torch, cfg, params, prompts, "int8", tracer=tr,
@@ -1886,7 +1904,7 @@ def check_serve_traced(torch, cfg, params, prompts) -> tuple[list, dict]:
         if set(outs) != set(base_outs) or any(
                 not np_equal(outs[k], base_outs[k]) for k in base_outs):
             raise AssertionError("serve_traced: tokens differ between runs")
-    _, _, tr, server = runs[2]
+    _, _, tr, server = runs[1]
     with MetricsExporter([server.metrics, tr], host="127.0.0.1", port=0) as exporter:
         with urllib.request.urlopen(exporter.url, timeout=30) as resp:
             status, body = resp.status, resp.read().decode()
@@ -1895,7 +1913,7 @@ def check_serve_traced(torch, cfg, params, prompts) -> tuple[list, dict]:
     samples = conformant(body)
     untraced = [r["tokens_per_s"] for r in rows if not r["traced"]]
     traced = [r["tokens_per_s"] for r in rows if r["traced"]]
-    summary = {"phase": "serve_traced", "runs": "untraced, traced, traced, untraced",
+    summary = {"phase": "serve_traced", "runs": "untraced, traced",
                "tokens_and_commits_identical": True, "records": n,
                "tokens_per_s_untraced": untraced, "tokens_per_s_traced": traced,
                "traced_over_untraced": statistics.mean(traced) / statistics.mean(untraced),
@@ -2902,9 +2920,9 @@ def check_serve_spec(torch, cfg, params, prompts) -> list:
     """The serve phase's 1b model and 32 prompts, bf16 dense pool, plain
     (``MAX_NEW`` - 1 ticks a block) and speculative (k = ``SPEC_K``,
     ``SPEC_ROUNDS`` rounds a block) with the perfect draft and the
-    half-depth self-draft, in turns: plain, perfect, self, plain (two more
-    speculative turns before the fleet phases took their time); then the
-    self-draft's layers served plainly (t_draft).
+    half-depth self-draft: plain, perfect, self (the in-turn pairs were
+    cut for the fleet and harness phases' time); then the self-draft's
+    layers served plainly (t_draft).
     Each run: ``serve``'s checks (K1 = (layers + draft layers) x prefills on
     the tensor cores, K4 = K5 = 0), commits and token 0 equal to the
     first plain run's, proposals made. bench_spec's cost terms from the
@@ -2921,7 +2939,7 @@ def check_serve_spec(torch, cfg, params, prompts) -> list:
     runs = {"plain": {}, "perfect": dict(spec, draft_params=params, draft_cfg=cfg),
             "self": spec}
     rows, plain = [], None
-    for name in ("plain", "perfect", "self", "plain"):
+    for name in ("plain", "perfect", "self"):
         outs, row = serve(torch, cfg, params, prompts, None, **runs[name])
         row.update(phase="serve_spec", run=name,
                    draft_layers=row.get("spec", {}).get("draft_layers"),
@@ -3088,24 +3106,17 @@ def produce_stream(broker, topic: str, prompts, keys, start: int = 0,
 
 
 def _zero_launches():
-    from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
-    from torchkafka_tpu_torch.ops.kvattn import (
-        int8_decode_attention_dynlen,
-        int8_paged_decode_attention,
-    )
+    """Set every serving and training kernel's launch count to 0; → the
+    reader of the counts (``fleet.proc.launch_counts``: K1-K3 with their
+    tensor-core counts, K4, K5)."""
+    from torchkafka_tpu_torch.fleet.proc import launch_counts
+    from torchkafka_tpu_torch.ops import flash, kvattn
 
-    fns = {"flash_fwd": flash_fwd_bhsd, "kvattn_dynlen": int8_decode_attention_dynlen,
-           "kvattn_paged": int8_paged_decode_attention}
-    for fn in fns.values():
+    for fn in (flash.flash_fwd_bhsd, flash.flash_dq_bhsd, flash.flash_dkv_bhsd):
+        fn.launches = fn.tc_launches = 0
+    for fn in (kvattn.int8_decode_attention_dynlen, kvattn.int8_paged_decode_attention):
         fn.launches = 0
-    flash_fwd_bhsd.tc_launches = 0
-
-    def read() -> dict:
-        out = {k: fn.launches for k, fn in fns.items()}
-        out["flash_fwd_tc"] = flash_fwd_bhsd.tc_launches
-        return out
-
-    return read
+    return launch_counts
 
 
 def _check_launches(what, cfg, launches, gens, shadows=(), cuda=True) -> dict:
@@ -3341,10 +3352,10 @@ def batch_invariance(torch, cfg, params) -> dict:
 
 
 def check_serve_fleet(torch, cfg, params, device="cuda") -> list:
-    """Scenario 10 at 1b on one card: the single server and the 2-replica
-    fleet in turns (single, fleet, fleet, single), each fleet run with a
-    journal and one seeded kill; then a drain and a second fleet on the
-    same group. Memory: one 8-slot server against a fleet of two."""
+    """Scenario 10 at 1b on one card: the single server, then the
+    2-replica fleet with a journal and one seeded kill; then a drain and a
+    second fleet on the same group. Memory: one 8-slot server against a
+    fleet of two."""
     import tempfile
 
     import numpy as np
@@ -3374,7 +3385,7 @@ def check_serve_fleet(torch, cfg, params, device="cuda") -> list:
         del one
         torch.cuda.empty_cache()
     single = {}
-    for turn in ("single", "fleet", "fleet", "single"):
+    for turn in ("single", "fleet"):
         if turn == "single":
             outs, row = fleet_single(torch, cfg, params, prompts, keys, device, "int8")
             if single and any(not np_equal(outs[k], single[k]) for k in outs):
@@ -3976,6 +3987,7 @@ def check_serve_procfleet(torch, cfg, device="cuda") -> list:
             fleet.wait_ready(timeout_s=PROC_WAIT_S)
             ready_s = time.perf_counter() - ts
             deadline = time.monotonic() + PROC_WAIT_S
+            gen0 = fleet.broker.membership("pf")["generation"]
             # Wave 1: the kill, mid-round: the victim's journal on disk holds
             # generations with tokens (uncommitted work a survivor resumes).
             keys, t1 = _wave(fleet, prompts, 1, keys=base)
@@ -4026,6 +4038,7 @@ def check_serve_procfleet(torch, cfg, device="cuda") -> list:
             keys, t3 = _wave(fleet, prompts, 3, keys=base)
             rows.append({"run": "1_process", "wave": 3,
                          "elapsed_s": _served(fleet, keys, "wave 3", deadline) - t3})
+            rebalances = fleet.broker.membership("pf")["generation"] - gen0
             fleet.drain()
             fleet.wait(lambda f: all(not i.running for i in f.incarnations),
                        timeout_s=PROC_WAIT_S)
@@ -4034,6 +4047,17 @@ def check_serve_procfleet(torch, cfg, device="cuda") -> list:
                 raise AssertionError("serve_procfleet: prompts lost\n" + fleet.diagnose())
             results = fleet.results()
             held = _identical("serve_procfleet", results, ref, np)
+            # Every rebalance re-delivers each member's uncommitted work:
+            # the JAX package's scenario 17 bound, replicas x (commit_every
+            # + slots), a rebalance, summed over the rebalances from wave
+            # 1's produce to the drain (the kill's fence, the respawn's
+            # join, scale(1)'s leave). Both packages' fleets stay within it
+            # on the CPU at these settings (PERF.md, queue C item 15).
+            bound = rebalances * 2 * (FLEET_COMMIT + PROC_SLOTS)
+            if held["duplicates"] > bound:
+                raise AssertionError(
+                    f"serve_procfleet: {held['duplicates']} duplicates over "
+                    f"{rebalances} rebalances, above the bound {bound}")
             dumps = [d for d in fleet.worker_metrics() if d.get("role") is None]
             vic = next(i for i in fleet.incarnations if i.member == victim["member"])
             warm = sum(d["warm_resumes"] + d["served_from_journal"] for d in dumps)
@@ -4055,6 +4079,7 @@ def check_serve_procfleet(torch, cfg, device="cuda") -> list:
                 "dtype": "float32", "layers": spec["n_layers"], "slots": PROC_SLOTS,
                 "start_to_ready_s": ready_s, "zombie_fenced": True,
                 "handoff_entries": vic.handoff_entries, **held,
+                "rebalances": rebalances, "duplicate_bound": bound,
                 "incarnations": [i.member for i in fleet.incarnations],
                 "exit_codes": {i.member: i.exit_code for i in fleet.incarnations},
                 "child_launches": _child_k1("serve_procfleet", dumps, spec["n_layers"],
@@ -4586,6 +4611,140 @@ def _profiler(torch):
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
+HARNESS_TINY = (1, 2, 6, 9)  # the harness's ingest and training scenarios, tiny
+
+
+def check_harness(torch) -> list:
+    """The port's harness CLI entry point (``harness.run_scenario``) on the
+    card: scenario 7 at the 1b (24 layers, full widths, random bf16
+    weights from seed 0) on the int8 pool read by K4, with
+    ``decode_roofline`` (replays of a CUDA graph of the 63-tick decode
+    block, CUDA events, 8 and 24 blocks a window, three of each); scenario
+    5 at the 1b (lockstep generate, K1 prefill, the device split by CUDA
+    events); scenarios 1, 2, 6 and 9 at tiny size. Every count is zeroed
+    just before its scenario and read just after. Held: committed ==
+    records, no commit failure, no drop; the roofline's slope held and
+    0 < hbm_roofline_pct <= 105, timed from the graph; the captured block
+    launches K4 24 x ticks_per_sync times; K4's eager launches (the
+    scenario's less the probe's warm block and capture) = 24 x the eager
+    decode ticks (serving plus warmup's block); K1 = 24 x (prefills +
+    warmup's one) on the tensor cores; scenario 5's K1 = 24 x its
+    prefills (warm-up, batches, split) and K4 = 0; scenario 9's K1 = K2 =
+    K3 (one of each a layer and step)."""
+    from torchkafka_tpu_torch.harness import run_scenario
+
+    rows = []
+    smi = smi_line()
+    read = _zero_launches()
+    t0 = time.perf_counter()
+    r7 = run_scenario(7, "full", model_scale="1b", kv_int8=True, kv_kernel=True)
+    s7 = time.perf_counter() - t0
+    got = read()
+    torch.cuda.empty_cache()
+    nl, k = 24, r7["ticks_per_sync"]
+    if (r7["records"] != 128 or r7["committed"] != r7["records"]
+            or r7["commit_failures"] or r7["dropped"] or not r7["kv_kernel"]):
+        raise AssertionError(f"harness 7: {r7}")
+    if (r7.get("timer") != "cuda_graph" or not r7["slope_ok"]
+            or not 0 < r7["hbm_roofline_pct"] <= 105):
+        raise AssertionError(f"harness 7 roofline: {r7}")
+    probe = r7["probe_launches"]
+    eager_k4 = got["kvattn_dynlen"] - probe["kvattn_dynlen"]
+    want = {"graph_k4": nl * k, "eager_k4": nl * (r7["decode_ticks"] + k),
+            "probe_k4": nl * 2 * k, "k1": nl * (r7["prefills"] + 1)}
+    have = {"graph_k4": r7["graph_block_launches"]["kvattn_dynlen"], "eager_k4": eager_k4,
+            "probe_k4": probe["kvattn_dynlen"], "k1": got["flash_fwd"]}
+    if have != want or got["flash_fwd_tc"] != got["flash_fwd"] or got["kvattn_paged"]:
+        raise AssertionError(f"harness 7 launches {got}, {have}, want {want}")
+    rows.append({"phase": "harness", "scenario": 7, "args": "--size full --model-scale 1b "
+                 "--kv-int8 --kv-kernel on", "seconds": s7, "launches": got,
+                 "launch_check": want, "nvidia_smi": smi, **r7})
+    read = _zero_launches()
+    t0 = time.perf_counter()
+    r5 = run_scenario(5, "full", model_scale="1b")
+    s5 = time.perf_counter() - t0
+    got = read()
+    torch.cuda.empty_cache()
+    # Prefills: the warm-up generate, one a batch, and the split's warm
+    # prefill, three timed ones, warm generate and three timed generates.
+    want_k1 = nl * (1 + r5["batches"] + 8)
+    if (r5["records"] != 128 or r5["committed"] != r5["records"]
+            or r5["commit_failures"] or r5["dropped"]
+            or r5["generated_tokens"] != 128 * MAX_NEW):
+        raise AssertionError(f"harness 5: {r5}")
+    if (got["flash_fwd"] != want_k1 or got["flash_fwd_tc"] != want_k1
+            or got["kvattn_dynlen"] or got["kvattn_paged"]):
+        raise AssertionError(f"harness 5 launches {got}, want K1 {want_k1}")
+    for key in ("device_prefill_ms", "device_generate_ms", "roofline_tok_s"):
+        if not r5.get(key, 0) > 0:
+            raise AssertionError(f"harness 5: {key} {r5}")
+    rows.append({"phase": "harness", "scenario": 5, "args": "--size full --model-scale 1b",
+                 "seconds": s5, "launches": got, "nvidia_smi": smi, **r5})
+    for num in HARNESS_TINY:
+        read = _zero_launches()
+        t0 = time.perf_counter()
+        r = run_scenario(num, "tiny")
+        sec = time.perf_counter() - t0
+        got = read()
+        if (r["records"] <= 0 or r["records_per_s"] <= 0 or r["commit_failures"]
+                or r["dropped"] or r["commit"]["count"] <= 0):
+            raise AssertionError(f"harness {num}: {r}")
+        if num == 9 and not (got["flash_fwd"] == got["flash_dq"] == got["flash_dkv"] > 0):
+            raise AssertionError(f"harness 9 launches {got}")
+        if num != 9 and any(got.values()):
+            raise AssertionError(f"harness {num} launched kernels: {got}")
+        rows.append({"phase": "harness", "scenario": num, "args": "--size tiny",
+                     "seconds": sec, "launches": got, **r})
+    rows.append(roofline_probe_exact(torch))
+    return rows
+
+
+def roofline_probe_exact(torch) -> dict:
+    """A server probed by ``decode_roofline`` (the CUDA graph) serves the
+    same tokens and commits as one never probed: 1b widths, 2 layers,
+    f32, the int8 pool on K4, 16 prompts of 128 on 16 slots."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.models.zoo import random_serving_params, zoo_config
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    cfg = dataclasses.replace(zoo_config("1b", max_seq_len=128 + MAX_NEW), n_layers=2,
+                              dtype=torch.float32, param_dtype=torch.float32)
+    params = random_serving_params(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                                   device="cuda")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (16, 128),
+                                                    dtype=np.int32)
+    runs = {}
+    for probed in (True, False):
+        broker = InMemoryBroker()
+        broker.create_topic("p", partitions=2)
+        for i, row in enumerate(prompts):
+            broker.produce("p", row.tobytes(), partition=i % 2)
+        consumer = MemoryConsumer(broker, "p", group_id="g")
+        server = StreamingGenerator(consumer, params, cfg, slots=16, prompt_len=128,
+                                    max_new=MAX_NEW, kv_dtype="int8", kv_kernel=True,
+                                    commit_every=16, ticks_per_sync=MAX_NEW - 1,
+                                    device="cuda")
+        server.warmup()
+        pos = server._pos.clone()
+        roof = server.decode_roofline(iters=1, windows=1) if probed else None
+        if not torch.equal(server._pos, pos):
+            raise AssertionError("roofline probe: _pos not restored")
+        outs = {(r.partition, r.offset): t for r, t in server.run(max_records=16)}
+        consumer.close()
+        runs[probed] = (outs, [broker.committed("g", TopicPartition("p", q)) for q in (0, 1)],
+                        roof)
+    (a, ca, roof), (b, cb, _) = runs[True], runs[False]
+    if set(a) != set(b) or any(not np_equal(a[k], b[k]) for k in b) or ca != cb:
+        raise AssertionError("roofline probe: the probed server serves other tokens")
+    return {"phase": "harness", "check": "roofline_probe_token_exact", "layers": 2,
+            "dtype": "float32", "records": len(a), "committed": ca,
+            "graph_block_launches": roof["graph_block_launches"],
+            "device_tick_ms": roof["device_tick_ms"], "slope_ok": roof["slope_ok"]}
+
+
 PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                 "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                 "kvattn_split_kernel_dense", "kvattn_split_kernel_paged",
@@ -4847,6 +5006,10 @@ def main() -> int:
         emit(row)
     del params8_32
     torch.cuda.empty_cache()
+    rows_h = check_harness(torch)
+    for row in rows_h:
+        emit(row)
+    torch.cuda.empty_cache()
 
     main_pool = k4["pools"]["192"]
     pool_8b = k4["reps"]["4"]
@@ -4864,6 +5027,14 @@ def main() -> int:
                 if r.get("run") in ("fleet", "clean", "divergent", "broker")]
 
     distill_rows = [r for r in rows_pf32 if r.get("run") == "distill_role"]
+
+    def harness_launches(kernel):
+        """The harness phase's launches by scenario (7 includes the
+        roofline probe's warm block and capture)."""
+        return {str(r["scenario"]): r["launches"][kernel] for r in rows_h
+                if "scenario" in r}
+
+    roof = rows_h[0]
 
     def child_launches(kernel):
         """K1-K3 as the worker processes counted them (their metrics
@@ -4909,6 +5080,7 @@ def main() -> int:
                            if r.get("spec") is not None],
          "fleet_launches": fleet_launches("flash_fwd"),
          "process_launches": child_launches("flash_fwd"),
+         "harness_launches": harness_launches("flash_fwd"),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -4921,7 +5093,8 @@ def main() -> int:
          "ms": k23["dq"]["kernel_ms"], "plain_ms": k23["dq"]["plain_ms"],
          "bound_ms": k23["dq"]["bound_ms"], "bound_by": k23["dq"]["bound_by"],
          "library_ms": k23["library_ms_sdpa_bwd"],
-         "process_launches": child_launches("flash_dq")},
+         "process_launches": child_launches("flash_dq"),
+         "harness_launches": harness_launches("flash_dq")},
         {"name": "flash_dkv", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:252",
@@ -4931,13 +5104,17 @@ def main() -> int:
          "ms": k23["dkv"]["kernel_ms"], "plain_ms": k23["dkv"]["plain_ms"],
          "bound_ms": k23["dkv"]["bound_ms"], "bound_by": k23["dkv"]["bound_by"],
          "library_ms": k23["library_ms_sdpa_bwd"],
-         "process_launches": child_launches("flash_dkv")},
+         "process_launches": child_launches("flash_dkv"),
+         "harness_launches": harness_launches("flash_dkv")},
         {"name": "kvattn_dynlen", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/kvattn_dynlen.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:458",
          "launches": row_q["launches"]["kvattn_dynlen"],
          "traced_launches": [r["launches"]["kvattn_dynlen"] for r in rows_tr if r["traced"]],
          "fleet_launches": fleet_launches("kvattn_dynlen"),
+         "harness_launches": harness_launches("kvattn_dynlen"),
+         "harness_graph_block_launches": roof["graph_block_launches"]["kvattn_dynlen"],
+         "harness_graph_replays": roof["graph_replays"],
          "max_abs_err": main_pool["max_abs_err"]["bf16"], "ms": main_pool["kernel_ms"],
          "plain_ms": main_pool["plain_ms"], "bound_ms": main_pool["bound_ms"],
          "bound_by": main_pool["bound_by"], "library_ms": None,

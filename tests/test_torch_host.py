@@ -145,7 +145,8 @@ def test_port_never_imports_jax_ast():
     for mod in ("fleet/fleet.py", "fleet/rollout.py", "fleet/autoscale.py",
                 "workload/generator.py", "distill/controller.py", "distill/wire.py",
                 "fleet/proc.py", "fleet/supervisor.py", "fleet/prefill.py",
-                "distill/trainer.py", "distill/worker.py"):
+                "distill/trainer.py", "distill/worker.py", "harness/__init__.py",
+                "harness/__main__.py", "harness/scenarios.py", "ops/bitpack.py"):
         assert ROOT / "torchkafka_tpu_torch" / mod in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
@@ -167,7 +168,8 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.distill\n"
         "import torchkafka_tpu_torch.fleet.proc, torchkafka_tpu_torch.fleet.supervisor\n"
         "import torchkafka_tpu_torch.fleet.prefill, torchkafka_tpu_torch.distill.trainer\n"
-        "import torchkafka_tpu_torch.distill.worker\n"
+        "import torchkafka_tpu_torch.distill.worker, torchkafka_tpu_torch.harness\n"
+        "import torchkafka_tpu_torch.harness.__main__, torchkafka_tpu_torch.ops.bitpack\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
         "print(bad)\n"

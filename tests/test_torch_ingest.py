@@ -119,8 +119,12 @@ def test_fixed_width_processor_identical():
     got, keep = ptk.fixed_width(SEQ, np.int32, wire_dtype=np.uint16)(recs["port"])
     assert keep is None and got.dtype == np.uint16
     np.testing.assert_array_equal(got, ref.astype(np.uint16))
-    with pytest.raises(NotImplementedError, match="bitpack"):
-        ptk.fixed_width(SEQ, np.int32, wire_bits=10)
+    # wire_bits packs the rows as the JAX processor does (the values of
+    # _records fit in 10 bits).
+    ref10, _ = jtk.fixed_width(SEQ, np.int32, wire_bits=10)(recs["jax"])
+    got10, keep = ptk.fixed_width(SEQ, np.int32, wire_bits=10)(recs["port"])
+    assert keep is None and got10.dtype == np.uint8
+    np.testing.assert_array_equal(got10, ref10)
 
 
 def test_tree_flatten_order_matches_jax():

@@ -4,7 +4,8 @@
   (``TestDecodeJournal``, ``TestCrashPoints``) run over the port: the
   module's source is loaded with the package name re-rooted onto
   ``torchkafka_tpu_torch`` and the two classes are collected here. Its
-  fleet cases wait for the fleet's port (ROADMAP queue A).
+  fleet cases (``TestFleetDrainJournal``) are not re-rooted yet, though
+  the fleet is ported (ROADMAP queue C item 16).
 - The warm-failover differential, ``test_journal.py``'s ``_kill_run``
   driven through both packages from the same parameters at f32, with the
   plain and the speculative server (greedy, dense and chunked paged; a

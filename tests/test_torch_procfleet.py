@@ -227,3 +227,38 @@ def test_prefill_and_decode_workers_match_jax(tmp_path, monkeypatch, shared_para
     assert {k: pd[k] for k in jd if k not in TIMING} == {
         k: v for k, v in jd.items() if k not in TIMING}
     assert pd["adopted_slots"] == 10 and pd["prefill_tokens"] == 0
+
+
+def test_idle_replica_commits_its_tail(tmp_path, monkeypatch, shared_params):
+    """A replica whose last completions fall short of ``commit_every``
+    commits them once it goes idle, while it keeps running: 3 prompts,
+    commit_every 2 and 2 slots leave one completion past the cadence. The
+    worker loop of both packages used to hold it until the drain, so a
+    supervisor waiting on ``fully_committed`` before draining stalled (the
+    port's 60 s bound of ``test_torch_crash_fleet.py``'s scale cases, and
+    the reference's 300 s, under load)."""
+    import threading
+    import time
+
+    from torchkafka_tpu_torch.fleet.proc import run_replica_worker
+
+    _patch_build_model(monkeypatch, shared_params)
+    broker = _broker(ptk, n=3, parts=1)
+    spec = _spec(str(tmp_path), "port", idle_exit_ms=None)
+    stop = type("Stop", (), {"requested": False})()
+    rc = []
+    worker = threading.Thread(
+        target=lambda: rc.append(run_replica_worker(spec, broker=broker, shutdown=stop)))
+    worker.start()
+    tp = ptk.TopicPartition("t", 0)
+    try:
+        deadline = time.monotonic() + 60
+        while (broker.committed("g", tp) or 0) < 3 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert worker.is_alive()  # committed while serving, not by the drain
+        assert broker.committed("g", tp) == 3
+        assert len(_outputs(ptk, broker)) == 3
+    finally:
+        stop.requested = True
+        worker.join(timeout=60)
+    assert rc == [0]

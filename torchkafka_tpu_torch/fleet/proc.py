@@ -549,6 +549,12 @@ def run_replica_worker(spec: dict, broker=None, shutdown=None) -> int:
                 # on the next pump), not idle — never idle-exit it.
                 if idle_since is None:
                     idle_since = now
+                    # Going idle: commit the completions the cadence has
+                    # not reached yet. Without this they wait for more
+                    # completions that may never come, and the group's
+                    # watermark stalls short of the end (a supervisor's
+                    # fully_committed wait then times out).
+                    rep.maybe_flush(force=True)
                 elif (
                     idle_exit_ms is not None
                     and (now - idle_since) * 1e3 >= idle_exit_ms

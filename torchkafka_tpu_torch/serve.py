@@ -195,7 +195,12 @@ from torchkafka_tpu_torch.models.generate import (
     prefill_model,
     sample_logits,
 )
-from torchkafka_tpu_torch.models.quant import QTensor, embed_rows, quant_kv_groups
+from torchkafka_tpu_torch.models.quant import (
+    QTensor,
+    embed_rows,
+    quant_kv_groups,
+    quantized_nbytes,
+)
 from torchkafka_tpu_torch.models.transformer import (
     TransformerConfig,
     _rms_norm,
@@ -240,6 +245,34 @@ def _not_ported(what: str, title: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue A: {title})"
     )
+
+
+# The card's device memory rate: decode is bandwidth-bound, so this is the
+# denominator of the port's serving rooflines (``decode_roofline``, harness
+# scenario 5), in place of the JAX package's ``V5E_PEAK_HBM_GBS``. The
+# rate is the H100 SXM's (80 GB HBM3) data-sheet figure, the one
+# ``chip_smoke.py`` bounds its kernels with.
+H100_PEAK_HBM_GBS = 3350.0
+PEAK_HBM_CARD = "NVIDIA H100 SXM 80GB (HBM3)"
+
+
+def decode_tick_bytes(params, cfg: TransformerConfig, batch: int,
+                      max_len: int, kv_int8: bool = False) -> tuple[int, int]:
+    """(weight_bytes, kv_bytes) read from device memory per decode tick:
+    the JAX package's accounting. Weights: every layer tensor and the
+    lm_head in full, but the embedding as one row a slot (a gather). KV:
+    both halves across all layers at the STATIC pool length ``max_len``;
+    ``kv_int8`` counts the int8 pool as ``head_dim + 4`` bytes a (layer,
+    slot, position, head) group (payload plus its f32 scale)."""
+    total = quantized_nbytes(params)
+    embed = quantized_nbytes(params["embed"])
+    embed_rows_read = batch * (embed // max(cfg.vocab_size, 1))
+    groups = 2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads
+    if kv_int8:
+        kv = groups * (cfg.head_dim + 4)
+    else:
+        kv = groups * cfg.head_dim * torch.empty((), dtype=cfg.dtype).element_size()
+    return total - embed + embed_rows_read, kv
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -360,9 +393,11 @@ class ServeMetrics:
     """Observability for the serving loop: the JAX package's
     ``ServeMetrics`` (same counters, ``summary()`` keys and Prometheus
     families), plus the port's ``decoded_tokens``, ``prefills`` and
-    ``decode_ticks`` summary keys. The disaggregation and distillation
-    counters stay zero until the process fleet is ported (ROADMAP queue A);
-    ``distill_published`` counts the distill publisher's frames."""
+    ``decode_ticks`` summary keys. The disaggregation counters move on a
+    ``prefill_role`` server and on a decode server adopting its handoffs
+    (``fleet/prefill.py``); ``distill_published`` counts the distill
+    publisher's frames, and the trainer's counters move in the distill
+    worker (``distill/worker.py``)."""
 
     def __init__(self) -> None:
         self.completions = RateMeter()
@@ -1944,6 +1979,216 @@ class StreamingGenerator:
             self._tick_block(none)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def _tick_state(self) -> list[torch.Tensor]:
+        """The device state ``_tick_block`` rebinds (last token, position,
+        output buffer), in a fixed order; ``_set_tick_state`` binds it."""
+        return [self._last_tok, self._pos, self._gen]
+
+    def _set_tick_state(self, state: list[torch.Tensor]) -> None:
+        self._last_tok, self._pos, self._gen = state
+
+    def decode_roofline(
+        self, *, iters: int = 8, windows: int = 3,
+        peak_hbm_gbs: float = H100_PEAK_HBM_GBS, fill: str = "mid",
+    ) -> dict:
+        """The device's decode speed against the device-memory roofline:
+        the JAX package's ``decode_roofline``. The tick block of an
+        all-active pool (decode only) is timed as the SLOPE between windows
+        of ``iters`` and ``3 * iters`` blocks (``windows`` of each,
+        interleaved, medians; ``utils.timing.two_point_slope``), and its
+        bytes (``decode_tick_bytes``) over the tick time give the achieved
+        rate against ``peak_hbm_gbs``.
+
+        On a CUDA server each window replays ONE captured
+        ``torch.cuda.CUDAGraph`` of the tick block, bracketed by CUDA
+        events: an eager loop of ticks would time the host's launch rate,
+        not the device. The block's state is
+        copied into static buffers that each replay reads and writes back,
+        so replays chain; with ``fill="mid"`` the graph re-pins the
+        positions after each block. A capture that fails raises (there is
+        no eager fallback on the card). On a CPU server the windows are
+        eager blocks timed by the host's clock, as the JAX package's are
+        off the TPU.
+
+        ``fill``: "mid" pins every slot at ``prompt_len + max_new // 2``
+        before each block (the fill-bounded reads K4/K5 take time by
+        fill); "live" starts from the server's positions. The measured
+        fill is the blocks' analytic mean; with the fill-bounded read on,
+        the KV bytes a tick reads scale by it. ``_pos`` is restored
+        afterwards; the probe still writes probe k/v and tokens through
+        the real tick, so call it while no generation is in flight.
+
+        Returns the JAX package's keys (numeric results None when the
+        slope degenerates), plus the port's: ``timer`` ("cuda_graph" or
+        "host"), ``graph_block_launches`` (the kernel launches captured in
+        one block, by kernel), ``graph_replays`` (blocks replayed),
+        ``probe_launches`` (what the probe added to the wrappers'
+        counters: the warm block and the capture, which count their Python
+        calls; replays add nothing) and ``peak_card``."""
+        if fill not in ("mid", "live"):
+            raise ValueError(f"fill must be 'mid' or 'live', got {fill!r}")
+        from torchkafka_tpu_torch.fleet.proc import launch_counts
+        from torchkafka_tpu_torch.utils.timing import two_point_slope
+
+        B, K, dev = self._slots, self._ticks_per_sync, self._device
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+        pos_saved = self._pos
+        if fill == "mid":
+            target = min(self._prompt_len + self._max_new // 2, self._max_len - 1)
+            self._pos = torch.full((B,), target, dtype=torch.int32, device=dev)
+        # The fill the windows measure: positions advance one a tick inside
+        # a block (re-pinned only between blocks) until the done latch
+        # freezes them at prompt + max_new - 2.
+        cap = self._prompt_len + self._max_new - 2
+        start = self._pos.cpu().numpy()
+        per_tick = np.minimum(start[None, :] + np.arange(K)[:, None], cap)
+        measured_fill = float((per_tick + 1).mean()) / self._max_len
+        pos0 = self._pos.clone() if fill == "mid" else None
+        launches0 = launch_counts()
+        graph_info: dict = {}
+        try:
+            if dev.type == "cuda":
+                shorts, longs, graph_info = self._roofline_graph(active, pos0, iters,
+                                                                 windows)
+            else:
+                shorts, longs = self._roofline_host(active, pos0, iters, windows)
+        finally:
+            self._pos = pos_saved
+        probe_launches = launch_counts(since=launches0)
+        t_short, t_long = float(np.median(shorts)), float(np.median(longs))
+        tick_s, overhead_s, slope_ok = two_point_slope(
+            t_short, t_long, iters * K, 3 * iters * K
+        )
+        w_bytes, kv_bytes = decode_tick_bytes(
+            self._params, self._cfg, B, self._max_len, kv_int8=self._kv_int8
+        )
+        # The fill-bounded reads (K4, K5) read [0, pos] of each slot, so the
+        # KV bytes a tick reads scale with the measured fill; the plain
+        # reads are pool-shaped.
+        kernel = self._kv_backend.kernel
+        kv_read = int(round(kv_bytes * measured_fill)) if kernel else kv_bytes
+        bytes_per_tick = w_bytes + kv_read
+        out = {
+            "slope_ok": slope_ok,
+            "fill": fill,
+            "measured_fill_frac": round(measured_fill, 3),
+            "dispatch_overhead_ms": round(overhead_s * 1e3, 1),
+            "weight_bytes": w_bytes,
+            "kv_pool_bytes": kv_bytes,
+            "kv_read_bytes": kv_read,
+            "weight_bytes_g": round(w_bytes / 1e9, 3),
+            "kv_pool_bytes_g": round(kv_bytes / 1e9, 3),
+            "peak_hbm_gbs": peak_hbm_gbs,
+            "roofline_tok_s": round(B * peak_hbm_gbs * 1e9 / bytes_per_tick, 1),
+            "timer": "cuda_graph" if dev.type == "cuda" else "host",
+            "peak_card": PEAK_HBM_CARD,
+            "probe_launches": probe_launches,
+            **graph_info,
+        }
+        if not slope_ok:
+            # The windows drifted more than the work separating them:
+            # publishing the floored values would fabricate numbers.
+            out.update({"device_tick_ms": None, "device_tok_s": None,
+                        "achieved_hbm_gbs": None, "hbm_roofline_pct": None})
+            return out
+        achieved_gbs = bytes_per_tick / tick_s / 1e9
+        out.update({
+            "device_tick_ms": round(tick_s * 1e3, 6),
+            "device_tok_s": round(B / tick_s, 1),
+            "achieved_hbm_gbs": round(achieved_gbs, 1),
+            "hbm_roofline_pct": round(100 * achieved_gbs / peak_hbm_gbs, 1),
+        })
+        return out
+
+    def _roofline_host(self, active, pos0, iters: int, windows: int):
+        """``decode_roofline``'s windows off the card: eager tick blocks
+        timed by the host's clock → (short window seconds, long ones)."""
+
+        def window(n: int) -> float:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                for _ in range(n):
+                    self._tick_block(active)
+                    if pos0 is not None:
+                        self._pos = pos0
+                int(self._last_tok[0])  # completion fence
+            return time.perf_counter() - t0
+
+        window(1)  # warm
+        shorts, longs = [], []
+        for _ in range(windows):  # interleaved: drift cannot flip the slope
+            shorts.append(window(iters))
+            longs.append(window(3 * iters))
+        return shorts, longs
+
+    def _roofline_graph(self, active, pos0, iters: int, windows: int):
+        """``decode_roofline``'s windows on the card: one CUDA graph of the
+        tick block, replayed ``n`` times a window between two CUDA events
+        → (short window seconds, long ones, {the captured block's launches,
+        the replay count}). The server's tick state ends bound to copies of
+        the graph's static buffers."""
+        from torchkafka_tpu_torch.fleet.proc import launch_counts
+        from torchkafka_tpu_torch.ops import kvattn
+
+        dev = self._device
+        static = [t.clone() for t in self._tick_state()]
+
+        def block() -> None:
+            self._set_tick_state(list(static))
+            self._tick_block(active)
+            for buf, new in zip(static, self._tick_state()):
+                buf.copy_(new)
+            if pos0 is not None:
+                static[1].copy_(pos0)
+
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        # Warm on the capture stream: the kernels load, and the split reads'
+        # merge counter for this stream is made outside the graph's pool.
+        with torch.cuda.stream(stream), torch.inference_mode():
+            block()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        counters = dict(kvattn._counters)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        info = {}
+        try:
+            with torch.inference_mode(), torch.cuda.graph(graph, stream=stream):
+                block()
+            info["graph_block_launches"] = launch_counts(since=before)
+            replays = 0
+
+            def window(n: int) -> float:
+                nonlocal replays
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n):
+                    graph.replay()
+                end.record()
+                end.synchronize()
+                replays += n
+                return start.elapsed_time(end) / 1e3
+
+            window(1)  # warm: the graph's first launch uploads it
+            shorts, longs = [], []
+            for _ in range(windows):  # interleaved: drift cannot flip the slope
+                shorts.append(window(iters))
+                longs.append(window(3 * iters))
+            info["graph_replays"] = replays
+        finally:
+            torch.cuda.synchronize(dev)
+            # Bind the state to buffers outside the graph's pool, and drop
+            # any merge counter the capture made or grew (it lives in the
+            # pool, which goes with the graph).
+            self._set_tick_state([t.clone() for t in static])
+            for key, buf in list(kvattn._counters.items()):
+                if counters.get(key) is not buf:
+                    del kvattn._counters[key]
+            del graph
+        return shorts, longs, info
 
     # ------------------------------------------ external admission surface
 

@@ -323,6 +323,17 @@ class SpecStreamingGenerator(StreamingGenerator):
         self._last_tok, self._pos, self._gen = last_tok, pos, gen
         return done, n_out
 
+    def _tick_state(self) -> list[torch.Tensor]:
+        """The inherited tick state plus the speculation counters, which
+        the rounds also rebind: ``decode_roofline`` (inherited, as in the
+        JAX package, with target-only byte accounting) runs live rounds
+        and so advances them, as the JAX server's probe does."""
+        return super()._tick_state() + list(self._spec_counts)
+
+    def _set_tick_state(self, state: list[torch.Tensor]) -> None:
+        super()._set_tick_state(state[:3])
+        self._spec_counts = tuple(state[3:])
+
     # ---------------------------------------------------------- lifecycle
 
     def swap_draft_params(self, draft_params, draft_cfg=None) -> None:

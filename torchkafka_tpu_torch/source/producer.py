@@ -7,8 +7,9 @@ Users' pipelines don't end at the training loop: dead letters go to a
 quarantine topic, serving results go to an output topic, and
 metrics/audit events go somewhere durable. This module closes the loop
 with the same transport split as the consumer side: an in-memory
-producer over ``InMemoryBroker`` (hermetic tests); the JAX package's
-kafka-python adapter (``source/kafka.py``) is not copied yet.
+producer over ``InMemoryBroker`` (hermetic tests), and the kafka-python
+adapter in ``source/kafka.py`` (copied; it imports cleanly without
+kafka-python installed).
 
 Delivery contract: ``send`` is asynchronous-capable — it returns a
 ``SendHandle`` whose ``get(timeout_s)`` blocks until the record is durable

@@ -75,12 +75,6 @@ def fixed_width(
     rides the wire at 15/16 of uint16. Exclusive with ``wire_dtype``;
     requires non-negative values < 2^wire_bits (checked per chunk).
     """
-    if wire_bits is not None:
-        # The packed rows need ops/bitpack.py's device-side unpack.
-        raise NotImplementedError(
-            "wire_bits= is not ported yet (ROADMAP queue A: training "
-            "options, ops/bitpack.py)"
-        )
     if wire_bits is not None and wire_dtype is not None:
         raise ValueError("wire_bits and wire_dtype are exclusive")
     if wire_bits is not None and not 1 <= wire_bits <= 16:
