@@ -357,11 +357,32 @@ Phases, each printing one JSON line:
    prefills on the tensor cores; scenario 9's K1 = K2 = K3. Then a
    2-layer f32 server probed by the roofline serves the same tokens and
    commits as one never probed;
+8k. harness_fleet (after harness): the harness's in-process fleet
+   scenarios 10, 11, 12, 13, 14, 15, 16, 22 and 25 through
+   ``harness.run_scenario(n, "full")`` on the card, at their full size
+   (``TransformerConfig``'s defaults: d_model 512, 4 layers, 8 q / 8 kv
+   heads, head dim 64, bf16, weights from seed 0): the QoS fleet with a
+   drain and restart, the chaos soak, the prefix-cache fleet, the warm
+   failover, the chunked-prefill storm, the traced fleet with one scrape
+   of a ``MetricsExporter``, the Zipf storm on a ``ManualClock``, the
+   autoscaled step storm (run twice, replayed identically) and the
+   speculative fleet distilling its own draft through a hot-set rotation
+   (beside a never-distilled fleet). Every count is zeroed just before a
+   scenario and read just after. Held: ``tests/test_harness.py``'s
+   assertions for each (for 25 its safety half: committed tokens
+   byte-identical to the never-distilled fleet, no duplicate, everything
+   arrived, the trainer stepped and published; its alpha phases are
+   printed); K1 = layers x (dense prefills + warm resumes + dense
+   warm-ups), plus a speculative server's draft layers x (prefills + warm
+   resumes) and 25's trainer's draft layers x steps, all on the tensor
+   cores; K2 = K3 = the trainer's draft layers x steps, on the tensor
+   cores; K4 = K5 = 0 (compute-dtype pools);
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
    ``disagg_launches``; K1-K4 with the harness phase's by scenario,
-   ``harness_launches``, K4 with the captured block's and the replays);
+   ``harness_launches``, K4 with the captured block's and the replays;
+   K1-K3 with the fleet scenarios', ``harness_fleet_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Depth cuts (the time of phases 8g-8i): serve_traced, serve_sampled,
@@ -4699,6 +4720,323 @@ def check_harness(torch) -> list:
     return rows
 
 
+HARNESS_FLEET = (10, 11, 12, 13, 14, 15, 16, 22, 25)  # the in-process fleet scenarios
+
+
+@contextlib.contextmanager
+def _server_spy():
+    """Every server built while the context is open, and how often each
+    ran ``warmup`` (a dense server's warm-up is one K1 prefill that no
+    metric counts): → (servers, {id(server): warmups})."""
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+
+    made, warm = [], {}
+    init, warmup = StreamingGenerator.__init__, StreamingGenerator.warmup
+
+    def spy_init(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    def spy_warmup(self):
+        warm[id(self)] = warm.get(id(self), 0) + 1
+        return warmup(self)
+
+    StreamingGenerator.__init__, StreamingGenerator.warmup = spy_init, spy_warmup
+    try:
+        yield made, warm
+    finally:
+        StreamingGenerator.__init__, StreamingGenerator.warmup = init, warmup
+
+
+def _fleet_passes(servers, warm) -> dict:
+    """The K1 launches the servers' own counts imply: on a dense pool,
+    layers x (prefills + warm resumes + warm-ups), a speculative server's
+    draft layers x (prefills + warm resumes) besides; a paged pool's
+    prefills run the plain gathered sweep (0)."""
+    k1 = passes = 0
+    for g in servers:
+        if g._kv_pages is not None:
+            continue
+        m = g.metrics
+        n = m.prefills.count + m.warm_resumes.count
+        passes += n
+        k1 += g._cfg.n_layers * (n + warm.get(id(g), 0))
+        if hasattr(g, "_draft_cfg"):
+            k1 += g._draft_cfg.n_layers * n
+    return {"servers": len(servers), "dense_prefills": passes,
+            "warmups": sum(warm.values()), "k1": k1}
+
+
+def _fleet_invariants(num: int, r: dict, n: int) -> list:
+    """``tests/test_harness.py``'s assertions for scenario ``num`` on a run
+    of ``n`` records (the test's literal counts are the tiny size's): →
+    the names of those that fail."""
+    checks = {
+        10: lambda: {
+            "scenario": r["scenario"] == "10:serving-fleet", "replicas": r["replicas"] == 2,
+            "records": r["records"] == n and r["records_per_s"] > 0,
+            "commit": r["commit"]["count"] > 0 and r["commit_failures"] == 0
+            and r["dropped"] == 0,
+            "drained_states": r["drained_states"] == ["done", "done"],
+            "drains": r["drains"] == 2, "coverage": r["coverage_complete"] is True,
+            "zero_replayed": r["zero_replayed_after_drain"] is True,
+            "throttled": r["tenants"]["throttled"]["throttled"] > 0
+            and r["tenants"]["open"]["throttled"] == 0,
+            "lanes": set(r["lanes"]) == {"interactive", "batch"}},
+        11: lambda: {
+            "scenario": r["scenario"] == "11:chaos-soak", "records": r["records"] == n - 1,
+            "exactly_once": r["exactly_once"] is True, "duplicates": r["duplicates"] == 0,
+            "committed": r["committed_complete"] is True, "dlq": r["dlq_records"] == 1,
+            "quarantined": r["quarantined"] == 1, "dropped": r["dropped"] == 1,
+            "outage": r["outage_faults"] > 0,
+            "circuit": r["circuit_opens"] >= 1 and r["circuit_closes"] >= 1},
+        12: lambda: {
+            "scenario": r["scenario"] == "12:prefix-cache-fleet", "replicas": r["replicas"] == 2,
+            "records": r["records"] == n, "coverage": r["coverage_complete"] is True,
+            "committed": r["committed_complete"] is True,
+            "clean": r["commit_failures"] == 0 and r["dropped"] == 0,
+            "misses": r["cache"]["misses"] <= 3, "hits": r["cache"]["hits"] >= n - 3,
+            "hit_rate": r["cache"]["hit_rate"] >= 0.8,
+            "saved": r["cache"]["prefix_tokens_saved"] > 0
+            and r["prefill_tokens"] < r["prefill_tokens_dense"]
+            and r["prefill_savings_pct"] > 0},
+        13: lambda: {
+            "scenario": r["scenario"] == "13:warm-failover", "replicas": r["replicas"] == 2,
+            "killed": len(r["killed"]) == 1 and r["replica_deaths"] == 1,
+            "coverage": r["coverage_complete"] is True,
+            "committed": r["committed_complete"] is True,
+            "identical_to_no_kill": r["identical_to_no_kill"] is True,
+            "duplicates_identical": r["duplicates_identical"] is True,
+            "journal": r["journal_handoffs"] > 0 and r["warm_resumes"] > 0
+            and r["tokens_restored"] > 0 and r["served_from_journal"] > 0
+            and r["resume_rejected"] == 0},
+        14: lambda: {
+            "scenario": r["scenario"] == "14:chunked-prefill-storm",
+            "records": r["records"] == n and r["storm_factor"] == 4,
+            "coverage": r["coverage_complete"] is True,
+            "committed": r["committed_complete"] is True,
+            "stall": r["max_decode_stall_ticks"] == 0, "fifo": r["fifo_activation"] is True,
+            "queued": r["admission_stall_ticks"] > 0 and r["chunk_ticks"] > 0
+            and r["queue_tokens_end"] == 0,
+            "hits": r["prefix_hit_rate"] > 0.5
+            and r["prefill_tokens"] < r["prefill_tokens_dense"]},
+        15: lambda: {
+            "scenario": r["scenario"] == "15:slo-observability", "replicas": r["replicas"] == 2,
+            "records": r["records"] == n, "coverage": r["coverage_complete"] is True,
+            "committed": r["committed_complete"] is True,
+            "clean": r["dropped"] == 0 and r["commit_failures"] == 0,
+            "tenant_slo": all(
+                s["ttft"]["count"] > 0 and s["itl"]["count"] > 0
+                and 0 < s["ttft"]["p50_ms"] <= s["ttft"]["p99_ms"] and s["itl"]["p99_ms"] > 0
+                for s in r["tenant_slo"].values()),
+            "counts": r["ttft"]["count"] == n and r["itl"]["count"] > n
+            and r["e2e"]["count"] == n and r["queue_wait"]["count"] == n,
+            "labels": set(r["lanes_observed"]) == {"interactive", "batch"}
+            and r["replicas_observed"] == ["0", "1"],
+            "cache": r["cache_hit_rate"] > 0.5,
+            "trace": r["trace_stages"]["polled"] == r["trace_stages"]["slot_active"]
+            == r["trace_stages"]["committed"] == n and r["open_records_end"] == 0,
+            "endpoint": r["endpoint_status"] == 200 and all(r["endpoint_has"].values())
+            and r["endpoint_series"] > 100},
+        16: lambda: {
+            "scenario": r["scenario"] == "16:traffic-observatory", "replicas": r["replicas"] == 2,
+            "arrived": r["all_arrived"] is True, "records": r["records"] == n,
+            "coverage": r["coverage_complete"] is True,
+            "committed": r["committed_complete"] is True,
+            "clean": r["dropped"] == 0 and r["commit_failures"] == 0,
+            "zipf": r["tenant_arrivals"]["tenant-00"] > r["tenant_arrivals"]["tenant-02"],
+            "tenant_slo": all(
+                s["ttft"]["count"] > 0 and s["itl"]["count"] > 0
+                and s["ttft"]["p99_ms"] >= s["ttft"]["p50_ms"]
+                for s in r["tenant_slo"].values()),
+            "counts": r["ttft"]["count"] == n and r["ttft"]["p99_ms"] > 0
+            and r["itl"]["count"] > n and r["e2e"]["count"] == n,
+            "lanes": set(r["lanes_observed"]) == {"interactive", "batch"},
+            "overload": r["burn_transitions"] > 0 and r["overload_deferrals"] > 0,
+            "goodput": r["goodput"]["completed"] == n
+            and 0 < r["goodput"]["within_slo"] <= r["goodput"]["completed"],
+            "budgets": len(r["output_len_spread"]) > 1 and r["output_capped"] > 0,
+            "step_time": r["step_time"]["ticks"] > 0
+            and r["step_time"]["p99_ms"] >= r["step_time"]["p50_ms"] > 0,
+            "cache": r["cache_hit_rate"] > 0.5
+            and r["tenant_cache"]["tenant-00"]["hit_rate"] > 0.5,
+            "trace": r["trace_stages"]["polled"] == r["trace_stages"]["slot_active"]
+            == r["trace_stages"]["committed"] == n
+            and r["trace_stages"]["burn_state"] == r["burn_transitions"]
+            and r["open_records_end"] == 0},
+        22: lambda: {
+            "scenario": r["scenario"] == "22:autoscaled-step-storm",
+            "replay_identical": r["replay_identical"] is True, "zero_lost": r["zero_lost"] is True,
+            "scaled_up": r["scale_ups"] >= 1 and r["peak_live"] >= 2
+            and r["first_up_t"] is not None,
+            "recovered": r["burn_transitions"] >= 2 and r["burn_recovered_t"] is not None
+            and r["burn_recovered_t"] > r["first_up_t"] and r["end_burn_state"] == "ok"
+            and r["within_slo"] > 0,
+            "scaled_down": r["scale_downs"] >= 1 and r["downs_after_step_end"] is True
+            and r["final_target"] == 1 and r["drained_members"] >= r["scale_downs"],
+            "hysteresis": r["decisions"] <= 8},
+        # The safety half only: the α phases are printed as measured.
+        25: lambda: {
+            "scenario": r["scenario"] == "25:online-draft-distillation",
+            "replicas": r["replicas"] == 2,
+            "trainer": r["trainer"]["steps"] >= 1 and r["trainer"]["published"] >= 1,
+            "identical_to_no_distill": r["identical_to_no_distill"] is True,
+            "committed_duplicates": r["committed_duplicates"] == 0,
+            "all_arrived": r["all_arrived"] is True},
+    }
+    return [name for name, ok in checks[num]().items() if not ok]
+
+
+# Records each scenario produces, by size (its own stream lengths).
+FLEET_RECORDS = {"full": {10: 128, 11: 96, 12: 128, 13: 64, 14: 16, 15: 128, 16: 128,
+                          22: 96, 25: 480},
+                 "tiny": {10: 24, 11: 16, 12: 24, 13: 16, 14: 16, 15: 24, 16: 24,
+                          22: 32, 25: 240}}
+
+
+@contextlib.contextmanager
+def _fleet_token_spy():
+    """Every fleet serve's completions by record ({(partition, offset):
+    [tokens, ...]}, one dict a serve, in order) and the records a dense
+    server warm-resumed, while the context is open."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.fleet.fleet import ServingFleet
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+
+    serves, resumed = [], set()
+    serve, resume = ServingFleet.serve, StreamingGenerator._resume_into_slot
+
+    def spy_serve(self, *a, **k):
+        done: dict = {}
+        serves.append(done)
+        for rid, rec, toks in serve(self, *a, **k):
+            done.setdefault((rec.partition, rec.offset), []).append(np.asarray(toks).copy())
+            yield rid, rec, toks
+
+    def spy_resume(self, i, rec, *a, **k):
+        resumed.add((rec.partition, rec.offset))
+        return resume(self, i, rec, *a, **k)
+
+    ServingFleet.serve, StreamingGenerator._resume_into_slot = spy_serve, spy_resume
+    try:
+        yield serves, resumed
+    finally:
+        ServingFleet.serve, StreamingGenerator._resume_into_slot = serve, resume
+
+
+@contextlib.contextmanager
+def _f32_scenarios(torch):
+    """The harness scenarios' default model at f32 compute (its f32 master
+    weights served as they are) while the context is open."""
+    from torchkafka_tpu_torch.harness import scenarios
+
+    model = scenarios._serving_model
+
+    def f32_model(*a, **k):
+        cfg, params, label = model(*a, **k)
+        return dataclasses.replace(cfg, dtype=torch.float32), params, label + "-f32"
+
+    scenarios._serving_model = f32_model
+    try:
+        yield
+    finally:
+        scenarios._serving_model = model
+
+
+def _failover_agreement(serves, resumed) -> dict:
+    """Scenario 13's two fleets (the no-kill reference, then the killed
+    one): each record's last completion in the killed run against the
+    reference's, split by whether a survivor warm-resumed it."""
+    import numpy as np
+
+    ref, got = serves
+    same = sorted(k for k in ref if k in got
+                  and np.array_equal(ref[k][0], got[k][-1]))
+    differ = sorted(k for k in ref if k not in same)
+    return {
+        "same_records": set(ref) == set(got),
+        "token0_equal": all(int(ref[k][0][0]) == int(got[k][-1][0]) for k in ref if k in got),
+        "cold_identical": all(k in resumed for k in differ),
+        "differ": [list(k) for k in differ],
+        "differ_resumed": [list(k) for k in differ if k in resumed],
+        "resumed": sorted(list(k) for k in resumed),
+        "token_agreement": float(np.mean([np.mean(ref[k][0] == got[k][-1]) for k in ref
+                                          if k in got])),
+    }
+
+
+def check_harness_fleet(torch, size: str = "full", device=None) -> list:
+    """The harness's in-process fleet scenarios (10-16, 22, 25) through
+    ``harness.run_scenario`` on the card at full size (``TransformerConfig``'s
+    defaults: d_model 512, 4 layers, 8 q / 8 kv heads, head dim 64, bf16;
+    weights from seed 0), then scenario 13 again at f32 compute. Every
+    count is zeroed just before a scenario and read just after. Held:
+    ``tests/test_harness.py``'s assertions for each scenario (25: its
+    safety half; its α phases are printed). Scenario 13's
+    ``identical_to_no_kill`` compares a warm-resumed generation (one
+    prefill of prompt + emitted tokens) with one decoded token by token:
+    the repo requires that token-exact at f32 only (ROADMAP queue C item
+    4), so the bf16 run holds the record set, every token 0 and every
+    record no survivor warm-resumed byte-identical and prints the
+    resumed ones' agreement, and the f32 run holds the assertion itself.
+    K1 = layers x (dense prefills + warm resumes + dense warm-ups), on a
+    speculative server's draft layers too, plus 25's trainer's draft
+    layers x steps; K2 = K3 = the trainer's draft layers x steps; bf16
+    launches all on the tensor cores, f32 none; K4 = K5 = 0 (the
+    scenarios serve compute-dtype pools). ``size``/``device`` exist for a
+    CPU rehearsal at tiny size, where no count moves."""
+    from torchkafka_tpu_torch.harness import run_scenario
+
+    rows = []
+    smi = smi_line() if device is None else "not measured"
+    for num, f32 in [(num, False) for num in HARNESS_FLEET] + [(13, True)]:
+        with contextlib.ExitStack() as stack:
+            servers, warm = stack.enter_context(_server_spy())
+            serves, resumed = stack.enter_context(_fleet_token_spy())
+            if f32:
+                stack.enter_context(_f32_scenarios(torch))
+            read = _zero_launches()
+            t0 = time.perf_counter()
+            r = run_scenario(num, size, device=device)
+            sec = time.perf_counter() - t0
+            got = read()
+            passes = _fleet_passes(servers, warm)
+        servers.clear()
+        extra = {}
+        skip = ()
+        if num == 13 and not f32:
+            extra["bf16_failover"] = agree = _failover_agreement(serves, resumed)
+            skip = ("identical_to_no_kill",)
+            if not (agree["same_records"] and agree["token0_equal"]
+                    and agree["cold_identical"]):
+                raise AssertionError(f"harness 13 bf16: {agree}")
+        serves.clear()
+        n = FLEET_RECORDS[size][num]
+        failed = [f for f in _fleet_invariants(num, r, n) if f not in skip]
+        if failed:
+            raise AssertionError(f"harness {num}{' f32' if f32 else ''}: {failed} {r}")
+        steps = r["trainer"]["steps"] if num == 25 else 0
+        want = {"flash_fwd": passes["k1"] + steps, "flash_dq": steps, "flash_dkv": steps,
+                "kvattn_dynlen": 0, "kvattn_paged": 0}
+        if device is None:
+            have = {k: got[k] for k in want}
+            tc = {k: got[k + "_tc"] for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+            if have != want or any(tc[k] != (0 if f32 else have[k]) for k in tc):
+                raise AssertionError(f"harness {num} launches {got}, want {want}")
+        row = {"phase": "harness_fleet", "scenario": num, "dtype": "float32" if f32 else "bfloat16",
+               "args": f"--size {size}", "seconds": sec, "launches": got,
+               "launch_check": want, "passes": passes, "nvidia_smi": smi, **extra, **r}
+        if num == 25:
+            row["alpha_phases"] = {key: r[key] for key in (
+                "alpha_pre", "alpha_drift", "alpha_post", "alpha_windows_proposed",
+                "alpha_degraded_at_drift", "refreshes_post_drift", "alpha_recovered")}
+        rows.append(row)
+        if device is None:
+            torch.cuda.empty_cache()
+    return rows
+
+
 def roofline_probe_exact(torch) -> dict:
     """A server probed by ``decode_roofline`` (the CUDA graph) serves the
     same tokens and commits as one never probed: 1b widths, 2 layers,
@@ -5010,6 +5348,9 @@ def main() -> int:
     for row in rows_h:
         emit(row)
     torch.cuda.empty_cache()
+    rows_hf = check_harness_fleet(torch)
+    for row in rows_hf:
+        emit(row)
 
     main_pool = k4["pools"]["192"]
     pool_8b = k4["reps"]["4"]
@@ -5035,6 +5376,11 @@ def main() -> int:
                 if "scenario" in r}
 
     roof = rows_h[0]
+
+    def harness_fleet_launches(kernel):
+        """The fleet scenarios' launches by scenario (25's include its
+        trainer's)."""
+        return {str(r["scenario"]): r["launches"][kernel] for r in rows_hf}
 
     def child_launches(kernel):
         """K1-K3 as the worker processes counted them (their metrics
@@ -5081,6 +5427,7 @@ def main() -> int:
          "fleet_launches": fleet_launches("flash_fwd"),
          "process_launches": child_launches("flash_fwd"),
          "harness_launches": harness_launches("flash_fwd"),
+         "harness_fleet_launches": harness_fleet_launches("flash_fwd"),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -5094,7 +5441,8 @@ def main() -> int:
          "bound_ms": k23["dq"]["bound_ms"], "bound_by": k23["dq"]["bound_by"],
          "library_ms": k23["library_ms_sdpa_bwd"],
          "process_launches": child_launches("flash_dq"),
-         "harness_launches": harness_launches("flash_dq")},
+         "harness_launches": harness_launches("flash_dq"),
+         "harness_fleet_launches": harness_fleet_launches("flash_dq")},
         {"name": "flash_dkv", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "torchkafka_tpu/ops/flash.py:252",
@@ -5105,7 +5453,8 @@ def main() -> int:
          "bound_ms": k23["dkv"]["bound_ms"], "bound_by": k23["dkv"]["bound_by"],
          "library_ms": k23["library_ms_sdpa_bwd"],
          "process_launches": child_launches("flash_dkv"),
-         "harness_launches": harness_launches("flash_dkv")},
+         "harness_launches": harness_launches("flash_dkv"),
+         "harness_fleet_launches": harness_fleet_launches("flash_dkv")},
         {"name": "kvattn_dynlen", "route": "cuda",
          "source": "torchkafka_tpu_torch/csrc/kvattn_dynlen.cu",
          "replaces": "torchkafka_tpu/ops/kvattn.py:458",

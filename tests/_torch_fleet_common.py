@@ -164,7 +164,7 @@ def load_rerooted(name: str, *, drop=(), replace=()) -> types.ModuleType:
                                     asarray=torch.as_tensor)
     exec(compile(src.replace("torchkafka_tpu", "torchkafka_tpu_torch"), str(ref),
                  "exec"), mod.__dict__)
-    assert mod.tk is ptk
+    assert mod.__dict__.get("tk", ptk) is ptk
     if "init_params" in mod.__dict__:
         mod.init_params = lambda gen, cfg: pt.init_params(gen, cfg, device="cpu")
     mod.ServingFleet = _cpu_fleet  # also for a function's own import, dropped

@@ -1,6 +1,8 @@
 """The port's harness (``torchkafka_tpu_torch.harness``) against the JAX
 package's, on the CPU at tiny size: ``tests/test_harness.py``'s cases for
-scenarios 1, 2, 5, 6, 7 and 9 re-rooted onto the port, scenarios 5 and 7
+scenarios 1, 2, 5, 6, 7 and 9 re-rooted onto the port (the fleet
+scenarios' are in ``test_torch_harness_fleet.py`` and
+``test_torch_harness_distill.py``), scenarios 5 and 7
 giving the JAX harness's tokens and committed offsets at f32 from the
 same parameters, ``run_scenario``'s flag scoping raising JAX's errors,
 every unported scenario raising ``NotImplementedError`` with its ROADMAP
@@ -123,7 +125,7 @@ def test_flag_scoping_matches_jax(case):
 
 UNPORTED = {
     **{n: "Harness: fleet and durability scenarios"
-       for n in (10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 21, 22, 23, 24, 25)},
+       for n in (17, 18, 19, 21, 23, 24)},
     3: "Mesh and multi-process paths",
     20: "Mesh and multi-process paths",
     4: "Secondary models",

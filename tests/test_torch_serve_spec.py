@@ -315,3 +315,22 @@ def test_mesh_is_not_ported(pkgs):
     title (the JAX speculative server shards both models over a mesh)."""
     with pytest.raises(NotImplementedError, match="mesh and multi-process paths"):
         _spec_server(pkgs, mesh=object())
+
+
+def test_weight_rebinds_drop_the_captured_block(pkgs, new_draft):
+    """A captured tick block reads the weights it was captured over: a
+    draft swap and a target swap both drop it, so the next block on the
+    card captures anew. On the CPU the serving loop runs the eager block
+    and captures nothing."""
+    server = _spec_server(pkgs)
+    server.warmup()
+    active = torch.zeros((2,), dtype=torch.bool)
+    assert server._serve_block(active) is not None
+    assert server._block_graph is None
+    server._block_graph = "captured"
+    dcfg, dparams = new_draft["port"]
+    server.swap_draft_params(dparams, dcfg)
+    assert server._block_graph is None
+    server._block_graph = "captured"
+    server.swap_params(pkgs["port"][1], version=2)
+    assert server._block_graph is None

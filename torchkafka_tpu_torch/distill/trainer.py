@@ -183,6 +183,10 @@ class DistillTrainer:
             prefetch=0,
             pad_policy="pad",
             idle_timeout_ms=idle_timeout_ms,
+            # An empty poll waits no longer than the idle timeout: the
+            # stream's default 100 ms wait would hold a 1 ms pump (the
+            # fleet's per-round call) 200 ms on an idle topic.
+            poll_timeout_ms=min(100, idle_timeout_ms),
             owns_consumer=False,
         )
         try:

@@ -8,9 +8,10 @@
 | 6 | scenario 1 at batch 256 | here (host-only) |
 | 7 | continuous-batching serving (slot recycling, EOS) | here, with ``decode_roofline`` |
 | 9 | ragged text → length-bucketed batches → per-width train steps | here, one device |
+| 10-16, 22, 25 | in-process fleets: QoS and drain, chaos soak, prefix cache, warm failover, chunked-prefill storm, SLO report, traffic storm, autoscaling, online draft distillation | here |
 | 3, 20 | mesh training, sharded paged serving | queue A "Mesh and multi-process paths" |
 | 4, 8 | PNG → ResNet-50, streaming DLRM | queue A "Secondary models" |
-| 10-19, 21-25 | fleets, chaos, durability | queue A "Harness: fleet and durability scenarios" |
+| 17-19, 21, 23, 24 | process fleets over the socket broker | queue A "Harness: fleet and durability scenarios" |
 
 Every ported scenario runs the JAX package's loop (poll → transform →
 batch → device → step → barrier → commit) with its sizes, seeds and
@@ -25,6 +26,7 @@ queue A title.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
 import time
@@ -720,13 +722,1103 @@ def scenario_9(size: str = "tiny", device=None) -> dict:
     return _result("9:ragged-bucketed-train", rows, elapsed, stream, extra)
 
 
+# ------------------------------------------------------------------ fleets
+
+
+def scenario_10(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Serving fleet (``fleet/``): N replicas as one consumer group over
+    the prompt topic, QoS admission in front (two tenants — one
+    token-bucket rate-limited — and both priority lanes), finished by a
+    mid-run graceful drain plus a restarted fleet serving the remainder
+    with zero replayed completions. Every replica serves on ``device``."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import QoSConfig, ServingFleet
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    n = 24 if size == "tiny" else 128
+    parts = 4
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t10", partitions=parts)
+    rng = np.random.default_rng(0)
+    # KEYED production: tenants land on disjoint partitions via the key
+    # hash ('throttled'→p3, 'open'→p0 of 4) and the lane rides the tenant,
+    # which keeps admission FIFO per partition — the invariant the
+    # replay-free drain depends on.
+    produced: list[tuple[int, int]] = []
+    for i in range(n):
+        key = b"throttled" if i % 3 == 0 else b"open"
+        rec = broker.produce(
+            "t10",
+            rng.integers(0, cfg.vocab_size, prompt_len, dtype=np.int32).tobytes(),
+            key=key,
+            headers=(("lane", b"batch" if key == b"throttled" else b"interactive"),),
+        )
+        produced.append((rec.partition, rec.offset))
+    # Low enough that the throttled tenant provably queues behind its
+    # bucket during the run, high enough that the smoke stays fast.
+    qos = QoSConfig(tenant_rates={"throttled": 4.0}, burst=1.0,
+                    max_queue_depth=64, resume_queue_depth=16)
+
+    def build():
+        return ServingFleet(
+            lambda rid: tk.MemoryConsumer(broker, "t10", group_id="s10"),
+            params, cfg, replicas=replicas, prompt_len=prompt_len,
+            max_new=max_new, slots=4, qos=qos, commit_every=4,
+            gen_kwargs={"device": dev},
+        )
+
+    fleet = build()
+    fleet.warmup()
+    t0 = time.perf_counter()
+    run1: list = []
+    for item in fleet.serve(idle_timeout_ms=2000):
+        run1.append(item)
+        if len(run1) == n // 2:
+            fleet.drain()  # graceful: finish in-flight, commit, leave
+    drained_states = [rep.state for rep in fleet.replicas]
+    fleet2 = build()
+    run2 = fleet2.serve_all(idle_timeout_ms=2000)
+    fleet2.close()
+    elapsed = time.perf_counter() - t0
+    keys1 = {(r.partition, r.offset) for _rid, r, _t in run1}
+    keys2 = {(r.partition, r.offset) for _rid, r, _t in run2}
+    s = fleet.metrics.summary(fleet.replicas)
+    done = len(run1) + len(run2)
+    gens = [rep.gen for rep in fleet.replicas + fleet2.replicas]
+    return {
+        "scenario": "10:serving-fleet",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": done,
+        "elapsed_s": round(elapsed, 3),
+        "records_per_s": round(done / elapsed, 1) if elapsed else None,
+        "drained_states": drained_states,
+        "drains": s["drains"],
+        "coverage_complete": keys1 | keys2 == set(produced),
+        "zero_replayed_after_drain": not (keys1 & keys2),
+        "tenants": s["tenants"],
+        "lanes": {
+            lane: {"p50_ms": round(v["p50_ms"], 3), "count": v["count"]}
+            for lane, v in s["lanes"].items()
+        },
+        "backpressure_pauses": s["backpressure_pauses"],
+        "commit": s["commit"],
+        "commit_failures": sum(g.metrics.commit_failures.count for g in gens),
+        "dropped": sum(g.metrics.dropped.count for g in gens),
+    }
+
+
+def scenario_11(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Chaos soak (``resilience/``): a 2-replica serving fleet over
+    ``ResilientConsumer(ChaosConsumer(MemoryConsumer))`` hits a
+    broker-outage window mid-serve plus one poisoned (corrupted) prompt.
+    The circuit must open then close, every non-poisoned prompt must
+    complete exactly once with the committed watermark at every log end,
+    and the poisoned prompt must land in the DLQ topic."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import ServingFleet
+    from torchkafka_tpu_torch.resilience import (
+        CLOSED,
+        CircuitBreaker,
+        PoisonQuarantine,
+        ResilientConsumer,
+        RetryPolicy,
+    )
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    n, parts = (16, 4) if size == "tiny" else (96, 4)
+    poison = ("t11", 2, 1)  # (topic, partition, offset) of the bad prompt
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t11", partitions=parts)
+    broker.create_topic("t11-dlq", partitions=1)
+    rng = np.random.default_rng(0)
+    produced = []
+    for i in range(n):
+        rec = broker.produce(
+            "t11",
+            rng.integers(0, cfg.vocab_size, prompt_len, dtype=np.int32).tobytes(),
+            partition=i % parts,
+        )
+        produced.append((rec.partition, rec.offset))
+    quarantine = PoisonQuarantine(tk.MemoryProducer(broker), "t11-dlq", budget=2)
+    chaos_list, rc_list = [], []
+
+    def factory(rid):
+        chaos = tk.ChaosConsumer(
+            tk.MemoryConsumer(broker, "t11", group_id="s11"),
+            seed=rid,
+            outages=[(6, 6)],  # ops 6-11: poll AND commit raise
+            corrupt_offsets={poison},
+        )
+        rc = ResilientConsumer(
+            chaos,
+            policy=RetryPolicy(max_attempts=2, base_delay_s=0.001,
+                               max_delay_s=0.002, deadline_s=5.0, seed=rid),
+            breaker=CircuitBreaker(failure_threshold=2, reset_timeout_s=0.02),
+        )
+        chaos_list.append(chaos)
+        rc_list.append(rc)
+        return rc
+
+    fleet = ServingFleet(
+        factory, params, cfg, replicas=replicas, prompt_len=prompt_len,
+        max_new=max_new, slots=2, commit_every=4,
+        gen_kwargs={"quarantine": quarantine, "device": dev},
+    )
+    fleet.warmup()
+    t0 = time.perf_counter()
+    served: list = []
+    served_during_open = 0
+    for _rid, rec, _toks in fleet.serve(idle_timeout_ms=2000):
+        if any(rc.breaker.state != CLOSED for rc in rc_list):
+            served_during_open += 1
+        served.append((rec.partition, rec.offset))
+    # Settle: cadence commits that failed survivably during the outage
+    # stay pending (pending_commit > 0); retry against the healed broker.
+    deadline = time.monotonic() + 10.0
+    while any(rep.gen.pending_commit for rep in fleet.replicas):
+        for rep in fleet.replicas:
+            if rep.gen.pending_commit:
+                rep.gen.flush_commits()
+        if time.monotonic() > deadline:
+            break
+        time.sleep(0.005)
+    fleet.close()
+    elapsed = time.perf_counter() - t0
+    expect = {(p, o) for p, o in produced if ("t11", p, o) != poison}
+    committed_complete = all(
+        broker.committed("s11", TopicPartition("t11", p))
+        == broker.end_offset(TopicPartition("t11", p))
+        for p in range(parts)
+    )
+    gens = [rep.gen for rep in fleet.replicas]
+    return {
+        "scenario": "11:chaos-soak",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": len(served),
+        "elapsed_s": round(elapsed, 3),
+        "records_per_s": round(len(served) / elapsed, 1) if elapsed else None,
+        "exactly_once": set(served) == expect and len(served) == len(expect),
+        "duplicates": fleet.metrics.duplicates.count,
+        "committed_complete": committed_complete,
+        "dlq_records": broker.end_offset(TopicPartition("t11-dlq", 0)),
+        "quarantined": sum(g.metrics.quarantined.count for g in gens),
+        "served_during_open": served_during_open,
+        "outage_faults": sum(c.injected_outage_faults for c in chaos_list),
+        "retries": sum(rc.metrics.retries.count for rc in rc_list),
+        "circuit_opens": sum(rc.metrics.circuit_opens.count for rc in rc_list),
+        "circuit_closes": sum(rc.metrics.circuit_closes.count for rc in rc_list),
+        "commit_failures": sum(g.metrics.commit_failures.count for g in gens),
+        "dropped": sum(g.metrics.dropped.count for g in gens),
+    }
+
+
+def scenario_12(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Prefix-cache fleet (``kvcache/``): a DUPLICATE-HEAVY prompt topic —
+    three tenants, each with a fixed system prompt prefix, keyed
+    production routing every tenant to one partition ('alpha'→p2,
+    'beta'→p3, 'gamma'→p1 of 4) — through a 2-replica fleet whose
+    generators run the PAGED compute-dtype pool with radix prefix reuse
+    and chunked admission. Per replica, only each tenant's FIRST prompt
+    pays a full prefill; every later one links the cached system-prompt
+    blocks and prefills the suffix."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import ServingFleet
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    n = 24 if size == "tiny" else 128
+    block = 4 if size == "tiny" else 16
+    sys_len = 3 * block  # tenant system prompt: 3 whole shareable blocks
+    parts = 4
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t12", partitions=parts)
+    rng = np.random.default_rng(0)
+    tenants = ("alpha", "beta", "gamma")
+    system = {t: rng.integers(0, cfg.vocab_size, sys_len, dtype=np.int32)
+              for t in tenants}
+    produced = []
+    for i in range(n):
+        t = tenants[i % len(tenants)]
+        prompt = np.concatenate([
+            system[t],
+            rng.integers(0, cfg.vocab_size, prompt_len - sys_len, dtype=np.int32),
+        ])
+        rec = broker.produce("t12", prompt.tobytes(), key=t.encode())
+        produced.append((rec.partition, rec.offset))
+    slots = 4
+    pages = {
+        "block_size": block,
+        # Per-replica pool: all slots' worst case + sink + cache headroom
+        # for the three tenants' system prompts.
+        "num_blocks": slots * -(-(prompt_len + max_new) // block) + 16,
+    }
+    fleet = ServingFleet(
+        lambda rid: tk.MemoryConsumer(broker, "t12", group_id="s12"),
+        params, cfg, replicas=replicas, prompt_len=prompt_len,
+        max_new=max_new, slots=slots, commit_every=4,
+        gen_kwargs={"kv_pages": pages, "device": dev},
+    )
+    fleet.warmup()
+    t0 = time.perf_counter()
+    served = fleet.serve_all(idle_timeout_ms=2000)
+    elapsed = time.perf_counter() - t0
+    keys = {(r.partition, r.offset) for _rid, r, _t in served}
+    committed_complete = all(
+        broker.committed("s12", TopicPartition("t12", p))
+        == broker.end_offset(TopicPartition("t12", p))
+        for p in {p for p, _ in produced}
+    )
+    s = fleet.metrics.summary(fleet.replicas)
+    cache = s["prefix_cache"]
+    gens = [rep.gen for rep in fleet.replicas]
+    fleet.close()
+    return {
+        "scenario": "12:prefix-cache-fleet",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": len(served),
+        "elapsed_s": round(elapsed, 3),
+        "records_per_s": round(len(served) / elapsed, 1) if elapsed else None,
+        "coverage_complete": keys == set(produced),
+        "committed_complete": committed_complete,
+        "tenants": len(tenants),
+        "system_prompt_tokens": sys_len,
+        "cache": cache,
+        "prefill_tokens": cache["prefill_tokens"],
+        "prefill_tokens_dense": n * prompt_len,
+        "prefill_savings_pct": round(
+            100 * (1 - cache["prefill_tokens"] / (n * prompt_len)), 1
+        ),
+        "commit_failures": sum(g.metrics.commit_failures.count for g in gens),
+        "dropped": sum(g.metrics.dropped.count for g in gens),
+    }
+
+
+def scenario_13(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Warm failover (``journal/``): a 2-replica fleet with per-replica
+    decode journals, a SEEDED mid-generation replica kill
+    (``ReplicaChaos``), and the survivor warm-resuming the victim's
+    in-flight prompts from its on-disk journal. Audited against a no-kill
+    reference fleet over the same prompts: coverage total, commits
+    complete, completions byte-identical record for record (duplicates
+    allowed, divergence not), and the journal provably used."""
+    import tempfile
+
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import ReplicaChaos, ServingFleet
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (8, 16) if size == "tiny" else (32, 32)
+    n = 16 if size == "tiny" else 64
+    parts = 4
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
+
+    def build():
+        broker = tk.InMemoryBroker()
+        broker.create_topic("t13", partitions=parts)
+        for i in range(n):
+            broker.produce("t13", prompts[i].tobytes(), partition=i % parts)
+        return broker
+
+    def serve(broker, group, journal_dir, chaos):
+        fleet = ServingFleet(
+            lambda rid: tk.MemoryConsumer(broker, "t13", group_id=group),
+            params, cfg, replicas=replicas, prompt_len=prompt_len,
+            max_new=max_new, slots=2,
+            # A large cadence keeps the victim's completions uncommitted,
+            # so the kill provably exercises redelivery + warm resume.
+            commit_every=100,
+            journal_dir=journal_dir, journal_cadence=1,
+            gen_kwargs={"device": dev},
+        )
+        fleet.warmup()
+        got: dict = {}
+        duplicates_identical = True
+        for _rid, rec, toks in fleet.serve(idle_timeout_ms=2000, chaos=chaos):
+            key = (rec.partition, rec.offset)
+            if key in got and not np.array_equal(got[key], toks):
+                duplicates_identical = False
+            got[key] = toks
+        for rep in fleet.replicas:
+            if rep.runnable:
+                rep.gen.flush_commits()
+        summary = fleet.metrics.summary(fleet.replicas)
+        fleet.close()
+        return got, summary, duplicates_identical
+
+    with tempfile.TemporaryDirectory() as td:
+        ref, _, _ = serve(build(), "ref13", None, None)
+        t0 = time.perf_counter()
+        chaos = ReplicaChaos(seed=5, min_completions=2, max_completions=5)
+        broker = build()
+        got, s, dup_ok = serve(broker, "s13", os.path.join(td, "journals"), chaos)
+        elapsed = time.perf_counter() - t0
+        committed_complete = all(
+            broker.committed("s13", TopicPartition("t13", p))
+            == broker.end_offset(TopicPartition("t13", p))
+            for p in range(parts)
+        )
+    identical = set(got) == set(ref) and all(
+        np.array_equal(got[k], ref[k]) for k in ref
+    )
+    jn = s["journal"]
+    return {
+        "scenario": "13:warm-failover",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": len(got),
+        "elapsed_s": round(elapsed, 3),
+        "killed": chaos.killed,
+        "replica_deaths": s["replica_deaths"],
+        "coverage_complete": set(got) == set(ref),
+        "committed_complete": committed_complete,
+        "identical_to_no_kill": identical,
+        "duplicates_identical": dup_ok,
+        "journal_handoffs": jn["handoffs"],
+        "warm_resumes": jn["warm_resumes"],
+        "tokens_restored": jn["tokens_restored"],
+        "served_from_journal": jn["served_from_journal"],
+        "resume_rejected": jn["resume_rejected"],
+    }
+
+
+def scenario_14(size: str = "tiny", prefill_chunk: int | None = None,
+                device=None) -> dict:
+    """Chunked-prefill prompt storm (``serve.py`` ``kv_pages`` chunked
+    mode): a 4x-oversubscribed admission wave — duplicate-heavy tenant
+    prompts, all produced up front — through a paged server whose
+    admission is CHUNKED into the decode tick (one layer sweep a tick
+    carrying a bounded chunk of queued suffix tokens alongside all decode
+    slots). Decode inter-token latency must stay EXACTLY one tick per
+    token for every in-flight slot while the storm drains FIFO through
+    the chunk queue (``max_decode_stall_ticks == 0``). ``prefill_chunk``
+    defaults to one block a tick, small enough that the storm provably
+    queues."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    block = 4 if size == "tiny" else 16
+    slots = 4
+    n = 4 * slots  # the 4x storm
+    chunk = prefill_chunk if prefill_chunk else block
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t14", partitions=4)
+    rng = np.random.default_rng(0)
+    sys_len = 2 * block
+    system = rng.integers(0, cfg.vocab_size, sys_len, dtype=np.int32)
+    for i in range(n):
+        prompt = np.concatenate([
+            system,
+            rng.integers(0, cfg.vocab_size, prompt_len - sys_len, dtype=np.int32),
+        ])
+        broker.produce("t14", prompt.tobytes(), partition=i % 4)
+
+    activation: dict = {}
+    act_order: list = []
+    enq_order: list = []
+
+    class Instrumented(StreamingGenerator):
+        def admit_records(self, records):
+            before = len(self._prefill_queue)
+            out = super().admit_records(records)
+            enq_order.extend((e.rec.partition, e.rec.offset)
+                             for e in self._prefill_queue[before:])
+            return out
+
+        def _activate_chunk_finishers(self, finishers):
+            for e, _row in finishers:
+                key = (e.rec.partition, e.rec.offset)
+                activation[key] = self._tick_counter
+                act_order.append(key)
+            super()._activate_chunk_finishers(finishers)
+
+    consumer = tk.MemoryConsumer(broker, "t14", group_id="s14")
+    server = Instrumented(
+        consumer, params, cfg, slots=slots, prompt_len=prompt_len,
+        max_new=max_new, commit_every=4, ticks_per_sync=1,
+        kv_pages={
+            "block_size": block,
+            "num_blocks": slots * -(-(prompt_len + max_new) // block) + 12,
+            "prefill_chunk": chunk,
+        },
+        device=dev,
+    )
+    server.warmup()
+    t0 = time.perf_counter()
+    completion: dict = {}
+    for rec, toks in server.run(max_records=n):
+        completion[(rec.partition, rec.offset)] = (
+            server._tick_counter, int(np.asarray(toks).shape[0])
+        )
+    elapsed = time.perf_counter() - t0
+    committed_complete = all(
+        broker.committed("s14", TopicPartition("t14", p))
+        == broker.end_offset(TopicPartition("t14", p))
+        for p in range(4)
+    )
+    # Zero decode stall: each record's decode span is exactly its token
+    # count minus the activation tick's token 0.
+    stalls = [done_tick - activation[k] - (n_toks - 1)
+              for k, (done_tick, n_toks) in completion.items()]
+    m = server.metrics
+    cs = m.chunk_summary()
+    cache = m.cache_summary()
+    consumer.close()
+    return {
+        "scenario": "14:chunked-prefill-storm",
+        "model_scale": label,
+        "records": len(completion),
+        "elapsed_s": round(elapsed, 3),
+        "storm_factor": n // slots,
+        "prefill_chunk": chunk,
+        "coverage_complete": len(completion) == n,
+        "committed_complete": committed_complete,
+        "max_decode_stall_ticks": max(stalls) if stalls else None,
+        "fifo_activation": act_order == enq_order,
+        "chunk_ticks": cs["chunk_ticks"],
+        "prefill_tokens_per_tick": cs["prefill_tokens_per_tick"],
+        "admission_stall_ticks": cs["stall_ticks"],
+        "chunk_utilization": cs["utilization"],
+        "queue_tokens_end": cs["queue_tokens"],
+        "prefix_hit_rate": cache["hit_rate"],
+        "prefill_tokens": cache["prefill_tokens"],
+        "prefill_tokens_dense": n * prompt_len,
+    }
+
+
+def _pct(leaf) -> dict:
+    return {"count": leaf["count"], "p50_ms": round(leaf["p50_ms"], 3),
+            "p99_ms": round(leaf["p99_ms"], 3)}
+
+
+_ZERO_PCT = {"count": 0, "p50_ms": 0.0, "p99_ms": 0.0}
+
+
+def scenario_15(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """SLO observability (``obs/``): a keyed-tenant 2-replica fleet —
+    three tenants on fixed system prompts (scenario 12's cache shape),
+    both QoS lanes — served with the record lifecycle tracer on, then the
+    SLO report: per-tenant/per-lane time to first token and inter-token
+    latency p50/p99, admission queue wait, poll → commit, and the prefix
+    cache's hit rate, read back from ``FleetMetrics.summary()``. Plus one
+    scrape of a ``MetricsExporter`` over HTTP on an ephemeral localhost
+    port, every metrics class on the one /metrics exposition."""
+    import urllib.request
+
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import QoSConfig, ServingFleet
+    from torchkafka_tpu_torch.obs import MetricsExporter
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    n = 24 if size == "tiny" else 128
+    block = 4 if size == "tiny" else 16
+    sys_len = 2 * block
+    parts = 4
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t15", partitions=parts)
+    rng = np.random.default_rng(0)
+    tenants = ("alpha", "beta", "gamma")
+    system = {t: rng.integers(0, cfg.vocab_size, sys_len, dtype=np.int32)
+              for t in tenants}
+    produced = []
+    for i in range(n):
+        t = tenants[i % len(tenants)]
+        prompt = np.concatenate([
+            system[t],
+            rng.integers(0, cfg.vocab_size, prompt_len - sys_len, dtype=np.int32),
+        ])
+        rec = broker.produce(
+            "t15", prompt.tobytes(), key=t.encode(),
+            headers=(("lane", b"interactive" if t == "alpha" else b"batch"),),
+        )
+        produced.append((rec.partition, rec.offset))
+    slots = 4
+    pages = {"block_size": block,
+             "num_blocks": slots * -(-(prompt_len + max_new) // block) + 16}
+    fleet = ServingFleet(
+        lambda rid: tk.MemoryConsumer(broker, "t15", group_id="s15"),
+        params, cfg, replicas=replicas, prompt_len=prompt_len,
+        max_new=max_new, slots=slots, qos=QoSConfig(), commit_every=4,
+        gen_kwargs={"kv_pages": pages, "device": dev}, obs=True,
+    )
+    fleet.warmup()
+    t0 = time.perf_counter()
+    served = fleet.serve_all(idle_timeout_ms=2000)
+    elapsed = time.perf_counter() - t0
+    keys = {(r.partition, r.offset) for _rid, r, _t in served}
+    committed_complete = all(
+        broker.committed("s15", TopicPartition("t15", p))
+        == broker.end_offset(TopicPartition("t15", p))
+        for p in {p for p, _ in produced}
+    )
+    s = fleet.metrics.summary(fleet.replicas)
+    slo = s["slo"]
+    report = {
+        t: {"ttft": _pct(slo["ttft"]["by_tenant"].get(t, _ZERO_PCT)),
+            "itl": _pct(slo["itl"]["by_tenant"].get(t, _ZERO_PCT))}
+        for t in tenants
+    }
+    # The endpoint smoke: every metrics class through ONE exposition,
+    # scraped over real HTTP on an ephemeral port.
+    exporter = MetricsExporter()
+    exporter.add(lambda: fleet.metrics.render_prometheus(replicas=fleet.replicas))
+    for rep in fleet.replicas:
+        exporter.add(rep.gen.metrics)
+    exporter.add(fleet.tracer)
+    with exporter:
+        with urllib.request.urlopen(exporter.url, timeout=10) as resp:
+            endpoint_status = resp.status
+            body = resp.read().decode("utf-8")
+    fleet.close()
+    fleet.tracer.close()
+    trace_summary = fleet.tracer.summary()
+    return {
+        "scenario": "15:slo-observability",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": len(served),
+        "elapsed_s": round(elapsed, 3),
+        "records_per_s": round(len(served) / elapsed, 1) if elapsed else None,
+        "coverage_complete": keys == set(produced),
+        "committed_complete": committed_complete,
+        "tenant_slo": report,
+        "ttft": _pct(slo["ttft"]["all"]),
+        "itl": _pct(slo["itl"]["all"]),
+        "queue_wait": _pct(slo["queue_wait"]["all"]),
+        "e2e": _pct(slo["e2e"]["all"]),
+        "lanes_observed": sorted(slo["ttft"]["by_lane"]),
+        "replicas_observed": sorted(slo["ttft"]["by_replica"]),
+        "cache_hit_rate": s["prefix_cache"]["hit_rate"],
+        "trace_events": trace_summary["events"],
+        "trace_stages": trace_summary["stages"],
+        "open_records_end": trace_summary["open_records"],
+        "endpoint_status": endpoint_status,
+        "endpoint_bytes": len(body),
+        "endpoint_series": sum(1 for line in body.splitlines()
+                               if line and not line.startswith("#")),
+        "endpoint_has": {
+            name: (name in body) for name in (
+                "torchkafka_fleet_ttft_ms",
+                "torchkafka_fleet_itl_ms",
+                "torchkafka_fleet_tenant_admitted_total",
+                "torchkafka_serve_tokens_total",
+                "torchkafka_slo_trace_events_total",
+            )
+        },
+        "dropped": sum(rep.gen.metrics.dropped.count for rep in fleet.replicas),
+        "commit_failures": sum(rep.gen.metrics.commit_failures.count
+                               for rep in fleet.replicas),
+    }
+
+
+def _merge_tenant_cache(metrics_list) -> dict:
+    """Per-tenant prefix-cache hit rates merged across replicas
+    (count-weighted, like the fleet's global cache view)."""
+    merged: dict[str, dict] = {}
+    for m in metrics_list:
+        for t, v in m.tenant_cache_summary().items():
+            agg = merged.setdefault(t, {"hits": 0, "misses": 0})
+            agg["hits"] += v["hits"]
+            agg["misses"] += v["misses"]
+    for agg in merged.values():
+        total = agg["hits"] + agg["misses"]
+        agg["hit_rate"] = round(agg["hits"] / total, 4) if total else None
+    return merged
+
+
+def scenario_16(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Traffic observatory (``workload/`` + ``obs/burn.py``): a seeded
+    Zipf 3-tenant Poisson burst storm — heavy-tailed prompt-suffix and
+    output lengths, mixed QoS lanes, keyed partition pinning — driven on a
+    ``ManualClock`` through a 2-replica traced fleet with the paged cache
+    and chunked prefill on, a burn-rate monitor evaluating a TTFT SLO per
+    round, and per-record output budgets from the ``max_new`` header.
+    Reports the per-tenant goodput / burn-rate view; the tier-1 guard
+    asserts non-degenerate per-tenant SLOs, trace balance and zero lost
+    records."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import QoSConfig, ServingFleet
+    from torchkafka_tpu_torch.obs import SLOTarget
+    from torchkafka_tpu_torch.resilience import ManualClock
+    from torchkafka_tpu_torch.source.records import TopicPartition
+    from torchkafka_tpu_torch.workload import WorkloadConfig, WorkloadGenerator
+    from torchkafka_tpu_torch.workload.generator import header_max_new
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    n = 24 if size == "tiny" else 128
+    block = 4 if size == "tiny" else 16
+    parts = 4
+    slots = 2  # small pool: the burst storm provably queues
+    tick_dt = 0.002
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    wcfg = WorkloadConfig(
+        tenants=3, zipf_s=1.2, total_records=n,
+        arrival_rate=1500.0, burst_mean=4.0,  # a storm: well over service
+        interactive_fraction=0.4,
+        mean_suffix=max(4.0, prompt_len / 3),
+        mean_output=max_new * 0.75,
+        seed=16,
+    )
+    gen = WorkloadGenerator(wcfg, prompt_len=prompt_len, max_new=max_new,
+                            vocab_size=cfg.vocab_size)
+    mc = ManualClock()
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t16", partitions=parts)
+    pages = {"block_size": block,
+             "num_blocks": slots * -(-(prompt_len + max_new) // block) + 16}
+    targets = [SLOTarget(
+        metric="ttft", threshold_s=tick_dt * 12, objective=0.75,
+        fast_window_s=tick_dt * 32, slow_window_s=tick_dt * 128,
+        min_samples=4,
+    )]
+    fleet = ServingFleet(
+        gen.consumer_factory(broker, "t16", "s16", clock=mc),
+        params, cfg, replicas=replicas, prompt_len=prompt_len,
+        max_new=max_new, slots=slots, qos=QoSConfig(), commit_every=4,
+        clock=mc.now,
+        gen_kwargs={"kv_pages": pages, "max_new_of": header_max_new, "device": dev},
+        obs=True, slo_targets=targets,
+    )
+    fleet.warmup()
+    t0 = time.perf_counter()
+    drive = gen.drive(fleet, broker, "t16", clock=mc, tick_dt=tick_dt)
+    elapsed = time.perf_counter() - t0
+    served_keys = set(drive["served_keys"])
+    produced = {(p, o) for p in range(parts)
+                for o in range(broker.end_offset(TopicPartition("t16", p)))}
+    committed_complete = all(
+        broker.committed("s16", TopicPartition("t16", p))
+        == broker.end_offset(TopicPartition("t16", p))
+        for p in {p for p, _ in produced}  # keyed: only pinned partitions
+    )
+    s = fleet.metrics.summary(fleet.replicas)
+    slo = s["slo"]
+    mon = fleet.monitor.summary()
+    tenant_slo = {
+        t: {"ttft": _pct(slo["ttft"]["by_tenant"].get(t, _ZERO_PCT)),
+            "itl": _pct(slo["itl"]["by_tenant"].get(t, _ZERO_PCT))}
+        for t in gen.tenant_names
+    }
+    out_lens = sorted({len(np.asarray(t)) for _rid, _r, t in drive["completions"]})
+    trace_summary = fleet.tracer.summary()
+    fleet.close()
+    fleet.tracer.close()
+    return {
+        "scenario": "16:traffic-observatory",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": drive["unique_served"],
+        "elapsed_s": round(elapsed, 3),
+        "records_per_s": (round(drive["unique_served"] / elapsed, 1)
+                          if elapsed else None),
+        "schedule_digest": gen.schedule_digest()[:16],
+        "tenant_arrivals": gen.tenant_counts(),
+        "all_arrived": drive["all_arrived"],
+        "coverage_complete": served_keys == produced,
+        "committed_complete": committed_complete,
+        "duplicates": drive["duplicates"],
+        "synthetic_span_s": round(drive["end_time_s"], 3),
+        "tenant_slo": tenant_slo,
+        "ttft": _pct(slo["ttft"]["all"]),
+        "itl": _pct(slo["itl"]["all"]),
+        "queue_wait": _pct(slo["queue_wait"]["all"]),
+        "e2e": _pct(slo["e2e"]["all"]),
+        "lanes_observed": sorted(slo["ttft"]["by_lane"]),
+        "goodput": s["goodput"],
+        "burn_states": mon["states"],
+        "burn_transitions": mon["transitions"],
+        "burn_evaluations": mon["evaluations"],
+        "overload_deferrals": sum(v["deferred"] for v in s["goodput"]["tenants"].values()),
+        "output_len_spread": out_lens,
+        "output_capped": s["serving"]["output_capped"],
+        "step_time": {
+            "ticks": s["serving"]["ticks"],
+            "p50_ms": round(s["serving"]["step_time"]["p50_ms"], 3),
+            "p99_ms": round(s["serving"]["step_time"]["p99_ms"], 3),
+        },
+        "cache_hit_rate": s["prefix_cache"]["hit_rate"],
+        "tenant_cache": _merge_tenant_cache([rep.gen.metrics for rep in fleet.replicas]),
+        "trace_events": trace_summary["events"],
+        "trace_stages": trace_summary["stages"],
+        "open_records_end": trace_summary["open_records"],
+        "dropped": sum(rep.gen.metrics.dropped.count for rep in fleet.replicas),
+        "commit_failures": sum(rep.gen.metrics.commit_failures.count
+                               for rep in fleet.replicas),
+    }
+
+
+def scenario_22(size: str = "tiny", replicas: int = 1, device=None) -> dict:
+    """Closed-loop autoscaling under a step-load storm
+    (``fleet/autoscale.py``): a ``ManualClock`` in-process fleet starts at
+    ``replicas`` decode members with the burn-rate + queue-depth
+    controller on; the workload steps to 6x offered load mid-run and back.
+    The controller scales UP under the step (hysteresis bounding the
+    decision count), the SLO RECOVERS under the added capacity, capacity
+    is handed back warm AFTER the step ends (scale-down decisions
+    strictly later than t_off; drains commit, zero lost), and the whole
+    control loop replays byte-identically at the same seed (the scenario
+    runs twice and compares)."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import (
+        AutoscaleController,
+        FleetAutoscaler,
+        QoSConfig,
+        RolePolicy,
+        ServingFleet,
+    )
+    from torchkafka_tpu_torch.obs import SLOTarget
+    from torchkafka_tpu_torch.resilience import ManualClock
+    from torchkafka_tpu_torch.source.records import TopicPartition
+    from torchkafka_tpu_torch.workload import (
+        WorkloadConfig,
+        WorkloadGenerator,
+        header_max_new,
+        step_load,
+    )
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    n = 32 if size == "tiny" else 96
+    parts, slots, commit_every = 4, 2, 4
+    tick_dt = 0.002
+    t_on, t_off, factor = 0.04, 0.14, 6.0
+    max_replicas = 3
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+
+    def run_once():
+        wcfg = WorkloadConfig(
+            tenants=3, zipf_s=1.2, total_records=n, arrival_rate=260.0,
+            burst_mean=3.0, interactive_fraction=0.5,
+            mean_suffix=max(4.0, prompt_len / 3),
+            mean_output=max_new * 0.75, seed=22,
+            rate_schedule=step_load(t_on, factor, t_off),
+        )
+        gen = WorkloadGenerator(wcfg, prompt_len=prompt_len, max_new=max_new,
+                                vocab_size=cfg.vocab_size)
+        mc = ManualClock()
+        broker = tk.InMemoryBroker()
+        broker.create_topic("t22", partitions=parts)
+        pages = {"block_size": 4,
+                 "num_blocks": slots * -(-(prompt_len + max_new) // 4) + 16}
+        targets = [SLOTarget(
+            metric="ttft", threshold_s=tick_dt * 12, objective=0.75,
+            fast_window_s=tick_dt * 32, slow_window_s=tick_dt * 128,
+            min_samples=4,
+        )]
+        fleet = ServingFleet(
+            gen.consumer_factory(broker, "t22", "s22", clock=mc),
+            params, cfg, replicas=replicas, prompt_len=prompt_len,
+            max_new=max_new, slots=slots, commit_every=commit_every,
+            clock=mc.now, qos=QoSConfig(),
+            gen_kwargs={"kv_pages": pages, "max_new_of": header_max_new,
+                        "device": dev},
+            obs=True, slo_targets=targets,
+        )
+        ctrl = AutoscaleController({
+            "decode": RolePolicy(
+                min_replicas=replicas, max_replicas=max_replicas,
+                queue_high=4.0, queue_low=1.0,
+                up_cooldown_s=tick_dt * 8, down_cooldown_s=tick_dt * 24,
+                down_confirm=6,
+            ),
+        }, clock=mc.now, tracer=fleet.tracer, metrics=fleet.metrics)
+        scaler = FleetAutoscaler(fleet, ctrl)
+        peak = {"live": replicas}
+
+        def on_round(f, _served):
+            scaler.step()
+            peak["live"] = max(peak["live"], f.live_count())
+
+        fleet.warmup()
+        t0 = time.perf_counter()
+        report = gen.drive(fleet, broker, "t22", clock=mc, tick_dt=tick_dt,
+                           settle_rounds=200, on_round=on_round)
+        wall_s = time.perf_counter() - t0
+        order = [(rid, rec.partition, rec.offset, tuple(np.asarray(t).tolist()))
+                 for rid, rec, t in report["completions"]]
+        committed = {p: broker.committed("s22", TopicPartition("t22", p)) or 0
+                     for p in range(parts)}
+        produced = {(p, o) for p in range(parts)
+                    for o in range(broker.end_offset(TopicPartition("t22", p)))}
+        # Burn recovery instant: the last transition back to "ok" on the
+        # global ttft scope, read off the typed event stream.
+        burn_ok_t = None
+        for e in fleet.tracer.events:
+            if e.stage == "burn_state":
+                attrs = dict(e.attrs)
+                if attrs["dim"] == "" and attrs["to"] == "ok":
+                    burn_ok_t = e.t
+        out = {
+            "order": order,
+            "events": list(fleet.tracer.events),
+            "committed": committed,
+            "produced": produced,
+            "report": report,
+            "decisions": list(ctrl.decisions),
+            "digest": ctrl.decision_digest(),
+            "ctrl": ctrl.summary(),
+            "goodput": fleet.monitor.goodput_summary(),
+            "end_burn": fleet.monitor.worst_state(),
+            "burn_ok_t": burn_ok_t,
+            "transitions": fleet.monitor.transitions,
+            "drains": fleet.metrics.drains.count,
+            "peak_live": peak["live"],
+            "wall_s": wall_s,
+        }
+        fleet.close()
+        fleet.tracer.close()
+        return out
+
+    a = run_once()
+    b = run_once()
+    replay_identical = (
+        a["order"] == b["order"]
+        and a["events"] == b["events"]
+        and a["committed"] == b["committed"]
+        and a["digest"] == b["digest"]
+    )
+    served = {(p, o) for _rid, p, o, _t in a["order"]}
+    ups = [d for d in a["decisions"] if d.direction == "up"]
+    downs = [d for d in a["decisions"] if d.direction == "down"]
+    g = a["goodput"]
+    return {
+        "scenario": "22:autoscaled-step-storm",
+        "model_scale": label,
+        "records": n,
+        "step": {"t_on": t_on, "t_off": t_off, "factor": factor},
+        "replay_identical": replay_identical,
+        "zero_lost": served == a["produced"] and a["report"]["all_arrived"],
+        "duplicates": a["report"]["duplicates"],
+        "peak_live": a["peak_live"],
+        "scale_ups": len(ups),
+        "scale_downs": len(downs),
+        "decisions": a["ctrl"]["decisions"],
+        "by_reason": a["ctrl"]["by_reason"],
+        "first_up_t": round(ups[0].t_s, 4) if ups else None,
+        "first_down_t": round(downs[0].t_s, 4) if downs else None,
+        "downs_after_step_end": all(d.t_s > t_off for d in downs),
+        "final_target": a["ctrl"]["targets"]["decode"],
+        "burn_transitions": a["transitions"],
+        "burn_recovered_t": (round(a["burn_ok_t"], 4)
+                             if a["burn_ok_t"] is not None else None),
+        "end_burn_state": a["end_burn"],
+        "drained_members": a["drains"],
+        "goodput_ratio": g["goodput_ratio"],
+        "within_slo": g["within_slo"],
+        "completed": g["completed"],
+        "wall_s": round(a["wall_s"] + b["wall_s"], 2),
+    }
+
+
+def scenario_25(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Online draft distillation, the loop closed: a 2-replica in-process
+    speculative fleet serves a Zipf workload whose hot set ROTATES mid-run
+    (``hot_set_rotation``: the rank → tenant remap moves which shared
+    context prefixes dominate). Decode replicas stage committed (prompt,
+    tokens) completions onto the distill topic inside their commit
+    windows; a ``DistillTrainer`` pumped on the same scheduling rounds
+    trains the layer-truncated draft on that corpus (on the fleet's
+    device) and publishes versioned checkpoints; the fleet's
+    ``DistillController`` refreshes every replica's draft via
+    ``swap_draft_params`` between ticks. Measured per phase: α with the
+    distilled draft before the drift, at the drift, and after the
+    post-drift refresh. Audited: committed tokens byte-identical to a
+    never-distilled reference fleet on the same workload seed, zero
+    duplicates."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.distill import DistillPolicy, DistillTrainer
+    from torchkafka_tpu_torch.fleet import ServingFleet
+    from torchkafka_tpu_torch.resilience import ManualClock
+    from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
+    from torchkafka_tpu_torch.source.producer import MemoryProducer
+    from torchkafka_tpu_torch.workload import WorkloadConfig, WorkloadGenerator
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (8, 16) if size == "tiny" else (16, 32)
+    total = 240 if size == "tiny" else 480
+    t_drift = 0.45  # synthetic seconds; ~half the schedule
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    wl_cfg = WorkloadConfig(
+        # Steep Zipf (rank-1 ≈ 70% of traffic) + near-pure context
+        # prompts: maximally learnable pre-drift, maximally WRONG after
+        # the rotation.
+        tenants=6, zipf_s=2.0, total_records=total, arrival_rate=230.0,
+        burst_mean=2.0, interactive_fraction=1.0, mean_suffix=1.5,
+        seed=25,
+        # Shift 3 of 6: every popularity rank lands on a different tenant,
+        # so the post-drift hot set shares NO context prefix with what the
+        # draft distilled on.
+        hot_set_rotation=((t_drift, 3),),
+    )
+
+    def run(distill: bool) -> dict:
+        wl = WorkloadGenerator(wl_cfg, prompt_len=prompt_len, max_new=max_new,
+                               vocab_size=cfg.vocab_size)
+        broker = tk.InMemoryBroker()
+        broker.create_topic("t25", partitions=4)
+        broker.create_topic("d25", partitions=1)
+        broker.create_topic("ck25", partitions=1)
+        clock = ManualClock()
+        gen_kwargs = dict(k=3, draft_layers=1, ticks_per_sync=4,
+                          distill_topic="d25",
+                          distill_producer=MemoryProducer(broker), device=dev)
+        fleet = ServingFleet(
+            wl.consumer_factory(broker, "t25", "s25", resilient=False),
+            params, cfg, replicas=replicas, prompt_len=prompt_len,
+            max_new=max_new, slots=4, commit_every=4,
+            generator_cls=SpecStreamingGenerator, gen_kwargs=gen_kwargs,
+            clock=clock.now, obs=True,
+        )
+        trainer = None
+        refresher = None
+        refreshes: list[tuple[float, int]] = []  # (t_s, version)
+        rounds: list[tuple[float, int, int]] = []  # (t_s, acc, prop)
+        if distill:
+            tcons = tk.MemoryConsumer(broker, "d25", group_id="tr25")
+            trainer = DistillTrainer(
+                tcons, params, cfg, seq_len=prompt_len + max_new,
+                batch_size=8, draft_layers=1, learning_rate=5e-3,
+                broker=broker, ckpt_topic="ck25", publish_every=6,
+                metrics=fleet.metrics,
+            )
+            refresher = fleet.start_distill(
+                policy=DistillPolicy(
+                    window_rounds=24, min_proposed=32,
+                    # Track the trainer: every published version rolls once
+                    # the SYNTHETIC-clock cooldown allows.
+                    cooldown_s=0.10, refresh_on_publish=True,
+                ),
+                broker=broker, ckpt_topic="ck25",
+            )
+
+        def hook(f, served):
+            if trainer is not None:
+                # Pump the trainer a bounded chunk per scheduling round
+                # (the in-process twin of the distill worker's chunked
+                # loop), then push any fresh versions at the controller.
+                trainer.run(max_steps=2, idle_timeout_ms=1)
+                refresher.note_version(trainer.published)
+                refresher.on_round(f, served)
+            acc = prop = 0
+            for rep in f.replicas:
+                if rep.runnable:
+                    st = rep.gen.spec_stats()
+                    acc += st["accepted"]
+                    prop += st["proposed"]
+            rounds.append((clock.now(), acc, prop))
+            if refresher is not None and refresher.controller.refreshes > len(refreshes):
+                refreshes.append((clock.now(), refresher.controller.applied_version))
+
+        try:
+            res = wl.drive(fleet, broker, "t25", clock=clock, tick_dt=0.002,
+                           idle_timeout_ms=4000, on_round=hook, settle_rounds=60)
+        finally:
+            fleet.close()
+            if trainer is not None:
+                tcons.close()
+        committed = {(rec.partition, rec.offset): np.asarray(toks).tobytes()
+                     for _rid, rec, toks in res["completions"]}
+        return {
+            "res": res, "committed": committed, "rounds": rounds,
+            "refreshes": refreshes,
+            "trainer": trainer.report() if trainer else None,
+            "controller": {
+                "refreshes": refresher.controller.refreshes,
+                "applied_version": refresher.controller.applied_version,
+                "alpha_window": refresher.controller.alpha_window,
+            } if refresher else None,
+            "metrics": fleet.metrics.summary(),
+        }
+
+    def alpha_between(rounds, t0, t1) -> tuple[float | None, int]:
+        """α over rounds with t0 <= t < t1, from cumulative counters."""
+        inside = [(a, p) for t, a, p in rounds if t0 <= t < t1]
+        if len(inside) < 2:
+            return None, 0
+        d_acc = inside[-1][0] - inside[0][0]
+        d_prop = inside[-1][1] - inside[0][1]
+        return (d_acc / d_prop if d_prop else None), d_prop
+
+    t0 = time.perf_counter()
+    live = run(distill=True)
+    ref = run(distill=False)
+    elapsed = time.perf_counter() - t0
+
+    refreshes = live["refreshes"]
+    pre = [t for t, _v in refreshes if t < t_drift]
+    # The RECOVERY refresh: the first applied once the trainer has had a
+    # grace window to consume post-drift corpus; refreshes within the
+    # grace carry mostly pre-drift gradients.
+    grace = 0.10
+    post = [t for t, _v in refreshes if t >= t_drift + grace]
+    end = live["rounds"][-1][0]
+    t_rec = post[0] if post else end
+    # Phase α from the recorded cumulative counters: distilled-stationary
+    # (the LATE pre-drift window), drifted-stale (drift → recovery
+    # refresh), and recovered (recovery refresh → end).
+    alpha_pre, n_pre = alpha_between(
+        live["rounds"], max(t_drift - 0.2, pre[0] if pre else 0.0), t_drift,
+    )
+    alpha_drift, n_drift = alpha_between(live["rounds"], t_drift, t_rec)
+    alpha_post, n_post = alpha_between(live["rounds"], t_rec, end + 1.0)
+    # The committed-view differential: byte-identical tokens at every
+    # (partition, offset) the two runs share — and both served all.
+    same_keys = set(live["committed"]) == set(ref["committed"])
+    identical = same_keys and all(live["committed"][k] == ref["committed"][k]
+                                  for k in live["committed"])
+    return {
+        "scenario": "25:online-draft-distillation",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": total,
+        "elapsed_s": round(elapsed, 2),
+        "drift_t_s": t_drift,
+        "refreshes": [(round(t, 4), v) for t, v in refreshes],
+        "refreshes_pre_drift": len(pre),
+        "refreshes_post_drift": len(post),
+        "trainer": live["trainer"],
+        "alpha_pre": round(alpha_pre, 4) if alpha_pre is not None else None,
+        "alpha_drift": round(alpha_drift, 4) if alpha_drift is not None else None,
+        "alpha_post": round(alpha_post, 4) if alpha_post is not None else None,
+        "alpha_windows_proposed": [n_pre, n_drift, n_post],
+        "alpha_degraded_at_drift": (alpha_pre is not None and alpha_drift is not None
+                                    and alpha_drift < alpha_pre),
+        "alpha_recovered": (alpha_drift is not None and alpha_post is not None
+                            and alpha_post > alpha_drift),
+        "identical_to_no_distill": identical,
+        "committed_duplicates": live["res"]["duplicates"],
+        "all_arrived": live["res"]["all_arrived"] and ref["res"]["all_arrived"],
+        "distill_metrics": live["metrics"].get("distill"),
+    }
+
+
 # --------------------------------------------------------------- unported
 
 # Each scenario the port does not run yet, by the title of the ROADMAP
 # queue A item that ports it.
 _DEFERRED_TITLES = {
     **{n: "Harness: fleet and durability scenarios"
-       for n in (10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 21, 22, 23, 24, 25)},
+       for n in (17, 18, 19, 21, 23, 24)},
     3: "Mesh and multi-process paths",
     20: "Mesh and multi-process paths",
     4: "Secondary models",
@@ -746,7 +1838,9 @@ def _deferred(num: int) -> Callable[..., dict]:
 
 
 _PORTED = {1: scenario_1, 2: scenario_2, 5: scenario_5, 6: scenario_6,
-           7: scenario_7, 9: scenario_9}
+           7: scenario_7, 9: scenario_9, 10: scenario_10, 11: scenario_11,
+           12: scenario_12, 13: scenario_13, 14: scenario_14, 15: scenario_15,
+           16: scenario_16, 22: scenario_22, 25: scenario_25}
 PORTED = tuple(sorted(_PORTED))
 SCENARIOS = {n: _PORTED.get(n) or _deferred(n) for n in range(1, 26)}
 
@@ -772,7 +1866,7 @@ def run_scenario(
             "storm smoke)"
         )
     if num == 14:
-        return SCENARIOS[14](size, prefill_chunk=prefill_chunk)
+        return SCENARIOS[14](size, prefill_chunk=prefill_chunk, device=device)
     if serve_eos and (num != 7 or model_scale is None):
         raise ValueError("--serve-eos applies to scenario 7 at a model scale")
     if quantized is not None and (model_scale is None or num not in (5, 7)):
@@ -800,9 +1894,9 @@ def run_scenario(
     sample_kw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
     spec_kw = dict(spec=spec, spec_k=spec_k, spec_draft_layers=spec_draft_layers)
     if num in (10, 11, 12, 13, 15, 16, 17, 18, 19, 20, 21, 23, 24, 25):
-        return SCENARIOS[num](size, replicas=replicas)
+        return SCENARIOS[num](size, replicas=replicas, device=device)
     if num == 22:
-        return SCENARIOS[22](size, replicas=1)
+        return SCENARIOS[22](size, replicas=1, device=device)
     if model_scale is not None:
         if num not in (5, 7):
             raise ValueError("model_scale applies to scenarios 5 and 7 only")

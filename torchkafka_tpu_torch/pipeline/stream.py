@@ -231,9 +231,6 @@ class KafkaStream:
         self._dead_letter = dead_letter
         self._quarantine = quarantine
         self._barrier = barrier if barrier is not None else CommitBarrier()
-        self._device = resolve_device(device) if to_device else None
-        # The H2D copies' own stream (created on first use, on the card).
-        self._copy_stream: torch.cuda.Stream | None = None
         self.metrics = StreamMetrics()
         self._ledger = OffsetLedger()
         if buckets is not None:
@@ -251,6 +248,11 @@ class KafkaStream:
             self._batcher = Batcher(
                 batch_size, self._ledger, pad_policy=pad_policy
             )
+        # Resolved once every argument is checked, so a bad argument
+        # raises its ValueError on a machine without the card too.
+        self._device = resolve_device(device) if to_device else None
+        # The H2D copies' own stream (created on first use, on the card).
+        self._copy_stream: torch.cuda.Stream | None = None
         self._sequencer = CommitSequencer()
         self._sync = prefetch == 0
         self._ready: list[Batch] = []  # sync mode: decoded-but-unyielded batches

@@ -1980,6 +1980,61 @@ class StreamingGenerator:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def _serve_block(self, active: torch.Tensor, chunk=None):
+        """The serving loop's tick block (``step``). A greedy server on a
+        dense compute-dtype pool on CUDA replays a CUDA graph of
+        ``_tick_block`` (captured at its first block, and again after its
+        weights are rebound) in place of the block's model passes launched
+        op by op: the graph runs the same kernels on the same pools and
+        weights, so it emits the same tokens. The inputs (the active mask,
+        the tick state) are copied into the graph's buffers before a replay
+        and the state is bound to copies of its outputs after. Paged
+        pools, chunk ticks, int8 pools (whose decode kernel counts its
+        launches from Python), sampling and the CPU run the eager block."""
+        if (chunk is not None or self._kv_pages is not None or self._kv_int8
+                or self._sampled or self._device.type != "cuda"):
+            return self._tick_block(active, chunk)
+        if self._block_graph is None:
+            self._block_graph = self._capture_block()
+        graph, s_active, s_state, outs = self._block_graph
+        s_active.copy_(active)
+        for buf, cur in zip(s_state, self._tick_state()):
+            buf.copy_(cur)
+        graph.replay()
+        self._set_tick_state([t.clone() for t in outs[2:]])
+        return outs[0].clone(), outs[1].clone()
+
+    def _capture_block(self):
+        """→ (graph, its active-mask buffer, its tick-state buffers, its
+        outputs: done, n_out, then the tick state). A warm block runs first
+        on the capture stream with every slot inactive: it leaves the tick
+        state as it was and writes the pools only at positions a later
+        write precedes any read of (``warmup``'s all-inactive block)."""
+        dev = self._device
+        live = self._tick_state()
+        s_active = torch.zeros((self._slots,), dtype=torch.bool, device=dev)
+        s_state = [t.clone() for t in live]
+
+        def block():
+            self._set_tick_state(list(s_state))
+            done, n_out = self._tick_block(s_active)
+            return [done, n_out, *self._tick_state()]
+
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            block()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # thread_local: another thread's CUDA work (a stream's copy
+            # thread, a commit) does not invalidate this capture.
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                outs = block()
+        finally:
+            self._set_tick_state(live)
+        return graph, s_active, s_state, outs
+
     def _tick_state(self) -> list[torch.Tensor]:
         """The device state ``_tick_block`` rebinds (last token, position,
         output buffer), in a fixed order; ``_set_tick_state`` binds it."""
@@ -2533,7 +2588,9 @@ class StreamingGenerator:
 
     def _bind_params(self, params) -> None:
         """Serve ``params`` (on this server's device): the tree and the
-        per-layer views every sweep reads, rebound together."""
+        per-layer views every sweep reads, rebound together (a captured
+        tick block reads the old ones: it is dropped)."""
+        self._block_graph = None
         self._params = params
         self._layers = [
             layer_at(params["layers"], i) for i in range(self._cfg.n_layers)
@@ -2695,7 +2752,7 @@ class StreamingGenerator:
                         *ops, packed, finishers = self._pack_chunk()
                 with tracing.span(tracing.SPAN_TICK):
                     chunk = tuple(self._h2d(a) for a in ops) if run_chunk else None
-                    done, n_out = self._tick_block(self._h2d(self._active), chunk)
+                    done, n_out = self._serve_block(self._h2d(self._active), chunk)
                 # ONE host sync per tick block: done/n_out/pos/gen together.
                 with tracing.span(tracing.SPAN_SYNC):
                     packed_h = torch.cat([

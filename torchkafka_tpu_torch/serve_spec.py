@@ -7,8 +7,9 @@ block of speculative ROUNDS in place of decode ticks. The host loop
 inherited unchanged; the subclass overrides the device hooks: the pools
 (``_build``), dense admission (``_admit``), the legacy paged suffix
 prefill (``_suffix_prefill``), the dense warm resume
-(``_resume_into_slot``) and the tick block (``_tick_block``). Per round
-and slot:
+(``_resume_into_slot``) and the tick block (``_tick_block``; on a dense
+pool on CUDA the inherited ``_serve_block`` replays it as one CUDA
+graph). Per round and slot:
 
 1. the draft proposes k greedy tokens in k+1 single-query steps (the
    last only ingests proposal k, so the draft cache stays contiguous
@@ -365,6 +366,7 @@ class SpecStreamingGenerator(StreamingGenerator):
         crash_hook("draft_swap_pre_apply")
         self._draft_params = draft_params
         self._draft_layers = unstack_layers(draft_params["layers"])
+        self._block_graph = None  # a captured block reads the old draft
 
     def spec_stats(self) -> dict:
         """The speculation counters since construction, read with one
