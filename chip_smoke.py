@@ -315,9 +315,9 @@ Phases, each printing one JSON line:
    token 0 equal to the monolithic serve's. Printed: handoff bytes,
    publish-to-adopt ms (trace clock), decode tick p50/p99 with the
    prefill worker beside the monolithic serve's, the token agreement;
-8h. serve_procfleet: the process fleet (``fleet.ProcessFleet``, worker
+8h. serve_procfleet (lane ``procfleet``): the process fleet (``fleet.ProcessFleet``, worker
    processes ``python -m torchkafka_tpu_torch.fleet.proc`` on the card)
-   at the 1b, 24 layers, f32 as ``fleet.proc.build_model`` gives
+   at the 1b widths, 4 of its 24 layers, f32 as ``fleet.proc.build_model`` gives
    (weights drawn on the CPU from the seed in every process): serve_fleet's
    64 prompts of 128 (two tenants, each record keyed by tenant and index,
    prompt i on partition i % 4) over the ``BrokerServer`` TCP broker; 2
@@ -329,12 +329,12 @@ Phases, each printing one JSON line:
    (4 + 8) (harness scenario 17's bound, replicas x (commit_every +
    slots), a rebalance), every copy byte-identical to the port's in-process 8-slot server on the same
    weights, the victim fenced (its generation refused a commit) with its
-   journal handed over and resumes counted, each dumping child's K1 = 24 x
+   journal handed over and resumes counted, each dumping child's K1 = 4 x
    (prefills + warm resumes) from its own counters. Printed: tok/s from the
    produce (worker start excluded), each child's tick p50/p99,
    duplicates, kill to respawn-ready seconds, 2 processes over 1 (waves 2
    and 3);
-8i. serve_procfleet_f32 (after serve_fleet_f32): 1b width, 2 layers, f32,
+8i. serve_procfleet_f32 (lane ``procfleet``, after serve_procfleet): 1b width, 2 layers, f32,
    real processes: (a) scenario 21's shape, ``ProcessFleet(replicas=2,
    prefill_replicas=1)`` over a paged compute-dtype pool, the prefill
    worker SIGKILLed after 6 handoffs: every completion byte-identical to
@@ -343,7 +343,7 @@ Phases, each printing one JSON line:
    distill role: one replica and a ``DistillTrainer`` worker training the
    1-layer draft on the card (K1-K3 = steps in its dump), versions 1 and 2
    fetchable, ``kill_distill`` respawns it and it trains again;
-8j. harness (after serve_8b_f32): the port's harness entry point
+8j. harness (lane ``harness``): the port's harness entry point
    (``harness.run_scenario``, what ``python -m torchkafka_tpu_torch.harness``
    calls) on the card: scenario 7 at the 1b, 24 layers, on the int8 pool
    read by K4, with ``decode_roofline`` (replays of one CUDA graph of the
@@ -357,7 +357,7 @@ Phases, each printing one JSON line:
    prefills on the tensor cores; scenario 9's K1 = K2 = K3. Then a
    2-layer f32 server probed by the roofline serves the same tokens and
    commits as one never probed;
-8k. harness_fleet (after harness): the harness's in-process fleet
+8k. harness_fleet (lane ``harness``, after harness): the harness's in-process fleet
    scenarios 10, 11, 12, 13, 14, 15, 16, 22 and 25 through
    ``harness.run_scenario(n, "full")`` on the card, at their full size
    (``TransformerConfig``'s defaults: d_model 512, 4 layers, 8 q / 8 kv
@@ -377,18 +377,47 @@ Phases, each printing one JSON line:
    resumes) and 25's trainer's draft layers x steps, all on the tensor
    cores; K2 = K3 = the trainer's draft layers x steps, on the tensor
    cores; K4 = K5 = 0 (compute-dtype pools);
+8l. harness_procfleet (lane ``procfleet``, after serve_procfleet_f32): the harness's process-fleet
+   scenarios 17, 18, 19, 21, 23 and 24 through ``harness.run_scenario(n,
+   "full")`` on the card, at ``TransformerConfig``'s widths (d_model 512,
+   4 layers, 8 q / 8 kv heads, head dim 64, d_ff 1,376, vocab 32,000), in
+   f32 as ``fleet.proc.build_model`` gives the worker processes and the
+   in-process reference: the SIGKILL storm, the exactly-once storm, the
+   broker crashed and recovered from its WAL, the killed prefill worker,
+   the quorum cell's leader killed, the rollback-then-complete rollouts.
+   Held: ``tests/test_harness.py``'s assertions for each; this process's
+   K1 = layers x the reference servers' dense prefills, resumes and
+   warm-ups; each dumping worker's K1 = layers x (prefills + warm resumes
+   + canary shadow prefills) on a dense pool and 0 on scenario 21's
+   paged pools; no tensor-core launch (f32), K2 = K3 = K4 = K5 = 0.
+   Printed: each scenario's seconds, ready_s and elapsed_s, duplicates
+   and their bound, WAL replays, breaker opens and closes, adoptions and
+   fallback prefill tokens with the decode tick p99, the rollouts' phases
+   and checkpoint publish seconds, each worker's counts;
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
    ``disagg_launches``; K1-K4 with the harness phase's by scenario,
    ``harness_launches``, K4 with the captured block's and the replays;
-   K1-K3 with the fleet scenarios', ``harness_fleet_launches``);
+   K1-K3 with the fleet scenarios', ``harness_fleet_launches``; K1 with
+   the process scenarios', ``harness_procfleet_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
-Depth cuts (the time of phases 8g-8i): serve_traced, serve_sampled,
+Lanes: once the kernel phases (3-5d) have timed the kernels alone on the
+card, the script starts two processes of its own, ``chip_smoke.py --lane
+harness`` (8j, 8k) and ``--lane procfleet`` (8h, 8i, 8l), and runs the
+other phases meanwhile; their time is mostly host work and worker
+start-ups with the card idle. Each lane zeroes and reads its own
+counts around each path, as the main sequence does; its rows print after
+the main sequence's, before the kernels line. A lane that fails fails
+the script; a failing script stops its lanes (SIGTERM, on which a lane
+closes its worker processes). Times on the host's clock (tok/s, step
+times, seconds) are taken beside the lanes; the kernel timings are not.
+
+Depth cuts (the time of phases 8g-8l): serve_traced, serve_sampled,
 serve_resume (its ``resume_prefill_device_ms`` stays at 24 layers),
-serve_tiered, serve_spec, serve_spec_paged, serve_fleet and
-serve_fleet_rollout run the 1b widths at ``CUT_LAYERS`` = 4 of its 24
+serve_tiered, serve_spec, serve_spec_paged, serve_fleet,
+serve_fleet_rollout and serve_procfleet run the 1b widths at ``CUT_LAYERS`` = 4 of its 24
 layers (views of the first 4 layers' weights; their rows carry
 ``"layers": 4``, and their launch checks use 4); serve_8b runs the 8b
 widths at ``CUT_LAYERS_8B`` = 16 of its 32 layers (K1 and K4 = 16 x ...).
@@ -408,16 +437,19 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 SEED = 0
 MAX_NEW = 64  # scenario 7's full size: 64 new tokens per prompt
-CUT_LAYERS = 4  # depth of the traced, sampled, resumed, tiered, speculative, fleet paths
+CUT_LAYERS = 4  # depth of the traced, sampled, resumed, tiered, speculative, fleet and process-fleet paths
 CUT_LAYERS_8B = 16  # depth of the 8b path (of 32; its widths unchanged)
 
 
@@ -444,6 +476,80 @@ def emit(obj) -> None:
         obj = {**obj, "phase_s": now - _CLOCK["last"], "at_s": now - _CLOCK["start"]}
     _CLOCK["last"] = now
     print(json.dumps(obj), flush=True)
+
+
+# The phases that run in a process of their own (``--lane``), started
+# beside the main sequence once the kernel phases have timed the kernels
+# alone on the card: most of their time is worker start-ups and host work.
+LANES = {
+    "harness": ("harness", "harness_fleet"),
+    "procfleet": ("serve_procfleet", "serve_procfleet_f32", "harness_procfleet"),
+}
+
+
+def run_lane(torch, lane: str) -> None:
+    """Run one lane's phases in this process, printing each phase's rows
+    as it ends (the caller reads them back from this process's output)."""
+    from torchkafka_tpu_torch.models.zoo import zoo_config
+
+    if lane == "harness":
+        phases = (lambda: check_harness(torch), lambda: check_harness_fleet(torch))
+    else:
+        cfg = zoo_config("1b")
+        cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                    param_dtype=torch.float32)
+        phases = (
+            lambda: check_serve_procfleet(torch, dataclasses.replace(cfg, n_layers=CUT_LAYERS)),
+            lambda: check_serve_procfleet_f32(torch, cfg32),
+            lambda: check_harness_procfleet(torch),
+        )
+    for phase in phases:
+        for row in phase():
+            emit(row)
+        torch.cuda.empty_cache()
+
+
+def start_lane(lane: str):
+    """Start ``chip_smoke.py --lane <lane>`` beside this process, on the
+    same clock; its rows go to a temporary file, its errors to this
+    process's standard error."""
+    out = tempfile.TemporaryFile(mode="w+")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--lane", lane,
+         "--clock-start", repr(_CLOCK["start"])],
+        stdout=out, cwd=here,
+    )
+    return lane, proc, out
+
+
+def finish_lane(job) -> list:
+    """Wait for a lane, print its rows here and return them; raise if it
+    failed."""
+    lane, proc, out = job
+    rc = proc.wait()
+    out.seek(0)
+    text = out.read()
+    out.close()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    if rc != 0:
+        raise AssertionError(f"lane {lane} ({', '.join(LANES[lane])}) exited with {rc}")
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def stop_lanes(jobs) -> None:
+    """Stop every lane still running (SIGTERM, on which a lane closes its
+    worker processes; SIGKILL after 60 s)."""
+    for _, proc, _ in jobs:
+        if proc.poll() is None:
+            proc.terminate()
+    for _, proc, _ in jobs:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
 
 
 def smi_line() -> str:
@@ -5037,6 +5143,197 @@ def check_harness_fleet(torch, size: str = "full", device=None) -> list:
     return rows
 
 
+HARNESS_PROCFLEET = (17, 18, 19, 21, 23, 24)  # the process-fleet scenarios
+
+
+@contextlib.contextmanager
+def _dump_spy():
+    """Every list of worker dumps a ``ProcessFleet`` returned
+    (``worker_metrics``) while the context is open, in order."""
+    from torchkafka_tpu_torch.fleet.supervisor import ProcessFleet
+
+    seen = []
+    read = ProcessFleet.worker_metrics
+
+    def spy(self):
+        out = read(self)
+        seen.append(out)
+        return out
+
+    ProcessFleet.worker_metrics = spy
+    try:
+        yield seen
+    finally:
+        ProcessFleet.worker_metrics = read
+
+
+def _procfleet_invariants(num: int, r: dict) -> list:
+    """``tests/test_harness.py``'s assertions for process scenario ``num``:
+    → the names of those that fail."""
+    codes = sorted(r.get("exit_codes", {}).values())
+    checks = {
+        17: lambda: {
+            "scenario": r["scenario"] == "17:process-fleet-kill-storm",
+            "replicas": r["replicas"] == 2, "sigkilled": r["victim_sigkilled"] is True,
+            "fence_count": r["fence_count"] == 1, "zero_lost": r["zero_lost"] is True,
+            "identical_to_no_kill": r["identical_to_no_kill"] is True,
+            "duplicates_within_bound": r["duplicates_within_bound"] is True,
+            "journal": r["journal_handoff_entries"] > 0
+            and r["warm_resumes_plus_journal_served"] > 0,
+            "zombie": r["zombie_commit_rejected"] is True
+            and r["watermark_unmoved_by_zombie"] is True,
+            "exit_codes": r["exit_codes"][r["victim"]] == -9 and codes == [-9, 0]},
+        18: lambda: {
+            "scenario": r["scenario"] == "18:exactly-once-kill-storm",
+            "replicas": r["replicas"] == 2, "sigkilled": r["victim_sigkilled"] is True,
+            "zero_lost": r["zero_lost"] is True,
+            "identical_to_no_kill": r["identical_to_no_kill"] is True,
+            "committed_duplicates": r["committed_duplicates"] == 0,
+            "journal": r["journal_handoff_entries"] > 0
+            and r["warm_resumes_plus_journal_served"] > 0,
+            "zombie": r["zombie_txn_commit_rejected"] is True
+            and r["watermark_unmoved_by_zombie"] is True
+            and r["committed_view_unmoved_by_zombie"] is True,
+            "exit_codes": r["exit_codes"][r["victim"]] == -9 and codes == [-9, 0]},
+        19: lambda: {
+            "scenario": r["scenario"] == "19:broker-crash-recovery-storm",
+            "replicas": r["replicas"] == 2, "restarts": r["broker_restarts"] == 1,
+            "wal": r["recovery"]["replayed_records"] > 0
+            and r["recovery"]["replayed_events"] > r["recovery"]["replayed_records"],
+            "zero_lost": r["zero_lost"] is True,
+            "identical_to_no_restart": r["identical_to_no_restart"] is True,
+            "committed_duplicates": r["committed_duplicates"] == 0,
+            "unfenced": r["workers_survived_unfenced"] is True,
+            "breakers": all(v >= 1 for v in r["breaker_opens"].values())
+            and all(v >= 1 for v in r["breaker_closes"].values()),
+            "exit_codes": codes == [0, 0]},
+        21: lambda: {
+            "scenario": r["scenario"] == "21:disaggregated-prefill-kill-storm",
+            "workers": r["decode_replicas"] == 2 and r["prefill_workers"] == 1,
+            "zero_lost": r["zero_lost"] is True,
+            "identical_to_monolithic": r["identical_to_monolithic"] is True,
+            "published": r["handoffs_published_at_kill"] >= 1,
+            "adopted": r["adopted_slots"] >= 1
+            and r["prefill_routed"] >= r["adopted_slots"],
+            "fallback": r["decode_fallback_prefill_tokens"] > 0,
+            "prefill_watermark": r["prefill_watermark_never_past_published"] is True,
+            "step_p99": r["decode_step_p99_ms"] is not None
+            and r["decode_step_p99_ms"] < 1000.0},
+        23: lambda: {
+            "scenario": r["scenario"] == "23:quorum-leader-failover-storm",
+            "replicas": r["replicas"] == 2 and r["broker_replicas"] == 3,
+            "elections": r["leader_elections"] == 1,
+            "failover": r["failover"]["victim_idx"] == 0
+            and r["failover"]["winner_idx"] in (1, 2)
+            and r["failover"]["epoch"] == r["failover"]["old_epoch"] + 1 == r["cell_epoch"],
+            "wal": r["failover"]["recovery"]["replayed_records"] > 0
+            and r["failover"]["recovery"]["replayed_events"]
+            > r["failover"]["recovery"]["replayed_records"],
+            "zero_lost": r["zero_lost"] is True,
+            "identical_to_no_kill": r["identical_to_no_kill"] is True,
+            "committed_duplicates": r["committed_duplicates"] == 0,
+            "deposed": r["deposed_append_rejected"] is True,
+            "unfenced": r["workers_survived_unfenced"] is True,
+            "exit_codes": codes == [0, 0]},
+        24: lambda: {
+            "scenario": r["scenario"] == "24:rolling-hot-swap-canary-rollback",
+            "replicas": r["replicas"] == 2,
+            "rolled_back": r["divergent_rollout"]["phase"] == "rolled_back"
+            and r["divergent_rollout"]["rollback_reason"] == "canary_divergence"
+            and all(v == 0 for v in r["divergent_rollout"]["member_versions"].values()),
+            "complete": r["clean_rollout"]["phase"] == "complete"
+            and all(v == 2 for v in r["clean_rollout"]["member_versions"].values())
+            and r["fleet_model_version"] == 2,
+            "zero_lost": r["zero_lost"] is True,
+            "committed_duplicates": r["committed_duplicates"] == 0,
+            "identical_to_no_rollout": r["identical_to_no_rollout"] is True,
+            "tags": r["divergent_version_leaked"] is False
+            and r["version_tags_consistent"] is True
+            and "0" in r["version_tags"] and "2" in r["version_tags"],
+            "survived": r["workers_survived"] is True},
+    }
+    return [name for name, ok in checks[num]().items() if not ok]
+
+
+def _procfleet_children(num: int, dumps, n_layers: int, cuda: bool) -> list:
+    """Each dumping worker's launches against its own counts: a dense
+    decode replica's K1 = layers x (prefills + warm resumes + canary
+    shadow prefills), all on the CUDA cores (f32); scenario 21's paged
+    decode replicas 0; K2 = K3 = K4 = K5 = 0 in every worker. On the card
+    a mismatch raises, as does a dense scenario whose workers launched no
+    K1. → per worker (member, K1 and the counts it follows)."""
+    out = []
+    for d in dumps:
+        passes = d.get("prefills", 0) + d.get("warm_resumes", 0) + d.get("shadow_prefills", 0)
+        want = dict.fromkeys(d["launches"], 0)
+        want["flash_fwd"] = 0 if num == 21 else n_layers * passes
+        if cuda and d["launches"] != want:
+            raise AssertionError(f"harness_procfleet {num}: worker {d['member']} launched "
+                                 f"{d['launches']}, want {want}")
+        out.append({"member": d["member"], "role": d.get("role", "decode"),
+                    "flash_fwd": d["launches"]["flash_fwd"], "prefills": d.get("prefills"),
+                    "warm_resumes": d.get("warm_resumes"),
+                    "shadow_prefills": d.get("shadow_prefills"),
+                    "tick_ms": {"p50": d.get("step_p50_ms"), "p99": d.get("step_p99_ms")}})
+    if cuda and num != 21 and not sum(c["flash_fwd"] for c in out):
+        raise AssertionError(f"harness_procfleet {num}: no worker launched K1: {out}")
+    return out
+
+
+def check_harness_procfleet(torch, size: str = "full", device=None) -> list:
+    """The harness's process-fleet scenarios 17, 18, 19, 21, 23 and 24
+    through ``harness.run_scenario(n, "full")`` on the card, at
+    ``TransformerConfig()``'s widths (d_model 512, 4 layers, 8 q / 8 kv
+    heads, head dim 64, d_ff 1,376, vocab 32,000), f32 as
+    ``fleet.proc.build_model`` gives the workers and the in-process
+    reference (seed 0): the SIGKILL storm, the exactly-once storm, the
+    broker crashed and recovered from its WAL on the same port, the
+    killed prefill worker under disaggregated prefill, the quorum cell's
+    leader killed, and two rollouts over the checkpoint topic (a
+    divergent one rolled back, a clean one completed). Every count of
+    this process is zeroed just before a scenario and read just after;
+    each worker reports its own in its dump. Held: ``tests/test_harness.py``'s
+    assertions for each; in this process K1 = layers x (dense prefills +
+    warm resumes + warm-ups) of the reference servers (0 for 21's paged
+    one); in each worker that dumped (a SIGKILLed one leaves none) K1 =
+    layers x (prefills + warm resumes + canary shadow prefills) on a
+    dense pool, 0 on 21's paged pools; no tensor-core launch (f32); K2 =
+    K3 = K4 = K5 = 0 everywhere. ``size``/``device`` exist for a CPU
+    rehearsal at tiny size, where no count moves."""
+    from torchkafka_tpu_torch.harness import run_scenario
+    from torchkafka_tpu_torch.harness.scenarios import _default_cfg
+
+    cuda = device is None
+    n_layers = _default_cfg(size, 64).n_layers
+    smi = smi_line() if cuda else "not measured"
+    rows = []
+    for num in HARNESS_PROCFLEET:
+        with contextlib.ExitStack() as stack:
+            servers, warm = stack.enter_context(_server_spy())
+            dumps = stack.enter_context(_dump_spy())
+            read = _zero_launches()
+            t0 = time.perf_counter()
+            r = run_scenario(num, size, device=device)
+            sec = time.perf_counter() - t0
+            got = read()
+            passes = _fleet_passes(servers, warm)
+        failed = _procfleet_invariants(num, r)
+        if failed:
+            raise AssertionError(f"harness_procfleet {num}: {failed} {r}")
+        want = dict.fromkeys(got, 0)
+        want["flash_fwd"] = passes["k1"]
+        if cuda and got != want:
+            raise AssertionError(f"harness_procfleet {num}: launches {got}, want {want}")
+        children = _procfleet_children(num, dumps[-1], n_layers, cuda)
+        rows.append({"phase": "harness_procfleet", "scenario": num, "dtype": "float32",
+                     "args": f"--size {size}", "seconds": sec, "launches": got,
+                     "launch_check": want, "passes": passes, "children": children,
+                     "nvidia_smi": smi, **r})
+        if cuda:
+            torch.cuda.empty_cache()
+    return rows
+
+
 def roofline_probe_exact(torch) -> dict:
     """A server probed by ``decode_roofline`` (the CUDA graph) serves the
     same tokens and commits as one never probed: 1b widths, 2 layers,
@@ -5181,6 +5478,11 @@ def main() -> int:
                     help="rounds of (HBM only, tier) in the serve_tiered phase "
                          "(more rounds: tok/s compared over more interleaved "
                          "runs)")
+    ap.add_argument("--lane", choices=tuple(LANES),
+                    help="run only this lane's phases (the script starts each "
+                         "lane itself, beside its main sequence)")
+    ap.add_argument("--clock-start", type=float, default=None,
+                    help="the starting script's clock, so a lane's at_s is the script's")
     args = ap.parse_args()
     import torch
 
@@ -5195,6 +5497,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # SIGTERM unwinds (finally blocks close fleets, lanes are stopped).
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    if args.lane:
+        if args.clock_start is not None:
+            _CLOCK["start"] = args.clock_start
+        run_lane(torch, args.lane)
+        return 0
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
@@ -5223,134 +5532,131 @@ def main() -> int:
     emit(k78)
     if args.kernels_only:
         return 0
-    emit(check_prng(torch, flush))
-    del flush
+    # The lanes start once the kernels were timed alone on the card.
+    lanes = [start_lane(lane) for lane in LANES]
+    try:
+        emit(check_prng(torch, flush))
+        del flush
 
-    emit(check_train_grads(torch))
-    torch.cuda.empty_cache()
-    prof_t = _profiler(torch) if args.profile in ("all", "train") else None
-    row_t = train(torch, prof=prof_t)
-    emit(row_t)
-    if prof_t is not None:
-        emit(profile_summary(prof_t, "one 1b train step (B=8, S=512) under torch.profiler",
-                             {"unprofiled_step_ms": row_t["step_ms_median_after_first"]}))
-    torch.cuda.empty_cache()
+        emit(check_train_grads(torch))
+        torch.cuda.empty_cache()
+        prof_t = _profiler(torch) if args.profile in ("all", "train") else None
+        row_t = train(torch, prof=prof_t)
+        emit(row_t)
+        if prof_t is not None:
+            emit(profile_summary(prof_t, "one 1b train step (B=8, S=512) under torch.profiler",
+                                 {"unprofiled_step_ms": row_t["step_ms_median_after_first"]}))
+        torch.cuda.empty_cache()
 
-    cfg = zoo_config("1b")
-    params = random_serving_params(
-        torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda"
-    )
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (32, 128), dtype=np.int32
-    )
-    outs_q, row_q = serve(torch, cfg, params, prompts, "int8")
-    emit(row_q)
-    outs_b, row_b = serve(torch, cfg, params, prompts, None)
-    if row_b["committed"] != row_q["committed"]:
-        raise AssertionError("bf16 run committed other offsets")
-    tok0_same = all(int(outs_b[key][0]) == int(outs_q[key][0]) for key in outs_q)
-    agree = float(np.mean([np.mean(outs_b[key] == outs_q[key]) for key in outs_q]))
-    row_b["token0_identical_to_int8_run"] = tok0_same
-    row_b["token_agreement_with_int8_run"] = agree
-    emit(row_b)
-    if not tok0_same:
-        raise AssertionError("token 0 differs between the int8 and bf16 runs")
+        cfg = zoo_config("1b")
+        params = random_serving_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda"
+        )
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (32, 128), dtype=np.int32
+        )
+        outs_q, row_q = serve(torch, cfg, params, prompts, "int8")
+        emit(row_q)
+        outs_b, row_b = serve(torch, cfg, params, prompts, None)
+        if row_b["committed"] != row_q["committed"]:
+            raise AssertionError("bf16 run committed other offsets")
+        tok0_same = all(int(outs_b[key][0]) == int(outs_q[key][0]) for key in outs_q)
+        agree = float(np.mean([np.mean(outs_b[key] == outs_q[key]) for key in outs_q]))
+        row_b["token0_identical_to_int8_run"] = tok0_same
+        row_b["token_agreement_with_int8_run"] = agree
+        emit(row_b)
+        if not tok0_same:
+            raise AssertionError("token 0 differs between the int8 and bf16 runs")
 
-    if args.profile in ("all", "serve"):
-        emit(profile_serve(torch, cfg, params, prompts, row_q))
-    # Depth cuts: the traced, sampled, resumed, tiered, speculative and
-    # fleet paths run the 1b widths at CUT_LAYERS of its 24 layers (views
-    # of the first layers' weights), the time the process-fleet phases
-    # need.
-    cfg_cut, params_cut = cut_depth(cfg, params)
-    rows_tr, sum_tr = check_serve_traced(torch, cfg_cut, params_cut, prompts)
-    for row in rows_tr + [sum_tr]:
-        emit({**row, "layers": CUT_LAYERS})
-    for row in check_serve_sampled(torch, cfg_cut, params_cut, prompts, row_q):
-        emit({**row, "layers": CUT_LAYERS})
-    row_r = serve_resume(torch, cfg_cut, params_cut, prompts)
-    row_r["resume_prefill_device_ms"] = resume_prefill_times(torch, cfg, params)
-    emit({**row_r, "layers": CUT_LAYERS})
-    if args.profile in ("all", "resume"):
-        emit(profile_resume(torch, cfg, params, row_r))
+        if args.profile in ("all", "serve"):
+            emit(profile_serve(torch, cfg, params, prompts, row_q))
+        # Depth cuts: the traced, sampled, resumed, tiered, speculative and
+        # fleet paths run the 1b widths at CUT_LAYERS of its 24 layers (views
+        # of the first layers' weights), the time the process-fleet phases
+        # need.
+        cfg_cut, params_cut = cut_depth(cfg, params)
+        rows_tr, sum_tr = check_serve_traced(torch, cfg_cut, params_cut, prompts)
+        for row in rows_tr + [sum_tr]:
+            emit({**row, "layers": CUT_LAYERS})
+        for row in check_serve_sampled(torch, cfg_cut, params_cut, prompts, row_q):
+            emit({**row, "layers": CUT_LAYERS})
+        row_r = serve_resume(torch, cfg_cut, params_cut, prompts)
+        row_r["resume_prefill_device_ms"] = resume_prefill_times(torch, cfg, params)
+        emit({**row_r, "layers": CUT_LAYERS})
+        if args.profile in ("all", "resume"):
+            emit(profile_resume(torch, cfg, params, row_r))
 
-    row_p, row_pg, outs_p = check_serve_paged(torch, cfg, params, "serve_paged",
-                                              exact=False)
-    emit(row_p)
-    emit(row_pg)
-    if args.profile in ("all", "paged"):
-        emit(profile_paged(torch, cfg, params, row_p))
-    rows_ti, sum_ti = check_serve_tiered(torch, cfg_cut, params_cut, args.tier_rounds)
-    for row in rows_ti + [sum_ti]:
-        emit({**row, "layers": CUT_LAYERS})
-    rows_sp = check_serve_spec(torch, cfg_cut, params_cut, prompts)
-    for row in rows_sp + check_serve_spec_paged(torch, cfg_cut, params_cut):
-        emit({**row, "layers": CUT_LAYERS})
-    rows_fl = check_serve_fleet(torch, cfg_cut, params_cut)
-    for row in rows_fl:
-        emit({**row, "layers": CUT_LAYERS})
-    rows_ro = check_serve_fleet_rollout(torch, cfg_cut, params_cut)
-    for row in rows_ro:
-        emit({**row, "layers": CUT_LAYERS})
-    del params_cut
-    rows_dg = check_serve_disagg(torch, cfg, params, (outs_p, row_p))
-    for row in rows_dg:
-        emit(row)
-    del params
-    torch.cuda.empty_cache()
-    rows_pf = check_serve_procfleet(torch, cfg)
-    for row in rows_pf:
-        emit(row)
-    torch.cuda.empty_cache()
-    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
-                                param_dtype=torch.float32)
-    params32 = random_serving_params(
-        torch.Generator(device="cuda").manual_seed(SEED), cfg32, device="cuda"
-    )
-    row_f, row_fg, _ = check_serve_paged(torch, cfg32, params32, "serve_paged_f32",
-                                         exact=True)
-    emit(row_f)
-    emit(row_fg)
-    for row in check_serve_sampled_f32(torch, cfg32, params32):
-        emit(row)
-    for row in check_serve_resume_f32(torch, cfg32, params32):
-        emit(row)
-    for row in check_serve_tiered_f32(torch, cfg32, params32):
-        emit(row)
-    for row in check_serve_spec_f32(torch, cfg32, params32):
-        emit(row)
-    for row in check_serve_fleet_f32(torch, cfg32, params32):
-        emit(row)
-    del params32
-    torch.cuda.empty_cache()
-    rows_pf32 = check_serve_procfleet_f32(torch, cfg32)
-    for row in rows_pf32:
-        emit(row)
-    torch.cuda.empty_cache()
+        row_p, row_pg, outs_p = check_serve_paged(torch, cfg, params, "serve_paged",
+                                                  exact=False)
+        emit(row_p)
+        emit(row_pg)
+        if args.profile in ("all", "paged"):
+            emit(profile_paged(torch, cfg, params, row_p))
+        rows_ti, sum_ti = check_serve_tiered(torch, cfg_cut, params_cut, args.tier_rounds)
+        for row in rows_ti + [sum_ti]:
+            emit({**row, "layers": CUT_LAYERS})
+        rows_sp = check_serve_spec(torch, cfg_cut, params_cut, prompts)
+        for row in rows_sp + check_serve_spec_paged(torch, cfg_cut, params_cut):
+            emit({**row, "layers": CUT_LAYERS})
+        rows_fl = check_serve_fleet(torch, cfg_cut, params_cut)
+        for row in rows_fl:
+            emit({**row, "layers": CUT_LAYERS})
+        rows_ro = check_serve_fleet_rollout(torch, cfg_cut, params_cut)
+        for row in rows_ro:
+            emit({**row, "layers": CUT_LAYERS})
+        del params_cut
+        rows_dg = check_serve_disagg(torch, cfg, params, (outs_p, row_p))
+        for row in rows_dg:
+            emit(row)
+        del params
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                    param_dtype=torch.float32)
+        params32 = random_serving_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg32, device="cuda"
+        )
+        row_f, row_fg, _ = check_serve_paged(torch, cfg32, params32, "serve_paged_f32",
+                                             exact=True)
+        emit(row_f)
+        emit(row_fg)
+        for row in check_serve_sampled_f32(torch, cfg32, params32):
+            emit(row)
+        for row in check_serve_resume_f32(torch, cfg32, params32):
+            emit(row)
+        for row in check_serve_tiered_f32(torch, cfg32, params32):
+            emit(row)
+        for row in check_serve_spec_f32(torch, cfg32, params32):
+            emit(row)
+        for row in check_serve_fleet_f32(torch, cfg32, params32):
+            emit(row)
+        del params32
+        torch.cuda.empty_cache()
 
-    cfg8 = dataclasses.replace(zoo_config("8b", max_seq_len=128 + MAX_NEW),
-                               n_layers=CUT_LAYERS_8B)
-    rows_8b, params8, prompts8 = check_serve_8b(torch, cfg8, "serve_8b", exact=False)
-    for row in rows_8b:
-        emit(row)
-    if args.profile in ("all", "serve8b"):
-        emit(profile_serve_8b(torch, cfg8, params8, prompts8, rows_8b[0]))
-    del params8
-    torch.cuda.empty_cache()
-    cfg8_32 = dataclasses.replace(cfg8, n_layers=2, dtype=torch.float32,
-                                  param_dtype=torch.float32)
-    rows_8b32, params8_32, _ = check_serve_8b(torch, cfg8_32, "serve_8b_f32", exact=True)
-    for row in rows_8b32:
-        emit(row)
-    del params8_32
-    torch.cuda.empty_cache()
-    rows_h = check_harness(torch)
-    for row in rows_h:
-        emit(row)
-    torch.cuda.empty_cache()
-    rows_hf = check_harness_fleet(torch)
-    for row in rows_hf:
-        emit(row)
+        cfg8 = dataclasses.replace(zoo_config("8b", max_seq_len=128 + MAX_NEW),
+                                   n_layers=CUT_LAYERS_8B)
+        rows_8b, params8, prompts8 = check_serve_8b(torch, cfg8, "serve_8b", exact=False)
+        for row in rows_8b:
+            emit(row)
+        if args.profile in ("all", "serve8b"):
+            emit(profile_serve_8b(torch, cfg8, params8, prompts8, rows_8b[0]))
+        del params8
+        torch.cuda.empty_cache()
+        cfg8_32 = dataclasses.replace(cfg8, n_layers=2, dtype=torch.float32,
+                                      param_dtype=torch.float32)
+        rows_8b32, params8_32, _ = check_serve_8b(torch, cfg8_32, "serve_8b_f32", exact=True)
+        for row in rows_8b32:
+            emit(row)
+        del params8_32
+        torch.cuda.empty_cache()
+        lane_rows = [finish_lane(job) for job in lanes]
+    finally:
+        stop_lanes(lanes)
+    by_phase = {}
+    for row in (r for rows in lane_rows for r in rows):
+        by_phase.setdefault(row.get("phase"), []).append(row)
+    rows_pf, rows_pf32 = by_phase["serve_procfleet"], by_phase["serve_procfleet_f32"]
+    rows_h, rows_hf = by_phase["harness"], by_phase["harness_fleet"]
+    rows_hp = by_phase["harness_procfleet"]
 
     main_pool = k4["pools"]["192"]
     pool_8b = k4["reps"]["4"]
@@ -5381,6 +5687,13 @@ def main() -> int:
         """The fleet scenarios' launches by scenario (25's include its
         trainer's)."""
         return {str(r["scenario"]): r["launches"][kernel] for r in rows_hf}
+
+    def harness_procfleet_launches():
+        """The process scenarios' K1 by scenario: this process's (the
+        in-process references) and each worker's, from its dump."""
+        return {str(r["scenario"]): {"parent": r["launches"]["flash_fwd"],
+                                     "children": [c["flash_fwd"] for c in r["children"]]}
+                for r in rows_hp}
 
     def child_launches(kernel):
         """K1-K3 as the worker processes counted them (their metrics
@@ -5428,6 +5741,7 @@ def main() -> int:
          "process_launches": child_launches("flash_fwd"),
          "harness_launches": harness_launches("flash_fwd"),
          "harness_fleet_launches": harness_fleet_launches("flash_fwd"),
+         "harness_procfleet_launches": harness_procfleet_launches(),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},

@@ -47,6 +47,13 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+@pytest.fixture(autouse=True)
+def one_thread_workers(monkeypatch):
+    """Worker processes inherit the environment: one intra-op thread
+    each, so several small CPU workers do not oversubscribe the cores."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
 def sub(pkg: str, name: str):
     """``pkg``'s submodule ``name`` (e.g. ``sub("port", "fleet")``)."""
     return importlib.import_module(f"{MOD[pkg].__name__}.{name}")

@@ -487,3 +487,38 @@ def test_audited_commits_carry_the_live_version(pkgs):
     assert drv.controller.phase == "complete" and len(out) == 16
     assert {v for _m, _o, v in audit["commits"]} == {0, 1}
     assert got["by_version"][0] and got["by_version"][1]
+
+
+@pytest.mark.parametrize("start", [0, 7, 9, 97, 999])
+def test_member_order_follows_creation_past_a_power_of_ten(start, monkeypatch):
+    """Auto-generated member ids sort in creation order whatever the
+    process-wide counter reached, so a group's range assignment (members
+    sorted by id) is replayable: ``member-9`` and ``member-10`` sorted as
+    strings would hand partition 0 to the later consumer."""
+    import itertools
+
+    from torchkafka_tpu_torch.source import memory
+
+    monkeypatch.setattr(memory, "_member_counter", itertools.count(start))
+    broker = ptk.InMemoryBroker()
+    broker.create_topic("p", partitions=2)
+    first = ptk.MemoryConsumer(broker, "p", group_id="g")
+    second = ptk.MemoryConsumer(broker, "p", group_id="g")
+    first.poll(timeout_ms=0)
+    second.poll(timeout_ms=0)
+    first.poll(timeout_ms=0)
+    assert first.assignment() == [ptk.TopicPartition("p", 0)]
+    assert second.assignment() == [ptk.TopicPartition("p", 1)]
+
+
+@pytest.mark.parametrize("start", [7, 9, 97])
+def test_same_seed_same_schedule_across_the_member_counter(start, model, monkeypatch):
+    """``TestChaosReplicaKill.test_same_seed_same_schedule`` with the
+    member counter set so that its two runs straddle a power of ten (the
+    reference's ids reorder there and its replay differs)."""
+    import itertools
+
+    from torchkafka_tpu_torch.source import memory
+
+    monkeypatch.setattr(memory, "_member_counter", itertools.count(start))
+    TestChaosReplicaKill().test_same_seed_same_schedule(model)

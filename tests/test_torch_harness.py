@@ -124,8 +124,6 @@ def test_flag_scoping_matches_jax(case):
 
 
 UNPORTED = {
-    **{n: "Harness: fleet and durability scenarios"
-       for n in (17, 18, 19, 21, 23, 24)},
     3: "Mesh and multi-process paths",
     20: "Mesh and multi-process paths",
     4: "Secondary models",

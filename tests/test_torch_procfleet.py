@@ -35,6 +35,7 @@ import torch
 import torchkafka_tpu as tk
 import torchkafka_tpu_torch as ptk
 from _torch_fleet_common import load_rerooted
+from _torch_fleet_common import one_thread_workers  # noqa: F401 - autouse fixture
 from _torch_fleet_common import one_torch_thread  # noqa: F401 - autouse fixture
 from torchkafka_tpu.models import transformer as jt
 from torchkafka_tpu_torch.fleet import ProcessFleet
@@ -59,13 +60,6 @@ TestSupervisorUnits = _mod.TestSupervisorUnits
 TestBrokerRestartUnits = _mod.TestBrokerRestartUnits
 TestProcessFleet = _mod.TestProcessFleet
 MODEL = _mod.MODEL
-
-
-@pytest.fixture(autouse=True)
-def one_thread_workers(monkeypatch):
-    """Worker processes inherit the environment: one intra-op thread
-    each, so several small CPU workers do not oversubscribe the cores."""
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
 
 def test_supervisor_launches_the_port_worker(tmp_path):

@@ -194,7 +194,7 @@ class _TaggingProducer:
 
 def _dump_metrics(
     spec: dict, gen, fleet_metrics, exit_code: int, breaker=None, hb=None,
-    warm_launches: dict | None = None,
+    warm_launches: dict | None = None, rollout=None,
 ) -> None:
     path = spec.get("metrics_path")
     if not path:
@@ -225,9 +225,10 @@ def _dump_metrics(
         "circuit_closes": breaker.closes if breaker is not None else 0,
         "heartbeat_outages": hb.outages if hb is not None else 0,
         # The port's own: the kernel launches since the ready marker, the
-        # prefills K1 follows (layers x (prefills + warm resumes) on a
-        # dense pool), and the device served on.
+        # prefills K1 follows (layers x (prefills + warm resumes + canary
+        # shadow prefills) on a dense pool), and the device served on.
         "prefills": m.prefills.count,
+        "shadow_prefills": rollout.shadow_prefills if rollout is not None else 0,
         "launches": launch_counts(since=warm_launches),
         "device": str(gen._device),
     }
@@ -283,6 +284,7 @@ def run_replica_worker(spec: dict, broker=None, shutdown=None) -> int:
     breaker = None
     ho_consumer = None
     router = None
+    rollout = None
     warm_launches = None
     metrics = FleetMetrics()
     exit_code = EXIT_CLEAN
@@ -462,8 +464,11 @@ def run_replica_worker(spec: dict, broker=None, shutdown=None) -> int:
             metrics,
             commit_every=int(spec.get("commit_every", 8)),
             max_poll_records=int(spec.get("max_poll_records", 64)),
+            # A survivor keeps its partitions through a peer's death, and
+            # the rebalance fetches their queued records again: serve each
+            # once, so a kill re-serves at most commit_every + slots here.
+            drop_refetched=True,
         )
-        rollout = None
         if spec.get("rollout_topic") and ckpt_topic:
             from torchkafka_tpu_torch.fleet.rollout import RolloutWorker
 
@@ -579,7 +584,7 @@ def run_replica_worker(spec: dict, broker=None, shutdown=None) -> int:
             hb.stop()
         if gen is not None:
             _dump_metrics(spec, gen, metrics, exit_code, breaker=breaker,
-                          hb=hb, warm_launches=warm_launches)
+                          hb=hb, warm_launches=warm_launches, rollout=rollout)
         if journal is not None:
             try:
                 journal.close()  # flush + release the single-writer lock

@@ -215,6 +215,11 @@ class AdmissionQueue:
     def depth(self) -> int:
         return self._depth
 
+    def queued(self) -> set:
+        """(partition, offset) of every queued record."""
+        return {(r.tp, r.offset) for lanes in self._q.values()
+                for q in lanes.values() for r, _t in q}
+
     def tenant_depth(self, tenant: str) -> int:
         return sum(
             len(lane.get(tenant, ())) for lane in self._q.values()

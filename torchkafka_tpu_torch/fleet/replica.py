@@ -62,8 +62,14 @@ class Replica:
         commit_every: int = 8,
         max_poll_records: int = 256,
         clock: Callable[[], float] = time.monotonic,
+        drop_refetched: bool = False,
     ) -> None:
         self.id = rid
+        # Drop a polled record that is still queued here (a kept
+        # partition fetched again after a rebalance). Off by default: the
+        # JAX package's replica serves both copies, and the in-process
+        # fleet keeps its behaviour; the process worker turns it on.
+        self._drop_refetched = drop_refetched
         self.gen = generator
         self.consumer = consumer
         self.queue = queue
@@ -273,6 +279,14 @@ class Replica:
             ),
             timeout_ms=0,
         )
+        if records and self._drop_refetched and self.queue.depth():
+            # An eager rebalance re-resolves every position from the
+            # committed offset, so a partition this replica keeps is
+            # fetched again from there: a record still waiting in the
+            # queue would be queued, and served, twice. The queued copy
+            # stays; its completion is the one the ledger awaits.
+            queued = self.queue.queued()
+            records = [r for r in records if (r.tp, r.offset) not in queued]
         if records:
             # Ledger BEFORE queue: a queued record must already be pending
             # so no later completion can commit past it (see

@@ -415,6 +415,9 @@ class RolloutWorker:
         # Canary state: (version, n, shadow generator, diffs, compared).
         self._canary = None
         self._pending_swap: int | None = None
+        # Prefills the canary shadows ran: a dense shadow's prefill is one
+        # flash-forward launch a layer that the replica's metrics miss.
+        self.shadow_prefills = 0
 
     @property
     def model_version(self) -> int:
@@ -467,7 +470,9 @@ class RolloutWorker:
         for rec, toks in completions:
             if compared >= n:
                 break
+            before = shadow.metrics.prefills.count
             got = shadow.shadow_decode(rec)
+            self.shadow_prefills += shadow.metrics.prefills.count - before
             if got is None or not np.array_equal(
                 np.asarray(got), np.asarray(toks)
             ):

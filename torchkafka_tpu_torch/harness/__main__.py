@@ -58,8 +58,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="scenario 7 with --temperature: nucleus mass in "
                     "(0, 1] — minimal prefix reaching p stays sampleable")
     ap.add_argument("--replicas", type=int, default=2,
-                    help="scenarios 10-13, 15, 16 and 25: replica count "
-                    "(scenario 22 starts at 1)")
+                    help="scenarios 10-13, 15-19, 21, 23-25: replica count "
+                    "(decode replicas in 21; scenario 22 starts at 1)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="scenario 14: suffix tokens the "
                     "fused tick carries alongside decode")

@@ -9,9 +9,9 @@
 | 7 | continuous-batching serving (slot recycling, EOS) | here, with ``decode_roofline`` |
 | 9 | ragged text → length-bucketed batches → per-width train steps | here, one device |
 | 10-16, 22, 25 | in-process fleets: QoS and drain, chaos soak, prefix cache, warm failover, chunked-prefill storm, SLO report, traffic storm, autoscaling, online draft distillation | here |
+| 17-19, 21, 23, 24 | process fleets over the socket broker: SIGKILL storm, exactly-once storm, broker crash and WAL recovery, disaggregated prefill kill, quorum leader failover, rolling hot-swap with canary rollback | here |
 | 3, 20 | mesh training, sharded paged serving | queue A "Mesh and multi-process paths" |
 | 4, 8 | PNG → ResNet-50, streaming DLRM | queue A "Secondary models" |
-| 17-19, 21, 23, 24 | process fleets over the socket broker | queue A "Harness: fleet and durability scenarios" |
 
 Every ported scenario runs the JAX package's loop (poll → transform →
 batch → device → step → barrier → commit) with its sizes, seeds and
@@ -278,6 +278,19 @@ def _cuda_ms(fn, repeats: int = 3) -> float:
     return statistics.median(times)
 
 
+def _default_cfg(size: str, max_seq_len: int):
+    """The serving scenarios' model without a ``model_scale``: a 2-layer
+    f32 toy at ``"tiny"``, ``TransformerConfig()``'s widths (bf16) at
+    ``"full"``."""
+    from torchkafka_tpu_torch.models.transformer import TransformerConfig
+
+    if size == "tiny":
+        return TransformerConfig(vocab_size=512, d_model=64, n_layers=2,
+                                 n_heads=4, n_kv_heads=2, d_ff=128,
+                                 max_seq_len=max_seq_len, dtype=torch.float32)
+    return TransformerConfig(max_seq_len=max_seq_len)
+
+
 def _serving_model(size: str, model_scale: str | None, prompt_len: int,
                    max_new: int, quantized: bool | None = None, device=None):
     """(cfg, params, label) for the serving scenarios. ``model_scale`` None
@@ -287,7 +300,7 @@ def _serving_model(size: str, model_scale: str | None, prompt_len: int,
     '8b' cannot un-quantize (the JAX package's guards). The tiny weights
     come from ``init_params`` with a generator seeded 0 (the numbers differ
     from the JAX package's for the same seed)."""
-    from torchkafka_tpu_torch.models.transformer import TransformerConfig, init_params
+    from torchkafka_tpu_torch.models.transformer import init_params
     from torchkafka_tpu_torch.models.zoo import random_serving_params, zoo_config
 
     if quantized is not None and model_scale is None:
@@ -297,14 +310,7 @@ def _serving_model(size: str, model_scale: str | None, prompt_len: int,
         )
     dev = resolve_device(device)
     if model_scale is None:
-        cfg = (
-            TransformerConfig(vocab_size=512, d_model=64, n_layers=2,
-                              n_heads=4, n_kv_heads=2, d_ff=128,
-                              max_seq_len=prompt_len + max_new,
-                              dtype=torch.float32)
-            if size == "tiny"
-            else TransformerConfig(max_seq_len=prompt_len + max_new)
-        )
+        cfg = _default_cfg(size, prompt_len + max_new)
         gen = torch.Generator(device=dev).manual_seed(0)
         return cfg, init_params(gen, cfg, dev), "default"
     cfg = zoo_config(model_scale, max_seq_len=prompt_len + max_new)
@@ -1812,13 +1818,779 @@ def scenario_25(size: str = "tiny", replicas: int = 2, device=None) -> dict:
     }
 
 
+# ---------------------------------------------------------- process fleets
+
+
+def _proc_model(size: str, prompt_len: int, max_new: int, device):
+    """The process scenarios' model: (spec, cfg, params, label, device).
+
+    ``spec`` is ``fleet.proc.build_model``'s spec of the serving
+    scenarios' default config (``_default_cfg``, seed 0); ``cfg`` and
+    ``params`` are what ``build_model(spec, device)`` gives every worker:
+    f32 compute, drawn on the CPU, then moved to ``device``. The
+    in-process reference decodes on those weights, so it is byte-truth
+    for the workers on any device. (The JAX scenarios take it from
+    ``_serving_model``, which at ``"full"`` computes in bf16 against f32
+    workers; the port's ``_serving_model`` also draws on the card, not
+    the CPU.) The device is resolved here, before anything is spawned: a
+    call with no device and no CUDA raises at once instead of waiting out
+    the workers' readiness."""
+    from torchkafka_tpu_torch.fleet.proc import build_model
+
+    dev = resolve_device(device)
+    base = _default_cfg(size, prompt_len + max_new)
+    spec = dict(seed=0, vocab_size=base.vocab_size, d_model=base.d_model,
+                n_layers=base.n_layers, n_heads=base.n_heads,
+                n_kv_heads=base.n_kv_heads, d_ff=base.d_ff,
+                max_seq_len=base.max_seq_len)
+    cfg, params = build_model(spec, dev)
+    return spec, cfg, params, "default", dev
+
+
+def _produce_keyed(broker, topic: str, prompts, parts: int, start: int = 0,
+                   stop: int | None = None) -> None:
+    """Prompt i keyed ``str(i)`` on partition i % ``parts``."""
+    for i in range(start, len(prompts) if stop is None else stop):
+        broker.produce(topic, prompts[i].tobytes(), partition=i % parts,
+                       key=str(i).encode())
+
+
+def _proc_reference(cfg, params, dev, prompts, parts: int, max_new: int, *,
+                    slots: int, commit_every: int, **kw) -> dict:
+    """The in-process reference over ``prompts`` (keyed as the fleet's):
+    → {key: tokens}. Greedy decode is a pure function of (params, prompt),
+    so one server defines byte-truth for every process of the fleet."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+
+    broker = tk.InMemoryBroker()
+    broker.create_topic("ref", partitions=parts)
+    _produce_keyed(broker, "ref", prompts, parts)
+    consumer = tk.MemoryConsumer(broker, "ref", group_id="ref")
+    gen = StreamingGenerator(
+        consumer, params, cfg, slots=slots, prompt_len=prompts.shape[1],
+        max_new=max_new, commit_every=commit_every, ticks_per_sync=1,
+        device=dev, **kw,
+    )
+    ref = {rec.key: toks for rec, toks in gen.run(idle_timeout_ms=400)}
+    consumer.close()
+    return ref
+
+
+def _committed_of(broker, group: str, topic: str, parts: int) -> dict:
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    return {p: broker.committed(group, TopicPartition(topic, p))
+            for p in range(parts)}
+
+
+def _finished_keys(inc, topic: str, parts: int, below: dict | None = None) -> set:
+    """Keys of the prompts ``inc``'s on-disk journal holds FINISHED (served,
+    its output staged for the next commit window); with ``below`` (a
+    partition's committed watermark), only those at or past it."""
+    from torchkafka_tpu_torch.journal import DecodeJournal
+
+    try:
+        entries = DecodeJournal.load(inc.journal_path)
+    except Exception:  # noqa: BLE001 - mid-write race
+        return set()
+    return {
+        str(off * parts + p).encode()
+        for (t, p, off), e in entries.items()
+        if e.finished and t == topic
+        and (below is None or off >= (below[p] or 0))
+    }
+
+
+def _holds_uncommitted(fleet, group: str, topic: str, parts: int):
+    """The kill criterion of scenarios 18, 19 and 23, as a predicate on a
+    live worker: its journal holds a FINISHED completion past the
+    committed watermark, i.e. served work no committed transaction holds
+    yet (staged outputs are invisible until their transaction commits,
+    and the journal, pruned at every commit, is the evidence from
+    outside)."""
+    return lambda inc: bool(_finished_keys(
+        inc, topic, parts, below=_committed_of(fleet.broker, group, topic, parts)))
+
+
+def _covered(keys: set, topic: str, parts: int):
+    """A ``fleet.wait`` predicate: every key of ``keys`` is in the committed
+    view or FINISHED in a live worker's journal (the drain's flush commits
+    those). The aborted work of a dead worker never counts."""
+    def covered(f) -> bool:
+        done = set(f.results("read_committed"))
+        if done >= keys:
+            return True
+        for inc in f.live():
+            done |= _finished_keys(inc, topic, parts)
+        return done >= keys
+
+    return covered
+
+
+def _await_window(fleet, holds, done, what: str):
+    """Poll until a live decode worker satisfies ``holds``; → it. Raises
+    if the storm finished first (``done()``) or after 240 s."""
+    deadline = time.monotonic() + 240
+    while True:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {what} opportunity arose\n" + fleet.diagnose())
+        if done():
+            raise RuntimeError(
+                "storm finished before any replica held uncommitted served "
+                "work — shrink commit_every"
+            )
+        for inc in fleet.live():
+            if holds(inc):
+                return inc
+        time.sleep(0.01)
+
+
+def _drain_settled(fleet) -> bool:
+    """Drain every worker, wait for all to exit, and → whether the group's
+    watermark covers every prompt (zero lost)."""
+    fleet.drain()
+    fleet.wait(lambda f: all(not i.running for i in f.incarnations), timeout_s=120)
+    fleet.poll_once()
+    return fleet.fully_committed()
+
+
+def _identical(res: dict, ref: dict) -> bool:
+    """Every copy of every completion equals the reference's tokens."""
+    return set(res) == set(ref) and all(
+        np.array_equal(toks, ref[k]) for k, copies in res.items() for _m, toks in copies
+    )
+
+
+def _dups(res: dict) -> int:
+    return sum(len(v) - 1 for v in res.values())
+
+
+def _exit_codes(fleet) -> dict:
+    return {i.member: (None if i.proc is None else i.proc.returncode)
+            for i in fleet.incarnations}
+
+
+def _proc_fleet(spec: dict, dev, topic: str, prompt_len: int, max_new: int,
+                workdir: str, replicas: int, group: str, **kw):
+    """A ``ProcessFleet`` with what every process scenario shares (4
+    partitions, 2 slots, a commit window of 4, heartbeats every 0.2 s,
+    journals at cadence 1, no respawn) and the scenario's own ``kw``, its
+    workers on ``dev``."""
+    from torchkafka_tpu_torch.fleet import ProcessFleet
+
+    args = dict(partitions=4, slots=2, commit_every=4, heartbeat_interval_s=0.2,
+                journal_cadence=1, respawn=False)
+    args.update(kw)
+    return ProcessFleet(spec, topic=topic, prompt_len=prompt_len, max_new=max_new,
+                        workdir=workdir, replicas=replicas, group=group,
+                        device=str(dev), **args)
+
+
+def scenario_17(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Process-fleet kill storm (``fleet/supervisor.py``): R real OS-process
+    replicas over the socket broker (each with its own ``BrokerClient``,
+    model and on-disk decode journal) under heartbeat leases; one replica
+    is SIGKILLed while it provably holds served, uncommitted work. The
+    supervisor fences the corpse, the rebalance re-delivers its
+    partitions, and the survivor loads the victim's journal from disk to
+    resume warm. Audited: zero lost records, every completion (duplicates
+    included) byte-identical to the in-process no-kill reference,
+    duplicates within the fleet-wide bound ``replicas x (commit_every +
+    slots)``, the victim's journal handed off and used, and a commit
+    forged from the victim's stale generation rejected with the watermark
+    unmoved. The reference serves on ``build_model(model_spec, device)``,
+    the weights the workers build (``_proc_model``)."""
+    import tempfile
+
+    from torchkafka_tpu_torch.errors import CommitFailedError
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    prompt_len, max_new = (8, 16) if size == "tiny" else (32, 32)
+    n = 12 if size == "tiny" else 48
+    parts, slots, commit_every = 4, 2, 4
+    spec, cfg, params, label, dev = _proc_model(size, prompt_len, max_new, device)
+    prompts = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
+    ref = _proc_reference(cfg, params, dev, prompts, parts, max_new,
+                          slots=slots, commit_every=commit_every)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        fleet = _proc_fleet(spec, dev, "t17", prompt_len, max_new, td, replicas,
+                            "s17", session_timeout_s=3.0)
+        try:
+            fleet.start()
+            fleet.wait_ready(timeout_s=300)
+            ready_s = time.perf_counter() - t0
+            # Produce after every member joined: the storm hits a settled
+            # partition split, not whichever process won the warm-up race.
+            _produce_keyed(fleet.broker, "t17", prompts, parts)
+
+            def uncommitted_output_of(inc) -> bool:
+                """An output of ``inc`` past the committed watermark: a kill
+                now exercises redelivery and the journal handoff."""
+                wm = _committed_of(fleet.broker, "s17", "t17", parts)
+                for key, copies in fleet.results().items():
+                    i = int(key.decode())
+                    if (i // parts >= (wm[i % parts] or 0)
+                            and any(m == inc.member for m, _ in copies)):
+                        return True
+                return False
+
+            victim = fleet.kill_replica(_await_window(
+                fleet, uncommitted_output_of, lambda: len(fleet.results()) >= n,
+                "kill").idx)
+            # Survivors absorb (the supervisor fences the reaped corpse at
+            # once; the lease is the fallback), then the drain commits all.
+            fleet.wait(lambda f: set(f.results()) == {str(i).encode() for i in range(n)},
+                       timeout_s=240)
+            zero_lost = _drain_settled(fleet)
+            res = fleet.results()
+            duplicates = _dups(res)
+            # Every member's uncommitted work re-delivers at the eager
+            # rebalance (the victim's and the survivors'): a fleet-wide bound.
+            dup_bound = replicas * (commit_every + slots)
+            identical = _identical(res, ref)
+            # A post-mortem commit from the killed member's stale
+            # generation bounces, the watermark unmoved.
+            wm_before = _committed_of(fleet.broker, "s17", "t17", parts)
+            try:
+                fleet.broker.commit("s17", {TopicPartition("t17", 0): 1},
+                                    member_id=victim["member"],
+                                    generation=victim["generation"])
+                zombie_rejected = False
+            except CommitFailedError:
+                zombie_rejected = True
+            wm_after = _committed_of(fleet.broker, "s17", "t17", parts)
+            vic_inc = next(i for i in fleet.incarnations if i.member == victim["member"])
+            worker_m = fleet.worker_metrics()
+            membership = fleet.broker.membership("s17")
+            elapsed = time.perf_counter() - t0
+        finally:
+            fleet.close()
+    return {
+        "scenario": "17:process-fleet-kill-storm",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": n,
+        "ready_s": round(ready_s, 2),
+        "elapsed_s": round(elapsed, 2),
+        "victim": victim["member"],
+        "victim_sigkilled": vic_inc.exit_code == -9,
+        "fence_reason": vic_inc.fence_reason,
+        "fence_count": membership["fence_count"],
+        "zero_lost": zero_lost,
+        "identical_to_no_kill": identical,
+        "duplicates": duplicates,
+        "duplicate_bound": dup_bound,
+        "duplicates_within_bound": duplicates <= dup_bound,
+        "journal_handoff_entries": vic_inc.handoff_entries,
+        "warm_resumes_plus_journal_served": sum(
+            m["warm_resumes"] + m["served_from_journal"] for m in worker_m),
+        "zombie_commit_rejected": zombie_rejected,
+        "watermark_unmoved_by_zombie": wm_before == wm_after,
+        "exit_codes": _exit_codes(fleet),
+    }
+
+
+def scenario_18(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Exactly-once under SIGKILL: scenario 17's storm with transactional
+    output (``ProcessFleet(exactly_once=True)``; one transaction per commit
+    window, its completions and offsets together, the transactional id
+    keyed by replica index). One replica is SIGKILLed while its journal
+    proves it holds outputs in an open transaction; the supervisor's
+    fence bumps the producer epoch, which aborts that transaction, so a
+    ``read_committed`` reader of the output topic sees zero duplicates
+    and zero losses (equal, not bounded), every committed completion
+    byte-identical to the no-kill reference. A commit forged at the
+    victim's stale epoch raises ``ProducerFencedError`` with the
+    watermark and the committed view untouched; the aborted copies stay
+    visible read-uncommitted, reported for contrast. The reference serves
+    on ``build_model(model_spec, device)`` (``_proc_model``)."""
+    import tempfile
+
+    from torchkafka_tpu_torch.errors import ProducerFencedError
+
+    prompt_len, max_new = (8, 16) if size == "tiny" else (32, 32)
+    n = 10 if size == "tiny" else 48
+    parts, slots, commit_every = 2, 2, 4
+    spec, cfg, params, label, dev = _proc_model(size, prompt_len, max_new, device)
+    prompts = np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
+    ref = _proc_reference(cfg, params, dev, prompts, parts, max_new,
+                          slots=slots, commit_every=commit_every)
+    all_keys = {str(i).encode() for i in range(n)}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        fleet = _proc_fleet(spec, dev, "t18", prompt_len, max_new, td, replicas,
+                            "s18", partitions=parts, session_timeout_s=3.0,
+                            exactly_once=True)
+        try:
+            fleet.start()
+            fleet.wait_ready(timeout_s=300)
+            ready_s = time.perf_counter() - t0
+            _produce_keyed(fleet.broker, "t18", prompts, parts)
+            victim = fleet.kill_replica(_await_window(
+                fleet, _holds_uncommitted(fleet, "s18", "t18", parts),
+                lambda: len(fleet.results("read_committed")) >= n, "kill").idx)
+            fleet.wait(_covered(all_keys, "t18", parts), timeout_s=240)
+            zero_lost = _drain_settled(fleet)
+            committed_res = fleet.results("read_committed")
+            uncommitted_res = fleet.results()
+            # The exactly-once assertion: each completion exactly once in
+            # the committed view (zero duplicates, not a bound).
+            committed_dups = _dups(committed_res)
+            aborted_copies = (sum(len(v) for v in uncommitted_res.values())
+                              - sum(len(v) for v in committed_res.values()))
+            identical = _identical(committed_res, ref)
+            # Epoch fencing: the supervisor's fence already bumped the
+            # victim's transactional id, so its stale epoch bounces.
+            pid, cur_epoch = fleet.broker.init_producer_id(f"s18-r{victim['idx']:03d}")
+            wm_before = _committed_of(fleet.broker, "s18", "t18", parts)
+            try:
+                fleet.broker.commit_txn(pid, cur_epoch - 1)
+                zombie_rejected = False
+            except ProducerFencedError:
+                zombie_rejected = True
+            wm_after = _committed_of(fleet.broker, "s18", "t18", parts)
+            after_forgery = fleet.results("read_committed")
+            vic_inc = next(i for i in fleet.incarnations if i.member == victim["member"])
+            worker_m = fleet.worker_metrics()
+            membership = fleet.broker.membership("s18")
+            elapsed = time.perf_counter() - t0
+        finally:
+            fleet.close()
+    return {
+        "scenario": "18:exactly-once-kill-storm",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": n,
+        "ready_s": round(ready_s, 2),
+        "elapsed_s": round(elapsed, 2),
+        "victim": victim["member"],
+        "victim_sigkilled": vic_inc.exit_code == -9,
+        "fence_count": membership["fence_count"],
+        "zero_lost": zero_lost,
+        "identical_to_no_kill": identical,
+        "committed_duplicates": committed_dups,
+        "read_uncommitted_duplicates": _dups(uncommitted_res),
+        "aborted_copies_in_log": aborted_copies,
+        "journal_handoff_entries": vic_inc.handoff_entries,
+        "warm_resumes_plus_journal_served": sum(
+            m["warm_resumes"] + m["served_from_journal"] for m in worker_m),
+        "zombie_txn_commit_rejected": zombie_rejected,
+        "watermark_unmoved_by_zombie": wm_before == wm_after,
+        "committed_view_unmoved_by_zombie": (
+            {k: len(v) for k, v in after_forgery.items()}
+            == {k: len(v) for k, v in committed_res.items()}),
+        "exit_codes": _exit_codes(fleet),
+    }
+
+
+def scenario_19(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Broker death mid-storm: a 2-process exactly-once fleet over a
+    durable broker (``ProcessFleet(wal_dir=...)``: every produce, commit,
+    membership and transaction event write-ahead logged,
+    ``source/wal.py``). Once a worker's journal proves served,
+    uncommitted work exists, the broker dies uncleanly
+    (``restart_broker(crash=True)``: the listener and every connection
+    drop mid-RPC, the in-memory state is abandoned unflushed) and stays
+    down long enough for the workers' circuit breakers to open. The
+    supervisor then recovers a fresh broker from the WAL on the same port
+    (records, offsets, generations, producer epochs and memberships with
+    fresh leases; open transactions abort). The workers ride the outage
+    on the reconnect stack (RetryPolicy, BrokerUnavailableError,
+    CircuitBreaker) and resume unfenced. Audited: zero lost records,
+    committed-view duplicates exactly zero, every committed completion
+    byte-identical to the no-restart reference, and every worker's
+    breaker opened during the outage and closed after it. The reference
+    serves on ``build_model(model_spec, device)`` (``_proc_model``)."""
+    import tempfile
+
+
+    prompt_len, max_new = (8, 16) if size == "tiny" else (32, 32)
+    n = 12 if size == "tiny" else 48
+    parts, slots, commit_every = 4, 2, 4
+    down_s = 2.5
+    spec, cfg, params, label, dev = _proc_model(size, prompt_len, max_new, device)
+    prompts = np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
+    all_keys = {str(i).encode() for i in range(n)}
+    ref = _proc_reference(cfg, params, dev, prompts, parts, max_new,
+                          slots=slots, commit_every=commit_every)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        fleet = _proc_fleet(
+            spec, dev, "t19", prompt_len, max_new, td, replicas, "s19",
+            session_timeout_s=8.0, exactly_once=True,
+            wal_dir=os.path.join(td, "wal"), wal_durability="batch",
+            # Short client retries: the outage is felt (and ridden) by
+            # the resilience stack, so the breakers provably open.
+            resilient=True, reconnect_attempts=2, reconnect_deadline_s=0.4)
+        try:
+            fleet.start()
+            fleet.wait_ready(timeout_s=300)
+            ready_s = time.perf_counter() - t0
+            _produce_keyed(fleet.broker, "t19", prompts, parts)
+            _await_window(fleet, _holds_uncommitted(fleet, "s19", "t19", parts),
+                          lambda: len(fleet.results("read_committed")) >= n, "crash")
+            recovery = fleet.restart_broker(crash=True, down_s=down_s)
+            fleet.wait(_covered(all_keys, "t19", parts), timeout_s=240)
+            zero_lost = _drain_settled(fleet)
+            committed_res = fleet.results("read_committed")
+            worker_m = fleet.worker_metrics()
+            elapsed = time.perf_counter() - t0
+        finally:
+            fleet.close()
+    return {
+        "scenario": "19:broker-crash-recovery-storm",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": n,
+        "ready_s": round(ready_s, 2),
+        "elapsed_s": round(elapsed, 2),
+        "broker_down_s": down_s,
+        "broker_restarts": fleet.metrics.broker_restarts.count,
+        "recovery": recovery,
+        "zero_lost": zero_lost,
+        "identical_to_no_restart": _identical(committed_res, ref),
+        "committed_duplicates": _dups(committed_res),
+        "workers_survived_unfenced": all(m["exit"] == 0 for m in worker_m)
+        and len(worker_m) == replicas,
+        "breaker_opens": {m["member"]: m["circuit_opens"] for m in worker_m},
+        "breaker_closes": {m["member"]: m["circuit_closes"] for m in worker_m},
+        "heartbeat_outages": sum(m["heartbeat_outages"] for m in worker_m),
+        "exit_codes": _exit_codes(fleet),
+    }
+
+
+def scenario_21(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Disaggregated serving under prefill-worker death
+    (``fleet/prefill.py``): 1 prefill worker and R decode replicas as real
+    OS processes over the socket broker. The prefill worker consumes the
+    prompt topic in its own group, fills paged KV and publishes handoffs;
+    the decode replicas route admission through the handoff shelf and
+    adopt (no prompt pass on the decode path). Mid-storm the prefill
+    worker is SIGKILLed: unpublished handoffs vanish, the decode
+    replicas' routing patience expires and they prefill locally. Audited:
+    zero lost records, every completion byte-identical to the in-process
+    monolithic paged reference, adoptions before the kill, the decode
+    tick p99 from the workers' dumps, and the prefill group's offsets
+    never past a handoff it had not published. The reference serves on
+    ``build_model(model_spec, device)`` (``_proc_model``)."""
+    import tempfile
+
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    prompt_len, max_new = (8, 16) if size == "tiny" else (32, 32)
+    n = 24 if size == "tiny" else 64  # 4x oversubscription of 2x2 slots
+    parts, slots, commit_every = 4, 2, 4
+    pages = {"block_size": 4, "num_blocks": 64}
+    spec, cfg, params, label, dev = _proc_model(size, prompt_len, max_new, device)
+    prompts = np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
+    prompts[:, :4] = np.arange(4)  # a shared system prefix (radix shape)
+    ref = _proc_reference(cfg, params, dev, prompts, parts, max_new, slots=slots,
+                          commit_every=commit_every, kv_pages=dict(pages))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        fleet = _proc_fleet(spec, dev, "t21", prompt_len, max_new, td, replicas,
+                            "s21", session_timeout_s=5.0, journal_cadence=2,
+                            kv_pages=pages, prefill_replicas=1, route_patience=1500)
+        try:
+            fleet.start()
+            fleet.wait_ready(timeout_s=300)
+            ready_s = time.perf_counter() - t0
+            _produce_keyed(fleet.broker, "t21", prompts, parts)
+            ho_tp = TopicPartition(fleet.handoff_topic, 0)
+            # SIGKILL the prefill worker mid-storm: after some handoffs are
+            # on the transfer plane, before all are.
+            deadline = time.monotonic() + 240
+            while fleet.broker.end_offset(ho_tp) < 6:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("no handoffs ever published\n" + fleet.diagnose())
+                time.sleep(0.005)
+            victim = fleet.kill_prefill(0)
+            published_at_kill = fleet.broker.end_offset(ho_tp)
+            fleet.wait(lambda f: set(f.results()) == {str(i).encode() for i in range(n)},
+                       timeout_s=240)
+            zero_lost = _drain_settled(fleet)
+            res = fleet.results()
+            # The prefill group never committed past its published
+            # handoffs (the mid-transfer at-least-once contract).
+            published = {r.key for r in fleet.broker.fetch(ho_tp, 0, 100000)}
+            prefill_wm = _committed_of(fleet.broker, "s21-prefill", "t21", parts)
+            prefill_wm_ok = all(
+                str(off * parts + p).encode() in published
+                for p in range(parts) for off in range(prefill_wm[p] or 0)
+            )
+            worker_m = fleet.worker_metrics()
+            decode_m = [m for m in worker_m if m.get("role") != "prefill"]
+            elapsed = time.perf_counter() - t0
+        finally:
+            fleet.close()
+    return {
+        "scenario": "21:disaggregated-prefill-kill-storm",
+        "model_scale": label,
+        "decode_replicas": replicas,
+        "prefill_workers": 1,
+        "records": n,
+        "ready_s": round(ready_s, 2),
+        "elapsed_s": round(elapsed, 2),
+        "victim": victim["member"],
+        "handoffs_published_at_kill": int(published_at_kill),
+        "zero_lost": zero_lost,
+        "identical_to_monolithic": _identical(res, ref),
+        "duplicates": _dups(res),
+        "adopted_slots": sum(m.get("adopted_slots", 0) for m in decode_m),
+        "prefill_routed": sum(m.get("prefill_routed", 0) for m in decode_m),
+        "decode_fallback_prefill_tokens": sum(m.get("prefill_tokens", 0) for m in decode_m),
+        "decode_step_p99_ms": max(
+            (m.get("step_p99_ms") or 0.0) for m in decode_m) if decode_m else None,
+        "prefill_watermark_never_past_published": prefill_wm_ok,
+    }
+
+
+def scenario_23(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Quorum-cell leader death mid-storm: a 2-process exactly-once fleet
+    over a 3-replica broker cell (``ProcessFleet(broker_replicas=3,
+    wal_durability="quorum")``: every acked mutation held by a majority of
+    WAL replicas before the client hears back). Once a worker's journal
+    proves served, uncommitted transactional work exists, the leader is
+    dropped as SIGKILL would drop it (listener gone mid-conversation, WAL
+    abandoned unflushed) and the cell runs its epoch-bumped election: the
+    longest-prefix follower replays through WAL recovery (dangling
+    transactions aborted) and takes over the same advertised port. The
+    workers reconnect through their retry stacks, unfenced. Audited: zero
+    lost records, committed-view duplicates exactly zero, every committed
+    completion byte-identical to the no-kill reference, and the deposed
+    leader's forged late append rejected by the bumped epoch
+    (``StaleEpochError``). The reference serves on
+    ``build_model(model_spec, device)`` (``_proc_model``)."""
+    import tempfile
+
+    from torchkafka_tpu_torch.errors import StaleEpochError
+
+    prompt_len, max_new = (8, 16) if size == "tiny" else (32, 32)
+    n = 12 if size == "tiny" else 48
+    parts, slots, commit_every = 4, 2, 4
+    spec, cfg, params, label, dev = _proc_model(size, prompt_len, max_new, device)
+    prompts = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (n, prompt_len), dtype=np.int32)
+    all_keys = {str(i).encode() for i in range(n)}
+    ref = _proc_reference(cfg, params, dev, prompts, parts, max_new,
+                          slots=slots, commit_every=commit_every)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        fleet = _proc_fleet(
+            spec, dev, "t23", prompt_len, max_new, td, replicas, "s23",
+            session_timeout_s=8.0, exactly_once=True,
+            wal_dir=os.path.join(td, "cell"), wal_durability="quorum",
+            broker_replicas=3,
+            # Short client retries: the failover gap is felt, and ridden,
+            # by the resilience stack.
+            resilient=True, reconnect_attempts=2, reconnect_deadline_s=0.4)
+        try:
+            fleet.start()
+            fleet.wait_ready(timeout_s=300)
+            ready_s = time.perf_counter() - t0
+            _produce_keyed(fleet.broker, "t23", prompts, parts)
+            _await_window(fleet, _holds_uncommitted(fleet, "s23", "t23", parts),
+                          lambda: len(fleet.results("read_committed")) >= n, "kill")
+            failover = fleet.kill_leader()
+            # The deposed leader's late write: a forged frame at the old
+            # epoch is rejected by every follower, never applied.
+            try:
+                fleet._cell.forge_deposed_frame()
+                forged_rejected = False
+            except StaleEpochError:
+                forged_rejected = True
+            fleet.wait(_covered(all_keys, "t23", parts), timeout_s=240)
+            zero_lost = _drain_settled(fleet)
+            committed_res = fleet.results("read_committed")
+            cell_status = fleet._cell.status()
+            worker_m = fleet.worker_metrics()
+            elapsed = time.perf_counter() - t0
+        finally:
+            fleet.close()
+    return {
+        "scenario": "23:quorum-leader-failover-storm",
+        "model_scale": label,
+        "replicas": replicas,
+        "broker_replicas": 3,
+        "records": n,
+        "ready_s": round(ready_s, 2),
+        "elapsed_s": round(elapsed, 2),
+        "leader_elections": fleet.metrics.leader_elections.count,
+        "failover": {
+            **{k: failover[k] for k in ("victim_idx", "winner_idx", "old_epoch",
+                                        "epoch", "candidates", "recovery")},
+            "election_ms": round(failover["election_ms"], 2),
+            "failover_ms": round(failover["failover_ms"], 2),
+        },
+        "cell_epoch": cell_status["epoch"],
+        "zero_lost": zero_lost,
+        "identical_to_no_kill": _identical(committed_res, ref),
+        "committed_duplicates": _dups(committed_res),
+        "deposed_append_rejected": forged_rejected,
+        "workers_survived_unfenced": all(m["exit"] == 0 for m in worker_m)
+        and len(worker_m) == replicas,
+        "exit_codes": _exit_codes(fleet),
+    }
+
+
+def scenario_24(size: str = "tiny", replicas: int = 2, device=None) -> dict:
+    """Rolling weight hot-swap with canary auto-rollback: a 2-process
+    exactly-once fleet serves a storm while the supervisor drives two
+    rollouts over the broker control plane. First a divergent v1 (other
+    weights, ``build_model(dict(model_spec, seed=1))``) is published to
+    the checkpoint topic and rolled out: the canary replica shadow-serves
+    a slice under v1, token-diffs it against its live incumbent output,
+    and the controller rolls back on divergence, so no replica serves v1
+    into the committed view. Then a clean v2 (the same weights, a new
+    version) rolls out to completion: the canary passes and the replicas
+    drain-swap one at a time. Audited: zero lost records, committed-view
+    duplicates exactly zero, every committed completion byte-identical to
+    the no-rollout reference, and every output's ``mv`` tag 0 or 2. The
+    reference serves on ``build_model(model_spec, device)``
+    (``_proc_model``), the weights of v0 and v2 alike."""
+    import tempfile
+
+    from torchkafka_tpu_torch.fleet.proc import build_model
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    prompt_len, max_new = (8, 16) if size == "tiny" else (32, 32)
+    parts, slots, commit_every = 4, 2, 4
+    pool = 400  # prompt pool upper bound; the storm produces on demand
+    spec, cfg, params, label, dev = _proc_model(size, prompt_len, max_new, device)
+    prompts = np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (pool, prompt_len), dtype=np.int32)
+    publish_s, phases = {}, {}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        fleet = _proc_fleet(
+            spec, dev, "t24", prompt_len, max_new, td, replicas, "s24",
+            session_timeout_s=8.0, out_topic="out24", exactly_once=True,
+            rollout=True, rollout_topic="roll24", ckpt_topic="ckpt24",
+            idle_exit_ms=None)
+        nkeys = 0
+
+        def produce(k: int) -> None:
+            nonlocal nkeys
+            if nkeys + k > pool:
+                raise RuntimeError("prompt pool exhausted")
+            _produce_keyed(fleet.broker, "t24", prompts, parts, nkeys, nkeys + k)
+            nkeys += k
+
+        def feed() -> None:
+            """Keep the storm alive without flooding: the canary needs live
+            completions to compare, so top the uncommitted backlog back
+            up to a small constant."""
+            if nkeys - len(fleet.results("read_committed")) < 12:
+                produce(2)
+
+        def roll(version: int, weights, what: str):
+            ts = time.perf_counter()
+            fleet.publish_checkpoint(version, weights)
+            publish_s[version] = round(time.perf_counter() - ts, 3)
+            drv = fleet.start_rollout(version, canary_slice=3)
+            seen = phases[version] = []  # (phase, seconds in, records produced)
+            deadline = time.monotonic() + 180
+            while True:
+                if not seen or seen[-1][0] != drv.controller.phase:
+                    seen.append((drv.controller.phase,
+                                 round(time.perf_counter() - ts, 3), nkeys))
+                if fleet.rollout_done:
+                    break
+                if time.monotonic() > deadline:
+                    fences = {i.member: i.fence_reason for i in fleet.incarnations}
+                    raise TimeoutError(f"{what} rollout never resolved: phases {seen}, "
+                                       f"fences {fences}\n" + fleet.diagnose())
+                fleet.poll_once()
+                feed()  # the canary compares live traffic
+                time.sleep(0.05)
+            return drv.controller
+
+        try:
+            fleet.start()
+            fleet.wait_ready(timeout_s=300)
+            ready_s = time.perf_counter() - t0
+            produce(8)
+            # Rollout 1: divergent weights → canary auto-rollback.
+            ctl1 = roll(1, build_model(dict(spec, seed=1), dev)[1], "divergent")
+            phase1, reason1 = ctl1.phase, ctl1.rollback_reason
+            versions1 = dict(ctl1.member_versions)
+            rollback_s = time.perf_counter() - t0 - ready_s
+            # Rollout 2: clean weights (the same bytes, a new version) →
+            # canary passes, every replica drain-swaps.
+            ctl2 = roll(2, build_model(spec, dev)[1], "clean")
+            phase2, versions2 = ctl2.phase, dict(ctl2.member_versions)
+            fleet_version = fleet.model_version
+            # Serve out the tail before draining (the drain abandons queued
+            # records, which a fleet about to exit would never re-serve).
+            keys = {str(i).encode() for i in range(nkeys)}
+            fleet.wait(_covered(keys, "t24", parts), timeout_s=240)
+            fleet.drain()
+            fleet.wait(lambda f: not f.live(), timeout_s=120)
+            fleet.poll_once()
+            zero_lost = fleet.fully_committed()
+            committed_res = fleet.results(isolation="read_committed")
+            # The version tags of the committed view: v1 left no trace.
+            tags: dict = {}
+            for p in range(fleet.broker.partitions_for("out24")):
+                recs, _ = fleet.broker.fetch_stable(TopicPartition("out24", p), 0, 10**6)
+                for rec in recs:
+                    mv = dict(rec.headers or ()).get("mv", b"?").decode()
+                    tags[mv] = tags.get(mv, 0) + 1
+            # v2's weights are v0's: one reference covers every committed
+            # output, whichever side of the swap served it.
+            ref = _proc_reference(cfg, params, dev, prompts[:nkeys], parts, max_new,
+                                  slots=slots, commit_every=commit_every)
+            identical = all(np.array_equal(toks, ref[k])
+                            for k, copies in committed_res.items() for _m, toks in copies)
+            worker_m = fleet.worker_metrics()
+            elapsed = time.perf_counter() - t0
+        finally:
+            fleet.close()
+    return {
+        "scenario": "24:rolling-hot-swap-canary-rollback",
+        "model_scale": label,
+        "replicas": replicas,
+        "records": nkeys,
+        "ready_s": round(ready_s, 2),
+        "elapsed_s": round(elapsed, 2),
+        "divergent_rollout": {
+            "phase": phase1,
+            "rollback_reason": reason1,
+            "member_versions": versions1,
+            "resolved_s": round(rollback_s, 2),
+        },
+        "clean_rollout": {"phase": phase2, "member_versions": versions2},
+        "checkpoint_publish_s": publish_s,
+        "rollout_phases": phases,
+        "fleet_model_version": fleet_version,
+        "version_tags": tags,
+        "divergent_version_leaked": "1" in tags,
+        "version_tags_consistent": set(tags) <= {"0", "2"},
+        "zero_lost": bool(zero_lost and set(committed_res) == keys),
+        "identical_to_no_rollout": identical,
+        "committed_duplicates": _dups(committed_res),
+        "workers_survived": all(m["exit"] == 0 for m in worker_m)
+        and len(worker_m) == replicas,
+    }
+
+
 # --------------------------------------------------------------- unported
 
 # Each scenario the port does not run yet, by the title of the ROADMAP
 # queue A item that ports it.
 _DEFERRED_TITLES = {
-    **{n: "Harness: fleet and durability scenarios"
-       for n in (17, 18, 19, 21, 23, 24)},
     3: "Mesh and multi-process paths",
     20: "Mesh and multi-process paths",
     4: "Secondary models",
@@ -1840,7 +2612,9 @@ def _deferred(num: int) -> Callable[..., dict]:
 _PORTED = {1: scenario_1, 2: scenario_2, 5: scenario_5, 6: scenario_6,
            7: scenario_7, 9: scenario_9, 10: scenario_10, 11: scenario_11,
            12: scenario_12, 13: scenario_13, 14: scenario_14, 15: scenario_15,
-           16: scenario_16, 22: scenario_22, 25: scenario_25}
+           16: scenario_16, 17: scenario_17, 18: scenario_18, 19: scenario_19,
+           21: scenario_21, 22: scenario_22, 23: scenario_23, 24: scenario_24,
+           25: scenario_25}
 PORTED = tuple(sorted(_PORTED))
 SCENARIOS = {n: _PORTED.get(n) or _deferred(n) for n in range(1, 26)}
 

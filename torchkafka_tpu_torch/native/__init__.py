@@ -47,7 +47,11 @@ _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
-_state: dict = {"tried": False, "module": None}
+_tried = False
+# The loaded extension once ``_lib()`` has run, else None. Setting it to
+# None forces the NumPy fallbacks, as ``native._native = None`` does in the
+# JAX package (the differential tests' switch).
+_native = None
 
 
 def _target() -> Path:
@@ -81,23 +85,24 @@ def _build(out: Path) -> bool:
 def _lib():
     """The loaded extension module, or None (no toolchain): built and
     loaded once per process, on first use."""
-    if _state["tried"]:
-        return _state["module"]
+    global _native, _tried
+    if _tried:
+        return _native
     with _lock:
-        if not _state["tried"]:
+        if not _tried:
             out = _target()
             if out.exists() or _build(out):
                 try:
                     spec = importlib.util.spec_from_file_location("_tk_native", out)
                     mod = importlib.util.module_from_spec(spec)
                     spec.loader.exec_module(mod)
-                    _state["module"] = mod
+                    _native = mod
                 except (ImportError, OSError) as e:
                     logger.warning(
                         "native decoder load failed (falling back to NumPy): %s", e
                     )
-            _state["tried"] = True
-    return _state["module"]
+            _tried = True
+    return _native
 
 
 def available() -> bool:

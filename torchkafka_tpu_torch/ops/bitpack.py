@@ -23,7 +23,9 @@ from torchkafka_tpu_torch.native import packed_width
 
 def unpack_bits(packed: torch.Tensor, bits: int, seq: int) -> torch.Tensor:
     """[..., W] uint8 → [..., seq] int32 (W = ``packed_width(seq, bits)``),
-    on ``packed``'s device."""
+    on ``packed``'s device (a NumPy array, as JAX's op takes one, unpacks
+    on the CPU)."""
+    packed = torch.as_tensor(packed)
     if not 1 <= bits <= 16:
         raise ValueError("bits must be in [1, 16]")
     w = packed.shape[-1]

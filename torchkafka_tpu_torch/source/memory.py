@@ -1153,7 +1153,10 @@ class MemoryConsumer(ConsumerIterMixin):
             self._assignment = list(assignment)
         else:
             self._manual = False
-            self._member_id = member_id or f"member-{next(_member_counter)}"
+            # Zero-padded so that sorted ids (the range assignment's
+            # member order) follow creation order whatever the counter
+            # reached: "member-10" would sort before "member-9".
+            self._member_id = member_id or f"member-{next(_member_counter):08d}"
             self._generation, self._assignment = 0, []
             self._generation = broker.join(
                 self._group_id, self._member_id, self._topics, pattern=pattern

@@ -97,14 +97,23 @@ def _recv(sock: socket.socket) -> Any:
     return pickle.loads(payload)
 
 
+_RECV_CHUNK = 1 << 20
+
+
 def _recv_exact(sock: socket.socket, n: int) -> bytes | None:
-    buf = b""
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
+    # Chunks joined once at the end, each recv at most 1 MiB: appending
+    # to one bytes object copies it whole at every chunk (and ``recv(n)``
+    # allocates n bytes a call), quadratic in the frame. A checkpoint
+    # fetch of a few hundred MB then holds the client's lock for seconds,
+    # and its heartbeat thread waits behind it past the session timeout.
+    chunks, got = [], 0
+    while got < n:
+        chunk = sock.recv(min(n - got, _RECV_CHUNK))
         if not chunk:
             return None
-        buf += chunk
-    return buf
+        chunks.append(chunk)
+        got += len(chunk)
+    return b"".join(chunks)
 
 
 class WireFaults:
@@ -289,6 +298,12 @@ class BrokerServer:
                 return  # listener closed
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             with self._lock:
+                if self._closing:
+                    # close() ran between accept() and here: it has already
+                    # taken its snapshot of the connections, so this one is
+                    # dropped here or a "closed" server would serve it.
+                    conn.close()
+                    return
                 self._conns.append(conn)
             threading.Thread(
                 target=self._serve_conn, args=(conn,),
@@ -323,7 +338,8 @@ class BrokerServer:
             conn.close()
 
     def close(self) -> None:
-        self._closing = True
+        with self._lock:
+            self._closing = True
         try:
             # shutdown() BEFORE close(): the accept thread blocked in
             # accept() holds a kernel reference to the listening socket,
