@@ -394,18 +394,48 @@ Phases, each printing one JSON line:
    and their bound, WAL replays, breaker opens and closes, adoptions and
    fallback prefill tokens with the decode tick p99, the rollouts' phases
    and checkpoint publish seconds, each worker's counts;
+8m. train_moe (lane ``procfleet``, after harness_procfleet): mixture-of-
+   experts training at the 1b widths with Mixtral-8x7B's routing (8
+   SwiGLU experts of d_ff 5632, top-2), ``CUT_LAYERS`` layers, f32
+   masters, bf16 compute, ``moe_dispatch="capacity"`` (factor 1.25, groups
+   of 256): the train phase's path (48 records of 512 tokens → KafkaStream
+   → make_train_step → token.commit), 6 steps of 8. Held: finite losses,
+   the watermarks, K1 = K2 = K3 = layers x steps on the tensor cores;
+   before it, at f32 on 2 layers, capacity dispatch at an ample factor (no
+   drop) gives dense dispatch's loss within 1e-4;
+8n. serve_moe (lane ``procfleet``, after train_moe): MoE serving at the
+   same widths, all 24 layers (~7.1B parameters, random bf16 weights from
+   the seed), scenario 7's traffic (32 prompts of 128, 16 slots, 64 new):
+   greedy on the bf16 pool (its tick block replayed from a CUDA graph),
+   on the int8 pool read by K4, and with ``quantize_params`` int8 weights
+   on the int8 pool, each held as the serve phase (K1 = 24 x prefills on
+   the tensor cores, K4 = 24 x decode ticks on the int8 pools), token 0
+   equal between the pools; then an f32 pair at 2 layers, dense and
+   capacity dispatch (groups of one prompt, factor 1.0): the server's
+   every token equal to the lockstep ``generate``'s on the same waves;
+8o. harness_models (lane ``harness``, after harness_fleet): harness
+   scenarios 4 (8,192 PNGs of 64x64 → native decode → resize to 224 →
+   ResNet-50 in bf16, batch 64; the chained device time by CUDA events and
+   its conv MFU against 989 TFLOP/s) and 8 (the DLRM, 8 tables of 100k x
+   64, 40 steps of 4,096, adam) at ``"full"``, with their own assertions;
+8p. examples (lane ``harness``, after harness_models): the three
+   ``examples/*_torch.py`` as subprocesses on the card at their defaults,
+   started together: exit 0, the serving and CTR examples committing their
+   topics' end offsets, the streaming trainer its 50 steps of 32;
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
    ``disagg_launches``; K1-K4 with the harness phase's by scenario,
    ``harness_launches``, K4 with the captured block's and the replays;
    K1-K3 with the fleet scenarios', ``harness_fleet_launches``; K1 with
-   the process scenarios', ``harness_procfleet_launches``);
+   the process scenarios', ``harness_procfleet_launches``; K1-K4 with the
+   MoE phases', ``moe_train_launches`` and ``moe_serve_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Lanes: once the kernel phases (3-5d) have timed the kernels alone on the
 card, the script starts two processes of its own, ``chip_smoke.py --lane
-harness`` (8j, 8k) and ``--lane procfleet`` (8h, 8i, 8l), and runs the
+harness`` (8j, 8k, 8o, 8p) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8n),
+and runs the
 other phases meanwhile; their time is mostly host work and worker
 start-ups with the card idle. Each lane zeroes and reads its own
 counts around each path, as the main sequence does; its rows print after
@@ -413,11 +443,13 @@ the main sequence's, before the kernels line. A lane that fails fails
 the script; a failing script stops its lanes (SIGTERM, on which a lane
 closes its worker processes). Times on the host's clock (tok/s, step
 times, seconds) are taken beside the lanes; the kernel timings are not.
+``--lane <phase>`` runs one lane phase alone (e.g. ``--lane serve_moe``),
+for its numbers without the other sequences beside it.
 
 Depth cuts (the time of phases 8g-8l): serve_traced, serve_sampled,
 serve_resume (its ``resume_prefill_device_ms`` stays at 24 layers),
 serve_tiered, serve_spec, serve_spec_paged, serve_fleet,
-serve_fleet_rollout and serve_procfleet run the 1b widths at ``CUT_LAYERS`` = 4 of its 24
+serve_fleet_rollout, serve_procfleet and train_moe run the 1b widths at ``CUT_LAYERS`` = 4 of its 24
 layers (views of the first 4 layers' weights; their rows carry
 ``"layers": 4``, and their launch checks use 4); serve_8b runs the 8b
 widths at ``CUT_LAYERS_8B`` = 16 of its 32 layers (K1 and K4 = 16 x ...).
@@ -482,29 +514,35 @@ def emit(obj) -> None:
 # beside the main sequence once the kernel phases have timed the kernels
 # alone on the card: most of their time is worker start-ups and host work.
 LANES = {
-    "harness": ("harness", "harness_fleet"),
-    "procfleet": ("serve_procfleet", "serve_procfleet_f32", "harness_procfleet"),
+    "harness": ("harness", "harness_fleet", "harness_models", "examples"),
+    "procfleet": ("serve_procfleet", "serve_procfleet_f32", "harness_procfleet",
+                  "train_moe", "serve_moe"),
 }
 
 
 def run_lane(torch, lane: str) -> None:
-    """Run one lane's phases in this process, printing each phase's rows
-    as it ends (the caller reads them back from this process's output)."""
+    """Run one lane's phases (or the one lane phase named ``lane``) in this
+    process, printing each phase's rows as it ends (the caller reads them
+    back from this process's output)."""
     from torchkafka_tpu_torch.models.zoo import zoo_config
 
-    if lane == "harness":
-        phases = (lambda: check_harness(torch), lambda: check_harness_fleet(torch))
-    else:
-        cfg = zoo_config("1b")
-        cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
-                                    param_dtype=torch.float32)
-        phases = (
-            lambda: check_serve_procfleet(torch, dataclasses.replace(cfg, n_layers=CUT_LAYERS)),
-            lambda: check_serve_procfleet_f32(torch, cfg32),
-            lambda: check_harness_procfleet(torch),
-        )
-    for phase in phases:
-        for row in phase():
+    cfg = zoo_config("1b")
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    phases = {
+        "harness": lambda: check_harness(torch),
+        "harness_fleet": lambda: check_harness_fleet(torch),
+        "harness_models": lambda: check_harness_models(torch),
+        "examples": lambda: check_examples(torch),
+        "serve_procfleet": lambda: check_serve_procfleet(
+            torch, dataclasses.replace(cfg, n_layers=CUT_LAYERS)),
+        "serve_procfleet_f32": lambda: check_serve_procfleet_f32(torch, cfg32),
+        "harness_procfleet": lambda: check_harness_procfleet(torch),
+        "train_moe": lambda: check_train_moe(torch),
+        "serve_moe": lambda: check_serve_moe(torch),
+    }
+    for name in LANES.get(lane, (lane,)):
+        for row in phases[name]():
             emit(row)
         torch.cuda.empty_cache()
 
@@ -1510,20 +1548,21 @@ def _grads(tree, prefix=""):
 
 
 def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
-          prof=None) -> dict:
+          prof=None, cfg=None, phase: str = "train") -> dict:
     """The main training path: broker → MemoryConsumer → KafkaStream
     (fixed_width decode, pinned side-stream H2D) → make_train_step (K1
     forward, fused CE, K2+K3 backward, AdamW) → token.commit(wait_for=loss)
     → consumer.commit. K1/K2/K3 launch counts (and their tensor-core
     counts) are zeroed just before the loop and read just after. ``prof``:
     an optional profiler context wrapped around one extra step after the
-    run."""
+    run. ``cfg``: the model (the 1b with f32 masters by default);
+    ``phase``: the row's phase name."""
     import numpy as np
 
     import torchkafka_tpu_torch as tk
     from torchkafka_tpu_torch.ops.flash import flash_dkv_bhsd, flash_dq_bhsd, flash_fwd_bhsd
 
-    cfg = train_config(torch)
+    cfg = train_config(torch) if cfg is None else cfg
     init_fn, step_fn = tk.make_train_step(cfg, optimizer=tk.adamw(1e-3), device="cuda")
     params, opt = init_fn(torch.Generator(device="cuda").manual_seed(SEED))
     n_params = sum(t.numel() for t in params["layers"].values()) + sum(
@@ -1589,7 +1628,9 @@ def train(torch, steps: int = 6, batch: int = 8, seq: int = 512, parts: int = 4,
     if any(n != want for n in tc_launches.values()):  # bf16, D=128: the tensor cores
         raise AssertionError(f"tensor-core launches {tc_launches}, want {want} each")
     steady = statistics.median(step_ms[1:])
-    return {"phase": "train", "model": "1b", "params": n_params,
+    return {"phase": phase, "model": "1b", "layers": cfg.n_layers,
+            "n_experts": cfg.n_experts, "moe_dispatch": cfg.moe_dispatch if cfg.is_moe else None,
+            "params": n_params,
             "param_dtype": "float32", "compute_dtype": "bfloat16",
             "batch": batch, "seq": seq, "steps": steps, "losses": losses,
             "step_ms": step_ms, "step_ms_median_after_first": steady,
@@ -5334,6 +5375,299 @@ def check_harness_procfleet(torch, size: str = "full", device=None) -> list:
     return rows
 
 
+
+# ------------------------------------------------------------- mixture of experts
+
+MOE = dict(n_experts=8, expert_top_k=2)  # Mixtral-8x7B's published routing
+MOE_F32_GROUP = 128  # one prompt a group: the f32 pair's drops do not depend on the batch
+
+
+def moe_serve_config(torch, **overrides):
+    """The zoo's 1b widths (d_model 2048, 16/8 heads, vocab 32,000) with 8
+    SwiGLU experts of d_ff 5632 each, top-2: about 7.1B parameters."""
+    from torchkafka_tpu_torch.models.zoo import zoo_config
+
+    return dataclasses.replace(zoo_config("1b", max_seq_len=128 + MAX_NEW), **MOE,
+                               **overrides)
+
+
+def _moe_lockstep_pair(torch, cfg, params, prompts) -> dict:
+    """The 16-slot f32 server (a greedy compute-dtype pool: its tick block
+    replayed from a CUDA graph) against the port's lockstep ``generate``
+    run on the same waves of 16 prompts (the server admits 16 at a time,
+    all finishing on one tick): every token equal. The capacity config
+    groups one prompt's 128 tokens, so its prefill drops do not depend on
+    which prompts share the batch."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.models.generate import generate
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+
+    n, plen = prompts.shape
+    broker = InMemoryBroker()
+    broker.create_topic("moe", partitions=2)
+    for i in range(n):
+        broker.produce("moe", prompts[i].tobytes(), partition=i % 2)
+    consumer = MemoryConsumer(broker, "moe", group_id="moe")
+    server = StreamingGenerator(consumer, params, cfg, slots=16, prompt_len=plen,
+                                max_new=MAX_NEW, commit_every=16,
+                                ticks_per_sync=MAX_NEW - 1, device="cuda")
+    order = [(2 * r.offset + r.partition, out) for r, out in server.run(max_records=n)]
+    consumer.close()
+    graphed = server._block_graph is not None
+    same = total = 0
+    for w in range(0, n, 16):
+        wave = [i for i, _ in order[w:w + 16]]
+        ref = generate(params, cfg, torch.from_numpy(prompts[wave]).cuda(), MAX_NEW).cpu()
+        for row, (_, out) in zip(ref.numpy(), order[w:w + 16]):
+            same += int(np.sum(row == out))
+            total += len(row)
+    return {"dispatch": cfg.moe_dispatch, "graphed": graphed,
+            "tokens_equal": same, "tokens": total}
+
+
+def moe_mlp_times(torch, cfg, params) -> dict:
+    """The dense-dispatch MoE MLP (``models.transformer._moe_mlp``) on
+    layer 0's bf16 experts at the decode (16 x 1 tokens) and the prefill
+    (16 x 128) shapes: its ms beside the same function written as einsums
+    (``"bsd,edf->ebsf"``, which copies each expert weight into a [D, E·F]
+    layout first) and the bound (every expert weight read once; or its
+    products at the bf16 peak)."""
+    import torch.nn.functional as F
+
+    from torchkafka_tpu_torch.models.transformer import _moe_mlp, layer_at
+
+    layer = layer_at(params["layers"], 0)
+    w = [layer[n] for n in ("w_gate", "w_up", "w_down")]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def einsums(h):
+        probs = torch.softmax(torch.einsum("bsd,de->bse", h.float(),
+                                           layer["router"].float()), dim=-1)
+        vals, idx = torch.topk(probs, cfg.expert_top_k, dim=-1)
+        comb = (F.one_hot(idx, cfg.n_experts) * (vals / vals.sum(-1, keepdim=True))[..., None]
+                ).sum(2)
+        gate = F.silu(torch.einsum("bsd,edf->ebsf", h, w[0]))
+        out = torch.einsum("ebsf,efd->ebsd", gate * torch.einsum("bsd,edf->ebsf", h, w[1]), w[2])
+        return torch.einsum("ebsd,bse->bsd", out, comb.to(h.dtype))
+
+    out = {}
+    for name, s in (("decode", 1), ("prefill", 128)):
+        h = torch.randn((16, s, cfg.d_model), generator=gen, device="cuda", dtype=cfg.dtype)
+        err = max_err(torch, _moe_mlp(h, layer, cfg)[0], einsums(h))
+        n = 16 * s
+        flops = 2 * 3 * cfg.n_experts * n * cfg.d_model * cfg.d_ff
+        nbytes = sum(t.numel() * t.element_size() for t in w) + 2 * h.numel() * h.element_size()
+        b_ms, b_by = bound(flops, nbytes)
+        out[name] = {"ms": cuda_ms(torch, lambda: _moe_mlp(h, layer, cfg), flush),
+                     "einsum_ms": cuda_ms(torch, lambda: einsums(h), flush),
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err_vs_einsum": err}
+    return out
+
+
+def check_serve_moe(torch) -> list:
+    """MoE serving at the 1b widths, 8 experts top-2, all 24 layers, random
+    bf16 weights from the seed: scenario 7's traffic (32 prompts of 128
+    tokens on two partitions, 16 slots, 64 new tokens) through
+    ``StreamingGenerator`` three times, each run's counts zeroed just
+    before it and read just after: greedy on the bf16 pool (the tick block
+    replayed from a CUDA graph: the MoE decode captures), on the int8 pool
+    read by K4, and with ``quantize_params`` int8 weights (the router kept
+    in bf16) on the int8 pool. Held per run (``serve``): every record once
+    with 64 tokens, committed == end offsets, K1 = 24 x prefills on the
+    tensor cores, K4 = 24 x decode ticks on the int8 pools (0 on bf16);
+    token 0 equal between the two pools. Before them, the MoE MLP of one
+    layer at the decode and prefill shapes, timed beside its einsum
+    formulation (``moe_mlp_times``). Then an f32 pair at the same
+    widths, 2 layers, dense and capacity dispatch (capacity factor 1.0,
+    groups of one prompt): the server against the lockstep ``generate``,
+    every token equal."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.models.quant import quantize_params, quantized_nbytes
+    from torchkafka_tpu_torch.models.transformer import count_params
+    from torchkafka_tpu_torch.models.zoo import random_serving_params
+
+    smi = smi_line()
+    cfg = moe_serve_config(torch)
+    params = random_serving_params(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                                   device="cuda")
+    n_params = count_params(params)
+    mlp = moe_mlp_times(torch, cfg, params)
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (32, 128),
+                                                   dtype=np.int32)
+    graphs = []
+    outs_b, row_b = serve(torch, cfg, params, prompts, None,
+                          on_done=lambda s: graphs.append(s._block_graph is not None))
+    outs_q, row_q = serve(torch, cfg, params, prompts, "int8")
+    qparams = quantize_params(params, cfg)
+    q_bytes = quantized_nbytes(qparams)
+    del params
+    torch.cuda.empty_cache()
+    outs_w, row_w = serve(torch, cfg, qparams, prompts, "int8")
+    del qparams
+    torch.cuda.empty_cache()
+    if not graphs[0]:
+        raise AssertionError("serve_moe: the bf16 pool's tick block was not graphed")
+    for row in (row_q, row_w):
+        if row["committed"] != row_b["committed"]:
+            raise AssertionError("serve_moe: the runs committed other offsets")
+    tok0 = all(int(outs_b[k][0]) == int(outs_q[k][0]) for k in outs_b)
+    if not tok0:
+        raise AssertionError("serve_moe: token 0 differs between the bf16 and int8 pools")
+    rows = []
+    for run, row, outs in (("bf16_pool", row_b, outs_b), ("int8_pool", row_q, outs_q),
+                           ("int8_weights", row_w, outs_w)):
+        agree = float(np.mean([np.mean(outs[k] == outs_b[k]) for k in outs_b]))
+        rows.append({**row, "phase": "serve_moe", "run": run, "model": "1b MoE 8x top-2",
+                     "layers": cfg.n_layers, "params": n_params,
+                     "graphed": graphs[0] if run == "bf16_pool" else False,
+                     "token_agreement_with_bf16_pool": agree, "nvidia_smi": smi,
+                     **({"int8_param_bytes": q_bytes} if run == "int8_weights" else {})})
+    rows[1]["token0_identical_to_bf16_pool"] = tok0
+    rows[0]["moe_mlp"] = mlp
+    cfg32 = moe_serve_config(torch, n_layers=2, dtype=torch.float32, param_dtype=torch.float32,
+                             moe_group_size=MOE_F32_GROUP, capacity_factor=1.0)
+    params32 = random_serving_params(torch.Generator(device="cuda").manual_seed(SEED + 2),
+                                     cfg32, device="cuda")
+    pairs = []
+    for dispatch in ("dense", "capacity"):
+        pair = _moe_lockstep_pair(torch, dataclasses.replace(cfg32, moe_dispatch=dispatch),
+                                  params32, prompts)
+        pairs.append(pair)
+        if pair["tokens_equal"] != pair["tokens"] or not pair["graphed"]:
+            raise AssertionError(f"serve_moe f32: server vs lockstep generate {pair}")
+    del params32
+    torch.cuda.empty_cache()
+    rows.append({"phase": "serve_moe", "run": "f32_lockstep_pair", "layers": 2,
+                 "capacity_factor": 1.0, "moe_group_size": MOE_F32_GROUP, "pairs": pairs})
+    return rows
+
+
+def check_train_moe(torch) -> list:
+    """MoE training at the 1b widths, 8 experts top-2, ``CUT_LAYERS``
+    layers, f32 masters, bf16 compute, ``moe_dispatch="capacity"`` (factor
+    1.25, groups of 256): the ``train`` path (48 records of 512 tokens →
+    ``KafkaStream`` → ``make_train_step`` → ``token.commit``), 6 steps of
+    8. Held there: finite losses, the watermarks, K1 = K2 = K3 = layers x
+    steps, all on the tensor cores. Before it, at f32 on 2 layers (B=2,
+    S=512): the loss with capacity dispatch at an ample factor (8: no
+    drop) equals dense dispatch's within 1e-4."""
+    import numpy as np
+
+    from torchkafka_tpu_torch.models.transformer import Transformer, init_params
+
+    smi = smi_line()
+    cfg32 = train_config(torch, n_layers=2, dtype=torch.float32, **MOE)
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED + 3), cfg32,
+                         device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg32.vocab_size, (2, 512), dtype=np.int32)).cuda()
+    with torch.no_grad():
+        dense = Transformer(cfg32).loss(params, toks).item()
+        ample = Transformer(dataclasses.replace(
+            cfg32, moe_dispatch="capacity", capacity_factor=float(cfg32.n_experts))
+        ).loss(params, toks).item()
+    del params
+    torch.cuda.empty_cache()
+    if not abs(ample - dense) <= 1e-4:
+        raise AssertionError(f"train_moe f32: capacity {ample} vs dense {dense}")
+    cfg = train_config(torch, n_layers=CUT_LAYERS, moe_dispatch="capacity", **MOE)
+    row = train(torch, cfg=cfg, phase="train_moe")
+    torch.cuda.empty_cache()
+    return [{**row, "model": "1b MoE 8x top-2", "capacity_factor": cfg.capacity_factor,
+             "moe_group_size": cfg.moe_group_size, "nvidia_smi": smi,
+             "f32_2_layers": {"dense_loss": dense, "ample_capacity_loss": ample,
+                              "abs_diff": abs(ample - dense), "tolerance": 1e-4}}]
+
+
+# ------------------------------------------------- secondary models, examples
+
+def check_harness_models(torch) -> list:
+    """Harness scenarios 4 and 8 at ``"full"`` on the card. 4: 8,192 PNGs
+    of 64x64 (Paeth-filtered) on four partitions → the native decode →
+    resize to 224 → ResNet-50 in bf16 (random weights from seed 0), batch
+    64, committed per batch; held: every record, 128 commits, none failed
+    or dropped, the chained slope held and its conv MFU (against the H100's
+    989 TFLOP/s dense bf16) in (0, 100]. 8: the DLRM (8 tables of 100k x
+    64, bf16 compute, f32 masters) trained by ``optim.adam(1e-2)`` on 40
+    steps of 4,096 records; held: every record, 40 commits, none failed
+    or dropped, one device (``{"data": 1}``), the step slope held, and the
+    JAX test's trend (tail-quartile loss below the head's)."""
+    from torchkafka_tpu_torch.harness import run_scenario
+
+    smi = smi_line()
+    rows = []
+    t0 = time.perf_counter()
+    r4 = run_scenario(4, "full", device="cuda")
+    s4 = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if (r4["records"] != 8192 or r4["commit"]["count"] != 128 or r4["commit_failures"]
+            or r4["dropped"] or not r4["native_decode"] or not r4["slope_ok"]
+            or not 0 < r4["conv_mfu_pct"] <= 100):
+        raise AssertionError(f"harness_models 4: {r4}")
+    rows.append({"phase": "harness_models", "scenario": 4, "seconds": s4,
+                 "nvidia_smi": smi, **r4})
+    t0 = time.perf_counter()
+    r8 = run_scenario(8, "full", device="cuda")
+    s8 = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if (r8["records"] != 40 * 4096 or r8["commit"]["count"] != 40 or r8["commit_failures"]
+            or r8["dropped"] or r8["mesh"] != {"data": 1} or not r8["step_slope_ok"]
+            or not r8["tail_loss_mean"] < r8["head_loss_mean"]):
+        raise AssertionError(f"harness_models 8: {r8}")
+    rows.append({"phase": "harness_models", "scenario": 8, "seconds": s8,
+                 "nvidia_smi": smi, **r8})
+    return rows
+
+
+EXAMPLES = ("train_stream_torch.py", "serve_prompts_torch.py", "ctr_train_torch.py")
+
+
+def check_examples(torch) -> list:
+    """``examples/*_torch.py`` as subprocesses on the card at their
+    defaults, started together: each exits 0 and prints its offsets;
+    the serving and CTR examples commit every record on their topics
+    (committed == end offsets), the streaming trainer exactly its 50 steps
+    of 32 (its topic holds twice that)."""
+    import re
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = tempfile.mkdtemp(prefix="tk-example-ckpt-")
+    jobs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in EXAMPLES:
+            extra = ["--ckpt", ckpt] if name.startswith("train") else []
+            jobs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(here, "examples", name), *extra],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here)
+        rows = []
+        for name, proc in jobs.items():
+            out, err = proc.communicate(timeout=600)
+            seconds = time.perf_counter() - t0
+            m = re.search(r"^offsets: committed=(\d+) end=(\d+)", out, re.M)
+            if proc.returncode != 0 or m is None:
+                raise AssertionError(f"example {name}: rc {proc.returncode}\n{err[-3000:]}")
+            committed, end = int(m.group(1)), int(m.group(2))
+            want = 50 * 32 if name.startswith("train") else end
+            if committed != want or end == 0:
+                raise AssertionError(f"example {name}: committed {committed} of {end}")
+            rows.append({"phase": "examples", "example": name, "seconds_since_start": seconds,
+                         "committed": committed, "end_offsets": end,
+                         "last_lines": out.strip().splitlines()[-2:]})
+        return rows
+    finally:
+        for proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def roofline_probe_exact(torch) -> dict:
     """A server probed by ``decode_roofline`` (the CUDA graph) serves the
     same tokens and commits as one never probed: 1b widths, 2 layers,
@@ -5478,9 +5812,10 @@ def main() -> int:
                     help="rounds of (HBM only, tier) in the serve_tiered phase "
                          "(more rounds: tok/s compared over more interleaved "
                          "runs)")
-    ap.add_argument("--lane", choices=tuple(LANES),
-                    help="run only this lane's phases (the script starts each "
-                         "lane itself, beside its main sequence)")
+    ap.add_argument("--lane", choices=tuple(dict.fromkeys((*LANES, *sum(LANES.values(), ())))),
+                    help="run only this lane's phases, or only this one lane "
+                         "phase (the script starts each lane itself, beside "
+                         "its main sequence)")
     ap.add_argument("--clock-start", type=float, default=None,
                     help="the starting script's clock, so a lane's at_s is the script's")
     args = ap.parse_args()
@@ -5657,6 +5992,11 @@ def main() -> int:
     rows_pf, rows_pf32 = by_phase["serve_procfleet"], by_phase["serve_procfleet_f32"]
     rows_h, rows_hf = by_phase["harness"], by_phase["harness_fleet"]
     rows_hp = by_phase["harness_procfleet"]
+    rows_sm = [r for r in by_phase["serve_moe"] if "launches" in r]
+    row_tm = by_phase["train_moe"][0]
+    for phase in ("harness_models", "examples"):
+        if not by_phase.get(phase):
+            raise AssertionError(f"lane phase {phase} printed no row")
 
     main_pool = k4["pools"]["192"]
     pool_8b = k4["reps"]["4"]
@@ -5742,6 +6082,9 @@ def main() -> int:
          "harness_launches": harness_launches("flash_fwd"),
          "harness_fleet_launches": harness_fleet_launches("flash_fwd"),
          "harness_procfleet_launches": harness_procfleet_launches(),
+         "moe_serve_launches": {r["run"]: r["launches"]["flash_fwd"] for r in rows_sm},
+         "moe_train_launches": row_tm["launches"]["flash_fwd"],
+         "moe_train_tc_launches": row_tm["tc_launches"]["flash_fwd"],
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -5755,6 +6098,7 @@ def main() -> int:
          "bound_ms": k23["dq"]["bound_ms"], "bound_by": k23["dq"]["bound_by"],
          "library_ms": k23["library_ms_sdpa_bwd"],
          "process_launches": child_launches("flash_dq"),
+         "moe_train_launches": row_tm["launches"]["flash_dq"],
          "harness_launches": harness_launches("flash_dq"),
          "harness_fleet_launches": harness_fleet_launches("flash_dq")},
         {"name": "flash_dkv", "route": "cuda",
@@ -5767,6 +6111,7 @@ def main() -> int:
          "bound_ms": k23["dkv"]["bound_ms"], "bound_by": k23["dkv"]["bound_by"],
          "library_ms": k23["library_ms_sdpa_bwd"],
          "process_launches": child_launches("flash_dkv"),
+         "moe_train_launches": row_tm["launches"]["flash_dkv"],
          "harness_launches": harness_launches("flash_dkv"),
          "harness_fleet_launches": harness_fleet_launches("flash_dkv")},
         {"name": "kvattn_dynlen", "route": "cuda",
@@ -5777,6 +6122,7 @@ def main() -> int:
          "fleet_launches": fleet_launches("kvattn_dynlen"),
          "harness_launches": harness_launches("kvattn_dynlen"),
          "harness_graph_block_launches": roof["graph_block_launches"]["kvattn_dynlen"],
+         "moe_serve_launches": {r["run"]: r["launches"]["kvattn_dynlen"] for r in rows_sm},
          "harness_graph_replays": roof["graph_replays"],
          "max_abs_err": main_pool["max_abs_err"]["bf16"], "ms": main_pool["kernel_ms"],
          "plain_ms": main_pool["plain_ms"], "bound_ms": main_pool["bound_ms"],

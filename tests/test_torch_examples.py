@@ -1,0 +1,64 @@
+"""The port's three single-device examples, each run as a subprocess on the
+CPU (``--device cpu``) at a tiny size: exit 0, every record it consumed
+committed (the committed offsets equal the topic's end offsets), and no
+module of JAX or of the JAX package loaded. A mesh flag raises naming the
+ROADMAP item that ports it."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+CASES = {
+    "train_stream_torch.py": ["--steps", "3", "--batch", "4", "--records", "12",
+                              "--ckpt-every", "2"],
+    "serve_prompts_torch.py": ["--prompts", "6", "--slots", "2", "--max-new", "4"],
+    "ctr_train_torch.py": ["--steps", "3", "--batch", "16"],
+}
+_NO_JAX = (
+    "import runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "finally:\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
+    "    print('JAX_MODULES', bad)\n"
+)
+
+
+def _run(name, args, tmp_path):
+    extra = ["--ckpt", str(tmp_path / "ckpt")] if name.startswith("train") else []
+    return subprocess.run(
+        [sys.executable, "-c", _NO_JAX, str(ROOT / "examples" / name), *args, *extra,
+         "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+    )
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_example_commits_every_record(name, tmp_path):
+    proc = _run(name, CASES[name], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = re.search(r"^offsets: committed=(\d+) end=(\d+)", proc.stdout, re.M)
+    assert line, proc.stdout[-2000:]
+    committed, end = int(line.group(1)), int(line.group(2))
+    assert committed == end > 0
+    assert "JAX_MODULES []" in proc.stdout
+
+
+@pytest.mark.parametrize("name,flag", [("serve_prompts_torch.py", ["--tp", "2"]),
+                                       ("serve_prompts_torch.py", ["--cpu-devices", "8"]),
+                                       ("ctr_train_torch.py", ["--processes", "2"])])
+def test_mesh_flags_raise(name, flag, monkeypatch):
+    """In this process: the flag is refused before any model is built."""
+    import runpy
+
+    main = runpy.run_path(str(ROOT / "examples" / name), run_name="example")["main"]
+    monkeypatch.setattr(sys, "argv", [name, *flag, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Mesh and multi-process paths"):
+        main()

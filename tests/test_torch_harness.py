@@ -126,8 +126,6 @@ def test_flag_scoping_matches_jax(case):
 UNPORTED = {
     3: "Mesh and multi-process paths",
     20: "Mesh and multi-process paths",
-    4: "Secondary models",
-    8: "Secondary models",
 }
 
 

@@ -137,6 +137,10 @@ def _forbidden(name: str) -> bool:
 def test_port_never_imports_jax_ast():
     files = sorted((ROOT / "torchkafka_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [f.name for f in examples] == [
+        "ctr_train_torch.py", "serve_prompts_torch.py", "train_stream_torch.py"]
+    files += examples
     assert len(files) > 10
     assert ROOT / "torchkafka_tpu_torch" / "journal" / "journal.py" in files
     for mod in ("slo", "trace", "burn", "exporter"):
@@ -146,7 +150,8 @@ def test_port_never_imports_jax_ast():
                 "workload/generator.py", "distill/controller.py", "distill/wire.py",
                 "fleet/proc.py", "fleet/supervisor.py", "fleet/prefill.py",
                 "distill/trainer.py", "distill/worker.py", "harness/__init__.py",
-                "harness/__main__.py", "harness/scenarios.py", "ops/bitpack.py"):
+                "harness/__main__.py", "harness/scenarios.py", "ops/bitpack.py",
+                "models/recsys.py", "models/resnet.py", "transform/image.py"):
         assert ROOT / "torchkafka_tpu_torch" / mod in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
@@ -170,6 +175,11 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.fleet.prefill, torchkafka_tpu_torch.distill.trainer\n"
         "import torchkafka_tpu_torch.distill.worker, torchkafka_tpu_torch.harness\n"
         "import torchkafka_tpu_torch.harness.__main__, torchkafka_tpu_torch.ops.bitpack\n"
+        "import torchkafka_tpu_torch.models.recsys, torchkafka_tpu_torch.models.resnet\n"
+        "import torchkafka_tpu_torch.transform.image\n"
+        "import runpy, pathlib\n"
+        "for ex in sorted(pathlib.Path('examples').glob('*_torch.py')):\n"
+        "    runpy.run_path(str(ex), run_name='imported')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'torchkafka_tpu'))\n"
         "print(bad)\n"

@@ -155,17 +155,23 @@ def test_greedy_sampling_and_knob_checks():
 
 
 def test_moe_config_raises():
-    """MoE configs train (the dense-dispatch trunk) but do not serve yet:
-    the serving prefill and int8 quantization raise."""
+    """MoE configs train and serve on the dense pools; what still raises
+    is what the JAX package refuses: the zoo's random int8 draw (dense
+    scales only) and the paged pools."""
     cfg = pt.TransformerConfig(**SHAPE, n_experts=4, dtype=torch.float32)
     params = pt.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert params["layers"]["router"].shape == (2, 64, 4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        prefill(params, cfg, torch.zeros((1, 8), dtype=torch.int32), 16)
+    logits, cache = prefill(params, cfg, torch.zeros((1, 8), dtype=torch.int32), 16)
+    assert logits.shape == (1, 97) and cache.k.shape == (2, 1, 16, 2, 16)
+    from torchkafka_tpu_torch.kvcache.backend import resolve_kv_backend
+    from torchkafka_tpu_torch.kvcache.blocks import PagedKVConfig
     from torchkafka_tpu_torch.models.quant import quantize_params
 
-    with pytest.raises(NotImplementedError, match="MoE"):
-        quantize_params(params, cfg)
+    assert quantize_params(params, cfg)["layers"]["router"] is params["layers"]["router"]
+    with pytest.raises(ValueError, match="dense zoo"):
+        random_serving_params(torch.Generator(), cfg, quantized=True, device="cpu")
+    with pytest.raises(ValueError, match="MoE"):
+        resolve_kv_backend(cfg, kv_pages=PagedKVConfig(4, 16), max_len=16, device="cpu")
 
 
 def test_init_params_tree_matches_jax_layout():

@@ -52,7 +52,7 @@ from torchkafka_tpu_torch.obs import (
     RecordTracer,
     SLOTarget,
 )
-from torchkafka_tpu_torch.optim import adamw
+from torchkafka_tpu_torch.optim import adam, adamw
 from torchkafka_tpu_torch.pipeline import KafkaStream, stream
 from torchkafka_tpu_torch.resilience import (
     CircuitBreaker,
@@ -94,9 +94,11 @@ from torchkafka_tpu_torch.transform import (
     chunk_of,
     chunked,
     compose,
+    encode_png_rgb,
     fixed_width,
     json_field,
     json_tokens,
+    png_images,
     raw_bytes,
 )
 from torchkafka_tpu_torch.utils.shutdown import ShutdownSignal
@@ -163,14 +165,17 @@ __all__ = [
     "TransactionalProducer",
     "WireFaults",
     "WriteAheadLog",
+    "adam",
     "adamw",
     "chunk_of",
     "chunked",
     "compose",
+    "encode_png_rgb",
     "dead_letter_to_topic",
     "fixed_width",
     "json_field",
     "json_tokens",
+    "png_images",
     "make_train_step",
     "partitions_for_process",
     "raw_bytes",

@@ -2,12 +2,13 @@
 
 The JAX package's scenarios over the port, each returning a metrics dict:
 the ingest scenarios 1, 2 and 6, the serving scenarios 5 and 7 (with the
-decode roofline timed from a CUDA graph of the tick block), the bucketed
+decode roofline timed from a CUDA graph of the tick block), PNG →
+ResNet-50 inference (4), streaming DLRM training (8), the bucketed
 training scenario 9, the in-process fleets 10-16, 22 and 25, and the
 process fleets 17, 18, 19, 21, 23 and 24 (worker processes over the
 socket broker: SIGKILL storms, exactly-once output, a broker recovered
 from its write-ahead log, a killed prefill worker, a quorum cell's leader
-failover, a rolling hot-swap). Scenarios 3, 4, 8 and 20 raise
+failover, a rolling hot-swap). Scenarios 3 and 20 raise
 ``NotImplementedError`` naming their ROADMAP queue A item.
 
 Run: ``python -m torchkafka_tpu_torch.harness --scenario N [--size tiny|full]

@@ -28,6 +28,7 @@ from torchkafka_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     _mlp,
+    _moe_mlp,
     _rms_norm,
     _rope,
     layer_at,
@@ -147,11 +148,17 @@ def _attend_cached(
 
 
 def _attn_tail(x, attn, layer, cfg: TransformerConfig):
-    """Post-attention residual: output projection + the MLP block."""
+    """Post-attention residual: output projection + the MLP block. An MoE
+    layer routes exactly (dense dispatch) whatever ``cfg.moe_dispatch``
+    says, as the JAX package's decode does: capacity drops are a training
+    tradeoff, and every decoded token gets its routed experts."""
     x = x + torch.einsum(
         "bshe,hed->bsd", attn, load_weight(layer["wo"], cfg.dtype)
     )
-    return x + _mlp(_rms_norm(x, layer["ln2"]), layer, cfg)
+    h = _rms_norm(x, layer["ln2"])
+    if cfg.is_moe:
+        return x + _moe_mlp(h, layer, cfg)[0]
+    return x + _mlp(h, layer, cfg)
 
 
 def _project_qkv(x, layer, cfg: TransformerConfig):

@@ -70,22 +70,30 @@ _LAYER_AXES = {
     "w_gate": (1,), "w_up": (1,),  # [L, D, F]
     "w_down": (1,),  # [L, F, D]
 }
+_MOE_AXES = {
+    "w_gate": (2,), "w_up": (2,),  # [L, E, D, F] contract D
+    "w_down": (2,),  # [L, E, F, D] contract F
+}
 
 
 def quantize_params(params: dict, cfg) -> dict:
     """Post-training int8 of every matmul and embedding weight; the norms
-    stay in their original dtype. Dense configs only: the MoE expert axes
-    arrive with the MoE slice."""
+    and the MoE router (tiny, routing-sensitive) stay in their original
+    dtype. A stacked layer weight is quantized one layer at a time (the
+    layer axis is never a contraction axis, so the result is the whole
+    tensor's), which bounds the f32 transient to one layer."""
+    layer_axes = dict(_LAYER_AXES)
     if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE configs are not ported yet (ROADMAP queue A: training options)"
-        )
+        layer_axes.update(_MOE_AXES)
     layers = {}
     for name, w in params["layers"].items():
-        if name in ("ln1", "ln2"):
+        if name in ("ln1", "ln2", "router"):
             layers[name] = w
         else:
-            layers[name] = quantize(w, _LAYER_AXES[name])
+            axes = tuple(a - 1 for a in layer_axes[name])
+            per_layer = [quantize(wl, axes) for wl in w.unbind(0)]
+            layers[name] = QTensor(q=torch.stack([t.q for t in per_layer]),
+                                   scale=torch.stack([t.scale for t in per_layer]))
     return {
         "embed": quantize(params["embed"], (1,)),  # [V, D] per row
         "layers": layers,

@@ -1,4 +1,4 @@
-"""Llama-style decoder (SwiGLU or dense-dispatch MoE, GQA, RoPE): port of
+"""Llama-style decoder (SwiGLU or mixture-of-experts, GQA, RoPE): port of
 ``torchkafka_tpu/models/transformer.py``, the trunk, the training loss and
 the train step.
 
@@ -17,9 +17,16 @@ through differentiable casts, so gradients land on the masters.
 the step updates the parameters and the optimizer state in place, which is
 PyTorch's idiom for the JAX step's buffer donation.
 
+MoE layers route through ``cfg.moe_dispatch``: ``"dense"`` (every expert
+computes every token, the one-hot combine keeps the routed ones) or
+``"capacity"`` (Switch-style groups with per-expert slots; overflow
+drops). Both route top-k with ``lax.top_k``'s tie order. The serving
+prefill uses the config's dispatch; the decode read always routes dense
+(``models/generate.py _attn_tail``), as in the JAX package.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE serving, ``moe_dispatch="capacity"``, ring/Ulysses attention
-and every mesh path (``mesh=``; pipeline parallelism needs one).
+item): ring/Ulysses attention and every mesh path (``mesh=``; pipeline
+parallelism and expert sharding need one).
 """
 
 from __future__ import annotations
@@ -247,6 +254,23 @@ def router_aux(stats: torch.Tensor, n_tokens: int) -> torch.Tensor:
     return e * torch.sum((stats[0] / n_tokens) * (stats[1] / n_tokens))
 
 
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: the k largest values in descending
+    order, ties broken toward the lower index. ``torch.topk`` promises no
+    order among equal values; a stable descending sort keeps equal values
+    in index order."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: [...] int → [...] + [n] of ``dtype``, all zeros
+    for an index outside [0, n). A comparison, so it never synchronises
+    with the host (capturable in a CUDA graph)."""
+    classes = torch.arange(n, device=idx.device)
+    return (idx[..., None] == classes).to(dtype)
+
+
 def _moe_mlp(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
     """Top-k routed mixture of SwiGLU experts, dense (one-hot combine)
     dispatch: every expert computes every token and the gate-weighted
@@ -256,21 +280,96 @@ def _moe_mlp(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
     f = torch.nn.functional
     logits = torch.einsum("bsd,de->bse", h.float(), layer["router"].float())
     probs = torch.softmax(logits, dim=-1)  # [B, S, E]
-    top_vals, top_idx = torch.topk(probs, cfg.expert_top_k, dim=-1)
+    top_vals, top_idx = _top_k(probs, cfg.expert_top_k)
     gates = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9)
-    onehot = f.one_hot(top_idx, cfg.n_experts).to(probs.dtype)  # [B, S, K, E]
+    onehot = _one_hot(top_idx, cfg.n_experts, probs.dtype)  # [B, S, K, E]
     combine = torch.sum(onehot * gates[..., None], dim=2)  # [B, S, E]
-    gate_e = f.silu(
-        torch.einsum("bsd,edf->ebsf", h, load_weight(layer["w_gate"], cfg.dtype))
-    )
-    up_e = torch.einsum("bsd,edf->ebsf", h, load_weight(layer["w_up"], cfg.dtype))
-    out_e = torch.einsum(
-        "ebsf,efd->ebsd", gate_e * up_e, load_weight(layer["w_down"], cfg.dtype)
-    )
-    out = torch.einsum("ebsd,bse->bsd", out_e, combine.to(cfg.dtype))
+    # Every expert over every token as one batched product over the expert
+    # axis ([1, BS, D] @ [E, D, F]): einsum("bsd,edf->ebsf") would first
+    # copy each expert weight into a [D, E·F] layout.
+    b, s, d = h.shape
+    x = h.reshape(1, b * s, d)
+    gate_e = f.silu(torch.matmul(x, load_weight(layer["w_gate"], cfg.dtype)))
+    up_e = torch.matmul(x, load_weight(layer["w_up"], cfg.dtype))  # [E, BS, F]
+    out_e = torch.matmul(gate_e * up_e, load_weight(layer["w_down"], cfg.dtype))
+    out = torch.einsum("end,ne->nd", out_e, combine.reshape(b * s, -1).to(cfg.dtype))
+    out = out.reshape(b, s, d)
     # Load-balance sufficient stats: token-summed routed counts and probs.
     routed = onehot.detach().sum(dim=2)
     stats = torch.stack([routed.sum(dim=(0, 1)), probs.sum(dim=(0, 1))])
+    return out, stats
+
+
+def moe_capacity(cfg: TransformerConfig, n_tokens: int) -> int:
+    """Per-expert token slots under capacity dispatch: the even share of
+    (token, choice) assignments times ``capacity_factor``, rounded up to a
+    multiple of 8 with a floor of 8. The rounding decides which tokens
+    drop, so it is part of the contract (the JAX package pads to its
+    sublane multiple)."""
+    even = n_tokens * cfg.expert_top_k / cfg.n_experts
+    cap = int(math.ceil(even * cfg.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _moe_mlp_capacity(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
+    """Capacity (Switch-style) dispatch: tokens split into contiguous
+    groups of ``moe_group_size`` (the tail group padded with masked rows
+    that claim no slot); within a group each expert takes at most
+    C = ``moe_capacity(cfg, n_g)`` (token, choice) pairs, in group-major
+    order: all primary choices outrank all secondary ones, tokens in
+    sequence order within a tier. Overflow drops: the pair contributes
+    nothing and the token's residual passes through. Dispatch and combine
+    are one-hot einsums over [G, K·n_g, E, C], the JAX package's
+    formulation, so the drop set is the same pair for pair. The
+    load-balance stats come from the routing before capacity, padded rows
+    excluded. h: [B, S, D] → (output [B, S, D], stats [2, E])."""
+    b, s, d = h.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.expert_top_k
+    n_g = min(cfg.moe_group_size, n)
+    g = -(-n // n_g)
+    n_pad = g * n_g
+    cap = moe_capacity(cfg, n_g)
+    x = h.reshape(n, d)
+    if n_pad != n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, n_pad - n))
+    valid = (torch.arange(n_pad, device=h.device) < n).float()
+    logits = x.float() @ layer["router"].float()
+    probs = torch.softmax(logits, dim=-1)  # [N_pad, E]
+    top_vals, top_idx = _top_k(probs, k)  # [N_pad, K]
+    gates = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9)
+
+    def to_group_major(t: torch.Tensor) -> torch.Tensor:
+        """[N_pad, K] → [G, K·n_g]: all primary choices, then all
+        secondary ones, tokens in sequence order within a tier."""
+        return t.reshape(g, n_g, k).transpose(1, 2).reshape(g, k * n_g)
+
+    idx_g = to_group_major(top_idx)
+    valid_g = to_group_major(valid[:, None].expand(n_pad, k))
+    onehot = _one_hot(idx_g, e, torch.float32) * valid_g[..., None]
+    pos = torch.cumsum(onehot, dim=1) - onehot  # slot within (group, expert)
+    keep = onehot * (pos < cap)  # overflow drops
+    slot = _one_hot(pos.to(torch.int64), cap, torch.float32)
+    dispatch = keep[..., None] * slot  # [G, K·n_g, E, C]
+    combine = dispatch * to_group_major(gates)[..., None, None]
+
+    disp5 = dispatch.reshape(g, k, n_g, e, cap).to(cfg.dtype)
+    comb5 = combine.reshape(g, k, n_g, e, cap).to(cfg.dtype)
+    x_g = x.reshape(g, n_g, d)
+    expert_in = torch.einsum("gknec,gnd->gecd", disp5, x_g)  # [G, E, C, D]
+    gate_e = torch.nn.functional.silu(torch.einsum(
+        "gecd,edf->gecf", expert_in, load_weight(layer["w_gate"], cfg.dtype)))
+    up_e = torch.einsum(
+        "gecd,edf->gecf", expert_in, load_weight(layer["w_up"], cfg.dtype))
+    out_e = torch.einsum(
+        "gecf,efd->gecd", gate_e * up_e, load_weight(layer["w_down"], cfg.dtype))
+    out = torch.einsum("gknec,gecd->gnd", comb5, out_e)
+    out = out.reshape(n_pad, d)[:n].reshape(b, s, d)
+
+    routed = _one_hot(top_idx, e, torch.float32).sum(dim=1) * valid[:, None]
+    stats = torch.stack(
+        [routed.sum(dim=0), (probs * valid[:, None]).sum(dim=0)]
+    )
     return out, stats
 
 
@@ -291,14 +390,15 @@ class Transformer(nn.Module):
         super().__init__()
         if mesh is not None:
             raise _not_ported("mesh=", "mesh and multi-process paths")
-        if cfg.is_moe and cfg.moe_dispatch == "capacity":
-            raise _not_ported("moe_dispatch='capacity'", "training options")
         if cfg.attn_impl not in ("auto", "dense", "flash"):
             raise NotImplementedError(
                 f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP "
                 "queue A: mesh and multi-process paths); use 'auto', 'flash' or 'dense'"
             )
         self.cfg = cfg
+
+    def init(self, generator: torch.Generator, device=None) -> dict:
+        return init_params(generator, self.cfg, device)
 
     def _use_flash(self, x: torch.Tensor) -> bool:
         impl = self.cfg.attn_impl
@@ -316,6 +416,12 @@ class Transformer(nn.Module):
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         return mha(q, k, v, causal=True)
+
+    def _moe_mlp(self, h: torch.Tensor, layer: Mapping):
+        """The MoE MLP through the config's dispatch."""
+        if self.cfg.moe_dispatch == "capacity":
+            return _moe_mlp_capacity(h, layer, self.cfg)
+        return _moe_mlp(h, layer, self.cfg)
 
     def _layer(self, x: torch.Tensor, layer: Mapping):
         """One decoder layer → (x, k, v, stats): k (after RoPE) and v are
@@ -335,7 +441,7 @@ class Transformer(nn.Module):
         )
         h = _rms_norm(x, layer["ln2"])
         if cfg.is_moe:
-            mlp_out, stats = _moe_mlp(h, layer, cfg)
+            mlp_out, stats = self._moe_mlp(h, layer)
             return x + mlp_out, k, v, stats
         return x + _mlp(h, layer, cfg), k, v, None
 
@@ -372,9 +478,9 @@ class Transformer(nn.Module):
 
     def trunk_kv(self, params: dict, tokens: torch.Tensor):
         """The serving prefill's trunk: tokens [B, S] → (final-norm hidden
-        states [B, S, D], k, v), k/v each [L, B, S, K, Dh]."""
-        if self.cfg.is_moe:
-            raise _not_ported("MoE serving", "training options")
+        states [B, S, D], k, v), k/v each [L, B, S, K, Dh]. An MoE layer
+        routes through the config's dispatch, as the JAX package's prefill
+        (``model._layer``) does: a capacity config drops here too."""
         x = embed_rows(params["embed"], tokens, self.cfg.dtype)
         ks, vs = [], []
         for layer in unstack_layers(params["layers"]):

@@ -1,4 +1,4 @@
-"""AdamW for the train step, with ``optax.adamw``'s defaults.
+"""AdamW and Adam for the train steps, with optax's defaults.
 
 The JAX package trains with ``optax.adamw(lr)``; the port's ``adamw(lr)``
 builds on ``torch.optim.AdamW`` with every argument passed explicitly, so
@@ -10,6 +10,9 @@ the update is optax's:
 with bias-corrected m̂, v̂. ``torch.optim.AdamW`` folds the decay in as
 ``p·(1 − lr·wd)`` before the Adam step, which is the same update.
 Its own default weight decay is 1e-2; optax's, and this one's, is 1e-4.
+
+``adam(lr)`` is ``optax.adam``: the same update without the decay term
+(the DLRM train step's optimizer, as in the JAX package).
 
 ``adamw(...).init(params)`` returns the optimizer state: it holds the
 parameter tensors themselves and updates them in place on ``step()``.
@@ -84,3 +87,11 @@ def adamw(
 ) -> AdamW:
     """``optax.adamw``'s signature and defaults (weight decay 1e-4)."""
     return AdamW(learning_rate, b1, b2, eps, weight_decay)
+
+
+def adam(
+    learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+) -> AdamW:
+    """``optax.adam``'s signature and defaults: AdamW with no weight
+    decay (``eps_root`` 0, as optax's default)."""
+    return AdamW(learning_rate, b1, b2, eps, 0.0)

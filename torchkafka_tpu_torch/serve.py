@@ -39,6 +39,12 @@ called here, as in the JAX package). Dense prefill attention runs through
 ``random_serving_params(quantized=True)``, how the 8b scale serves): each
 use dequantizes through ``models.quant.load_weight``.
 
+MoE configs serve on both dense pools, plain or ``quantize_params`` int8
+(the router stays in its dtype): the prefill routes through the config's
+dispatch (a capacity config drops there, as in JAX), every decode tick
+routes exactly (dense dispatch). Paged pools refuse MoE configs with the
+JAX package's ``ValueError`` (``kvcache/backend.py``).
+
 Output topic (``output_producer`` + ``output_topic``, at-least-once):
 each completion is sent as it retires, keyed by its prompt record's key,
 with ``encode_output(record, tokens)`` as the value (default: the int32
@@ -254,6 +260,9 @@ def _not_ported(what: str, title: str) -> NotImplementedError:
 # ``chip_smoke.py`` bounds its kernels with.
 H100_PEAK_HBM_GBS = 3350.0
 PEAK_HBM_CARD = "NVIDIA H100 SXM 80GB (HBM3)"
+# The same card's dense bf16 tensor-core peak: harness scenario 4's conv
+# MFU denominator (the JAX package divides by the v5e's 197e12).
+H100_PEAK_BF16_FLOPS = 989e12
 
 
 def decode_tick_bytes(params, cfg: TransformerConfig, batch: int,
@@ -995,8 +1004,6 @@ class StreamingGenerator:
                 raise _not_ported(f"{name}=", _DEFERRED[name])
         check_sampling_params(top_k, top_p)
         self._rng_words = _rng_words(rng)
-        if cfg.is_moe:
-            raise _not_ported("an MoE config", "training options")
         if prompt_len + max_new > cfg.max_seq_len:
             raise ValueError("prompt_len + max_new exceeds cfg.max_seq_len")
         if max_new < 2:
