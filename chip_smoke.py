@@ -403,7 +403,7 @@ Phases, each printing one JSON line:
    the watermarks, K1 = K2 = K3 = layers x steps on the tensor cores;
    before it, at f32 on 2 layers, capacity dispatch at an ample factor (no
    drop) gives dense dispatch's loss within 1e-4;
-8n. serve_moe (lane ``procfleet``, after train_moe): MoE serving at the
+8n. serve_moe (the end of the main sequence, after serve_8b_f32): MoE serving at the
    same widths, all 24 layers (~7.1B parameters, random bf16 weights from
    the seed), scenario 7's traffic (32 prompts of 128, 16 slots, 64 new):
    greedy on the bf16 pool (its tick block replayed from a CUDA graph),
@@ -422,6 +422,22 @@ Phases, each printing one JSON line:
    ``examples/*_torch.py`` as subprocesses on the card at their defaults,
    started together: exit 0, the serving and CTR examples committing their
    topics' end offsets, the streaming trainer its 50 steps of 32;
+8q. pod_train (lane ``procfleet``, after train_moe): data- and
+   fsdp-parallel training across processes, ``check_pod_train``: two
+   ranks (``chip_smoke.py --pod-rank``) in one process group on
+   ``cuda:0`` under gloo, the 1b widths with f32 masters, bf16 compute,
+   B=8 a rank, S=512: ``{"data": 2}`` at 24 layers and ``{"fsdp": 2}``
+   at ``CUT_LAYERS``, 3 steps each through pod_consumer →
+   KafkaStream(mesh=) → make_train_step(cfg, mesh) → token.commit (step
+   ms by CUDA events, collective ms and bytes, peak memory per rank; K1 =
+   K2 = K3 = layers x steps on each rank, on the tensor cores; committed
+   == end offsets; data replicas' checksums equal); an f32 pair at 2
+   layers against the single-process step (split over the ranks' halves:
+   losses and parameters within 1e-5; unsplit: losses within 1e-5,
+   parameters within ``POD_UNSPLIT_PARAM_REL``; data replicas bit-equal);
+   a pod checkpoint at step 2 restored by this process, which trains on to
+   the topic's end; harness scenario 3 at full size under two ranks
+   through ``torch.distributed.run``;
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
@@ -429,12 +445,13 @@ Phases, each printing one JSON line:
    ``harness_launches``, K4 with the captured block's and the replays;
    K1-K3 with the fleet scenarios', ``harness_fleet_launches``; K1 with
    the process scenarios', ``harness_procfleet_launches``; K1-K4 with the
-   MoE phases', ``moe_train_launches`` and ``moe_serve_launches``);
+   MoE phases', ``moe_train_launches`` and ``moe_serve_launches``; K1-K3
+   with pod_train's ranks', ``pod_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Lanes: once the kernel phases (3-5d) have timed the kernels alone on the
 card, the script starts two processes of its own, ``chip_smoke.py --lane
-harness`` (8j, 8k, 8o, 8p) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8n),
+harness`` (8j, 8k, 8o, 8p) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8q),
 and runs the
 other phases meanwhile; their time is mostly host work and worker
 start-ups with the card idle. Each lane zeroes and reads its own
@@ -516,7 +533,7 @@ def emit(obj) -> None:
 LANES = {
     "harness": ("harness", "harness_fleet", "harness_models", "examples"),
     "procfleet": ("serve_procfleet", "serve_procfleet_f32", "harness_procfleet",
-                  "train_moe", "serve_moe"),
+                  "train_moe", "pod_train"),
 }
 
 
@@ -540,6 +557,7 @@ def run_lane(torch, lane: str) -> None:
         "harness_procfleet": lambda: check_harness_procfleet(torch),
         "train_moe": lambda: check_train_moe(torch),
         "serve_moe": lambda: check_serve_moe(torch),
+        "pod_train": lambda: check_pod_train(torch),
     }
     for name in LANES.get(lane, (lane,)):
         for row in phases[name]():
@@ -5583,6 +5601,530 @@ def check_train_moe(torch) -> list:
                               "abs_diff": abs(ample - dense), "tolerance": 1e-4}}]
 
 
+# ------------------------------------------------------------- pod training
+
+POD_RANKS = 2
+# (b)'s bound on parameters against the UNSPLIT single-process step. The
+# ranks' arithmetic is the split step's (bit for bit on the card, PR 20);
+# the unsplit step sums the same gradients in another order, and AdamW's
+# normalisation turns that rounding into up to 1.3e-4 relative (the
+# embedding's rows, where m/(sqrt(v)+eps) sits near eps) after 3 steps at
+# the 1b widths. 1e-3 still catches a gradient off by any factor or a
+# dropped shard.
+POD_UNSPLIT_PARAM_REL = 1e-3
+
+
+def _pod_config(torch, device: str, **overrides):
+    """The phase's model: the 1b training config on the card; on the CPU
+    (a rehearsal of the phase) the same shape of run at tiny widths."""
+    if device == "cuda":
+        return train_config(torch, **overrides)
+    from torchkafka_tpu_torch.models.transformer import TransformerConfig
+
+    small = dict(vocab_size=256, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2,
+                 d_ff=128, max_seq_len=512, dtype=torch.float32)
+    return TransformerConfig(**{**small, **overrides})
+
+
+def _param_checksums(torch, params) -> list:
+    """Two exact int64 checksums of every parameter's bits (the sum of its
+    int32 words and their sum weighted by position mod 2^16), on the card:
+    replicas that agree here agree bit for bit but for a vanishing chance."""
+    from torchkafka_tpu_torch.parallel.mesh import local_part
+    from torchkafka_tpu_torch.utils.tree import tree_leaves
+
+    out = []
+    chunk = 1 << 24  # int64 temporaries of 128 MiB at a time
+    for leaf in tree_leaves(params):
+        words = local_part(leaf).detach().reshape(-1).view(torch.int32)
+        plain = weighted = 0
+        for lo in range(0, words.numel(), chunk):
+            w = words[lo:lo + chunk].to(torch.int64)
+            pos = (torch.arange(lo, lo + w.numel(), device=w.device, dtype=torch.int64)
+                   % 65521)
+            plain += int(w.sum())
+            weighted += int((w * pos).sum())
+        out += [plain, weighted]
+    return out
+
+
+def _pod_stream_train(torch, tk, cfg, mesh, *, topic, steps, batch, seed, world,
+                      flash, device, save=None):
+    """One mesh training run through the ingest path: each rank's
+    ``pod_consumer`` slice of a topic holding exactly ``steps`` batches a
+    rank → ``KafkaStream(mesh=)`` → ``make_train_step(cfg, mesh)`` →
+    ``token.commit(wait_for=loss)`` (the default ``BarrierWatchdog``).
+    K1-K3 counts zeroed just before, read just after. ``save``: (root,
+    step) for a pod checkpoint after that step. → (row, params)."""
+    import functools
+
+    import numpy as np
+
+    from torchkafka_tpu_torch.checkpoint import StreamCheckpointer
+    from torchkafka_tpu_torch.parallel import collectives
+    from torchkafka_tpu_torch.parallel.multihost import pod_consumer
+
+    parts = 2 * world
+    broker = tk.InMemoryBroker()
+    broker.create_topic(topic, partitions=parts)
+    rng = np.random.default_rng(seed)
+    for i in range(steps * batch * world):  # every rank's partitions: `steps` batches
+        broker.produce(topic, rng.integers(0, cfg.vocab_size, 512, dtype=np.int32).tobytes(),
+                       partition=i % parts)
+    consumer = pod_consumer(topic, parts, "pod",
+                            transport=functools.partial(tk.MemoryConsumer, broker))
+    cuda = device == "cuda"
+    init_fn, step_fn = tk.make_train_step(cfg, mesh, tk.adamw(1e-3), device=device)
+    params, opt = init_fn(torch.Generator(device=device).manual_seed(SEED))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in flash:
+        fn.launches = 0
+        fn.tc_launches = 0
+    losses, step_ms, coll_ms, coll_bytes, calls = [], [], [], [], []
+    saved = None
+    t0 = time.perf_counter()
+    batch_axes = tuple(a for a in ("data", "fsdp") if a in mesh.mesh_dim_names)
+    with tk.KafkaStream(consumer, tk.fixed_width(512, np.int32), batch_size=batch,
+                        mesh=mesh, data_axis=batch_axes, idle_timeout_ms=2000,
+                        device=device) as stream:
+        it = iter(stream)
+        for i in range(steps):
+            b, token = next(it)
+            if cuda:
+                s_ev = torch.cuda.Event(enable_timing=True)
+                e_ev = torch.cuda.Event(enable_timing=True)
+                s_ev.record()
+            params, opt, loss = step_fn(params, opt, b.data, None)
+            if cuda:
+                e_ev.record()
+            if not token.commit(wait_for=loss):
+                raise AssertionError(f"pod {topic}: commit {i} failed")
+            step_ms.append(s_ev.elapsed_time(e_ev) if cuda else None)
+            coll_ms.append(step_fn.stats["seconds"] * 1e3)
+            coll_bytes.append(step_fn.stats["bytes"])
+            calls.append(step_fn.stats["calls"])
+            losses.append(loss.item())
+            if save is not None and i + 1 == save[1]:
+                t_s = time.perf_counter()
+                saved = StreamCheckpointer(save[0]).save(
+                    save[1], {"params": params, "opt": opt.state_tree(params)}, token.offsets)
+                saved = {"path": saved, "seconds": time.perf_counter() - t_s,
+                         "offsets": {str(tp.partition): o for tp, o in token.offsets.items()}}
+        if cuda:
+            torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {fn.__name__.replace("_bhsd", ""): fn.launches for fn in flash}
+    tc = {fn.__name__.replace("_bhsd", ""): fn.tc_launches for fn in flash}
+    mine = [tp for tp in consumer.assignment()]
+    committed = {str(tp.partition): broker.committed("pod", tp) for tp in mine}
+    end = {str(tp.partition): broker.end_offset(tp) for tp in mine}
+    consumer.close()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"pod {topic}: non-finite losses {losses}")
+    row = {"layers": cfg.n_layers, "batch_per_rank": batch, "seq": 512, "steps": steps,
+           "losses": losses, "step_ms": step_ms, "collective_ms": coll_ms,
+           "collective_bytes": coll_bytes, "collective_calls": calls,
+           "loop_s": loop_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+           "launches": launches, "tc_launches": tc, "committed": committed,
+           "end_offsets": end, "barrier": type(stream._barrier).__name__,
+           "collectives_total": collectives.COUNTS.as_dict()}
+    if saved is not None:
+        row["checkpoint"] = saved
+    return row, params, opt
+
+
+def pod_rank_main(rank: int, port: int, outdir: str, device: str = "cuda") -> int:
+    """One rank of the pod_train phase (``chip_smoke.py --pod-rank``): see
+    ``check_pod_train``. Writes ``<outdir>/rank_<rank>.json``."""
+    import numpy as np
+    import torch
+
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.ops import _native
+    from torchkafka_tpu_torch.ops.flash import flash_dkv_bhsd, flash_dq_bhsd, flash_fwd_bhsd
+    from torchkafka_tpu_torch.parallel import collectives, multihost
+    from torchkafka_tpu_torch.parallel.mesh import full_tensor, make_mesh
+    from torchkafka_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = POD_RANKS
+    cuda = device == "cuda"
+    t_init = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, timeout_s=600.0,
+                         device=None if cuda else device)
+    out = {"rank": rank, "rules": multihost.rules(), "init_s": time.perf_counter() - t_init,
+           "libraries_present_at_start": all(_native._target(k).exists()
+                                             for k in _native.KERNELS) if cuda else None}
+    flash = (flash_fwd_bhsd, flash_dq_bhsd, flash_dkv_bhsd)
+
+    # (a) bf16 compute, f32 masters: {"data": 2} at every layer, then
+    # {"fsdp": 2} at CUT_LAYERS. (c) rides on (a1): each rank's commits.
+    for name, axes, layers in (("data", {"data": world}, None),
+                               ("fsdp", {"fsdp": world}, CUT_LAYERS)):
+        mesh = make_mesh(axes, device=None if cuda else device)
+        cfg = (_pod_config(torch, device) if layers is None
+               else _pod_config(torch, device, n_layers=layers))
+        row, params, opt = _pod_stream_train(
+            torch, tk, cfg, mesh, topic=f"pod_{name}", steps=3, batch=8, seed=SEED + 7,
+            world=world, flash=flash, device=device)
+        if name == "data":
+            row["checksums"] = _param_checksums(torch, params)
+        del params, opt
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        out[name] = row
+
+    # (b) f32 at the 1b widths, 2 layers: the same 16-row global batch
+    # through {"data": 2} and {"fsdp": 2}, 3 steps, against rank 0's
+    # single-process make_train_step from the same seed.
+    cfg32 = _pod_config(torch, device, n_layers=2, dtype=torch.float32)
+    toks = np.random.default_rng(SEED + 8).integers(
+        0, cfg32.vocab_size, (3, 8 * world, 512), dtype=np.int32)
+    pair = {}
+    for name, axes in (("data", {"data": world}), ("fsdp", {"fsdp": world})):
+        mesh = make_mesh(axes, device=None if cuda else device)
+        init_fn, step_fn = tk.make_train_step(cfg32, mesh, tk.adamw(1e-3), device=device)
+        params, opt = init_fn(torch.Generator(device=device).manual_seed(SEED + 9))
+        losses = []
+        for s in range(3):
+            local = torch.from_numpy(toks[s, rank * 8:(rank + 1) * 8]).to(device)
+            params, opt, loss = step_fn(params, opt, local, None)
+            losses.append(loss.item())
+        full = [full_tensor(x).detach() for x in tree_leaves(params)]
+        exact = None
+        if name == "data":  # the replicas' bits, compared whole
+            theirs = [collectives.all_gather(t.reshape(1, -1), 0)[1 - rank] for t in full]
+            exact = all(torch.equal(a.reshape(-1), b) for a, b in zip(full, theirs))
+        pair[name] = {"losses": losses, "replicas_bit_equal": exact,
+                      "full": full if rank == 0 else None}
+        del params, opt
+    if rank == 0:
+        out["f32_pair"] = _pod_f32_references(torch, tk, cfg32, toks, pair, world, device)
+    pair.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) a pod checkpoint at step 2 of an f32 2-layer {"data": 2} stream
+    # run; the parent restores it in one process and carries on.
+    mesh = make_mesh({"data": world}, device=None if cuda else device)
+    row_d, params, opt = _pod_stream_train(
+        torch, tk, cfg32, mesh, topic="pod_ckpt", steps=2, batch=8, seed=SEED + 10,
+        world=world, flash=flash, device=device,
+        save=(os.path.join(outdir, "ckpt"), 2))
+    out["ckpt"] = {k: row_d[k] for k in ("losses", "committed", "end_offsets", "checkpoint")}
+    del params, opt
+    out["collectives_total"] = collectives.COUNTS.as_dict()
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+    return 0
+
+
+def _pod_f32_references(torch, tk, cfg32, toks, pair: dict, world: int, device: str) -> dict:
+    """(b)'s references, in one process from the same seed, 3 steps each:
+    ``single``, the single-process ``make_train_step`` on each 16-row
+    global batch; ``split``, the same step with the gradient summed over
+    the ranks' 8-row halves (each half's loss over the global count, one
+    backward each, then one AdamW step): the data-parallel arithmetic
+    without a process group. → each mesh run's losses and per-tensor
+    relative L2 parameter differences against both."""
+    from torchkafka_tpu_torch.models.transformer import Transformer
+    from torchkafka_tpu_torch.utils.tree import tree_leaves
+
+    model = Transformer(cfg32)
+    refs = {}
+    for how in ("single", "split"):
+        init_fn, step_fn = tk.make_train_step(cfg32, None, tk.adamw(1e-3), device=device)
+        params, opt = init_fn(torch.Generator(device=device).manual_seed(SEED + 9))
+        losses = []
+        for s in range(3):
+            batch = torch.from_numpy(toks[s]).to(device)
+            if how == "single":
+                params, opt, loss = step_fn(params, opt, batch, None)
+                losses.append(loss.item())
+                continue
+            count = torch.tensor(float(batch.shape[0] * (batch.shape[1] - 1)), device=device)
+            opt.zero_grad()
+            total = 0.0
+            for r in range(world):
+                share = model.loss(params, batch[r * 8:(r + 1) * 8], count=count)
+                share.backward()
+                total += share.item()
+            opt.step()
+            losses.append(total)
+        refs[how] = (losses, [t.detach().clone() for t in tree_leaves(params)])
+        names = _leaf_names(params)
+        del params, opt
+    out = {"tolerance_rel": 1e-5, "unsplit_param_tolerance_rel": POD_UNSPLIT_PARAM_REL}
+    for how, (ref_losses, ref) in refs.items():
+        out[f"{how}_losses"] = ref_losses
+        for name, got in pair.items():
+            rel = {n: float((a - b).norm() / b.norm()) for n, a, b in zip(names, got["full"], ref)}
+            worst = max(rel, key=rel.get)
+            out.setdefault(name, {"losses": got["losses"],
+                                  "replicas_bit_equal": got["replicas_bit_equal"]})
+            out[name][f"vs_{how}"] = {
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref_losses)),
+                "param_rel_l2": rel[worst], "worst": worst, "param_rel_l2_by_tensor": rel}
+    return out
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """A parameter tree's leaf names in ``tree_leaves`` order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def _pod_resume(torch, ckpt_root: str, world: int, device: str) -> dict:
+    """(d), one process: restore the pod checkpoint (full arrays, merged
+    offsets) into the single-process trainer, seek a consumer of every
+    partition to its offsets and train the rest of the topic."""
+    import numpy as np
+
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.checkpoint import StreamCheckpointer
+    from torchkafka_tpu_torch.utils.tree import tree_leaves
+
+    cfg32 = _pod_config(torch, device, n_layers=2, dtype=torch.float32)
+    ck = StreamCheckpointer(ckpt_root)
+    parts = 2 * world
+    broker = tk.InMemoryBroker()  # the same content the ranks built
+    broker.create_topic("pod_ckpt", partitions=parts)
+    rng = np.random.default_rng(SEED + 10)
+    for i in range(2 * 8 * world):
+        broker.produce("pod_ckpt", rng.integers(0, cfg32.vocab_size, 512, dtype=np.int32)
+                       .tobytes(), partition=i % parts)
+    # One more global batch for the resumed process to train on.
+    extra = [rng.integers(0, cfg32.vocab_size, 512, dtype=np.int32) for _ in range(8 * world)]
+    for i, row in enumerate(extra):
+        broker.produce("pod_ckpt", row.tobytes(), partition=i % parts)
+    consumer = tk.MemoryConsumer(broker, "pod_ckpt", group_id="pod",
+                                 assignment=tk.partitions_for_process("pod_ckpt", parts, 0, 1))
+    init_fn, step_fn = tk.make_train_step(cfg32, None, tk.adamw(1e-3), device=device)
+    params, opt = init_fn(torch.Generator(device=device).manual_seed(SEED + 10))
+    t0 = time.perf_counter()
+    state, step = ck.resume(consumer, template={"params": params, "opt": opt.state_tree(params)})
+    restore_s = time.perf_counter() - t0
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(params), tree_leaves(state["params"])):
+            a.copy_(b)
+    opt.load_state_tree(state["opt"])
+    steps = 0
+    losses = []
+    with tk.KafkaStream(consumer, tk.fixed_width(512, np.int32), batch_size=8 * world,
+                        idle_timeout_ms=1000, device=device) as stream:
+        for b, token in stream:
+            params, opt, loss = step_fn(params, opt, b.data, None)
+            if not token.commit(wait_for=loss):
+                raise AssertionError("pod resume: commit failed")
+            losses.append(loss.item())
+            steps += 1
+    committed = {str(p): broker.committed("pod", tk.TopicPartition("pod_ckpt", p))
+                 for p in range(parts)}
+    end = {str(p): broker.end_offset(tk.TopicPartition("pod_ckpt", p)) for p in range(parts)}
+    consumer.close()
+    return {"restored_step": step, "restore_s": restore_s, "steps_after_restore": steps,
+            "losses_after_restore": losses, "committed": committed, "end_offsets": end,
+            "complete": step in ck.steps()}
+
+
+def _scenario3_torchrun(torch, world: int, device: str) -> dict:
+    """(e): harness scenario 3 at full size under ``world`` ranks, started
+    through ``torch.distributed.run``; one JSON line a rank."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(world),
+         "--master-addr", "127.0.0.1", "--master-port", str(port),
+         "-m", "torchkafka_tpu_torch.harness", "--scenario", "3",
+         *(["--size", "full"] if device == "cuda" else ["--size", "tiny", "--device", device])],
+        capture_output=True, text=True, cwd=here, timeout=600,
+        env={**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")})
+    seconds = time.perf_counter() - t0
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or len(rows) != world:
+        raise AssertionError(f"pod_train scenario 3: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return {"seconds": seconds, "ranks": rows}
+
+
+def free_port() -> int:
+    """A free localhost port (for a process group's store)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_pod_train(torch, device: str = "cuda") -> list:
+    """Data- and fsdp-parallel training across processes: ``POD_RANKS``
+    ranks started as children of this process (``chip_smoke.py
+    --pod-rank``), one process group (``parallel.multihost.initialize``:
+    the device rule puts both on ``cuda:0``, the backend rule picks gloo),
+    each dumping its counts to a JSON file:
+
+    (a) the 1b widths, f32 masters, bf16 compute, B=8 rows a rank, S=512,
+        AdamW: ``{"data": 2}`` at all 24 layers and ``{"fsdp": 2}`` at
+        ``CUT_LAYERS``, 3 steps each through ``pod_consumer`` →
+        ``KafkaStream(mesh=)`` → ``make_train_step(cfg, mesh)`` →
+        ``token.commit``; per rank: step ms (CUDA events), collective ms
+        (host clock), bytes a step, peak memory; K1 = K2 = K3 = layers x
+        steps on each rank, all on the tensor cores; the data replicas'
+        parameter checksums equal;
+    (b) f32 at 2 layers: ``{"data": 2}`` and ``{"fsdp": 2}`` on one 16-row
+        global batch, 3 steps, against the single-process step: losses
+        and parameters within 1e-5 relative; data replicas bit-equal;
+    (c) each rank's committed offsets equal its partitions' end offsets;
+    (d) a pod checkpoint at step 2 (f32, 2 layers, ``{"data": 2}``) is
+        complete, and one process restores it and trains on from its
+        offsets to the topic's end;
+    (e) harness scenario 3 at full size under 2 ranks through
+        ``torch.distributed.run``.
+    The kernels are built once, by this process, before any rank starts;
+    the ranks only load them. ``device="cpu"`` rehearses the phase at
+    tiny widths (no kernel counts or device numbers)."""
+    import shutil
+
+    from torchkafka_tpu_torch.ops import _native
+
+    cuda = device == "cuda"
+    smi = smi_line() if cuda else None
+    t0 = time.perf_counter()
+    if cuda:
+        _native.build_all()
+    libs = {k: _native._target(k) for k in _native.KERNELS} if cuda else {}
+    mtimes = {k: p.stat().st_mtime_ns for k, p in libs.items()}
+    build_s = time.perf_counter() - t0
+    outdir = tempfile.mkdtemp(prefix="tk-pod-")
+    here = os.path.abspath(__file__)
+    rows = []
+    try:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--pod-rank", str(r), "--pod-port", str(port),
+             "--pod-out", outdir, "--pod-device", device],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(POD_RANKS)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=600)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+        ranks_s = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError("pod_train ranks: " + " | ".join(
+                f"rc {p.returncode}: {log[-3000:]}" for p, log in zip(procs, logs)))
+        dumps = []
+        for r in range(POD_RANKS):
+            with open(os.path.join(outdir, f"rank_{r}.json")) as f:
+                dumps.append(json.load(f))
+        rebuilt = [k for k, p in libs.items() if p.stat().st_mtime_ns != mtimes[k]]
+        t0 = time.perf_counter()
+        resume = _pod_resume(torch, os.path.join(outdir, "ckpt"), POD_RANKS, device)
+        resume_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.empty_cache()
+        s3 = _scenario3_torchrun(torch, POD_RANKS, device)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+    problems = []
+    for d in dumps:
+        r = d["rank"]
+        if d["rules"]["device"] != ("cuda:0" if cuda else "cpu") or d["rules"]["backend"] != "gloo":
+            problems.append(f"rank {r} rules {d['rules']}")
+        if cuda and not d["libraries_present_at_start"]:
+            problems.append(f"rank {r} started before the kernels were built")
+        for name in ("data", "fsdp"):
+            row = d[name]
+            want = row["layers"] * row["steps"] if cuda else 0
+            if any(n != want for n in row["launches"].values()) or \
+                    any(n != want for n in row["tc_launches"].values()):
+                problems.append(f"rank {r} {name}: launches {row['launches']} "
+                                f"tc {row['tc_launches']}, want {want}")
+            if row["committed"] != row["end_offsets"]:
+                problems.append(f"rank {r} {name}: committed {row['committed']} "
+                                f"!= end {row['end_offsets']}")
+            if row["barrier"] != "BarrierWatchdog":
+                problems.append(f"rank {r} {name}: barrier {row['barrier']}")
+    if dumps[0]["data"]["checksums"] != dumps[1]["data"]["checksums"]:
+        problems.append("data replicas' parameters differ (24 layers, bf16 compute)")
+    for name in ("data", "fsdp"):
+        if dumps[0][name]["losses"] != dumps[1][name]["losses"]:
+            problems.append(f"{name}: ranks returned different global losses")
+    pair = dumps[0]["f32_pair"]
+    for name in ("data", "fsdp"):
+        got = pair[name]
+        if not (got["vs_single"]["loss_rel"] <= 1e-5 and got["vs_split"]["loss_rel"] <= 1e-5
+                and got["vs_split"]["param_rel_l2"] <= 1e-5
+                and got["vs_single"]["param_rel_l2"] <= POD_UNSPLIT_PARAM_REL):
+            problems.append(f"f32 {name} pair: " + json.dumps(
+                {h: {k: v for k, v in got[h].items() if k != "param_rel_l2_by_tensor"}
+                 for h in ("vs_single", "vs_split")}))
+    if pair["data"]["replicas_bit_equal"] is not True:
+        problems.append("f32 data replicas not bit-equal")
+    ck = [d["ckpt"] for d in dumps]
+    if not (resume["complete"] and resume["restored_step"] == 2
+            and resume["steps_after_restore"] >= 1
+            and resume["committed"] == resume["end_offsets"]):
+        problems.append(f"pod checkpoint resume: {resume}")
+    s3_ranks = s3["ranks"]
+    for row in s3_ranks:
+        steps, rows_a_step, layers = (50, 8, 4) if cuda else (8, 2, 2)
+        if (row["records"] != steps * rows_a_step or row["commit"]["count"] != steps
+                or row["commit_failures"] or row["mesh"] != {"data": POD_RANKS}
+                or (cuda and not row.get("slope_ok")) or row["rules"]["backend"] != "gloo"
+                or any(n != (layers * steps if cuda else 0) for n in row["launches"].values())):
+            problems.append(f"scenario 3 rank {row.get('process_index')}: {row}")
+    if s3_ranks[0]["last_loss"] != s3_ranks[1]["last_loss"]:
+        problems.append("scenario 3: ranks' losses differ")
+    if rebuilt:
+        problems.append(f"kernels rebuilt during the phase: {rebuilt}")
+    if problems:
+        raise AssertionError("pod_train: " + "; ".join(problems))
+
+    def per_rank(name, key):
+        return [d[name][key] for d in dumps]
+
+    for name in ("data", "fsdp"):
+        row = dumps[0][name]
+        rows.append({
+            "phase": "pod_train", "run": name, "ranks": POD_RANKS, "nvidia_smi": smi,
+            "rules": [d["rules"] for d in dumps], "layers": row["layers"],
+            "batch_per_rank": row["batch_per_rank"], "seq": row["seq"], "steps": row["steps"],
+            "losses": row["losses"], "step_ms": per_rank(name, "step_ms"),
+            "collective_ms": per_rank(name, "collective_ms"),
+            "collective_bytes_per_step": per_rank(name, "collective_bytes"),
+            "collective_calls_per_step": per_rank(name, "collective_calls"),
+            "peak_mem_gb": per_rank(name, "peak_mem_gb"), "loop_s": per_rank(name, "loop_s"),
+            "launches": per_rank(name, "launches"), "tc_launches": per_rank(name, "tc_launches"),
+            "committed": per_rank(name, "committed"), "end_offsets": per_rank(name, "end_offsets"),
+            "replica_checksums_equal": name == "data" or None})
+    rows.append({"phase": "pod_train", "run": "f32_pair", "layers": 2, **pair})
+    rows.append({"phase": "pod_train", "run": "checkpoint",
+                 "save": [c["checkpoint"] for c in ck], "losses_before": ck[0]["losses"],
+                 "resume": resume, "resume_s": resume_s})
+    rows.append({"phase": "pod_train", "run": "scenario_3", "seconds": s3["seconds"],
+                 "ranks": s3_ranks})
+    rows.append({"phase": "pod_train", "run": "summary", "build_s": build_s,
+                 "ranks_s": ranks_s, "kernels_built_once": not rebuilt,
+                 "init_s": [d["init_s"] for d in dumps],
+                 "collectives_total": [d["collectives_total"] for d in dumps]})
+    return rows
+
+
 # ------------------------------------------------- secondary models, examples
 
 def check_harness_models(torch) -> list:
@@ -5812,13 +6354,21 @@ def main() -> int:
                     help="rounds of (HBM only, tier) in the serve_tiered phase "
                          "(more rounds: tok/s compared over more interleaved "
                          "runs)")
-    ap.add_argument("--lane", choices=tuple(dict.fromkeys((*LANES, *sum(LANES.values(), ())))),
+    ap.add_argument("--lane", choices=tuple(dict.fromkeys(
+                        (*LANES, *sum(LANES.values(), ()), "serve_moe"))),
                     help="run only this lane's phases, or only this one lane "
                          "phase (the script starts each lane itself, beside "
                          "its main sequence)")
     ap.add_argument("--clock-start", type=float, default=None,
                     help="the starting script's clock, so a lane's at_s is the script's")
+    ap.add_argument("--pod-rank", type=int, default=None,
+                    help="(internal) run one rank of the pod_train phase")
+    ap.add_argument("--pod-port", type=int, default=None, help="(internal) its store's port")
+    ap.add_argument("--pod-out", default=None, help="(internal) its dump directory")
+    ap.add_argument("--pod-device", default="cuda", help="(internal) its device")
     args = ap.parse_args()
+    if args.pod_rank is not None:
+        return pod_rank_main(args.pod_rank, args.pod_port, args.pod_out, args.pod_device)
     import torch
 
     if not torch.cuda.is_available():
@@ -5983,6 +6533,12 @@ def main() -> int:
             emit(row)
         del params8_32
         torch.cuda.empty_cache()
+        # MoE serving ends the main sequence (the procfleet lane carries
+        # pod_train, so the three sequences end together).
+        rows_sm_all = check_serve_moe(torch)
+        for row in rows_sm_all:
+            emit(row)
+        torch.cuda.empty_cache()
         lane_rows = [finish_lane(job) for job in lanes]
     finally:
         stop_lanes(lanes)
@@ -5992,7 +6548,8 @@ def main() -> int:
     rows_pf, rows_pf32 = by_phase["serve_procfleet"], by_phase["serve_procfleet_f32"]
     rows_h, rows_hf = by_phase["harness"], by_phase["harness_fleet"]
     rows_hp = by_phase["harness_procfleet"]
-    rows_sm = [r for r in by_phase["serve_moe"] if "launches" in r]
+    rows_sm = [r for r in rows_sm_all if "launches" in r]
+    rows_pod = by_phase["pod_train"]
     row_tm = by_phase["train_moe"][0]
     for phase in ("harness_models", "examples"):
         if not by_phase.get(phase):
@@ -6034,6 +6591,19 @@ def main() -> int:
         return {str(r["scenario"]): {"parent": r["launches"]["flash_fwd"],
                                      "children": [c["flash_fwd"] for c in r["children"]]}
                 for r in rows_hp}
+
+    def pod_launches(kernel):
+        """K1-K3 on each rank of pod_train: the data and fsdp runs (with
+        their tensor-core counts) and scenario 3 under torchrun."""
+        out = {}
+        for r in rows_pod:
+            if r.get("run") in ("data", "fsdp"):
+                out[r["run"]] = {"layers": r["layers"], "steps": r["steps"],
+                                 "launches": [x[kernel] for x in r["launches"]],
+                                 "tc_launches": [x[kernel] for x in r["tc_launches"]]}
+            elif r.get("run") == "scenario_3":
+                out["scenario_3"] = [x["launches"][kernel] for x in r["ranks"]]
+        return out
 
     def child_launches(kernel):
         """K1-K3 as the worker processes counted them (their metrics
@@ -6085,6 +6655,7 @@ def main() -> int:
          "moe_serve_launches": {r["run"]: r["launches"]["flash_fwd"] for r in rows_sm},
          "moe_train_launches": row_tm["launches"]["flash_fwd"],
          "moe_train_tc_launches": row_tm["tc_launches"]["flash_fwd"],
+         "pod_launches": pod_launches("flash_fwd"),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -6099,6 +6670,7 @@ def main() -> int:
          "library_ms": k23["library_ms_sdpa_bwd"],
          "process_launches": child_launches("flash_dq"),
          "moe_train_launches": row_tm["launches"]["flash_dq"],
+         "pod_launches": pod_launches("flash_dq"),
          "harness_launches": harness_launches("flash_dq"),
          "harness_fleet_launches": harness_fleet_launches("flash_dq")},
         {"name": "flash_dkv", "route": "cuda",
@@ -6112,6 +6684,7 @@ def main() -> int:
          "library_ms": k23["library_ms_sdpa_bwd"],
          "process_launches": child_launches("flash_dkv"),
          "moe_train_launches": row_tm["launches"]["flash_dkv"],
+         "pod_launches": pod_launches("flash_dkv"),
          "harness_launches": harness_launches("flash_dkv"),
          "harness_fleet_launches": harness_fleet_launches("flash_dkv")},
         {"name": "kvattn_dynlen", "route": "cuda",

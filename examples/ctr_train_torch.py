@@ -68,7 +68,7 @@ def main() -> None:
     if args.processes > 1:
         raise NotImplementedError(
             f"--processes {args.processes} is not ported yet (ROADMAP queue A: "
-            "Mesh and multi-process paths)"
+            "Pipeline and expert parallelism)"
         )
     dev = resolve_device(args.device)
     cfg = DLRMConfig()  # 8 tables x 100k x 64: the tables are the bytes

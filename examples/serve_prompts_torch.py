@@ -36,7 +36,7 @@ from torchkafka_tpu_torch.utils.devices import resolve_device
 TOPIC = "prompts"
 PROMPT_LEN = 32
 VOCAB = 2048
-MESH_NOT_PORTED = "is not ported yet (ROADMAP queue A: Mesh and multi-process paths)"
+MESH_NOT_PORTED = "is not ported yet (ROADMAP queue A: Sharded serving)"
 
 
 def main() -> int:

@@ -9,7 +9,7 @@ Runs on the in-memory broker, on the card by default or on the CPU:
 Swap ``make_consumer`` for ``tk.KafkaConsumer(...)`` to point at a real
 cluster. Kill it anywhere; rerun with the same --ckpt and it resumes from
 the last checkpoint with the stream seeked to exactly the matching
-offsets. One device: the mesh and multi-process paths are not ported.
+offsets. One device; ``examples/pod_train_torch.py`` trains across processes.
 """
 
 from __future__ import annotations

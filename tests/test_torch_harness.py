@@ -124,8 +124,7 @@ def test_flag_scoping_matches_jax(case):
 
 
 UNPORTED = {
-    3: "Mesh and multi-process paths",
-    20: "Mesh and multi-process paths",
+    20: "Sharded serving",
 }
 
 

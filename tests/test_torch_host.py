@@ -136,10 +136,11 @@ def _forbidden(name: str) -> bool:
 
 def test_port_never_imports_jax_ast():
     files = sorted((ROOT / "torchkafka_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_probe_dist.py"]
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert [f.name for f in examples] == [
-        "ctr_train_torch.py", "serve_prompts_torch.py", "train_stream_torch.py"]
+        "ctr_train_torch.py", "pod_train_torch.py", "serve_prompts_torch.py",
+        "train_stream_torch.py"]
     files += examples
     assert len(files) > 10
     assert ROOT / "torchkafka_tpu_torch" / "journal" / "journal.py" in files
@@ -151,7 +152,9 @@ def test_port_never_imports_jax_ast():
                 "fleet/proc.py", "fleet/supervisor.py", "fleet/prefill.py",
                 "distill/trainer.py", "distill/worker.py", "harness/__init__.py",
                 "harness/__main__.py", "harness/scenarios.py", "ops/bitpack.py",
-                "models/recsys.py", "models/resnet.py", "transform/image.py"):
+                "models/recsys.py", "models/resnet.py", "transform/image.py",
+                "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
+                "parallel/collectives.py", "utils/buildlock.py"):
         assert ROOT / "torchkafka_tpu_torch" / mod in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
@@ -176,7 +179,8 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.distill.worker, torchkafka_tpu_torch.harness\n"
         "import torchkafka_tpu_torch.harness.__main__, torchkafka_tpu_torch.ops.bitpack\n"
         "import torchkafka_tpu_torch.models.recsys, torchkafka_tpu_torch.models.resnet\n"
-        "import torchkafka_tpu_torch.transform.image\n"
+        "import torchkafka_tpu_torch.transform.image, torchkafka_tpu_torch.parallel\n"
+        "import torchkafka_tpu_torch.parallel.collectives\n"
         "import runpy, pathlib\n"
         "for ex in sorted(pathlib.Path('examples').glob('*_torch.py')):\n"
         "    runpy.run_path(str(ex), run_name='imported')\n"

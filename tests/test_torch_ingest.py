@@ -262,15 +262,17 @@ def test_stream_batches_are_tensors_on_the_device():
 
 
 def test_stream_unported_arguments_raise():
+    """``mesh=`` and the watchdog settings are ported: a mesh that is not a
+    ``DeviceMesh`` raises, and the watchdog settings pass on one process
+    (the watchdog wraps the barrier only in a group of several)."""
     broker, _ = _records("port", 5, n=4)
     proc = ptk.fixed_width(SEQ, np.int32)
-    for kw, match in (
-        ({"mesh": object()}, "mesh"),
-        ({"on_barrier_timeout": lambda: None}, "multihost"),
-        ({"barrier_timeout_s": 10.0}, "multihost"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            ptk.KafkaStream(_consumer("port", broker), proc, 4, device="cpu", **kw)
+    with pytest.raises(TypeError, match="make_mesh"):
+        ptk.KafkaStream(_consumer("port", broker), proc, 4, device="cpu", mesh=object())
+    for kw in ({"on_barrier_timeout": lambda: None}, {"barrier_timeout_s": 10.0}):
+        stream = ptk.KafkaStream(_consumer("port", broker), proc, 4, device="cpu", **kw)
+        assert type(stream._barrier).__name__ == "CommitBarrier"
+        stream.close()
 
 
 # ---------------------------------------------------------- commit barrier

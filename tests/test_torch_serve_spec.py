@@ -313,7 +313,7 @@ def test_spec_pools_and_counters(pkgs):
 def test_mesh_is_not_ported(pkgs):
     """``mesh=`` raises the base server's deferral, naming its ROADMAP
     title (the JAX speculative server shards both models over a mesh)."""
-    with pytest.raises(NotImplementedError, match="mesh and multi-process paths"):
+    with pytest.raises(NotImplementedError, match="Sharded serving"):
         _spec_server(pkgs, mesh=object())
 
 

@@ -167,10 +167,17 @@ def test_unported_arguments_raise():
     _, pcfg = _configs("dense", **MOE, moe_dispatch="capacity")
     pt.Transformer(pcfg)  # capacity dispatch is ported (tests/test_torch_moe.py)
     _, pcfg = _configs("dense")
+
+    class TpMesh:  # the axis sizes a two-rank tp mesh carries
+        mesh_dim_names = ("tp",)
+        mesh = torch.zeros(2)
+
     with pytest.raises(NotImplementedError, match="mesh"):
+        pt.make_train_step(pcfg, TpMesh(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        pt.Transformer(pcfg, mesh=TpMesh())
+    with pytest.raises(TypeError, match="make_mesh"):
         pt.make_train_step(pcfg, object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pt.Transformer(pcfg, mesh=object())
 
 
 def test_remat_gives_the_same_grads():

@@ -53,6 +53,7 @@ from torchkafka_tpu_torch.obs import (
     SLOTarget,
 )
 from torchkafka_tpu_torch.optim import adam, adamw
+from torchkafka_tpu_torch.parallel import batch_sharding, global_batch, make_mesh
 from torchkafka_tpu_torch.pipeline import KafkaStream, stream
 from torchkafka_tpu_torch.resilience import (
     CircuitBreaker,
@@ -167,15 +168,18 @@ __all__ = [
     "WriteAheadLog",
     "adam",
     "adamw",
+    "batch_sharding",
     "chunk_of",
     "chunked",
     "compose",
     "encode_png_rgb",
     "dead_letter_to_topic",
     "fixed_width",
+    "global_batch",
     "json_field",
     "json_tokens",
     "png_images",
+    "make_mesh",
     "make_train_step",
     "partitions_for_process",
     "raw_bytes",

@@ -5,9 +5,18 @@ Port of ``torchkafka_tpu/checkpoint/manager.py``. The state goes through
 offsets files are written by the same code as the JAX package's, so a
 ``stream_offsets*.json`` from either package reads in the other, byte for
 byte. ``process_index``/``process_count`` come from an initialised
-``torch.distributed`` group, else 0/1. Multi-process saves (a pod writing
-one offsets file per process under barriers) are not ported yet and raise
-``NotImplementedError``; restoring a pod checkpoint's merged watermark is.
+``torch.distributed`` group, else 0/1.
+
+A multi-process save (every rank calls ``save`` with the same step): a
+``DTensor`` leaf (a parameter or moment laid out over a mesh) is gathered
+into the full tensor on every rank (``parallel.mesh.full_tensor``), so the
+state file holds full arrays, as the JAX package's pod save writes them;
+process 0 writes it, every process writes its own offsets file
+(``stream_offsets_<i>.json`` with ``process_index`` and
+``process_count``), and barriers order prepare → write → rename, the
+rename being process 0's. Any process count restores it: ``restore``
+merges every offsets file, and a ``DTensor`` in the template takes its
+chunk of the full array.
 
 What follows is the JAX package's design note, which holds for the port.
 
@@ -72,11 +81,41 @@ def _to_host(state: Any) -> Any:
     )
 
 
-def _pod_save_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "multi-process checkpoint saves are not ported yet (ROADMAP queue A: "
-        "mesh and multi-process paths)"
-    )
+def _gather_state(state: Any, keep: bool = True) -> Any:
+    """Every ``DTensor`` leaf as its full tensor (a collective: every
+    process calls it in the same tree order), then a host snapshot; with
+    ``keep`` False (a process that writes no state file) only the
+    collectives run, and None comes back."""
+    from torchkafka_tpu_torch.parallel.mesh import full_tensor
+
+    full = tree_map(full_tensor, state)
+    return _to_host(full) if keep else None
+
+
+def _pod_barrier(name: str) -> None:
+    """A barrier across every process of the pod (on the commit
+    barrier's group when ``parallel.multihost.initialize`` made one)."""
+    from torchkafka_tpu_torch.parallel.multihost import barrier_group
+
+    try:
+        torch.distributed.barrier(group=barrier_group())
+    except Exception as e:
+        raise RuntimeError(f"checkpoint barrier {name} failed: {e}") from e
+
+
+def _place_like(x: Any, ref: Any) -> Any:
+    """A restored host tensor placed as the template leaf ``ref`` is: on
+    its device and dtype, and as its chunk when ``ref`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from torchkafka_tpu_torch.parallel.mesh import distribute
+
+    if isinstance(ref, DTensor):
+        local = ref.to_local()
+        return distribute(x.to(local.device, local.dtype), ref.device_mesh, ref.placements)
+    if isinstance(ref, torch.Tensor):
+        return x.to(ref.device, ref.dtype)
+    return x
 
 
 def _offsets_file(pid: int, multi: bool) -> str:
@@ -200,20 +239,33 @@ class StreamCheckpointer:
         crash_hook("post_commit_pre_checkpoint")
         self.wait_until_finished()  # serialize after any async save
         pid, count = _process()
-        if count > 1:
-            raise _pod_save_not_ported()
+        multi = count > 1
         final = os.path.join(self._root, str(step))
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
+        # Every process gathers its DTensor leaves (a collective) before
+        # any file is touched.
+        host_state = _gather_state(state, keep=pid == 0)
+        if pid == 0 and os.path.exists(tmp):
             shutil.rmtree(tmp)
-        self._write_state(tmp, _to_host(state))
-        self._write_offsets(tmp, pid, False, step, offsets)
+        if multi:
+            # Pod save: process 0 cleared the temporary directory; every
+            # process writes only after that, and the rename waits for
+            # every process's files.
+            _pod_barrier(f"ckpt-prepare-{step}")
+        if pid == 0:
+            self._write_state(tmp, host_state)
+        self._write_offsets(tmp, pid, multi, step, offsets)
         # Payload and offsets written, the atomic rename NOT yet done:
         # death here leaves a ``.tmp`` step that steps()/restore must
         # never see (restore(step=None) falls back to the newest
         # COMPLETE step).
         crash_hook("checkpoint_mid_write")
-        self._commit_rename(tmp, final)
+        if multi:
+            _pod_barrier(f"ckpt-written-{step}")
+        if pid == 0:
+            self._commit_rename(tmp, final)
+        if multi:
+            _pod_barrier(f"ckpt-renamed-{step}")
         logger.info("checkpoint %d saved (%d partitions)", step, len(offsets))
         return final
 
@@ -232,11 +284,13 @@ class StreamCheckpointer:
         Serialization: a second ``save_async`` (or ``save``) first waits
         for the previous one, so checkpoints commit in step order. Call
         ``wait_until_finished()`` before reading ``steps()``/``restore()``
-        if you need the async save visible. On a pod this falls back to
-        the synchronous path in the JAX package; multi-process saves are
-        not ported yet and raise."""
+        if you need the async save visible. On a pod this is the
+        synchronous ``save``: the rename barriers must interleave
+        identically on every process, which a background thread racing
+        the main thread's commit barriers cannot guarantee."""
         if _process()[1] > 1:
-            raise _pod_save_not_ported()
+            self.save(step, state, offsets)
+            return
         self.wait_until_finished()
         final = os.path.join(self._root, str(step))
         tmp = final + ".tmp"
@@ -245,7 +299,7 @@ class StreamCheckpointer:
         # The host snapshot is taken HERE, before returning: the caller's
         # next in-place update cannot tear the checkpoint. Only the file
         # writes and the rename run on the writer thread.
-        host_state = _to_host(state)
+        host_state = _gather_state(state)
 
         def _write() -> None:
             try:
@@ -361,8 +415,9 @@ class StreamCheckpointer:
     ) -> tuple[Any, dict[TopicPartition, int], int]:
         """→ (state, offsets, step). ``template``: a tree of the same
         structure whose tensor leaves give each restored tensor its device
-        and dtype (e.g. the live parameters); without one the state comes
-        back in host memory.
+        and dtype (e.g. the live parameters), and whose ``DTensor`` leaves
+        give it their layout (this process's chunk of the saved full
+        array); without one the state comes back in host memory.
 
         ``offsets`` is the POD-GLOBAL watermark: the union of every
         process's offsets file in the checkpoint. Partitions are disjoint
@@ -403,11 +458,7 @@ class StreamCheckpointer:
         with open(os.path.join(path, _STATE_FILE), "rb") as f:
             state = torch.load(f, map_location="cpu", weights_only=True)
         if template is not None:
-            state = tree_map(
-                lambda x, ref: x.to(ref.device, ref.dtype)
-                if isinstance(ref, torch.Tensor) else x,
-                state, template,
-            )
+            state = tree_map(_place_like, state, template)
         merged: dict[TopicPartition, int] = {}
         for meta in metas:
             for tp, off in _decode_offsets(meta["offsets"]).items():

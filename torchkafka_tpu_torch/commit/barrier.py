@@ -8,11 +8,17 @@ commit, the barrier
    the host, plus (strict mode) a one-element host read of the step's
    first tensor result;
 2. with ``torch.distributed`` initialised over more than one process,
-   waits for every process (``torch.distributed.barrier()``);
+   waits for every process (``torch.distributed.barrier`` on the group
+   ``parallel.multihost.initialize`` made for the barrier, else on the
+   default group);
 3. only then lets the commit proceed.
 
 Fail-closed: any failure in either step raises ``BarrierError``; nothing
-commits and Kafka re-delivers the batch.
+commits and Kafka re-delivers the batch. A peer that died before the
+barrier closes its connections, and the survivors' barrier raises; a peer
+that hangs surfaces at the group's timeout, or earlier through the
+``BarrierWatchdog`` that ``KafkaStream`` wraps around the barrier when the
+group has more than one process.
 
 The event must be recorded on the stream that enqueued the step, at the
 time the caller hands the step's result over. ``fence(wait_for)`` does that
@@ -62,7 +68,7 @@ class CommitBarrier:
 
     Single-process: only the retirement proof. Multi-process (an
     initialised ``torch.distributed`` group of more than one process): adds
-    ``torch.distributed.barrier()``; collectives pair up in call order, so
+    ``torch.distributed.barrier``; barriers pair up in call order, so
     every process must commit the same batches in the same order (the
     stream's commit calls are identical across processes)."""
 
@@ -98,7 +104,9 @@ class CommitBarrier:
                 self._retire(wait_for)
             self._calls += 1
             if _world_size() > 1:
-                torch.distributed.barrier()
+                from torchkafka_tpu_torch.parallel.multihost import barrier_group
+
+                torch.distributed.barrier(group=barrier_group())
         except BarrierError:
             raise
         except Exception as e:

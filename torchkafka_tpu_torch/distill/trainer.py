@@ -87,7 +87,7 @@ class DistillTrainer:
         metrics=None,
     ) -> None:
         if mesh is not None:
-            raise _not_ported("mesh=", "mesh and multi-process paths")
+            raise _not_ported("mesh=", "Sharded serving")
         if publish_every < 0:
             raise ValueError("publish_every must be >= 0")
         if publish_every and (broker is None or ckpt_topic is None):

@@ -12,7 +12,8 @@
 | 17-19, 21, 23, 24 | process fleets over the socket broker: SIGKILL storm, exactly-once storm, broker crash and WAL recovery, disaggregated prefill kill, quorum leader failover, rolling hot-swap with canary rollback | here |
 | 4 | PNG topic → host decode → ResNet-50 inference | here, conv MFU against the H100's bf16 peak |
 | 8 | streaming DLRM (CTR) training, commit-after-step | here, one device |
-| 3, 20 | mesh training, sharded paged serving | queue A "Mesh and multi-process paths" |
+| 3 | mesh-sharded global batches → data-parallel train step → commit | here, n = the launched ranks (``torch.distributed.run``) |
+| 20 | sharded paged serving | queue A "Sharded serving" |
 
 Every ported scenario runs the JAX package's loop (poll → transform →
 batch → device → step → barrier → commit) with its sizes, seeds and
@@ -579,6 +580,123 @@ def scenario_7(
 
 
 # ---------------------------------------------------------------- training
+
+
+def scenario_3(size: str = "tiny", device=None) -> dict:
+    """Mesh-sharded global batches training the flagship transformer with
+    commit-after-step: the heart of the design (BASELINE north star; no
+    reference analog). n is the launched world size: run it under
+    ``python -m torch.distributed.run --nproc-per-node N -m
+    torchkafka_tpu_torch.harness --scenario 3`` (one process is n = 1).
+    Each rank builds the same topic (the stand-in for one shared cluster),
+    consumes its own partitions (``partitions_for_process``; the partition
+    count rounded up to a multiple of n so every rank gets the same rows),
+    and feeds ``local_batch`` rows a step into the ``{"data": n}`` mesh
+    (``parallel.multihost.initialize``'s device and backend rules). The
+    JAX package's ``local_batch`` is the whole host's (2 or 8 per device);
+    here it is each rank's, so the global batch is the same per device."""
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.models.transformer import TransformerConfig, make_train_step
+    from torchkafka_tpu_torch.ops.flash import flash_dkv_bhsd, flash_dq_bhsd, flash_fwd_bhsd
+    from torchkafka_tpu_torch.optim import adamw
+    from torchkafka_tpu_torch.parallel import multihost
+    from torchkafka_tpu_torch.parallel.mesh import axis_sizes, local_part, make_mesh
+
+    if device is None:
+        resolve_device(None)  # the device rule: CUDA, or raise before any group starts
+    idx, n = multihost.initialize(device=device)
+    mesh = make_mesh({"data": n}, device=device)
+    dev = multihost.ensure_group(device)
+    seq = 64 if size == "tiny" else 512
+    cfg = (
+        TransformerConfig(vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=128, max_seq_len=seq, dtype=torch.float32)
+        if size == "tiny"
+        else TransformerConfig(max_seq_len=seq)
+    )
+    steps = 8 if size == "tiny" else 50
+    local_batch = 2 if size == "tiny" else 8
+    n_local = steps * local_batch
+    parts = n * -(-4 // n)  # at least 4, a multiple of n
+
+    broker = tk.InMemoryBroker()
+    broker.create_topic("t3", partitions=parts)
+    rng = np.random.default_rng(0)
+    for i in range(n_local * n):
+        broker.produce("t3", rng.integers(0, cfg.vocab_size, seq, dtype=np.int32).tobytes(),
+                       partition=i % parts)
+    consumer = tk.MemoryConsumer(
+        broker, "t3", group_id="s3",
+        assignment=tk.partitions_for_process("t3", parts, idx, n),
+    )
+    init_fn, step_fn = make_train_step(cfg, mesh, adamw(1e-3), device=dev)
+    params, opt_state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    state = {"params": params, "opt": opt_state, "losses": []}
+
+    def step(batch):
+        rows = local_part(batch.data)
+        valid = torch.arange(rows.shape[0], device=dev) < batch.valid_count
+        mask = valid[:, None].expand(rows.shape).to(torch.int32)
+        state["params"], state["opt"], loss = step_fn(
+            state["params"], state["opt"], batch.data, mask
+        )
+        state["losses"].append(loss)
+        return loss
+
+    kernels = (flash_fwd_bhsd, flash_dq_bhsd, flash_dkv_bhsd)
+    for fn in kernels:
+        fn.launches = 0
+    with tk.KafkaStream(
+        consumer, tk.fixed_width(seq, np.int32), batch_size=local_batch,
+        mesh=mesh, idle_timeout_ms=2000, owns_consumer=True, device=dev,
+    ) as stream:
+        rows, elapsed = _drain(stream, step, n_local)
+    launches = {fn.__name__.replace("_bhsd", ""): fn.launches for fn in kernels}
+    losses = [float(x) for x in state["losses"]]
+    extra = {"mesh": axis_sizes(mesh), "process_index": idx, "process_count": n,
+             "rules": multihost.rules(), "partitions": parts,
+             "committed": {p.partition: broker.committed("s3", p)
+                           for p in tk.partitions_for_process("t3", parts, idx, n)},
+             "first_loss": round(losses[0], 4), "last_loss": round(losses[-1], 4),
+             "launches": launches}
+    if dev.type == "cuda":
+        cards = min(n, torch.cuda.device_count())
+        extra.update(_train_mfu(cfg, state, step_fn, local_batch, seq, n, cards, dev))
+    return _result("3:mesh-train", rows, elapsed, stream, extra)
+
+
+def _train_mfu(cfg, state, step_fn, batch: int, seq: int, n_ranks: int, cards: int,
+               dev) -> dict:
+    """Pure train-step time (ingest excluded) and an MFU estimate, on
+    CUDA. FLOPs/step ≈ 6·N_params·tokens (fwd+bwd matmul rule of thumb) +
+    6·L·d_model·B·S² (causal attention, fwd+bwd) over the global batch (B
+    = ``batch`` rows a rank × ``n_ranks``); the peak is 989 TFLOP/s bf16
+    per CARD the ranks use, not per rank: two ranks sharing one H100 share
+    its peak. The step time is ``utils.timing.device_step_seconds``'s
+    two-point CUDA-event slope on each rank's own rows (every rank times
+    the same steps, its collectives included)."""
+    from torchkafka_tpu_torch.models.transformer import count_params
+    from torchkafka_tpu_torch.serve import H100_PEAK_BF16_FLOPS
+    from torchkafka_tpu_torch.utils.timing import device_step_seconds
+
+    n_params = count_params(state["params"])  # a DTensor counts its global size
+    tokens = torch.zeros((batch, seq), dtype=torch.int32, device=dev)
+    mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
+    step_s, slope_ok = device_step_seconds(
+        step_fn, state["params"], state["opt"], tokens, mask
+    )
+    if not slope_ok:
+        return {"params_m": round(n_params / 1e6, 1), "slope_ok": False}
+    rows = batch * n_ranks
+    flops = 6 * n_params * rows * seq + 6 * cfg.n_layers * cfg.d_model * rows * seq**2
+    return {
+        "params_m": round(n_params / 1e6, 1),
+        "step_ms": round(step_s * 1e3, 2),
+        "flops_per_step_g": round(flops / 1e9, 1),
+        "cards": cards,
+        "mfu_pct": round(flops / step_s / (H100_PEAK_BF16_FLOPS * cards) * 100, 2),
+        "slope_ok": True,
+    }
 
 
 def scenario_9(size: str = "tiny", device=None) -> dict:
@@ -2725,7 +2843,7 @@ def scenario_8(size: str = "tiny", device=None) -> dict:
     stream (label + dense features + hashed categorical ids per record),
     commit-after-step. One device (``make_dlrm_train_step(cfg, None,
     ...)``; the JAX package's row-sharded tables over a ``tp`` mesh are
-    queue A "Mesh and multi-process paths"), so ``mesh`` reports
+    queue A "Pipeline and expert parallelism"), so ``mesh`` reports
     ``{"data": 1}``. The pure step is ``utils.timing.device_step_seconds``
     on CUDA (CUDA events, two-point slope); the pure ingest re-reads the
     topic with no step; the paired host ratio runs the per-record
@@ -2861,8 +2979,7 @@ def scenario_8(size: str = "tiny", device=None) -> dict:
 # Each scenario the port does not run yet, by the title of the ROADMAP
 # queue A item that ports it.
 _DEFERRED_TITLES = {
-    3: "Mesh and multi-process paths",
-    20: "Mesh and multi-process paths",
+    20: "Sharded serving",
 }
 
 
@@ -2877,7 +2994,7 @@ def _deferred(num: int) -> Callable[..., dict]:
     return scenario
 
 
-_PORTED = {1: scenario_1, 2: scenario_2, 4: scenario_4, 5: scenario_5, 6: scenario_6,
+_PORTED = {1: scenario_1, 2: scenario_2, 3: scenario_3, 4: scenario_4, 5: scenario_5, 6: scenario_6,
            7: scenario_7, 8: scenario_8, 9: scenario_9, 10: scenario_10, 11: scenario_11,
            12: scenario_12, 13: scenario_13, 14: scenario_14, 15: scenario_15,
            16: scenario_16, 17: scenario_17, 18: scenario_18, 19: scenario_19,
@@ -2952,6 +3069,8 @@ def run_scenario(
                             device=resolve_device(device))
     if num not in _PORTED:
         return SCENARIOS[num](size)
+    if num == 3:  # each rank's device comes from the device rule
+        return SCENARIOS[3](size, device=device)
     dev = resolve_device(device)
     if kv_int8:
         return SCENARIOS[7](size, kv_int8=True, kv_kernel=kv_kernel, **sample_kw,

@@ -172,7 +172,7 @@ def make_dlrm_train_step(
     ``optimizer``: ``optim.adam(...)`` (or ``adamw``); None means
     ``adam(1e-3)``. ``mesh``: not ported yet (must be None)."""
     if mesh is not None:
-        raise _not_ported("mesh=", "mesh and multi-process paths")
+        raise _not_ported("mesh=", "Pipeline and expert parallelism")
     opt = adam(1e-3) if optimizer is None else optimizer
     dev = resolve_device(device)
 

@@ -24,9 +24,16 @@ drops). Both route top-k with ``lax.top_k``'s tie order. The serving
 prefill uses the config's dispatch; the decode read always routes dense
 (``models/generate.py _attn_tail``), as in the JAX package.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ring/Ulysses attention and every mesh path (``mesh=``; pipeline
-parallelism and expert sharding need one).
+Meshes: ``Transformer(cfg, mesh)`` and ``make_train_step(cfg, mesh,
+opt)`` take a ``parallel.make_mesh`` mesh whose axes of size > 1 are
+``data`` and ``fsdp``. The parameters are ``DTensor``s laid out per
+``param_specs`` (``fsdp`` shards each weight's model dim, the rest
+replicates) and the batch is split over data × fsdp; the step runs the
+kernels on each rank's local tensors (see ``make_train_step``). Still
+raising ``NotImplementedError`` with their ROADMAP queue A titles: ``tp``
+and ``sp`` axes and ring/Ulysses attention ("Tensor and sequence
+parallelism"), ``pp`` and ``ep`` axes and MoE configs on a mesh of more
+than one batch shard ("Pipeline and expert parallelism").
 """
 
 from __future__ import annotations
@@ -45,6 +52,10 @@ from torchkafka_tpu_torch.ops.xent import dense_softmax_xent, fused_softmax_xent
 from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.utils.devices import resolve_device
 from torchkafka_tpu_torch.utils.tree import tree_leaves
+
+TP_SP = "Tensor and sequence parallelism"
+PP_EP = "Pipeline and expert parallelism"
+
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -132,6 +143,131 @@ def _param_shapes(cfg: TransformerConfig) -> dict:
         **mlp,
         "lm_head": ((dm, v), dm),
     }
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The JAX package's partition specs per tensor, over mesh axes {data,
+    fsdp, tp, sp, pp, ep}: a tuple per tensor with one entry per dim, an
+    axis name or None (``PartitionSpec``'s entries).
+
+    Megatron 2D layout: the "output features" dim of up-projections
+    (wq/wk/wv, w_gate/w_up) and the vocab dim shard over ``tp``; the
+    opposing dim shards over ``fsdp`` (ZeRO-3-style weight sharding). MoE
+    expert weights add a leading expert dim sharded over ``ep``; the
+    stacked layer dim shards over ``pp``. Axes a mesh lacks are stripped
+    by ``shardings_for_mesh``."""
+    if cfg.is_moe:
+        mlp = {
+            "router": (None, "fsdp", None),  # [L, D, E] — replicated over ep
+            "w_gate": (None, "ep", "fsdp", "tp"),  # [L, E, D, F]
+            "w_up": (None, "ep", "fsdp", "tp"),
+            "w_down": (None, "ep", "tp", "fsdp"),  # [L, E, F, D]
+        }
+    else:
+        mlp = {
+            "w_gate": (None, "fsdp", "tp"),  # [L, D, F]
+            "w_up": (None, "fsdp", "tp"),
+            "w_down": (None, "tp", "fsdp"),  # [L, F, D]
+        }
+    layers = {
+        "ln1": (None, None),  # [L, D]
+        "ln2": (None, None),
+        "wq": (None, "fsdp", "tp", None),  # [L, D, H, Dh]
+        "wk": (None, "fsdp", "tp", None),  # [L, D, K, Dh]
+        "wv": (None, "fsdp", "tp", None),
+        "wo": (None, "tp", None, "fsdp"),  # [L, H, Dh, D]
+        **mlp,
+    }
+    return {
+        "embed": ("tp", "fsdp"),  # [V, D]
+        "layers": {k: ("pp", *v[1:]) for k, v in layers.items()},
+        "ln_f": (None,),  # [D]
+        "lm_head": ("fsdp", "tp"),  # [D, V]
+    }
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, Mapping):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
+
+
+def _mesh_axes(mesh) -> dict[str, int]:
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), got {type(mesh).__name__}")
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def shardings_for_mesh(mesh, specs: Any) -> Any:
+    """Specs → placements (one per mesh axis: ``Shard(dim)`` where the
+    spec names the axis, ``Replicate()`` elsewhere), dropping axis names
+    the mesh lacks (the JAX package's ``NamedSharding`` per spec)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def fix(spec):
+        dims: dict[str, int] = {}
+        for d, entry in enumerate(spec):
+            for name in (entry if isinstance(entry, (tuple, list)) else (entry,)):
+                if name is not None and name in mesh.mesh_dim_names:
+                    dims[name] = d
+        return [Shard(dims[n]) if n in dims else Replicate() for n in mesh.mesh_dim_names]
+
+    return _map_specs(fix, specs)
+
+
+def batch_spec(mesh) -> tuple:
+    """Tokens [B, S]: batch over data(+fsdp), sequence over sp."""
+    names = mesh.mesh_dim_names
+    daxes = tuple(a for a in ("data", "fsdp") if a in names)
+    return (daxes if daxes else None, "sp" if "sp" in names else None)
+
+
+def opt_shardings_like(opt_state, params, p_shardings, repl):
+    """Placements for an optimizer state: a leaf that MIRRORS a parameter
+    (its path ends with the parameter's path and the shapes match — AdamW's
+    moments) takes that parameter's placements; everything else (step
+    counts) ``repl``. ``opt_state``: a tree such as
+    ``AdamWState.state_tree()``; ``params``: the parameter tree (global
+    shapes)."""
+    by_path = {}
+
+    def walk(tree, sh, path):
+        if isinstance(tree, Mapping):
+            for k in tree:
+                walk(tree[k], sh[k], path + (k,))
+        else:
+            by_path[path] = (tuple(tree.shape), sh)
+
+    walk(params, p_shardings, ())
+
+    def pick(tree, path):
+        if isinstance(tree, Mapping):
+            return {k: pick(v, path + (k,)) for k, v in tree.items()}
+        shape = tuple(getattr(tree, "shape", ()))
+        for i in range(len(path)):
+            hit = by_path.get(path[i:])
+            if hit is not None and hit[0] == shape:
+                return hit[1]
+        return repl
+
+    return pick(opt_state, ())
+
+
+def _check_mesh(cfg: TransformerConfig, mesh) -> dict[str, int]:
+    """The mesh paths the port runs: axes of size > 1 among data and fsdp
+    only. The rest raise with their ROADMAP queue A titles. → axis sizes."""
+    sizes = _mesh_axes(mesh)
+    for axis, title in (("tp", TP_SP), ("sp", TP_SP), ("pp", PP_EP), ("ep", PP_EP)):
+        if sizes.get(axis, 1) > 1:
+            raise _not_ported(f"a mesh with {axis}={sizes[axis]}", title)
+    if cfg.is_moe and sizes.get("data", 1) * sizes.get("fsdp", 1) > 1:
+        raise _not_ported("MoE configs on a batch-sharded mesh (the router's "
+                          "load-balance statistics span the global batch)", PP_EP)
+    return sizes
 
 
 def init_params(
@@ -388,14 +524,18 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
-        if mesh is not None:
-            raise _not_ported("mesh=", "mesh and multi-process paths")
+        if cfg.attn_impl in ("ring", "ulysses"):
+            raise _not_ported(f"attn_impl={cfg.attn_impl!r}", TP_SP)
         if cfg.attn_impl not in ("auto", "dense", "flash"):
-            raise NotImplementedError(
-                f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP "
-                "queue A: mesh and multi-process paths); use 'auto', 'flash' or 'dense'"
-            )
+            raise ValueError(f"attn_impl must be 'auto', 'flash' or 'dense', got "
+                             f"{cfg.attn_impl!r}")
+        sizes = _check_mesh(cfg, mesh) if mesh is not None else {}
         self.cfg = cfg
+        self.mesh = mesh
+        # Flash on a batch-sharded mesh goes through flash_attention_sharded
+        # (each rank's K1-K3 on its own rows, no communication).
+        self._flash_shard_mesh = (
+            mesh if sizes.get("data", 1) * sizes.get("fsdp", 1) > 1 else None)
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         return init_params(generator, self.cfg, device)
@@ -408,8 +548,10 @@ class Transformer(nn.Module):
         """Causal attention over [B, S, ·, Dh]: the flash kernel serves
         K < H through its kv row map; the dense path repeats kv heads."""
         if self._use_flash(q):
-            from torchkafka_tpu_torch.ops.flash import flash_attention
+            from torchkafka_tpu_torch.ops.flash import flash_attention, flash_attention_sharded
 
+            if self._flash_shard_mesh is not None:
+                return flash_attention_sharded(q, k, v, self._flash_shard_mesh, True)
             return flash_attention(q, k, v, True)
         rep = q.shape[2] // k.shape[2]
         if rep > 1:
@@ -503,7 +645,7 @@ class Transformer(nn.Module):
             return False
         return not isinstance(params["lm_head"], QTensor)
 
-    def loss(self, params: dict, tokens: torch.Tensor, mask=None) -> torch.Tensor:
+    def loss(self, params: dict, tokens: torch.Tensor, mask=None, *, count=None) -> torch.Tensor:
         """Next-token cross-entropy, a 0-d f32 tensor. mask [B, S] 1=real
         row/token, 0=padding (the ingest batcher's valid mask — padded rows
         must not train).
@@ -512,7 +654,9 @@ class Transformer(nn.Module):
         side: position i predicts token i+1, the final position is masked
         out. The default path is the fused blocked CE (ops/xent.py): full
         [B, S, V] logits are never materialised; quantized heads and
-        ``ce_block_size=0`` take the dense path."""
+        ``ce_block_size=0`` take the dense path. ``count``: the mean's
+        denominator (the global count of predicted positions when this
+        call sees one rank's rows); None = this call's."""
         cfg = self.cfg
         x, aux = self.trunk(params, tokens)
         aux = aux if (cfg.is_moe and cfg.router_aux_coef > 0) else 0.0
@@ -522,12 +666,13 @@ class Transformer(nn.Module):
         m = f.pad(m[:, 1:].float(), (0, 1))
         if self._use_fused_ce(params):
             ce = fused_softmax_xent(
-                x, params["lm_head"], targets, m, cfg.ce_block_size, cfg.dtype
+                x, params["lm_head"], targets, m, cfg.ce_block_size, cfg.dtype,
+                count=count,
             )
         else:
             ce = dense_softmax_xent(
                 x, load_weight(params["lm_head"], cfg.dtype), targets, m,
-                cfg.dtype,
+                cfg.dtype, count=count,
             )
         return ce + cfg.router_aux_coef * aux
 
@@ -542,7 +687,7 @@ def make_train_step(
     *,
     device=None,
 ) -> tuple[Callable, Callable]:
-    """Build (init_fn, step_fn), the JAX package's pair without the mesh.
+    """Build (init_fn, step_fn), the JAX package's pair.
 
     init_fn(generator) → (params, opt_state): ``init_params`` on
     ``device`` (CUDA unless the caller asks for the CPU) and the
@@ -554,11 +699,12 @@ def make_train_step(
     device, detached — hand it to ``token.commit(wait_for=loss)``.
 
     ``optimizer``: an ``optim.adamw(...)``; None means ``adamw(1e-3)``.
-    ``mesh``: not ported yet (must be None)."""
-    if mesh is not None:
-        raise _not_ported("mesh=", "mesh and multi-process paths")
-    model = Transformer(cfg)
+    ``mesh``: a ``parallel.make_mesh`` mesh (see ``_mesh_train_step``);
+    None is the single-device step."""
     opt = adamw(1e-3) if optimizer is None else optimizer
+    if mesh is not None:
+        return _mesh_train_step(cfg, mesh, opt, device)
+    model = Transformer(cfg)
     dev = resolve_device(device)
 
     def init_fn(generator: torch.Generator):
@@ -577,6 +723,146 @@ def make_train_step(
         return params, opt_state, loss.detach()
 
     return init_fn, step_fn
+
+
+def shard_params(params: Mapping, cfg: TransformerConfig, mesh) -> dict:
+    """A full parameter tree (the same values on every rank, e.g. from
+    ``params_from_numpy``) → ``DTensor``s laid out per ``param_specs`` on
+    ``mesh``: each rank keeps its ``fsdp`` chunk of a sharded weight, and
+    a copy of the rest. No communication."""
+    from torchkafka_tpu_torch.parallel.mesh import distribute
+
+    placements = shardings_for_mesh(mesh, param_specs(cfg))
+
+    def walk(tree, pl):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, pl[k]) for k, v in tree.items()}
+        return distribute(tree, mesh, pl)
+
+    return walk(params, placements)
+
+
+def _mesh_train_step(cfg: TransformerConfig, mesh, opt, device):
+    """The train step over a mesh of data and fsdp axes: an explicit SPMD
+    step in which DTensor only records placement.
+
+    Each rank holds its rows of the global batch (split over data ×
+    fsdp), and each parameter as ``param_specs`` lays it out: under
+    ``fsdp`` the chunk of its sharded dim that this rank's fsdp index
+    names (the AdamW moments follow, being the shapes of what they
+    update), replicated otherwise. A step:
+
+    1. gathers every fsdp-sharded parameter over the fsdp axis
+       (``parallel.collectives.all_gather``) into a full tensor that is a
+       fresh autograd leaf; replicated parameters are used as they are;
+    2. sums each rank's count of predicted positions over the batch axes,
+       so each rank's loss is its masked sum over the global count (the
+       JAX package's global mask-weighted mean, in shares);
+    3. runs ``Transformer.loss`` on the local rows: K1 in the forward and
+       K2/K3 in the backward on this rank's shard
+       (``ops.flash.flash_attention_sharded``), the fused CE, all on local
+       tensors;
+    4. reduce-scatters each full gradient over fsdp back to the chunk
+       (``parallel.collectives.reduce_scatter``), then sums over data;
+       replicated parameters' gradients are summed over both axes;
+    5. steps AdamW on the local tensors, and sums the loss shares into the
+       global loss that every rank returns.
+
+    Replicas over ``data`` receive the same summed gradients and stay bit
+    for bit equal. ``tokens``/``mask``: ``DTensor``s from ``global_batch``
+    (their local rows are used) or this rank's rows as plain tensors or
+    arrays. ``step_fn.stats`` holds the last step's collective calls,
+    bytes and host seconds (``torch.cuda.synchronize()`` before them on
+    the card, so the backward's device time is not counted in them)."""
+    from torchkafka_tpu_torch.parallel import collectives
+    from torchkafka_tpu_torch.parallel.mesh import local_part
+
+    sizes = _check_mesh(cfg, mesh)
+    model = Transformer(cfg, mesh)
+    mesh_dev = (torch.device("cuda", torch.cuda.current_device())
+                if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    dev = resolve_device(device) if device is not None else mesh_dev
+    if dev.type != mesh_dev.type:
+        raise ValueError(f"device {dev} is not the mesh's device type {mesh.device_type!r}")
+    names = list(mesh.mesh_dim_names)
+    groups = {a: mesh.get_group(a) for a in ("data", "fsdp") if sizes.get(a, 1) > 1}
+    fsdp_index = names.index("fsdp") if "fsdp" in groups else None
+    specs = param_specs(cfg)
+    placements = shardings_for_mesh(mesh, specs)
+
+    def batch_sum_(t: torch.Tensor) -> torch.Tensor:
+        for axis in ("fsdp", "data"):
+            if axis in groups:
+                collectives.all_reduce_(t, groups[axis])
+        return t
+
+    def fsdp_dim(pl) -> int | None:
+        if fsdp_index is None:
+            return None
+        p = pl[fsdp_index]
+        return p.dim if p.is_shard() else None
+
+    def init_fn(generator: torch.Generator):
+        params = shard_params(init_params(generator, cfg, dev), cfg, mesh)
+        return params, opt.init(params)
+
+    def step_fn(params, opt_state, tokens, mask=None):
+        opt_state.check_params(params)
+        tokens = torch.as_tensor(local_part(tokens), device=dev)
+        if mask is not None:
+            mask = torch.as_tensor(local_part(mask), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        before = collectives.COUNTS.as_dict()
+        dims = _map_specs(fsdp_dim, placements)
+        local = _zip_tree(params, dims, lambda p, d: (local_part(p), d))
+        # 1. gather
+        full = _map_tree(local, lambda ld: (
+            collectives.all_gather(ld[0].detach(), ld[1], groups["fsdp"])
+            .requires_grad_(True) if ld[1] is not None else ld[0]))
+        # 2. the global count of predicted positions
+        m = (torch.ones(tokens.shape, device=dev) if mask is None else mask.float())
+        count = batch_sum_(m[:, 1:].sum().reshape(1)).clamp_min(1.0)[0]
+        # 3. the local share of the loss
+        opt_state.zero_grad()
+        share = model.loss(full, tokens, mask, count=count)
+        share.backward()
+        # 4. gradients back to each parameter's placement
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+        def place_grad(ld, f):
+            p, d = ld
+            if d is None:
+                batch_sum_(p.grad)
+                return
+            g = collectives.reduce_scatter(f.grad, d, groups["fsdp"])
+            if "data" in groups:
+                collectives.all_reduce_(g, groups["data"])
+            p.grad = g
+
+        _zip_tree(local, full, place_grad)
+        loss = batch_sum_(share.detach().reshape(1))[0]
+        after = collectives.COUNTS.as_dict()
+        step_fn.stats = {k: after[k] - before[k] for k in after}
+        # 5. the optimizer on the local tensors
+        opt_state.step()
+        return params, opt_state, loss
+
+    step_fn.stats = {}
+    return init_fn, step_fn
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _zip_tree(a, b, fn):
+    if isinstance(a, Mapping):
+        return {k: _zip_tree(a[k], b[k], fn) for k in a}
+    return fn(a, b)
 
 
 def count_params(params: dict) -> int:

@@ -9,7 +9,9 @@ the decoders below), with the port's own loader:
   CPython extension; no pip/pybind11 involved;
 - the compiler writes to a per-process temporary name and the result is
   renamed into place, so concurrent processes (test workers) never see a
-  half-written library and never race on one temporary file;
+  half-written library and never race on one temporary file; the build
+  runs under ``utils.buildlock.build_lock``, so processes that load at
+  once build once;
 - without a toolchain the pure-Python fallbacks below serve identical
   semantics (the reference's NumPy path, differential-tested), so the
   native path stays a throughput lever, not a dependency.
@@ -39,6 +41,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from torchkafka_tpu_torch.utils.buildlock import build_lock
 
 logger = logging.getLogger(__name__)
 
@@ -91,7 +95,13 @@ def _lib():
     with _lock:
         if not _tried:
             out = _target()
-            if out.exists() or _build(out):
+            if not out.exists():
+                # One build across processes loading at once; a process
+                # that waited finds the library built.
+                with build_lock(_BUILD):
+                    if not out.exists():
+                        _build(out)
+            if out.exists():
                 try:
                     spec = importlib.util.spec_from_file_location("_tk_native", out)
                     mod = importlib.util.module_from_spec(spec)

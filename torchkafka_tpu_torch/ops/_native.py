@@ -7,7 +7,9 @@ happens at first use, from the package's own sources only, into
 ``_build/`` beside this package (listed in ``.gitignore``), keyed by a
 hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
 so an edited source or header rebuilds and an unchanged one loads.
-Importing this module needs no ``nvcc``: nothing is built or loaded until
+Processes that load at once build once: the build runs under
+``utils.buildlock.build_lock(_build/)``, and a process that waited finds
+the library there. Importing this module needs no ``nvcc``: nothing is built or loaded until
 a kernel's wrapper first launches it on a CUDA tensor.
 """
 
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from torchkafka_tpu_torch.utils.buildlock import build_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -64,7 +68,6 @@ def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     out = _target(name)
     if out.exists():
         return None
-    BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
@@ -84,12 +87,16 @@ def _finish_build(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
 
 def build_all(names: tuple[str, ...] = KERNELS) -> None:
     """Build every kernel library, one ``nvcc`` per source, all started
-    together."""
+    together, under the cross-process build lock (a library another
+    process built meanwhile is not built again)."""
     with _lock:
-        jobs = {n: _start_build(n) for n in names}
-        for n, job in jobs.items():
-            if job is not None:
-                _finish_build(n, job)
+        if all(_target(n).exists() for n in names):
+            return
+        with build_lock(BUILD):
+            jobs = {n: _start_build(n) for n in names}
+            for n, job in jobs.items():
+                if job is not None:
+                    _finish_build(n, job)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,6 +1,6 @@
 """Dense multi-head attention (port of ``torchkafka_tpu/ops/attention.py``
 ``mha``). Ring and Ulysses sequence parallelism are not ported yet
-(ROADMAP queue A: mesh and multi-process paths)."""
+(ROADMAP queue A: Tensor and sequence parallelism)."""
 
 from __future__ import annotations
 

@@ -23,7 +23,8 @@ it runs the plain PyTorch version beside it (``flash_fwd_plain``,
 ``flash_dq_plain``, ``flash_dkv_plain``), which the tests hold against the
 JAX package and which the on-card smoke check holds the kernel against.
 There is no fallback from kernel to plain, or from one kernel to the
-other, on the card.
+other, on the card. ``flash_attention_sharded`` runs the same wrappers on
+each rank's local rows of a batch-sharded mesh.
 
 Layout: the public ``flash_attention`` takes ``[B, S, H, D]`` (``mha``'s
 layout) and runs the kernels over ``[B·H, S, D]``; K < H kv heads (GQA) are
@@ -475,3 +476,35 @@ def flash_attention(
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({n_kv})")
     out, lse = _FlashAttention.apply(q, k, v, causal, q_offset, k_offset)
     return (out, lse) if return_lse else out
+
+
+def flash_attention_sharded(q, k, v, mesh, causal: bool = True):
+    """Flash attention over a batch-sharded {data, fsdp} mesh: port of the
+    JAX package's ``flash_attention_sharded``.
+
+    Batch-parallel attention needs no communication: each rank's rows
+    attend over their own full sequences. So each rank calls
+    ``flash_attention`` on its local tensors (K1 forward, K2/K3 backward,
+    the CUDA kernels on the card) and nothing else; DTensor's op rules
+    never see the kernels. ``q``/``k``/``v``: ``DTensor``s sharded over the
+    batch axes (``Shard(0)``) → a ``DTensor`` with q's placements, through
+    ``to_local``/``from_local``, which carry gradients in both directions
+    without a copy; or plain tensors holding this rank's rows → a plain
+    tensor. Under autograd the result is the unsharded call's on each
+    rank's shard. A mesh with a ``tp``, ``sp``, ``pp`` or ``ep`` axis above
+    1 raises ``NotImplementedError`` with its ROADMAP queue A title."""
+    from torch.distributed.tensor import DTensor
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    for axis, title in (("tp", "Tensor and sequence parallelism"),
+                        ("sp", "Tensor and sequence parallelism"),
+                        ("pp", "Pipeline and expert parallelism"),
+                        ("ep", "Pipeline and expert parallelism")):
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"flash_attention_sharded over {axis}={sizes[axis]} is not ported "
+                f"yet (ROADMAP queue A: {title})")
+    if not isinstance(q, DTensor):
+        return flash_attention(q, k, v, causal)
+    out = flash_attention(q.to_local(), k.to_local(), v.to_local(), causal)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)

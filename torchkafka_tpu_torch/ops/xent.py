@@ -47,15 +47,25 @@ def _logits_f32(x: torch.Tensor, wc: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype).float() @ wc
 
 
-def dense_softmax_xent(x, w, targets, mask, compute_dtype=torch.bfloat16):
+def _denominator(mask: torch.Tensor, count) -> torch.Tensor:
+    """The mean's denominator: ``count`` when given (a batch-sharded step
+    passes the mask sum over every rank, so each rank's share sums to the
+    global mean), else this call's mask sum, at least 1."""
+    if count is not None:
+        return torch.as_tensor(count, dtype=torch.float32, device=mask.device)
+    return torch.clamp_min(mask.float().sum(), 1.0)
+
+
+def dense_softmax_xent(x, w, targets, mask, compute_dtype=torch.bfloat16, count=None):
     """Reference implementation: full-logits masked-mean CE, differentiable
     through autograd. The fallback (quantized heads, ``ce_block_size=0``)
-    and the test oracle."""
+    and the test oracle. ``count``: the denominator, as in
+    ``fused_softmax_xent``."""
     logits = _logits_f32(x, w.to(compute_dtype).float(), compute_dtype)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     m = mask.to(nll.dtype)
-    return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return (nll * m).sum() / _denominator(m, count)
 
 
 def _resolve_block(block_size, batch, seq, vocab) -> int:
@@ -87,7 +97,7 @@ def _pad_blocks(x, targets, mask, block):
 
 class _FusedXent(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, targets, mask, block_size, compute_dtype):
+    def forward(ctx, x, w, targets, mask, block_size, compute_dtype, count):
         b, s, d = x.shape
         v = w.shape[-1]
         blk = _resolve_block(block_size, b, s, v)
@@ -113,7 +123,7 @@ class _FusedXent(torch.autograd.Function):
                 dlog = (p * mm[..., None]).to(compute_dtype).float()
                 dx[:, sl] = dlog @ wc.T
                 dw += xx.to(compute_dtype).float().reshape(-1, d).T @ dlog.reshape(-1, v)
-        cnt = torch.clamp_min(mask.sum(), 1.0)
+        cnt = _denominator(mask, count)
         if grads:
             ctx.save_for_backward(dx[:, :s], dw, cnt)
             ctx.dtypes = (x.dtype, w.dtype)
@@ -131,16 +141,21 @@ class _FusedXent(torch.autograd.Function):
             None,  # mask: non-differentiable selection weights
             None,
             None,
+            None,  # count: a constant denominator
         )
 
 
 def fused_softmax_xent(
-    x, w, targets, mask, block_size=None, compute_dtype=torch.bfloat16
+    x, w, targets, mask, block_size=None, compute_dtype=torch.bfloat16, count=None
 ):
     """Masked-mean next-token CE over a vocab head, blocked over sequence.
 
     x: [B, S, D] trunk output; w: [D, V] head (master dtype — cast to
     ``compute_dtype`` inside, so dW comes back in master precision);
     targets: [B, S] int; mask: [B, S] (0 ⇒ position excluded).
+    ``count``: the mean's denominator; None = this call's mask sum (at
+    least 1). On a batch-sharded mesh each rank passes the mask sum over
+    every rank: its loss is then its masked sum over the global count, and
+    the ranks' losses (and gradients) add up to the global mean's.
     Matches ``dense_softmax_xent`` to f32-reduction tolerance."""
-    return _FusedXent.apply(x, w, targets, mask, block_size, compute_dtype)
+    return _FusedXent.apply(x, w, targets, mask, block_size, compute_dtype, count)

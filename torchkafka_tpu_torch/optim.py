@@ -15,7 +15,9 @@ Its own default weight decay is 1e-2; optax's, and this one's, is 1e-4.
 (the DLRM train step's optimizer, as in the JAX package).
 
 ``adamw(...).init(params)`` returns the optimizer state: it holds the
-parameter tensors themselves and updates them in place on ``step()``.
+parameter tensors themselves and updates them in place on ``step()``. A
+``DTensor`` leaf (a parameter laid out over a mesh) is held as its local
+tensor, so the moments are the shape of this rank's chunk.
 """
 
 from __future__ import annotations
@@ -25,7 +27,15 @@ from typing import Any
 
 import torch
 
-from torchkafka_tpu_torch.utils.tree import tree_leaves
+from torchkafka_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+
+
+def _local_leaves(params: Any) -> list:
+    """The tensors the optimizer updates: each leaf, or a DTensor leaf's
+    local tensor."""
+    from torchkafka_tpu_torch.parallel.mesh import local_part
+
+    return [local_part(t) for t in tree_leaves(params)]
 
 
 class AdamWState:
@@ -39,7 +49,7 @@ class AdamWState:
     def check_params(self, params: Any) -> None:
         """Raise unless ``params`` is the tree this state was built over
         (the updates land in place, on those very tensors)."""
-        leaves = tree_leaves(params)
+        leaves = _local_leaves(params)
         if len(leaves) != len(self._leaves) or any(
             a is not b for a, b in zip(leaves, self._leaves)
         ):
@@ -54,6 +64,42 @@ class AdamWState:
     def step(self) -> None:
         self.optimizer.step()
 
+    def state_tree(self, params: Any) -> dict:
+        """The moments as trees shaped like ``params`` (each leaf laid out
+        as its parameter is, a ``DTensor`` where the parameter is one) and
+        the step count: the state a checkpoint saves."""
+        from torch.distributed.tensor import DTensor
+
+        leaves, treedef = tree_flatten(params)
+
+        def moment(name):
+            out = []
+            for p, t in zip(leaves, self._leaves):
+                m = self.optimizer.state.get(t, {}).get(name)
+                m = torch.zeros_like(t) if m is None else m
+                if isinstance(p, DTensor):
+                    m = DTensor.from_local(m, p.device_mesh, p.placements, run_check=False)
+                out.append(m)
+            return tree_unflatten(treedef, out)
+
+        steps = [self.optimizer.state.get(t, {}).get("step") for t in self._leaves]
+        step = next((s for s in steps if s is not None), torch.zeros(()))
+        return {"step": torch.as_tensor(step, dtype=torch.float32).detach().cpu().reshape(()),
+                "exp_avg": moment("exp_avg"), "exp_avg_sq": moment("exp_avg_sq")}
+
+    def load_state_tree(self, tree: dict) -> None:
+        """Set the moments and step count from ``state_tree``'s layout
+        (each leaf this rank's local tensor or a full tensor to chunk as
+        the parameter is laid out)."""
+        from torchkafka_tpu_torch.parallel.mesh import local_part
+
+        step = float(torch.as_tensor(tree["step"]))
+        for name in ("exp_avg", "exp_avg_sq"):
+            for t, m in zip(self._leaves, tree_leaves(tree[name])):
+                st = self.optimizer.state[t]
+                st[name] = local_part(m).detach().to(t.device, t.dtype).clone()
+                st["step"] = torch.tensor(step, dtype=torch.float32)
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamW:
@@ -66,7 +112,7 @@ class AdamW:
     def init(self, params: Any) -> AdamWState:
         """State over every tensor of ``params`` (each made a gradient
         leaf); the moments start at zero, as optax's do."""
-        leaves = tree_leaves(params)
+        leaves = _local_leaves(params)
         for t in leaves:
             if not (isinstance(t, torch.Tensor) and t.is_floating_point()):
                 raise TypeError(

@@ -11,9 +11,12 @@ batch and the allocator never hands the batch's memory back to the copy
 stream while the step may still read it. Run the step on the stream that
 is current when ``next()`` returns.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``mesh=`` (global sharded batches) and the multi-process barrier
-watchdog default.
+With ``mesh=`` each batch leaf leaves as a ``DTensor`` sharded over the
+data axes (``parallel.global_batch``): the rank's own rows, wrapped after
+the copy's event, so a reduction over it spans every process. Inside a
+process group of more than one rank the default barrier is a
+``BarrierWatchdog`` (exit 42 when one barrier hangs past
+``barrier_timeout_s``), as in the JAX package.
 
 What follows is the JAX package's design note, which holds for the port.
 
@@ -71,12 +74,6 @@ _logger = logging.getLogger(__name__)
 _END = object()
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to torchkafka_tpu_torch yet (ROADMAP queue A: {item})"
-    )
-
-
 def _world_size() -> int:
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
@@ -96,8 +93,11 @@ class KafkaStream:
     batch_size: host-local rows per batch.
     device: where batches go: None = the current CUDA device (raises
         without one), or e.g. "cpu". ``to_device=False`` leaves them NumPy.
-    mesh / data_axis: global sharded batches; not ported yet (``mesh``
-        must be None).
+    mesh / data_axis: global sharded batches: each leaf becomes a
+        ``DTensor`` over ``mesh`` (a ``parallel.make_mesh`` mesh) with
+        ``Shard(0)`` over ``data_axis`` (a name or a tuple, e.g.
+        ``("data", "fsdp")``). The batch lands on the mesh's device unless
+        ``device`` names one.
     pad_policy: 'block' (only full batches) or 'pad' (flush emits a padded
         tail with valid_count).
     prefetch: max batches in flight ahead of the consumer (double buffering
@@ -147,12 +147,13 @@ class KafkaStream:
         out-of-order emission across buckets (transform/bucket.py).
     bucket_pad_value: fill value for intra-bucket padding.
     barrier: override the commit barrier. Default: a plain CommitBarrier
-        single-process. The JAX package's multi-process default (a
-        watchdog-wrapped barrier) is not ported yet: inside a
-        ``torch.distributed`` group of more than one process, pass
-        ``barrier=`` explicitly.
-    barrier_timeout_s / on_barrier_timeout: the multi-process watchdog's
-        settings; not ported yet (they must keep their defaults).
+        single-process; inside a ``torch.distributed`` group of more than
+        one process a ``BarrierWatchdog`` around it that exits the process
+        (code 42) when one barrier call hangs: a dead peer otherwise
+        wedges the commit collective. Timing out is fail-closed: nothing
+        was committed, so the restart re-delivers the uncommitted tail.
+    barrier_timeout_s / on_barrier_timeout: the default watchdog's
+        timeout and callback (multi-process only).
     clock: seconds-since-epoch clock for the ``ingest_lag_ms`` gauge
         (record append time -> poll time); default ``time.time``. Inject a
         ``resilience.ManualClock.now`` (with records produced at explicit
@@ -188,17 +189,9 @@ class KafkaStream:
         device: str | torch.device | None = None,
     ) -> None:
         if mesh is not None:
-            raise _not_ported("mesh=", "mesh and multi-process paths")
-        if barrier is None and _world_size() > 1:
-            raise _not_ported(
-                "the multi-process barrier watchdog default",
-                "mesh and multi-process paths, parallel/multihost.py",
-            )
-        if barrier_timeout_s != 300.0 or on_barrier_timeout is not None:
-            raise _not_ported(
-                "barrier_timeout_s= / on_barrier_timeout=",
-                "mesh and multi-process paths, parallel/multihost.py",
-            )
+            from torchkafka_tpu_torch.parallel.mesh import batch_sharding
+
+            batch_sharding(mesh, data_axis)  # raises on an axis the mesh lacks
         if on_processor_error not in ("raise", "drop", "quarantine"):
             raise ValueError(
                 "on_processor_error must be 'raise'|'drop'|'quarantine', "
@@ -230,7 +223,17 @@ class KafkaStream:
         self._on_processor_error = on_processor_error
         self._dead_letter = dead_letter
         self._quarantine = quarantine
-        self._barrier = barrier if barrier is not None else CommitBarrier()
+        if barrier is not None:
+            self._barrier = barrier
+        elif _world_size() > 1:
+            from torchkafka_tpu_torch.parallel.multihost import BarrierWatchdog
+
+            self._barrier = BarrierWatchdog(
+                CommitBarrier(), timeout_s=barrier_timeout_s,
+                on_timeout=on_barrier_timeout, exit_on_timeout=True,
+            )
+        else:
+            self._barrier = CommitBarrier()
         self.metrics = StreamMetrics()
         self._ledger = OffsetLedger()
         if buckets is not None:
@@ -250,6 +253,8 @@ class KafkaStream:
             )
         # Resolved once every argument is checked, so a bad argument
         # raises its ValueError on a machine without the card too.
+        if to_device and device is None and mesh is not None:
+            device = "cpu" if mesh.device_type == "cpu" else None
         self._device = resolve_device(device) if to_device else None
         # The H2D copies' own stream (created on first use, on the card).
         self._copy_stream: torch.cuda.Stream | None = None
@@ -540,6 +545,11 @@ class KafkaStream:
             stream.wait_event(ready)
             for t in tree_leaves(batch.data):
                 t.record_stream(stream)
+        if self._mesh is not None and self._to_device:
+            from torchkafka_tpu_torch.parallel.mesh import global_batch
+
+            batch = Batch(data=global_batch(batch.data, self._mesh, self._data_axis),
+                          valid_count=batch.valid_count, offsets=batch.offsets)
         token = CommitToken(
             self._consumer,
             batch.offsets,

@@ -243,7 +243,7 @@ _logger = logging.getLogger(__name__)
 # one (with a value other than None/False) raises NotImplementedError;
 # none is silently ignored.
 _DEFERRED = {
-    "mesh": "mesh and multi-process paths",
+    "mesh": "Sharded serving",
 }
 
 
