@@ -438,6 +438,19 @@ Phases, each printing one JSON line:
    a pod checkpoint at step 2 restored by this process, which trains on to
    the topic's end; harness scenario 3 at full size under two ranks
    through ``torch.distributed.run``;
+8r. pod_tp_sp (lane ``harness``, after examples): tensor and sequence
+   parallelism across processes, ``check_pod_tp_sp``: two ranks
+   (``chip_smoke.py --pod-rank N --pod-mode tp_sp``) on ``cuda:0`` under
+   gloo, the 1b widths at ``CUT_LAYERS``, f32 masters, bf16 compute, 8
+   rows of 512 (the same seeded batches on both ranks), AdamW, 3 steps on
+   each of ``{"tp": 2}`` (Megatron), ``{"sp": 2}`` ring and ``{"sp": 2}``
+   Ulysses (step ms by CUDA events, collective ms, bytes and calls, peak
+   memory per rank; K1 = K2 = K3 = layers x steps on each rank, ring
+   layers x 2 x steps, on the tensor cores); f32 pairs at 2 layers
+   against the single-process step (first loss and every gradient within
+   1e-5 relative, parameters after 3 steps within
+   ``POD_UNSPLIT_PARAM_REL``); bf16 ring and Ulysses attention against
+   ``flash_attention`` on the whole sequence (the flash phases' bounds);
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
@@ -446,12 +459,13 @@ Phases, each printing one JSON line:
    K1-K3 with the fleet scenarios', ``harness_fleet_launches``; K1 with
    the process scenarios', ``harness_procfleet_launches``; K1-K4 with the
    MoE phases', ``moe_train_launches`` and ``moe_serve_launches``; K1-K3
-   with pod_train's ranks', ``pod_launches``);
+   with pod_train's ranks', ``pod_launches``, and pod_tp_sp's,
+   ``pod_tp_sp_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Lanes: once the kernel phases (3-5d) have timed the kernels alone on the
 card, the script starts two processes of its own, ``chip_smoke.py --lane
-harness`` (8j, 8k, 8o, 8p) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8q),
+harness`` (8j, 8k, 8o, 8p, 8r) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8q),
 and runs the
 other phases meanwhile; their time is mostly host work and worker
 start-ups with the card idle. Each lane zeroes and reads its own
@@ -531,7 +545,7 @@ def emit(obj) -> None:
 # beside the main sequence once the kernel phases have timed the kernels
 # alone on the card: most of their time is worker start-ups and host work.
 LANES = {
-    "harness": ("harness", "harness_fleet", "harness_models", "examples"),
+    "harness": ("harness", "harness_fleet", "harness_models", "examples", "pod_tp_sp"),
     "procfleet": ("serve_procfleet", "serve_procfleet_f32", "harness_procfleet",
                   "train_moe", "pod_train"),
 }
@@ -558,6 +572,7 @@ def run_lane(torch, lane: str) -> None:
         "train_moe": lambda: check_train_moe(torch),
         "serve_moe": lambda: check_serve_moe(torch),
         "pod_train": lambda: check_pod_train(torch),
+        "pod_tp_sp": lambda: check_pod_tp_sp(torch),
     }
     for name in LANES.get(lane, (lane,)):
         for row in phases[name]():
@@ -5964,6 +5979,37 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _run_ranks(mode: str, outdir: str, device: str) -> tuple[list, float]:
+    """Start ``POD_RANKS`` ranks of ``mode`` (``chip_smoke.py --pod-rank``)
+    in one process group, wait for all, raise with their output if one
+    failed. → (each rank's ``<outdir>/rank_<r>.json``, seconds)."""
+    here = os.path.abspath(__file__)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--pod-rank", str(r), "--pod-port", str(port),
+         "--pod-out", outdir, "--pod-device", device, "--pod-mode", mode],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(POD_RANKS)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    seconds = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{mode} ranks: " + " | ".join(
+            f"rc {p.returncode}: {log[-3000:]}" for p, log in zip(procs, logs)))
+    dumps = []
+    for r in range(POD_RANKS):
+        with open(os.path.join(outdir, f"rank_{r}.json")) as f:
+            dumps.append(json.load(f))
+    return dumps, seconds
+
+
 def check_pod_train(torch, device: str = "cuda") -> list:
     """Data- and fsdp-parallel training across processes: ``POD_RANKS``
     ranks started as children of this process (``chip_smoke.py
@@ -6004,32 +6050,9 @@ def check_pod_train(torch, device: str = "cuda") -> list:
     mtimes = {k: p.stat().st_mtime_ns for k, p in libs.items()}
     build_s = time.perf_counter() - t0
     outdir = tempfile.mkdtemp(prefix="tk-pod-")
-    here = os.path.abspath(__file__)
     rows = []
     try:
-        port = free_port()
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, here, "--pod-rank", str(r), "--pod-port", str(port),
-             "--pod-out", outdir, "--pod-device", device],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(POD_RANKS)]
-        logs = []
-        for p in procs:
-            try:
-                logs.append(p.communicate(timeout=600)[0])
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                raise
-        ranks_s = time.perf_counter() - t0
-        if any(p.returncode for p in procs):
-            raise AssertionError("pod_train ranks: " + " | ".join(
-                f"rc {p.returncode}: {log[-3000:]}" for p, log in zip(procs, logs)))
-        dumps = []
-        for r in range(POD_RANKS):
-            with open(os.path.join(outdir, f"rank_{r}.json")) as f:
-                dumps.append(json.load(f))
+        dumps, ranks_s = _run_ranks("train", outdir, device)
         rebuilt = [k for k, p in libs.items() if p.stat().st_mtime_ns != mtimes[k]]
         t0 = time.perf_counter()
         resume = _pod_resume(torch, os.path.join(outdir, "ckpt"), POD_RANKS, device)
@@ -6122,6 +6145,353 @@ def check_pod_train(torch, device: str = "cuda") -> list:
                  "ranks_s": ranks_s, "kernels_built_once": not rebuilt,
                  "init_s": [d["init_s"] for d in dumps],
                  "collectives_total": [d["collectives_total"] for d in dumps]})
+    return rows
+
+
+# --------------------------------------------- tensor and sequence parallel
+
+# (name, axes, attn_impl) of the pod_tp_sp runs: Megatron tp, ring and
+# Ulysses sp, each over the phase's two ranks.
+TP_SP_MESHES = (("tp", {"tp": POD_RANKS}, "auto"), ("sp_ring", {"sp": POD_RANKS}, "ring"),
+                ("sp_ulysses", {"sp": POD_RANKS}, "ulysses"))
+# (b): the first step's loss and every gradient against the single-process
+# step, relative (per tensor, L2), before AdamW turns the summation order
+# into up to 1e-4 in the parameters (held to POD_UNSPLIT_PARAM_REL).
+TP_SP_GRAD_REL = 1e-5
+# (c): the flash phases' bounds (check_flash: bf16 o, absolute;
+# check_flash_bwd: bf16 gradients, relative to the largest |reference|).
+TP_SP_ATTN_TOL = {"out_abs": 4e-2, "grad_rel": 1e-2}
+
+
+def _tp_sp_bf16_run(torch, tk, cfg, mesh, toks, flash, device) -> dict:
+    """(a): 3 steps of ``make_train_step(cfg, mesh)`` on the global batches
+    ``toks`` (the same rows on both ranks, which differ only in tp or sp),
+    K1-K3 counts zeroed just before and read just after."""
+    import math
+
+    cuda = device == "cuda"
+    init_fn, step_fn = tk.make_train_step(cfg, mesh, tk.adamw(1e-3), device=device)
+    params, opt = init_fn(torch.Generator(device=device).manual_seed(SEED))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in flash:
+        fn.launches = 0
+        fn.tc_launches = 0
+    losses, step_ms, stats = [], [], []
+    t0 = time.perf_counter()
+    for s in range(toks.shape[0]):
+        batch = torch.from_numpy(toks[s]).to(device)
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        params, opt, loss = step_fn(params, opt, batch, None)
+        if cuda:
+            ev[1].record()
+        losses.append(loss.item())
+        step_ms.append(ev[0].elapsed_time(ev[1]) if cuda else None)
+        stats.append(dict(step_fn.stats))
+    loop_s = time.perf_counter() - t0
+    launches = {fn.__name__.replace("_bhsd", ""): fn.launches for fn in flash}
+    tc = {fn.__name__.replace("_bhsd", ""): fn.tc_launches for fn in flash}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pod_tp_sp {cfg.attn_impl}: non-finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del params, opt
+    return {"layers": cfg.n_layers, "attn_impl": cfg.attn_impl, "rows": int(toks.shape[1]),
+            "seq": int(toks.shape[2]), "steps": int(toks.shape[0]), "losses": losses,
+            "step_ms": step_ms, "collective_ms": [x["seconds"] * 1e3 for x in stats],
+            "collective_bytes": [x["bytes"] for x in stats],
+            "collective_calls": [x["calls"] for x in stats], "loop_s": loop_s,
+            "peak_mem_gb": peak, "launches": launches, "tc_launches": tc}
+
+
+def _full_grads(torch, params, cfg, mesh) -> list:
+    """Every parameter's gradient after a mesh step, put together from the
+    ranks' shards (``tree_leaves`` order); a collective of every rank."""
+    from torch.distributed.tensor import DTensor
+
+    from torchkafka_tpu_torch.models.transformer import param_specs, shardings_for_mesh
+    from torchkafka_tpu_torch.parallel.mesh import full_tensor, local_part
+    from torchkafka_tpu_torch.utils.tree import tree_leaves
+
+    placements = shardings_for_mesh(mesh, param_specs(cfg))
+
+    def at(name):
+        node = placements
+        for part in name.split("/"):
+            node = node[part]
+        return node
+
+    return [full_tensor(DTensor.from_local(local_part(p).grad, mesh, at(n), run_check=False))
+            for p, n in zip(tree_leaves(params), _leaf_names(params))]
+
+
+def _rel_l2(torch, got: list, ref: list, names: list) -> dict:
+    return {n: float((a.float() - b.float()).norm() / b.float().norm())
+            for n, a, b in zip(names, got, ref)}
+
+
+def _tp_sp_f32_pairs(torch, tk, cfg32, toks, rank: int, device: str) -> dict:
+    """(b): f32 at 2 layers, each mesh of ``TP_SP_MESHES`` on the global
+    batches ``toks``, 3 steps, against the single-process step from the
+    same seed (computed first, on rank 0): the first step's loss and every
+    gradient (relative L2 per tensor), the parameters after 3 steps. The
+    references wait on the host; each tensor is compared on the card."""
+    from torchkafka_tpu_torch.parallel.mesh import full_tensor, make_mesh
+    from torchkafka_tpu_torch.utils.tree import tree_leaves
+
+    cuda = device == "cuda"
+    ref = None
+    if rank == 0:
+        init_fn, step_fn = tk.make_train_step(cfg32, None, tk.adamw(1e-3), device=device)
+        params, opt = init_fn(torch.Generator(device=device).manual_seed(SEED + 9))
+        names = _leaf_names(params)
+        losses = []
+        for s in range(toks.shape[0]):
+            params, opt, loss = step_fn(params, opt, torch.from_numpy(toks[s]).to(device))
+            losses.append(loss.item())
+            if s == 0:
+                grads = [p.grad.detach().cpu() for p in tree_leaves(params)]
+        ref = {"losses": losses, "grads": grads, "names": names,
+               "params": [p.detach().cpu() for p in tree_leaves(params)]}
+        del params, opt
+        if cuda:
+            torch.cuda.empty_cache()
+    out = {}
+    for name, axes, impl in TP_SP_MESHES:
+        cfg = dataclasses.replace(cfg32, attn_impl=impl)
+        mesh = make_mesh(axes, device=None if cuda else device)
+        init_fn, step_fn = tk.make_train_step(cfg, mesh, tk.adamw(1e-3), device=device)
+        params, opt = init_fn(torch.Generator(device=device).manual_seed(SEED + 9))
+        losses, grad_rel = [], None
+        for s in range(toks.shape[0]):
+            params, opt, loss = step_fn(params, opt, torch.from_numpy(toks[s]).to(device))
+            losses.append(loss.item())
+            if s == 0:
+                grads = _full_grads(torch, params, cfg, mesh)
+                if rank == 0:
+                    grad_rel = _rel_l2(torch, grads, [g.to(device) for g in ref["grads"]],
+                                       ref["names"])
+                del grads
+        full = [full_tensor(p).detach() for p in tree_leaves(params)]
+        row = {"losses": losses}
+        if rank == 0:
+            param_rel = _rel_l2(torch, full, [p.to(device) for p in ref["params"]],
+                                ref["names"])
+            row.update({
+                "first_loss_rel": abs(losses[0] - ref["losses"][0]) / abs(ref["losses"][0]),
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])),
+                "grad_rel_l2": grad_rel, "worst_grad": max(grad_rel, key=grad_rel.get),
+                "param_rel_l2": param_rel, "worst_param": max(param_rel, key=param_rel.get)})
+        out[name] = row
+        del params, opt, full
+        if cuda:
+            torch.cuda.empty_cache()
+    if rank == 0:
+        out["single_losses"] = ref["losses"]
+    return out
+
+
+def _tp_sp_attention(torch, rank: int, device: str) -> dict:
+    """(c): ring (K1 per step, K2/K3 per step) and Ulysses (one K1, K2,
+    K3 per head shard) at bf16 on this rank's half of the sequence, against
+    ``flash_attention`` on the whole sequence: output and q/k/v gradients,
+    put together over the sp axis (the 1b heads: 16 q, 8 kv for Ulysses,
+    kv repeated to 16 for the ring; Dh 128, B=2, S=512)."""
+    from torchkafka_tpu_torch.ops.attention import ring_attention, ulysses_attention
+    from torchkafka_tpu_torch.ops.flash import flash_attention
+    from torchkafka_tpu_torch.parallel import collectives
+    from torchkafka_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"sp": POD_RANKS}, device=None if device == "cuda" else device)
+    group = mesh.get_group("sp")
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    b, s, h, d = 2, 512, 16, 128
+    sl = s // POD_RANKS
+    out = {"shape": [b, s, h, d], "tolerance": TP_SP_ATTN_TOL}
+    for name, fn, kv in (("ring", ring_attention, h), ("ulysses", ulysses_attention, h // 2)):
+        q, k, v = (torch.randn((b, s, n, d), generator=gen, device=device).to(torch.bfloat16)
+                   for n in (h, kv, kv))
+        dout = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+        full = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = flash_attention(*full, True)
+        ref.backward(dout)
+        mine = [t[:, rank * sl:(rank + 1) * sl].clone().requires_grad_(True)
+                for t in (q, k, v)]
+        o = fn(*mine, mesh=mesh, causal=True)
+        o.backward(dout[:, rank * sl:(rank + 1) * sl])
+        got = [collectives.all_gather(t.detach(), 1, group)
+               for t in (o, mine[0].grad, mine[1].grad, mine[2].grad)]
+        want = [ref.detach(), full[0].grad, full[1].grad, full[2].grad]
+        errs = {"out_abs": max_err(torch, got[0], want[0])}
+        for g, t, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            errs[f"{g}_rel"] = max_err(torch, t, w) / float(w.float().abs().max())
+        out[name] = errs
+    return out
+
+
+def tp_sp_rank_main(rank: int, port: int, outdir: str, device: str = "cuda") -> int:
+    """One rank of the pod_tp_sp phase (``chip_smoke.py --pod-rank N
+    --pod-mode tp_sp``): see ``check_pod_tp_sp``. Writes
+    ``<outdir>/rank_<rank>.json``."""
+    import numpy as np
+    import torch
+
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.ops import _native
+    from torchkafka_tpu_torch.ops.flash import flash_dkv_bhsd, flash_dq_bhsd, flash_fwd_bhsd
+    from torchkafka_tpu_torch.parallel import collectives, multihost
+    from torchkafka_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device == "cuda"
+    t_init = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", POD_RANKS, rank, timeout_s=600.0,
+                         device=None if cuda else device)
+    out = {"rank": rank, "rules": multihost.rules(), "init_s": time.perf_counter() - t_init,
+           "libraries_present_at_start": all(_native._target(k).exists()
+                                             for k in _native.KERNELS) if cuda else None}
+    flash = (flash_fwd_bhsd, flash_dq_bhsd, flash_dkv_bhsd)
+    # (a) bf16 compute, f32 masters, CUT_LAYERS, 8 rows of 512: every rank
+    # builds the same global batches from the seed.
+    cfg = _pod_config(torch, device, n_layers=CUT_LAYERS)
+    toks = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab_size, (3, 8, 512), dtype=np.int32)
+    for name, axes, impl in TP_SP_MESHES:
+        mesh = make_mesh(axes, device=None if cuda else device)
+        out[name] = _tp_sp_bf16_run(torch, tk, dataclasses.replace(cfg, attn_impl=impl),
+                                    mesh, toks, flash, device)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    # (b) f32 at 2 layers against the single-process step.
+    cfg32 = _pod_config(torch, device, n_layers=2, dtype=torch.float32)
+    toks32 = np.random.default_rng(SEED + 12).integers(
+        0, cfg32.vocab_size, (3, 8, 512), dtype=np.int32)
+    t0 = time.perf_counter()
+    out["f32_pairs"] = _tp_sp_f32_pairs(torch, tk, cfg32, toks32, rank, device)
+    out["f32_pairs_s"] = time.perf_counter() - t0
+    # (c) bf16 ring and Ulysses against flash_attention on the whole sequence.
+    t0 = time.perf_counter()
+    out["attention"] = _tp_sp_attention(torch, rank, device)
+    out["attention_s"] = time.perf_counter() - t0
+    out["collectives_total"] = collectives.COUNTS.as_dict()
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+    return 0
+
+
+def check_pod_tp_sp(torch, device: str = "cuda") -> list:
+    """Tensor and sequence parallelism across processes: ``POD_RANKS``
+    ranks on ``cuda:0`` under gloo (``chip_smoke.py --pod-rank N
+    --pod-mode tp_sp``), the 1b widths (16 q heads, 8 kv heads, Dh 128, d
+    2,048, vocab 32,000):
+
+    (a) f32 masters, bf16 compute, ``CUT_LAYERS`` layers, 8 rows of 512,
+        AdamW, 3 steps each on ``{"tp": 2}`` (Megatron: each rank's heads
+        and d_ff columns, K1-K3 through ``flash_attention_sharded``),
+        ``{"sp": 2}`` ring (K1 once per ring step with the chunks' offsets,
+        K2/K3 likewise) and ``{"sp": 2}`` Ulysses (one K1, K2, K3 per head
+        shard after the all-to-all); per rank: step ms (CUDA events),
+        collective ms (host clock), bytes and calls a step, peak memory;
+        K1 = K2 = K3 = layers x steps on each rank (ring: layers x sp x
+        steps, the fully masked steps included, as the JAX package
+        launches them), all on the tensor cores; equal losses on both
+        ranks;
+    (b) f32 at 2 layers, each mesh against the single-process step from
+        the same seed on the same batches: the first step's loss and
+        every gradient within ``TP_SP_GRAD_REL`` (relative L2 per tensor),
+        the parameters after 3 steps within ``POD_UNSPLIT_PARAM_REL``;
+    (c) ring and Ulysses at bf16 against ``flash_attention`` on the whole
+        sequence: the output and q/k/v gradients within the flash phases'
+        bounds (``TP_SP_ATTN_TOL``).
+    The kernels are built once, by this process, before the ranks start.
+    ``device="cpu"`` rehearses the phase at tiny widths (no kernel counts
+    or device numbers)."""
+    import shutil
+
+    from torchkafka_tpu_torch.ops import _native
+
+    cuda = device == "cuda"
+    smi = smi_line() if cuda else None
+    t0 = time.perf_counter()
+    if cuda:
+        _native.build_all()
+    build_s = time.perf_counter() - t0
+    outdir = tempfile.mkdtemp(prefix="tk-tpsp-")
+    try:
+        dumps, ranks_s = _run_ranks("tp_sp", outdir, device)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    problems = []
+    for dmp in dumps:
+        r = dmp["rank"]
+        if dmp["rules"]["device"] != ("cuda:0" if cuda else "cpu") or \
+                dmp["rules"]["backend"] != "gloo":
+            problems.append(f"rank {r} rules {dmp['rules']}")
+        if cuda and not dmp["libraries_present_at_start"]:
+            problems.append(f"rank {r} started before the kernels were built")
+        for name, axes, impl in TP_SP_MESHES:
+            row = dmp[name]
+            per_layer = POD_RANKS if impl == "ring" else 1
+            want = row["layers"] * per_layer * row["steps"] if cuda else 0
+            if any(n != want for n in row["launches"].values()) or \
+                    any(n != want for n in row["tc_launches"].values()):
+                problems.append(f"rank {r} {name}: launches {row['launches']} "
+                                f"tc {row['tc_launches']}, want {want}")
+        att = dmp["attention"]
+        for name in ("ring", "ulysses"):
+            e = att[name]
+            if not (e["out_abs"] <= TP_SP_ATTN_TOL["out_abs"] and all(
+                    e[f"{g}_rel"] <= TP_SP_ATTN_TOL["grad_rel"] for g in ("dq", "dk", "dv"))):
+                problems.append(f"rank {r} bf16 {name} attention: {e}")
+    for name, *_ in TP_SP_MESHES:
+        if dumps[0][name]["losses"] != dumps[1][name]["losses"]:
+            problems.append(f"{name}: ranks returned different global losses")
+    pairs = dumps[0]["f32_pairs"]
+    for name, *_ in TP_SP_MESHES:
+        got = pairs[name]
+        if not (got["first_loss_rel"] <= TP_SP_GRAD_REL
+                and max(got["grad_rel_l2"].values()) <= TP_SP_GRAD_REL
+                and max(got["param_rel_l2"].values()) <= POD_UNSPLIT_PARAM_REL):
+            problems.append(f"f32 {name} pair: " + json.dumps(
+                {k: got[k] for k in ("first_loss_rel", "loss_rel", "worst_grad", "worst_param")}
+                | {"grad_rel": got["grad_rel_l2"][got["worst_grad"]],
+                   "param_rel": got["param_rel_l2"][got["worst_param"]]}))
+        if got["losses"] != dumps[1]["f32_pairs"][name]["losses"]:
+            problems.append(f"f32 {name}: ranks returned different global losses")
+    if problems:
+        raise AssertionError("pod_tp_sp: " + "; ".join(problems))
+
+    def per_rank(name, key):
+        return [dmp[name][key] for dmp in dumps]
+
+    rows = []
+    for name, axes, impl in TP_SP_MESHES:
+        row = dumps[0][name]
+        rows.append({
+            "phase": "pod_tp_sp", "run": name, "mesh": axes, "attn_impl": impl,
+            "ranks": POD_RANKS, "nvidia_smi": smi, "layers": row["layers"],
+            "rows": row["rows"], "seq": row["seq"], "steps": row["steps"],
+            "losses": row["losses"], "step_ms": per_rank(name, "step_ms"),
+            "collective_ms": per_rank(name, "collective_ms"),
+            "collective_bytes_per_step": per_rank(name, "collective_bytes"),
+            "collective_calls_per_step": per_rank(name, "collective_calls"),
+            "peak_mem_gb": per_rank(name, "peak_mem_gb"), "loop_s": per_rank(name, "loop_s"),
+            "launches": per_rank(name, "launches"), "tc_launches": per_rank(name, "tc_launches")})
+    rows.append({"phase": "pod_tp_sp", "run": "f32_pairs", "layers": 2,
+                 "tolerance": {"first_loss_and_grad_rel": TP_SP_GRAD_REL,
+                               "param_rel_l2": POD_UNSPLIT_PARAM_REL}, **pairs,
+                 "seconds": [dmp["f32_pairs_s"] for dmp in dumps]})
+    rows.append({"phase": "pod_tp_sp", "run": "attention_bf16",
+                 "ranks": [dmp["attention"] for dmp in dumps],
+                 "seconds": [dmp["attention_s"] for dmp in dumps]})
+    rows.append({"phase": "pod_tp_sp", "run": "summary", "build_s": build_s, "ranks_s": ranks_s,
+                 "init_s": [dmp["init_s"] for dmp in dumps],
+                 "collectives_total": [dmp["collectives_total"] for dmp in dumps]})
     return rows
 
 
@@ -6362,13 +6732,16 @@ def main() -> int:
     ap.add_argument("--clock-start", type=float, default=None,
                     help="the starting script's clock, so a lane's at_s is the script's")
     ap.add_argument("--pod-rank", type=int, default=None,
-                    help="(internal) run one rank of the pod_train phase")
+                    help="(internal) run one rank of a pod phase (--pod-mode)")
     ap.add_argument("--pod-port", type=int, default=None, help="(internal) its store's port")
     ap.add_argument("--pod-out", default=None, help="(internal) its dump directory")
     ap.add_argument("--pod-device", default="cuda", help="(internal) its device")
+    ap.add_argument("--pod-mode", default="train", choices=("train", "tp_sp"),
+                    help="(internal) which phase the rank runs: pod_train or pod_tp_sp")
     args = ap.parse_args()
     if args.pod_rank is not None:
-        return pod_rank_main(args.pod_rank, args.pod_port, args.pod_out, args.pod_device)
+        rank_main = pod_rank_main if args.pod_mode == "train" else tp_sp_rank_main
+        return rank_main(args.pod_rank, args.pod_port, args.pod_out, args.pod_device)
     import torch
 
     if not torch.cuda.is_available():
@@ -6550,6 +6923,7 @@ def main() -> int:
     rows_hp = by_phase["harness_procfleet"]
     rows_sm = [r for r in rows_sm_all if "launches" in r]
     rows_pod = by_phase["pod_train"]
+    rows_tpsp = by_phase["pod_tp_sp"]
     row_tm = by_phase["train_moe"][0]
     for phase in ("harness_models", "examples"):
         if not by_phase.get(phase):
@@ -6605,6 +6979,14 @@ def main() -> int:
                 out["scenario_3"] = [x["launches"][kernel] for x in r["ranks"]]
         return out
 
+    def tp_sp_launches(kernel):
+        """K1-K3 on each rank of pod_tp_sp's bf16 runs, by mesh (with their
+        tensor-core counts)."""
+        return {r["run"]: {"layers": r["layers"], "steps": r["steps"],
+                           "launches": [x[kernel] for x in r["launches"]],
+                           "tc_launches": [x[kernel] for x in r["tc_launches"]]}
+                for r in rows_tpsp if "launches" in r}
+
     def child_launches(kernel):
         """K1-K3 as the worker processes counted them (their metrics
         dumps): serve_procfleet's replica children, then the distill
@@ -6656,6 +7038,7 @@ def main() -> int:
          "moe_train_launches": row_tm["launches"]["flash_fwd"],
          "moe_train_tc_launches": row_tm["tc_launches"]["flash_fwd"],
          "pod_launches": pod_launches("flash_fwd"),
+         "pod_tp_sp_launches": tp_sp_launches("flash_fwd"),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -6671,6 +7054,7 @@ def main() -> int:
          "process_launches": child_launches("flash_dq"),
          "moe_train_launches": row_tm["launches"]["flash_dq"],
          "pod_launches": pod_launches("flash_dq"),
+         "pod_tp_sp_launches": tp_sp_launches("flash_dq"),
          "harness_launches": harness_launches("flash_dq"),
          "harness_fleet_launches": harness_fleet_launches("flash_dq")},
         {"name": "flash_dkv", "route": "cuda",
@@ -6685,6 +7069,7 @@ def main() -> int:
          "process_launches": child_launches("flash_dkv"),
          "moe_train_launches": row_tm["launches"]["flash_dkv"],
          "pod_launches": pod_launches("flash_dkv"),
+         "pod_tp_sp_launches": tp_sp_launches("flash_dkv"),
          "harness_launches": harness_launches("flash_dkv"),
          "harness_fleet_launches": harness_fleet_launches("flash_dkv")},
         {"name": "kvattn_dynlen", "route": "cuda",

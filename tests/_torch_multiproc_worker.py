@@ -34,6 +34,8 @@ Runs as ``python _torch_multiproc_worker.py <pid> <nproc> <port> <outdir>
           ``flash_in.npz`` (q, k, v, dout) over ``{"data": nproc}``: the
           output and the q/k/v gradients of its rows, to
           ``flash_out_<pid>.npz``.
+  sp_ops / tp_sp_train — the tensor- and sequence-parallel cases of
+          ``<outdir>/<mode>_cases.json`` (tests/_torch_tp_sp_cases.py).
 
 Each rank uses its own InMemoryBroker primed with deterministic records
 (its slice of a pod's disjoint partitions). Committed offsets are written
@@ -502,6 +504,10 @@ def main(pid: int, nproc: int, port: str, outdir: str, mode: str) -> int:
             return train_main(pid, nproc, outdir, mark)
         if mode == "flash":
             return flash_main(pid, nproc, outdir, mark)
+        if mode in ("sp_ops", "tp_sp_train"):
+            import _torch_tp_sp_cases as cases
+
+            return getattr(cases, f"{mode}_main")(pid, outdir, mark)
         return stream_main(pid, nproc, outdir, mode, mark)
     finally:
         multihost.shutdown()

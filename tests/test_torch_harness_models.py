@@ -10,8 +10,8 @@ tiny size: 4 (PNG topic → host decode → ResNet-50 inference) and 8
   sizes and its assertions: every record committed, nothing dropped, the
   PNG decode native, the loss trending down.
 - Without a GPU and without ``device`` both raise the device rule's
-  ``RuntimeError``; scenarios 3 and 20 still raise with their ROADMAP
-  title.
+  ``RuntimeError``; scenario 20 still raises with its ROADMAP title
+  (3 trains over launched ranks: tests/test_torch_pod_train.py).
 """
 
 import pytest

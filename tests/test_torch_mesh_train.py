@@ -4,7 +4,9 @@ CPU mesh (tests/conftest.py), the port's on 2 or 4 gloo processes
 (tests/_torch_multiproc_worker.py, mode ``train``), from the same
 parameters and the same global batches, 3 steps. Also
 ``flash_attention_sharded`` (2 processes) against JAX's in interpret mode,
-the specs and placements, and the mesh options that still raise."""
+the specs and placements, the mesh options that still raise and the
+meshes and impls the tp/sp step refuses (its runs:
+tests/test_torch_tp_sp_train.py)."""
 
 import json
 
@@ -189,30 +191,60 @@ def test_one_process_mesh_step_equals_plain_step(one_rank_mesh):
     assert torch.equal(pm["layers"]["wq"].to_local(), pp["layers"]["wq"].detach())
 
 
+class _FakeMesh:
+    """The axis sizes a mesh carries, without a process group."""
+
+    def __init__(self, axes: dict) -> None:
+        self.mesh_dim_names = tuple(axes)
+        self.mesh = torch.zeros(tuple(axes.values()))
+
+
 @pytest.mark.parametrize("axes,title", [
-    ({"tp": 2}, "Tensor and sequence parallelism"),
-    ({"sp": 2}, "Tensor and sequence parallelism"),
     ({"pp": 2}, "Pipeline and expert parallelism"),
     ({"ep": 2}, "Pipeline and expert parallelism"),
-], ids=["tp", "sp", "pp", "ep"])
+], ids=["pp", "ep"])
 def test_model_axes_raise_with_their_titles(axes, title):
-    """tp/sp/pp/ep above 1 raise before anything is built (checked on the
-    axis sizes, as a mesh of two ranks would carry them)."""
-    class FakeMesh:
-        mesh_dim_names = tuple(axes)
-        mesh = torch.zeros(tuple(axes.values()))
-
+    """pp/ep above 1 raise before anything is built (checked on the axis
+    sizes, as a mesh of two ranks would carry them). tp and sp run:
+    tests/test_torch_tp_sp_train.py."""
     cfg = pt.TransformerConfig(**CFG)
     with pytest.raises(NotImplementedError, match=title):
-        pt.Transformer(cfg, FakeMesh())
+        pt.Transformer(cfg, _FakeMesh(axes))
     with pytest.raises(NotImplementedError, match=title):
-        pt.make_train_step(cfg, FakeMesh(), device="cpu")
+        pt.make_train_step(cfg, _FakeMesh(axes), device="cpu")
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
-def test_ring_and_ulysses_raise_with_their_title(impl):
-    with pytest.raises(NotImplementedError, match="Tensor and sequence parallelism"):
-        pt.Transformer(pt.TransformerConfig(**CFG, attn_impl=impl))
+@pytest.mark.parametrize("mesh", [None, {"data": 1, "sp": 1}], ids=["no_mesh", "sp1"])
+def test_ring_and_ulysses_need_an_sp_axis(impl, mesh, one_rank_mesh):
+    """As in the JAX package: an explicit sequence-parallel impl without an
+    sp axis above 1 is a ValueError, not a silent fallback (they run on
+    sp meshes: tests/test_torch_tp_sp_train.py)."""
+    cfg = pt.TransformerConfig(**CFG, attn_impl=impl)
+    with pytest.raises(ValueError, match="requires a mesh with an 'sp'"):
+        pt.Transformer(cfg, one_rank_mesh(mesh) if mesh else None)
+
+
+@pytest.mark.parametrize("axes", [{"tp": 4}, {"data": 2, "tp": 4}, {"tp": 3}],
+                         ids=["kv_heads", "kv_heads_data2", "q_heads"])
+def test_heads_tp_does_not_divide_raise(axes):
+    """Head counts tp does not divide raise a ValueError naming them, in
+    the model and in the step (the JAX package serves such a mesh through
+    its dense dispatch, forward only: ROADMAP queue C)."""
+    cfg = pt.TransformerConfig(**CFG)  # 4 q heads, 2 kv heads
+    for build in (lambda: pt.Transformer(cfg, _FakeMesh(axes)),
+                  lambda: pt.make_train_step(cfg, _FakeMesh(axes), device="cpu")):
+        with pytest.raises(ValueError, match=r"q heads \(4\) and the kv heads \(2\)"):
+            build()
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_sp_mesh_needs_a_sequence_parallel_impl(impl):
+    """On an sp mesh each rank holds one chunk of the sequence: attention
+    over the chunk alone would be wrong, so dense and flash raise."""
+    cfg = pt.TransformerConfig(**CFG, attn_impl=impl)
+    with pytest.raises(ValueError, match="attn_impl must be 'ring', 'ulysses' or 'auto'"):
+        pt.Transformer(cfg, _FakeMesh({"sp": 2}))
 
 
 def test_moe_on_a_batch_sharded_mesh_raises():
@@ -222,6 +254,14 @@ def test_moe_on_a_batch_sharded_mesh_raises():
 
     with pytest.raises(NotImplementedError, match="Pipeline and expert parallelism"):
         pt.make_train_step(pt.TransformerConfig(**CFG, n_experts=4), FakeMesh(), device="cpu")
+
+
+@pytest.mark.parametrize("axes", [{"tp": 2}, {"sp": 2}], ids=["tp", "sp"])
+def test_moe_on_a_tp_or_sp_mesh_raises(axes):
+    """MoE's tp experts and its router statistics over a split sequence
+    are item 10's, as on a batch-sharded mesh."""
+    with pytest.raises(NotImplementedError, match="Pipeline and expert parallelism"):
+        pt.Transformer(pt.TransformerConfig(**CFG, n_experts=4), _FakeMesh(axes))
 
 
 def test_opt_shardings_like_mirrors_the_parameters(one_rank_mesh):

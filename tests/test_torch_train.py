@@ -168,14 +168,14 @@ def test_unported_arguments_raise():
     pt.Transformer(pcfg)  # capacity dispatch is ported (tests/test_torch_moe.py)
     _, pcfg = _configs("dense")
 
-    class TpMesh:  # the axis sizes a two-rank tp mesh carries
-        mesh_dim_names = ("tp",)
+    class PpMesh:  # the axis sizes a two-rank pp mesh carries
+        mesh_dim_names = ("pp",)
         mesh = torch.zeros(2)
 
     with pytest.raises(NotImplementedError, match="mesh"):
-        pt.make_train_step(pcfg, TpMesh(), device="cpu")
+        pt.make_train_step(pcfg, PpMesh(), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
-        pt.Transformer(pcfg, mesh=TpMesh())
+        pt.Transformer(pcfg, mesh=PpMesh())
     with pytest.raises(TypeError, match="make_mesh"):
         pt.make_train_step(pcfg, object(), device="cpu")
 

@@ -26,14 +26,21 @@ prefill uses the config's dispatch; the decode read always routes dense
 
 Meshes: ``Transformer(cfg, mesh)`` and ``make_train_step(cfg, mesh,
 opt)`` take a ``parallel.make_mesh`` mesh whose axes of size > 1 are
-``data`` and ``fsdp``. The parameters are ``DTensor``s laid out per
-``param_specs`` (``fsdp`` shards each weight's model dim, the rest
+``data``, ``fsdp``, ``tp`` and ``sp``. The parameters are ``DTensor``s
+laid out per ``param_specs`` (``fsdp`` shards each weight's model dim,
+``tp`` its heads, ``d_ff`` columns and the vocabulary, the rest
 replicates) and the batch is split over data × fsdp; the step runs the
-kernels on each rank's local tensors (see ``make_train_step``). Still
-raising ``NotImplementedError`` with their ROADMAP queue A titles: ``tp``
-and ``sp`` axes and ring/Ulysses attention ("Tensor and sequence
-parallelism"), ``pp`` and ``ep`` axes and MoE configs on a mesh of more
-than one batch shard ("Pipeline and expert parallelism").
+kernels on each rank's local tensors (see ``_mesh_train_step``). Under
+``tp`` a layer is Megatron's: each rank computes its q/kv heads and its
+``d_ff`` columns, the outputs of ``wo`` and ``w_down`` are summed over tp
+in the forward and the inputs of ``wq``/``wk``/``wv`` and
+``w_gate``/``w_up`` in the backward (``parallel.collectives``'
+``reduce_from_tp``/``copy_to_tp``). Under ``sp`` each rank runs its chunk
+of the sequence (RoPE at global positions) and attention is ring or
+Ulysses (``cfg.attn_impl``; "auto" is ring). Still raising
+``NotImplementedError`` with their ROADMAP queue A title: ``pp`` and
+``ep`` axes and MoE configs on a mesh of more than one rank ("Pipeline and
+expert parallelism").
 """
 
 from __future__ import annotations
@@ -47,13 +54,17 @@ import torch
 from torch import nn
 
 from torchkafka_tpu_torch.models.quant import QTensor, embed_rows, load_weight
-from torchkafka_tpu_torch.ops.attention import mha
+from torchkafka_tpu_torch.ops.attention import (
+    _repeat_kv,
+    mha,
+    ring_attention,
+    ulysses_attention,
+)
 from torchkafka_tpu_torch.ops.xent import dense_softmax_xent, fused_softmax_xent
 from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.utils.devices import resolve_device
 from torchkafka_tpu_torch.utils.tree import tree_leaves
 
-TP_SP = "Tensor and sequence parallelism"
 PP_EP = "Pipeline and expert parallelism"
 
 
@@ -76,8 +87,9 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16  # compute dtype
     param_dtype: Any = torch.float32  # master weights
     remat: bool = False
-    # 'dense' | 'flash' | 'auto': auto = the flash kernel on CUDA tensors,
-    # the dense mha elsewhere. ('ring'/'ulysses' are the mesh slice's.)
+    # 'dense' | 'flash' | 'ring' | 'ulysses' | 'auto': auto = ring on a
+    # mesh with sp > 1, else the flash kernel on CUDA tensors and the dense
+    # mha elsewhere. ring/ulysses need an sp axis above 1.
     attn_impl: str = "auto"
     ring_use_flash: bool | None = None
     n_experts: int = 0
@@ -258,15 +270,22 @@ def opt_shardings_like(opt_state, params, p_shardings, repl):
 
 
 def _check_mesh(cfg: TransformerConfig, mesh) -> dict[str, int]:
-    """The mesh paths the port runs: axes of size > 1 among data and fsdp
-    only. The rest raise with their ROADMAP queue A titles. → axis sizes."""
+    """The mesh paths the port runs: axes of size > 1 among data, fsdp, tp
+    and sp; pp and ep raise with their ROADMAP queue A title, as MoE on a
+    mesh of more than one rank does. Head counts that tp does not divide
+    raise ``ValueError`` (the JAX package serves them forward-only by its
+    dense dispatch). → axis sizes."""
     sizes = _mesh_axes(mesh)
-    for axis, title in (("tp", TP_SP), ("sp", TP_SP), ("pp", PP_EP), ("ep", PP_EP)):
+    for axis in ("pp", "ep"):
         if sizes.get(axis, 1) > 1:
-            raise _not_ported(f"a mesh with {axis}={sizes[axis]}", title)
-    if cfg.is_moe and sizes.get("data", 1) * sizes.get("fsdp", 1) > 1:
-        raise _not_ported("MoE configs on a batch-sharded mesh (the router's "
+            raise _not_ported(f"a mesh with {axis}={sizes[axis]}", PP_EP)
+    if cfg.is_moe and any(sizes.get(a, 1) > 1 for a in ("data", "fsdp", "tp", "sp")):
+        raise _not_ported("MoE configs on a mesh of more than one rank (the router's "
                           "load-balance statistics span the global batch)", PP_EP)
+    tp = sizes.get("tp", 1)
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"tp={tp} must divide the q heads ({cfg.n_heads}) and the kv "
+                         f"heads ({cfg.n_kv_heads})")
     return sizes
 
 
@@ -524,18 +543,31 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
-        if cfg.attn_impl in ("ring", "ulysses"):
-            raise _not_ported(f"attn_impl={cfg.attn_impl!r}", TP_SP)
-        if cfg.attn_impl not in ("auto", "dense", "flash"):
-            raise ValueError(f"attn_impl must be 'auto', 'flash' or 'dense', got "
-                             f"{cfg.attn_impl!r}")
+        if cfg.attn_impl not in ("auto", "dense", "flash", "ring", "ulysses"):
+            raise ValueError(f"attn_impl must be 'auto', 'flash', 'dense', 'ring' or "
+                             f"'ulysses', got {cfg.attn_impl!r}")
         sizes = _check_mesh(cfg, mesh) if mesh is not None else {}
+        sp = sizes.get("sp", 1)
+        if cfg.attn_impl in ("ring", "ulysses") and sp <= 1:
+            raise ValueError(
+                f"attn_impl={cfg.attn_impl!r} requires a mesh with an 'sp' "
+                f"axis of size > 1 (got sp={sp}); use attn_impl='auto' "
+                "to fall back to flash/dense when sp is absent"
+            )
+        if sp > 1 and cfg.attn_impl in ("dense", "flash"):
+            raise ValueError(f"a mesh with sp={sp} runs each rank's chunk of the sequence: "
+                             "attn_impl must be 'ring', 'ulysses' or 'auto'")
         self.cfg = cfg
         self.mesh = mesh
-        # Flash on a batch-sharded mesh goes through flash_attention_sharded
-        # (each rank's K1-K3 on its own rows, no communication).
+        self._sp_impl = ("ulysses" if cfg.attn_impl == "ulysses" else "ring") if sp > 1 else None
+        self._sp_size = sp
+        self._sp_index = (torch.distributed.get_rank(mesh.get_group("sp")) if sp > 1 else 0)
+        self._tp_group = mesh.get_group("tp") if sizes.get("tp", 1) > 1 else None
+        # Flash on a batch- or head-sharded mesh goes through
+        # flash_attention_sharded (each rank's K1-K3 on its own rows and
+        # heads, no communication).
         self._flash_shard_mesh = (
-            mesh if sizes.get("data", 1) * sizes.get("fsdp", 1) > 1 else None)
+            mesh if any(sizes.get(a, 1) > 1 for a in ("data", "fsdp", "tp")) else None)
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         return init_params(generator, self.cfg, device)
@@ -545,19 +577,69 @@ class Transformer(nn.Module):
         return impl == "flash" or (impl == "auto" and x.device.type == "cuda")
 
     def _attention(self, q, k, v):
-        """Causal attention over [B, S, ·, Dh]: the flash kernel serves
-        K < H through its kv row map; the dense path repeats kv heads."""
+        """Causal attention over [B, S, ·, Dh] (this rank's heads under tp,
+        its sequence chunk under sp): the flash kernel and Ulysses serve
+        K < H through the kernel's kv row map; the dense and ring paths
+        repeat kv heads, as in the JAX package."""
+        cfg = self.cfg
+        if self._sp_impl == "ulysses":
+            k, v = self._ulysses_kv(q, k, v)
+            return ulysses_attention(q, k, v, mesh=self.mesh, causal=True,
+                                     use_flash=cfg.ring_use_flash)
+        if self._sp_impl == "ring":
+            k, v = _repeat_kv(q, k, v)
+            return ring_attention(q, k, v, mesh=self.mesh, causal=True,
+                                  use_flash=cfg.ring_use_flash)
         if self._use_flash(q):
             from torchkafka_tpu_torch.ops.flash import flash_attention, flash_attention_sharded
 
             if self._flash_shard_mesh is not None:
                 return flash_attention_sharded(q, k, v, self._flash_shard_mesh, True)
             return flash_attention(q, k, v, True)
-        rep = q.shape[2] // k.shape[2]
-        if rep > 1:
-            k = k.repeat_interleave(rep, dim=2)
-            v = v.repeat_interleave(rep, dim=2)
+        k, v = _repeat_kv(q, k, v)
         return mha(q, k, v, causal=True)
+
+    def _ulysses_kv(self, q, k, v):
+        """Ulysses exchanges kv heads unrepeated, so their count must divide
+        by sp. Under tp this rank's kv heads may not (2 kv heads over tp=2
+        and sp=2): repeat them by the least factor that makes them divide
+        by sp while still dividing the q heads (the GQA map is kept)."""
+        hl, kl, sp = q.shape[2], k.shape[2], self._sp_size
+        group = hl // kl
+        r = next((r for r in range(1, group + 1) if group % r == 0 and (kl * r) % sp == 0),
+                 1)
+        if r == 1:
+            return k, v
+        return k.repeat_interleave(r, dim=2), v.repeat_interleave(r, dim=2)
+
+    def _tp_in(self, h: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel product (identity forward, sum
+        over tp backward); the identity without tp."""
+        if self._tp_group is None:
+            return h
+        from torchkafka_tpu_torch.parallel.collectives import copy_to_tp
+
+        return copy_to_tp(h, self._tp_group)
+
+    def _tp_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The output of a row-parallel product (sum over tp forward,
+        identity backward); the identity without tp."""
+        if self._tp_group is None:
+            return y
+        from torchkafka_tpu_torch.parallel.collectives import reduce_from_tp
+
+        return reduce_from_tp(y, self._tp_group)
+
+    def _seq_chunk(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of the sequence (dim 1) under sp; ``t`` itself
+        otherwise."""
+        if self._sp_size == 1:
+            return t
+        s = t.shape[1]
+        if s % self._sp_size:
+            raise ValueError(f"sequence length {s} does not split over sp={self._sp_size}")
+        sl = s // self._sp_size
+        return t[:, self._sp_index * sl:(self._sp_index + 1) * sl]
 
     def _moe_mlp(self, h: torch.Tensor, layer: Mapping):
         """The MoE MLP through the config's dispatch."""
@@ -570,22 +652,23 @@ class Transformer(nn.Module):
         what the serving cache captures; stats are the MoE router's [2, E]
         sums for ``router_aux`` (None for a dense MLP)."""
         cfg = self.cfg
-        positions = torch.arange(x.shape[1], device=x.device)
-        h = _rms_norm(x, layer["ln1"])
+        sl = x.shape[1]
+        positions = self._sp_index * sl + torch.arange(sl, device=x.device)  # global
+        h = self._tp_in(_rms_norm(x, layer["ln1"]))
         q = torch.einsum("bsd,dhe->bshe", h, load_weight(layer["wq"], cfg.dtype))
         k = torch.einsum("bsd,dke->bske", h, load_weight(layer["wk"], cfg.dtype))
         v = torch.einsum("bsd,dke->bske", h, load_weight(layer["wv"], cfg.dtype))
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         attn = self._attention(q, k, v)
-        x = x + torch.einsum(
+        x = x + self._tp_out(torch.einsum(
             "bshe,hed->bsd", attn, load_weight(layer["wo"], cfg.dtype)
-        )
+        ))
         h = _rms_norm(x, layer["ln2"])
         if cfg.is_moe:
             mlp_out, stats = self._moe_mlp(h, layer)
             return x + mlp_out, k, v, stats
-        return x + _mlp(h, layer, cfg), k, v, None
+        return x + self._tp_out(_mlp(self._tp_in(h), layer, cfg)), k, v, None
 
     def _train_layer(self, x: torch.Tensor, layer: Mapping):
         """One layer for the trunk: (x, stats), checkpointed under
@@ -606,8 +689,15 @@ class Transformer(nn.Module):
         compute dtype, mean per-layer router aux loss: a 0-d f32 tensor for
         MoE configs, 0.0 otherwise). Everything but the lm_head product —
         split out so ``loss`` can feed the fused blocked CE without ever
-        materialising [B, S, V] logits."""
+        materialising [B, S, V] logits.
+
+        On a mesh, ``tokens`` are this rank's rows at full length and
+        ``params`` the step's view of the weights: whole over fsdp, this
+        rank's heads and ``d_ff`` columns of each layer weight under tp,
+        ``embed``/``lm_head`` whole. Under sp the result covers this rank's
+        chunk of the sequence, [B, S/sp, D]."""
         cfg = self.cfg
+        tokens = self._seq_chunk(tokens)
         x = embed_rows(params["embed"], tokens, cfg.dtype)
         n_tokens = tokens.shape[0] * tokens.shape[1]
         auxes = []
@@ -633,15 +723,17 @@ class Transformer(nn.Module):
 
     def forward(self, params: dict, tokens: torch.Tensor, *, return_aux: bool = False):
         """tokens [B, S] int → logits [B, S, V] float32 (and, with
-        ``return_aux``, the mean per-layer router load-balance loss)."""
+        ``return_aux``, the mean per-layer router load-balance loss); under
+        sp the logits of this rank's chunk (see ``trunk``)."""
         x, aux = self.trunk(params, tokens)
         logits = matmul_f32(x, params["lm_head"], self.cfg.dtype)
         return (logits, aux) if return_aux else logits
 
     def _use_fused_ce(self, params: dict) -> bool:
-        """Fused blocked CE engages unless disabled or the head is
-        quantized."""
-        if self.cfg.ce_block_size == 0:
+        """Fused blocked CE engages unless disabled, sequence-sharded (as
+        the JAX package, whose block scan would serialise over sp), or the
+        head is quantized."""
+        if self.cfg.ce_block_size == 0 or self._sp_size > 1:
             return False
         return not isinstance(params["lm_head"], QTensor)
 
@@ -656,14 +748,14 @@ class Transformer(nn.Module):
         [B, S, V] logits are never materialised; quantized heads and
         ``ce_block_size=0`` take the dense path. ``count``: the mean's
         denominator (the global count of predicted positions when this
-        call sees one rank's rows); None = this call's."""
+        call sees one rank's rows); None = this call's. Under sp the
+        targets and mask are shifted on the full rows before each rank takes
+        its chunk: a chunk's last position predicts the next chunk's first
+        token."""
         cfg = self.cfg
         x, aux = self.trunk(params, tokens)
         aux = aux if (cfg.is_moe and cfg.router_aux_coef > 0) else 0.0
-        f = torch.nn.functional
-        targets = f.pad(tokens[:, 1:].long(), (0, 1))
-        m = torch.ones(tokens.shape, device=tokens.device) if mask is None else mask
-        m = f.pad(m[:, 1:].float(), (0, 1))
+        targets, m = self.shifted_targets(tokens, mask)
         if self._use_fused_ce(params):
             ce = fused_softmax_xent(
                 x, params["lm_head"], targets, m, cfg.ce_block_size, cfg.dtype,
@@ -675,6 +767,16 @@ class Transformer(nn.Module):
                 cfg.dtype, count=count,
             )
         return ce + cfg.router_aux_coef * aux
+
+    def shifted_targets(self, tokens: torch.Tensor, mask=None):
+        """(targets, mask) of the loss: position i predicts token i+1, the
+        final position and padded rows carry mask 0; shifted on the full
+        rows, then this rank's chunk of the sequence under sp."""
+        f = torch.nn.functional
+        targets = f.pad(tokens[:, 1:].long(), (0, 1))
+        m = torch.ones(tokens.shape, device=tokens.device) if mask is None else mask
+        m = f.pad(m[:, 1:].float(), (0, 1))
+        return self._seq_chunk(targets), self._seq_chunk(m)
 
 
 # ----------------------------------------------------------------- train step
@@ -742,38 +844,56 @@ def shard_params(params: Mapping, cfg: TransformerConfig, mesh) -> dict:
     return walk(params, placements)
 
 
+# Parameters whose tp shard (the vocabulary) the step gathers, like an
+# fsdp shard, so the embedding lookup and the fused CE see the whole
+# vocabulary; the layer weights' tp shards stay local (Megatron's layout).
+_TP_GATHERED = ("embed", "lm_head")
+
+
 def _mesh_train_step(cfg: TransformerConfig, mesh, opt, device):
-    """The train step over a mesh of data and fsdp axes: an explicit SPMD
-    step in which DTensor only records placement.
+    """The train step over a mesh of data, fsdp, tp and sp axes: an
+    explicit SPMD step in which DTensor only records placement.
 
     Each rank holds its rows of the global batch (split over data ×
-    fsdp), and each parameter as ``param_specs`` lays it out: under
-    ``fsdp`` the chunk of its sharded dim that this rank's fsdp index
-    names (the AdamW moments follow, being the shapes of what they
-    update), replicated otherwise. A step:
+    fsdp; ranks that differ only in tp or sp hold the same rows, at full
+    length), and each parameter as ``param_specs`` lays it out: this
+    rank's chunk of every dim sharded over fsdp or tp (the AdamW moments
+    follow, being the shapes of what they update), replicated otherwise.
+    A step:
 
-    1. gathers every fsdp-sharded parameter over the fsdp axis
-       (``parallel.collectives.all_gather``) into a full tensor that is a
-       fresh autograd leaf; replicated parameters are used as they are;
-    2. sums each rank's count of predicted positions over the batch axes,
-       so each rank's loss is its masked sum over the global count (the
-       JAX package's global mask-weighted mean, in shares);
-    3. runs ``Transformer.loss`` on the local rows: K1 in the forward and
-       K2/K3 in the backward on this rank's shard
-       (``ops.flash.flash_attention_sharded``), the fused CE, all on local
-       tensors;
-    4. reduce-scatters each full gradient over fsdp back to the chunk
-       (``parallel.collectives.reduce_scatter``), then sums over data;
-       replicated parameters' gradients are summed over both axes;
-    5. steps AdamW on the local tensors, and sums the loss shares into the
+    1. gathers every fsdp-sharded parameter over fsdp, and ``embed`` and
+       ``lm_head`` over tp too (``parallel.collectives.all_gather``), into
+       a full tensor that is a fresh autograd leaf; the layer weights keep
+       their tp shard, and unsharded parameters are used as they are;
+    2. sums each rank's count of predicted positions (of its chunk under
+       sp) over data, fsdp and sp, so each rank's loss is its masked sum
+       over the global count (the JAX package's global mask-weighted
+       mean, in shares);
+    3. runs ``Transformer.loss`` on the local rows: under tp each rank's
+       heads and ``d_ff`` columns (the layer's all-reduces in
+       ``copy_to_tp``/``reduce_from_tp``), under sp its sequence chunk
+       with ring or Ulysses attention; K1 in the forward and K2/K3 in the
+       backward on this rank's shard, all on local tensors;
+    4. takes each gathered gradient back to the chunk: this rank's tp
+       chunk of ``embed``/``lm_head`` (each tp rank already holds the
+       whole gradient), then the reduce-scatter over fsdp
+       (``parallel.collectives.reduce_scatter``); then sums every gradient
+       over sp and data, and over fsdp where the parameter is not sharded
+       there. Never over tp: the backward's tp all-reduces leave tp peers
+       equal gradients of the replicated parameters (``ln1``, ``ln2``,
+       ``ln_f``), and a sum would count them tp times;
+    5. steps AdamW on the local tensors, and sums the loss shares over
+       data, fsdp and sp (not tp: tp peers hold the same share) into the
        global loss that every rank returns.
 
     Replicas over ``data`` receive the same summed gradients and stay bit
     for bit equal. ``tokens``/``mask``: ``DTensor``s from ``global_batch``
     (their local rows are used) or this rank's rows as plain tensors or
     arrays. ``step_fn.stats`` holds the last step's collective calls,
-    bytes and host seconds (``torch.cuda.synchronize()`` before them on
-    the card, so the backward's device time is not counted in them)."""
+    bytes and host seconds (``torch.cuda.synchronize()`` before the step
+    and before the gradient collectives on the card: the layer's tp and sp
+    collectives inside the backward are counted with the device time they
+    wait for)."""
     from torchkafka_tpu_torch.parallel import collectives
     from torchkafka_tpu_torch.parallel.mesh import local_part
 
@@ -785,26 +905,53 @@ def _mesh_train_step(cfg: TransformerConfig, mesh, opt, device):
     if dev.type != mesh_dev.type:
         raise ValueError(f"device {dev} is not the mesh's device type {mesh.device_type!r}")
     names = list(mesh.mesh_dim_names)
-    groups = {a: mesh.get_group(a) for a in ("data", "fsdp") if sizes.get(a, 1) > 1}
-    fsdp_index = names.index("fsdp") if "fsdp" in groups else None
-    specs = param_specs(cfg)
-    placements = shardings_for_mesh(mesh, specs)
+    groups = {a: mesh.get_group(a) for a in ("data", "fsdp", "tp", "sp") if sizes.get(a, 1) > 1}
+    tp_rank = torch.distributed.get_rank(groups["tp"]) if "tp" in groups else 0
+    placements = shardings_for_mesh(mesh, param_specs(cfg))
 
-    def batch_sum_(t: torch.Tensor) -> torch.Tensor:
-        for axis in ("fsdp", "data"):
+    def sum_(t: torch.Tensor, axes) -> torch.Tensor:
+        for axis in axes:
             if axis in groups:
                 collectives.all_reduce_(t, groups[axis])
         return t
 
-    def fsdp_dim(pl) -> int | None:
-        if fsdp_index is None:
-            return None
-        p = pl[fsdp_index]
-        return p.dim if p.is_shard() else None
+    def plan(pl, gather_tp: bool) -> list:
+        """[(axis, dim)] to gather, in order: fsdp, then tp."""
+        out = []
+        for axis in ("fsdp", "tp") if gather_tp else ("fsdp",):
+            if axis in groups and pl[names.index(axis)].is_shard():
+                out.append((axis, pl[names.index(axis)].dim))
+        return out
+
+    plans = {k: (_map_specs(lambda pl: plan(pl, False), v) if k == "layers"
+                 else plan(v, k in _TP_GATHERED)) for k, v in placements.items()}
 
     def init_fn(generator: torch.Generator):
         params = shard_params(init_params(generator, cfg, dev), cfg, mesh)
         return params, opt.init(params)
+
+    def gather(ld):
+        t, steps = ld
+        if not steps:
+            return t
+        t = t.detach()
+        for axis, dim in steps:
+            t = collectives.all_gather(t, dim, groups[axis])
+        return t.requires_grad_(True)
+
+    def place_grad(ld, f):
+        p, steps = ld
+        if not steps:
+            sum_(p.grad, ("fsdp", "sp", "data"))
+            return
+        g = f.grad
+        for axis, dim in reversed(steps):
+            if axis == "tp":
+                g = g.chunk(sizes["tp"], dim=dim)[tp_rank].contiguous()
+            else:
+                g = collectives.reduce_scatter(g, dim, groups["fsdp"])
+        fsdp_done = any(axis == "fsdp" for axis, _ in steps)
+        p.grad = sum_(g, ("sp", "data") if fsdp_done else ("fsdp", "sp", "data"))
 
     def step_fn(params, opt_state, tokens, mask=None):
         opt_state.check_params(params)
@@ -814,15 +961,12 @@ def _mesh_train_step(cfg: TransformerConfig, mesh, opt, device):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         before = collectives.COUNTS.as_dict()
-        dims = _map_specs(fsdp_dim, placements)
-        local = _zip_tree(params, dims, lambda p, d: (local_part(p), d))
+        local = _zip_tree(params, plans, lambda p, st: (local_part(p), st))
         # 1. gather
-        full = _map_tree(local, lambda ld: (
-            collectives.all_gather(ld[0].detach(), ld[1], groups["fsdp"])
-            .requires_grad_(True) if ld[1] is not None else ld[0]))
+        full = _map_tree(local, gather)
         # 2. the global count of predicted positions
-        m = (torch.ones(tokens.shape, device=dev) if mask is None else mask.float())
-        count = batch_sum_(m[:, 1:].sum().reshape(1)).clamp_min(1.0)[0]
+        _, m = model.shifted_targets(tokens, mask)
+        count = sum_(m.sum().reshape(1), ("fsdp", "sp", "data")).clamp_min(1.0)[0]
         # 3. the local share of the loss
         opt_state.zero_grad()
         share = model.loss(full, tokens, mask, count=count)
@@ -830,19 +974,8 @@ def _mesh_train_step(cfg: TransformerConfig, mesh, opt, device):
         # 4. gradients back to each parameter's placement
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-
-        def place_grad(ld, f):
-            p, d = ld
-            if d is None:
-                batch_sum_(p.grad)
-                return
-            g = collectives.reduce_scatter(f.grad, d, groups["fsdp"])
-            if "data" in groups:
-                collectives.all_reduce_(g, groups["data"])
-            p.grad = g
-
         _zip_tree(local, full, place_grad)
-        loss = batch_sum_(share.detach().reshape(1))[0]
+        loss = sum_(share.detach().reshape(1), ("fsdp", "sp", "data"))[0]
         after = collectives.COUNTS.as_dict()
         step_fn.stats = {k: after[k] - before[k] for k in after}
         # 5. the optimizer on the local tensors

@@ -17,13 +17,29 @@ group's backend alone, never on a failure:
   after which each rank keeps its own chunk (twice the bytes of a
   reduce-scatter, and the one reduction every gloo build runs).
 
+The point-to-point exchange (``ppermute``, the ring's hop) and the
+all-to-all (``all_to_all``, Ulysses' head exchange) follow the same rule:
+``batch_isend_irecv`` and ``all_to_all_single`` on the device under nccl;
+under gloo every tensor, on the card or the CPU, goes through host
+staging buffers, the bytes sent and the bytes received each in a buffer of
+their own (a send still in flight must not read what a receive writes).
+The result is always a fresh tensor on the input's device, so the next
+call may reuse the buffers.
+
+Autograd: ``ppermute`` and ``all_to_all`` are differentiable (the
+backward runs the inverse exchange); ``copy_to_tp`` and
+``reduce_from_tp`` are Megatron's pair for a tensor-parallel block
+(identity forward and sum backward at the input of a column-parallel
+product; sum forward and identity backward after a row-parallel one).
+
 ``COUNTS`` adds up, per process, the calls, the bytes each call handed to
-the group (the full buffer a rank reduces or gathers into) and the host
-seconds spent inside them; ``COUNTS.reset()`` zeroes them.
+the group (the full buffer a rank reduces or gathers into, or sends) and
+the host seconds spent inside them; ``COUNTS.reset()`` zeroes them.
 """
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -44,8 +60,10 @@ class _Counts:
 
 COUNTS = _Counts()
 
-# Pinned host buffers for staging, one growing buffer per dtype.
-_PINNED: dict[torch.dtype, torch.Tensor] = {}
+# Host buffers for staging under gloo, one growing buffer per (dtype, slot,
+# pinned): pinned for CUDA tensors. A send and a receive in flight together
+# take different slots.
+_STAGING: dict[tuple, torch.Tensor] = {}
 
 
 def backend(group=None) -> str:
@@ -56,14 +74,22 @@ def group_size(group=None) -> int:
     return torch.distributed.get_world_size(group)
 
 
-def _host(t: torch.Tensor) -> torch.Tensor:
-    """A pinned host copy of a CUDA tensor (in a reused buffer)."""
-    n = t.numel()
-    buf = _PINNED.get(t.dtype)
+def _staging(shape, dtype: torch.dtype, slot: str, pinned: bool) -> torch.Tensor:
+    """A host buffer of ``shape`` in the reused buffer of (dtype, slot,
+    pinned), grown on demand; its contents are undefined."""
+    n = math.prod(shape)
+    key = (dtype, slot, pinned)
+    buf = _STAGING.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.empty(max(n, 1), dtype=t.dtype, pin_memory=True)
-        _PINNED[t.dtype] = buf
-    host = buf[:n].view(t.shape)
+        buf = torch.empty(max(n, 1), dtype=dtype, pin_memory=pinned)
+        _STAGING[key] = buf
+    return buf[:n].view(shape)
+
+
+def _host(t: torch.Tensor, slot: str = "send") -> torch.Tensor:
+    """A host copy of ``t`` in the staging buffer of ``slot`` (pinned for
+    a CUDA tensor)."""
+    host = _staging(t.shape, t.dtype, slot, t.is_cuda)
     host.copy_(t)
     return host
 
@@ -132,3 +158,130 @@ def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
         shard = host.chunk(n, dim=dim)[me].to(t.device, copy=True).contiguous()
     _account(t, t0)
     return shard
+
+
+def _global(group, group_rank: int) -> int:
+    return torch.distributed.get_global_rank(group, group_rank) if group is not None \
+        else group_rank
+
+
+def _exchange_buffers(t: torch.Tensor, group) -> tuple:
+    """(send, recv, staged) for an exchange of ``t``'s bytes: on the
+    device under nccl; under gloo host staging buffers, one for each
+    direction."""
+    if backend(group) == "nccl":
+        send = t.contiguous()
+        return send, torch.empty_like(send), False
+    return _host(t, "send"), _staging(t.shape, t.dtype, "recv", t.is_cuda), True
+
+
+def _ppermute(t: torch.Tensor, group, shift: int) -> torch.Tensor:
+    dist = torch.distributed
+    n = group_size(group)
+    me = dist.get_rank(group)
+    dst, src = _global(group, (me + shift) % n), _global(group, (me - shift) % n)
+    t0 = time.perf_counter()
+    send, recv, staged = _exchange_buffers(t, group)
+    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
+                                    dist.P2POp(dist.irecv, recv, src, group)])
+    for w in works:
+        w.wait()
+    out = recv.to(t.device, copy=True) if staged else recv
+    _account(t, t0)
+    return out
+
+
+def _all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    n = group_size(group)
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of size {t.shape[split_dim]} "
+                         f"does not split over {n} ranks")
+    t0 = time.perf_counter()
+    # Leading dim split: rows j·c ... (j+1)·c - 1 go to rank j.
+    send, recv, staged = _exchange_buffers(t.movedim(split_dim, 0), group)
+    torch.distributed.all_to_all_single(recv, send, group=group)
+    got = recv.to(t.device, copy=True) if staged else recv
+    pieces = [p.movedim(0, split_dim) for p in got.chunk(n, dim=0)]  # piece j: rank j's
+    _account(t, t0)
+    return torch.cat(pieces, dim=concat_dim)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ppermute(t, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.group, -ctx.shift), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(t, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def ppermute(t: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """Send ``t`` to group rank (me + shift) mod n and return what group
+    rank (me - shift) mod n sent (``lax.ppermute`` over a ring): a fresh
+    tensor on ``t``'s device. Differentiable: the gradient goes back the
+    other way. A shift of a multiple of n moves nothing and returns ``t``."""
+    if shift % group_size(group) == 0:
+        return t
+    return _Ppermute.apply(t, group, shift)
+
+
+def all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int, group=None) -> torch.Tensor:
+    """``lax.all_to_all(tiled=True)``: split ``t`` along ``split_dim`` into
+    n chunks, send chunk j to group rank j, and concatenate what every rank
+    sent along ``concat_dim`` in group-rank order. Differentiable: the
+    backward is the inverse exchange."""
+    if group_size(group) == 1:
+        return t
+    return _AllToAll.apply(t, split_dim, concat_dim, group)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(t: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel product (Megatron's f): the identity
+    forward; the backward sums the gradient over the tp group, since each
+    tp rank's columns contribute a part of it."""
+    if group_size(group) == 1:
+        return t
+    return _CopyToTP.apply(t, group)
+
+
+def reduce_from_tp(t: torch.Tensor, group) -> torch.Tensor:
+    """The output of a row-parallel product (Megatron's g): the forward
+    sums the tp ranks' partial products; the backward is the identity."""
+    if group_size(group) == 1:
+        return t
+    return _ReduceFromTP.apply(t, group)
