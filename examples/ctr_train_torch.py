@@ -7,11 +7,16 @@ offsets commit only after the step that consumed each batch retires
 
     python examples/ctr_train_torch.py --steps 40 --batch 1024
     python examples/ctr_train_torch.py --device cpu --steps 10 --batch 64
+    # A local pod: N ranks on a {"data": N/tp, "tp": tp} mesh (tp = 2 for
+    # an even N), the tables row-sharded over tp, each data index consuming
+    # its own partitions (tp peers read the same ones):
+    python examples/ctr_train_torch.py --processes 2 --device cpu --steps 4 --batch 16
 
 Swap the broker for ``tk.KafkaConsumer(...)`` against a real cluster; the
-record layout is ``models.recsys.parse_record``'s. One device: the JAX
-package's row-sharded tables over a ``tp`` mesh are not ported, so
-``--processes`` above 1 raises.
+record layout is ``models.recsys.parse_record``'s. ``--processes`` starts
+the ranks the way ``examples/pod_train_torch.py --spawn`` does;
+``parallel.multihost.initialize`` places them (ranks sharing a card run
+under gloo).
 """
 
 from __future__ import annotations
@@ -56,54 +61,98 @@ def make_broker(cfg: DLRMConfig, n_records: int) -> tk.InMemoryBroker:
     return broker
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=40)
-    ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--processes", type=int, default=1,
-                    help="processes of a pod (not ported: > 1 raises)")
-    ap.add_argument("--device", default=None,
-                    help="where to train (e.g. cpu); default: the CUDA card")
-    args = ap.parse_args()
-    if args.processes > 1:
-        raise NotImplementedError(
-            f"--processes {args.processes} is not ported yet (ROADMAP queue A: "
-            "Pipeline and expert parallelism)"
-        )
-    dev = resolve_device(args.device)
+def train(args) -> None:
+    from torchkafka_tpu_torch.parallel import multihost
+
+    pod = args.nproc > 1
+    if pod:  # a spawned rank: join the local pod
+        multihost.initialize(args.coordinator, args.nproc, args.pid, device=args.device)
+        dev = multihost.ensure_group(args.device)
+    else:
+        dev = resolve_device(args.device)
+    tp = 2 if args.nproc % 2 == 0 else 1
+    n_data = args.nproc // tp
+    mesh = tk.make_mesh({"data": n_data, "tp": tp}, device=args.device) if pod else None
+    data_index = args.pid // tp  # the mesh lays data out first
     cfg = DLRMConfig()  # 8 tables x 100k x 64: the tables are the bytes
 
-    broker = make_broker(cfg, args.steps * args.batch)
-    consumer = tk.MemoryConsumer(
-        broker, "clicks", group_id="ctr-trainer",
-        assignment=tk.partitions_for_process("clicks", N_PARTS, 0, 1),
-    )
-    init_fn, step_fn = make_dlrm_train_step(cfg, None, tk.adam(1e-2), device=dev)
+    # Each data index consumes its stride of partitions, so the topic needs
+    # steps*batch records per data index for every rank to reach --steps.
+    broker = make_broker(cfg, args.steps * args.batch * n_data)
+    parts = tk.partitions_for_process("clicks", N_PARTS, data_index, n_data)
+    consumer = tk.MemoryConsumer(broker, "clicks", group_id="ctr-trainer", assignment=parts)
+    init_fn, step_fn = make_dlrm_train_step(cfg, mesh, tk.adam(1e-2), device=dev)
     params, opt = init_fn(torch.Generator(device=dev).manual_seed(0))
-    print(f"DLRM {count_params(params) / 1e6:.1f}M params, mesh {{'data': 1}}, {dev}")
+    if args.pid == 0:
+        print(f"DLRM {count_params(params) / 1e6:.1f}M params, "
+              f"mesh {{'data': {n_data}, 'tp': {tp}}}, {dev}", flush=True)
 
     with tk.KafkaStream(
         consumer, make_chunk_processor(cfg), batch_size=args.batch,
-        idle_timeout_ms=2000, owns_consumer=True, device=dev,
+        idle_timeout_ms=2000, owns_consumer=True, device=dev, mesh=mesh,
     ) as stream:
         step = 0
         for batch, token in stream:
-            mask = torch.as_tensor(batch.valid_mask(), dtype=torch.float32, device=dev)
+            mask = batch.valid_mask().astype(np.float32)
             params, opt, loss = step_fn(
                 params, opt, batch.data["dense"], batch.data["cats"],
                 batch.data["label"], mask,
             )
             token.commit(wait_for=loss)
-            if step % 5 == 0:
-                print(f"step {step}  loss {float(loss):.4f}")
+            if args.pid == 0 and step % 5 == 0:
+                print(f"step {step}  loss {float(loss):.4f}", flush=True)
             step += 1
             if step >= args.steps:
                 break
-    committed = sum(broker.committed("ctr-trainer", tk.TopicPartition("clicks", p)) or 0
-                    for p in range(N_PARTS))
-    end = sum(broker.end_offset(tk.TopicPartition("clicks", p)) for p in range(N_PARTS))
-    print(f"done: {step} steps; metrics: {stream.metrics.summary()}")
-    print(f"offsets: committed={committed} end={end}")
+    committed = sum(broker.committed("ctr-trainer", p) or 0 for p in parts)
+    end = sum(broker.end_offset(p) for p in parts)
+    if args.pid == 0:
+        print(f"done: {step} steps; metrics: {stream.metrics.summary()}", flush=True)
+    prefix = f"rank {args.pid}: trained={step * args.batch} " if pod else ""
+    print(f"{prefix}offsets: committed={committed} end={end}", flush=True)
+    if pod:
+        multihost.shutdown()
+
+
+def spawn(args) -> None:
+    """Start ``--processes`` copies of this script as a localhost pod and
+    wait for them."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for pid in range(args.processes):
+        cmd = [sys.executable, os.path.abspath(__file__), "--coordinator",
+               f"127.0.0.1:{port}", "--nproc", str(args.processes), "--pid", str(pid),
+               "--steps", str(args.steps), "--batch", str(args.batch)]
+        if args.device:
+            cmd += ["--device", args.device]
+        procs.append(subprocess.Popen(cmd))
+    codes = [p.wait() for p in procs]
+    if any(codes):
+        raise SystemExit(f"pod failed: exit codes {codes}")
+    print(f"pod of {args.processes} processes completed cleanly", flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--batch", type=int, default=1024, help="rows a data index trains per step")
+    ap.add_argument("--processes", type=int, default=1,
+                    help="ranks of a local pod on a {data, tp} mesh (1: this process)")
+    ap.add_argument("--device", default=None,
+                    help="where to train (e.g. cpu); default: the CUDA card")
+    ap.add_argument("--coordinator", default="", help="(internal) host:port of rank 0's store")
+    ap.add_argument("--nproc", type=int, default=1, help="(internal) ranks of the pod")
+    ap.add_argument("--pid", type=int, default=0, help="(internal) this rank")
+    args = ap.parse_args()
+    if args.processes > 1:
+        spawn(args)
+    else:
+        train(args)
 
 
 if __name__ == "__main__":

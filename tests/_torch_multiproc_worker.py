@@ -36,6 +36,8 @@ Runs as ``python _torch_multiproc_worker.py <pid> <nproc> <port> <outdir>
           ``flash_out_<pid>.npz``.
   sp_ops / tp_sp_train — the tensor- and sequence-parallel cases of
           ``<outdir>/<mode>_cases.json`` (tests/_torch_tp_sp_cases.py).
+  pipeline / pp_ep_train — the pipeline- and expert-parallel cases
+          (tests/_torch_pp_ep_cases.py), the same way.
 
 Each rank uses its own InMemoryBroker primed with deterministic records
 (its slice of a pod's disjoint partitions). Committed offsets are written
@@ -506,6 +508,10 @@ def main(pid: int, nproc: int, port: str, outdir: str, mode: str) -> int:
             return flash_main(pid, nproc, outdir, mark)
         if mode in ("sp_ops", "tp_sp_train"):
             import _torch_tp_sp_cases as cases
+
+            return getattr(cases, f"{mode}_main")(pid, outdir, mark)
+        if mode in ("pipeline", "pp_ep_train"):
+            import _torch_pp_ep_cases as cases
 
             return getattr(cases, f"{mode}_main")(pid, outdir, mark)
         return stream_main(pid, nproc, outdir, mode, mark)

@@ -1,8 +1,9 @@
 """The port's three single-device examples, each run as a subprocess on the
 CPU (``--device cpu``) at a tiny size: exit 0, every record it consumed
 committed (the committed offsets equal the topic's end offsets), and no
-module of JAX or of the JAX package loaded. A mesh flag raises naming the
-ROADMAP item that ports it."""
+module of JAX or of the JAX package loaded. The CTR example also trains as
+a two-process pod. A serving mesh flag raises naming the ROADMAP item
+that ports it."""
 
 import pathlib
 import re
@@ -52,14 +53,30 @@ def test_example_commits_every_record(name, tmp_path):
 
 
 @pytest.mark.parametrize("name,flag", [("serve_prompts_torch.py", ["--tp", "2"]),
-                                       ("serve_prompts_torch.py", ["--cpu-devices", "8"]),
-                                       ("ctr_train_torch.py", ["--processes", "2"])])
+                                       ("serve_prompts_torch.py", ["--cpu-devices", "8"])])
 def test_mesh_flags_raise(name, flag, monkeypatch):
     """In this process: the flag is refused before any model is built."""
     import runpy
 
     main = runpy.run_path(str(ROOT / "examples" / name), run_name="example")["main"]
     monkeypatch.setattr(sys, "argv", [name, *flag, "--device", "cpu"])
-    with pytest.raises(NotImplementedError,
-                       match="Sharded serving|Pipeline and expert parallelism"):
+    with pytest.raises(NotImplementedError, match="Sharded serving"):
         main()
+
+
+def test_ctr_example_trains_on_two_processes(tmp_path):
+    """``--processes 2``: two gloo ranks on {"data": 1, "tp": 2} (the
+    tables row-sharded over tp); both tp ranks read the same partitions,
+    and each commits exactly the records it trained, its partitions' end."""
+    steps, batch = 3, 16
+    proc = _run("ctr_train_torch.py", ["--processes", "2", "--steps", str(steps),
+                                        "--batch", str(batch)], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "mesh {'data': 1, 'tp': 2}" in proc.stdout
+    lines = re.findall(r"^rank (\d): trained=(\d+) offsets: committed=(\d+) end=(\d+)",
+                       proc.stdout, re.M)
+    assert sorted(int(r) for r, *_ in lines) == [0, 1], proc.stdout[-2000:]
+    for _, trained, committed, end in lines:
+        assert int(trained) == int(committed) == int(end) == steps * batch
+    assert "pod of 2 processes completed cleanly" in proc.stdout
+    assert "JAX_MODULES []" in proc.stdout

@@ -154,7 +154,7 @@ def test_port_never_imports_jax_ast():
                 "harness/__main__.py", "harness/scenarios.py", "ops/bitpack.py",
                 "models/recsys.py", "models/resnet.py", "transform/image.py",
                 "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
-                "parallel/collectives.py", "utils/buildlock.py"):
+                "parallel/collectives.py", "utils/buildlock.py", "ops/pipeline.py"):
         assert ROOT / "torchkafka_tpu_torch" / mod in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
@@ -180,7 +180,7 @@ def test_port_import_adds_no_jax_module():
         "import torchkafka_tpu_torch.harness.__main__, torchkafka_tpu_torch.ops.bitpack\n"
         "import torchkafka_tpu_torch.models.recsys, torchkafka_tpu_torch.models.resnet\n"
         "import torchkafka_tpu_torch.transform.image, torchkafka_tpu_torch.parallel\n"
-        "import torchkafka_tpu_torch.parallel.collectives\n"
+        "import torchkafka_tpu_torch.parallel.collectives, torchkafka_tpu_torch.ops.pipeline\n"
         "import runpy, pathlib\n"
         "for ex in sorted(pathlib.Path('examples').glob('*_torch.py')):\n"
         "    runpy.run_path(str(ex), run_name='imported')\n"

@@ -4,9 +4,9 @@ CPU mesh (tests/conftest.py), the port's on 2 or 4 gloo processes
 (tests/_torch_multiproc_worker.py, mode ``train``), from the same
 parameters and the same global batches, 3 steps. Also
 ``flash_attention_sharded`` (2 processes) against JAX's in interpret mode,
-the specs and placements, the mesh options that still raise and the
-meshes and impls the tp/sp step refuses (its runs:
-tests/test_torch_tp_sp_train.py)."""
+the specs and placements, pp, ep and MoE meshes building (their runs:
+tests/test_torch_pp_ep_train.py) and the meshes and impls the tp/sp step
+refuses (its runs: tests/test_torch_tp_sp_train.py)."""
 
 import json
 
@@ -21,6 +21,7 @@ from torchkafka_tpu.models import transformer as jt
 from torchkafka_tpu.ops.flash import flash_attention_sharded as jax_flash_sharded
 from torchkafka_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from torchkafka_tpu_torch.models import transformer as pt
+from torchkafka_tpu_torch.optim import adamw
 
 from tests.test_torch_pod import diagnose, read, spawn_pod, wait_all
 
@@ -199,19 +200,26 @@ class _FakeMesh:
         self.mesh = torch.zeros(tuple(axes.values()))
 
 
-@pytest.mark.parametrize("axes,title", [
-    ({"pp": 2}, "Pipeline and expert parallelism"),
-    ({"ep": 2}, "Pipeline and expert parallelism"),
-], ids=["pp", "ep"])
-def test_model_axes_raise_with_their_titles(axes, title):
-    """pp/ep above 1 raise before anything is built (checked on the axis
-    sizes, as a mesh of two ranks would carry them). tp and sp run:
-    tests/test_torch_tp_sp_train.py."""
-    cfg = pt.TransformerConfig(**CFG)
-    with pytest.raises(NotImplementedError, match=title):
-        pt.Transformer(cfg, _FakeMesh(axes))
-    with pytest.raises(NotImplementedError, match=title):
-        pt.make_train_step(cfg, _FakeMesh(axes), device="cpu")
+@pytest.mark.parametrize("axis", ["pp", "ep"])
+def test_model_axes_build_and_run(axis, one_rank_mesh):
+    """A pp or ep axis builds the model (its process groups are fetched at
+    first use, so a fake two-rank mesh suffices); on a one-rank mesh with
+    the axis the step runs and equals the single-device step. The
+    pipelined and expert-parallel runs: tests/test_torch_pp_ep_train.py."""
+    cfg = pt.TransformerConfig(**CFG, n_experts=4 if axis == "ep" else 0,
+                               dtype=torch.float32)
+    assert pt.Transformer(cfg, _FakeMesh({axis: 2}))._sizes == {axis: 2}
+    mesh = one_rank_mesh({"data": 1, axis: 1})
+    init_fn, step_fn = pt.make_train_step(cfg, mesh, device="cpu")
+    params, opt = init_fn(torch.Generator().manual_seed(0))
+    _, one = pt.make_train_step(cfg, None, device="cpu")
+    plain = pt.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    popt = adamw(1e-3).init(plain)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 16)))
+    for _ in range(2):
+        params, opt, loss = step_fn(params, opt, toks)
+        plain, popt, ref = one(plain, popt, toks)
+        assert abs(loss.item() - ref.item()) < LOSS_ATOL
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
@@ -247,21 +255,22 @@ def test_sp_mesh_needs_a_sequence_parallel_impl(impl):
         pt.Transformer(cfg, _FakeMesh({"sp": 2}))
 
 
-def test_moe_on_a_batch_sharded_mesh_raises():
-    class FakeMesh:
-        mesh_dim_names = ("data",)
-        mesh = torch.zeros(2)
-
-    with pytest.raises(NotImplementedError, match="Pipeline and expert parallelism"):
-        pt.make_train_step(pt.TransformerConfig(**CFG, n_experts=4), FakeMesh(), device="cpu")
+def test_moe_on_a_batch_sharded_mesh_builds():
+    """MoE on a data mesh builds: the router statistics are summed over the
+    data ranks (runs: tests/test_torch_pp_ep_train.py)."""
+    model = pt.Transformer(pt.TransformerConfig(**CFG, n_experts=4), _FakeMesh({"data": 2}))
+    assert model._batch_ranks() == 2
 
 
 @pytest.mark.parametrize("axes", [{"tp": 2}, {"sp": 2}], ids=["tp", "sp"])
-def test_moe_on_a_tp_or_sp_mesh_raises(axes):
-    """MoE's tp experts and its router statistics over a split sequence
-    are item 10's, as on a batch-sharded mesh."""
-    with pytest.raises(NotImplementedError, match="Pipeline and expert parallelism"):
-        pt.Transformer(pt.TransformerConfig(**CFG, n_experts=4), _FakeMesh(axes))
+def test_moe_on_a_tp_or_sp_mesh_builds(axes):
+    """MoE's experts split their d_ff over tp; under sp the router
+    statistics are summed over the chunks. Capacity dispatch places its
+    groups within a chunk."""
+    cfg = pt.TransformerConfig(**CFG, n_experts=4, moe_dispatch="capacity",
+                               moe_group_size=8)
+    model = pt.Transformer(cfg, _FakeMesh(axes))
+    assert model._capacity_span(4, 8 if "sp" in axes else 16) is None
 
 
 def test_opt_shardings_like_mirrors_the_parameters(one_rank_mesh):

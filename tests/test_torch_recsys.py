@@ -175,8 +175,33 @@ def test_three_adam_steps_match_optax():
 
 
 def test_mesh_raises_and_defaults():
+    """Anything but a DeviceMesh is refused; on a one-rank {data, tp} mesh
+    the step runs and equals the single-device step (the multi-rank
+    meshes: tests/test_torch_pp_ep_train.py)."""
+    from torchkafka_tpu_torch.parallel import multihost
+    from torchkafka_tpu_torch.parallel.mesh import make_mesh
+
     _, pcfg = _configs()
-    with pytest.raises(NotImplementedError, match="Mesh and multi-process paths|mesh"):
+    with pytest.raises(TypeError, match="make_mesh"):
         pr.make_dlrm_train_step(pcfg, object(), device="cpu")
+    multihost.shutdown()
+    try:
+        mesh = make_mesh({"data": 1, "tp": 1}, device="cpu")
+        init_fn, step = pr.make_dlrm_train_step(pcfg, mesh, adam(1e-2), device="cpu")
+        params, opt = init_fn(torch.Generator().manual_seed(0))
+        _, one = pr.make_dlrm_train_step(pcfg, None, adam(1e-2), device="cpu")
+        plain = pr.init_params(torch.Generator().manual_seed(0), pcfg, device="cpu")
+        popt = adam(1e-2).init(plain)
+        rng = np.random.default_rng(0)
+        highs = np.asarray(pcfg.vocab_sizes)
+        b = (rng.normal(size=(8, pcfg.dense_dim)).astype(np.float32),
+             rng.integers(0, highs, (8, len(highs))).astype(np.int32),
+             rng.integers(0, 2, 8).astype(np.float32), np.ones(8, np.float32))
+        for _ in range(2):
+            params, opt, loss = step(params, opt, *b)
+            plain, popt, ref = one(plain, popt, *(torch.from_numpy(a) for a in b))
+            assert abs(loss.item() - ref.item()) < TOL
+    finally:
+        multihost.shutdown()
     assert adam(1e-2).weight_decay == 0.0
     assert dataclasses.replace(pcfg, embed_dim=8).n_interactions == 6

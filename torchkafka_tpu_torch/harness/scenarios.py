@@ -2841,9 +2841,10 @@ def scenario_4(size: str = "tiny", device=None) -> dict:
 def scenario_8(size: str = "tiny", device=None) -> dict:
     """Streaming CTR: the DLRM recommender trained from a Kafka event
     stream (label + dense features + hashed categorical ids per record),
-    commit-after-step. One device (``make_dlrm_train_step(cfg, None,
-    ...)``; the JAX package's row-sharded tables over a ``tp`` mesh are
-    queue A "Pipeline and expert parallelism"), so ``mesh`` reports
+    commit-after-step. One device, this process's (``make_dlrm_train_step(cfg,
+    None, ...)``; the port's row-sharded tables run across processes,
+    ``make_dlrm_train_step(cfg, mesh)``, as in
+    ``examples/ctr_train_torch.py --processes``), so ``mesh`` reports
     ``{"data": 1}``. The pure step is ``utils.timing.device_step_seconds``
     on CUDA (CUDA events, two-point slope); the pure ingest re-reads the
     topic with no step; the paired host ratio runs the per-record

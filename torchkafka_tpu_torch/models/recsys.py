@@ -12,11 +12,13 @@ Record layout for the streaming path (``parse_record`` /
 ``make_processor`` / ``make_chunk_processor``): float32 label,
 float32[dense_dim] dense features, int32[n_tables] categorical ids.
 
-``make_dlrm_train_step`` runs on one device (the JAX package's
-``make_dlrm_train_step(cfg, mesh, ...)`` on a one-device mesh): the
-params and the optimizer state are updated in place, PyTorch's idiom for
-the JAX step's donation. A mesh (row-sharded tables over ``tp``) raises
-``NotImplementedError`` naming its ROADMAP item.
+``make_dlrm_train_step`` updates the params and the optimizer state in
+place, PyTorch's idiom for the JAX step's donation. On one device, or on
+a ``parallel.make_mesh`` mesh over ``data``, ``fsdp`` and ``tp``
+(``param_specs``): the tables are row-sharded over tp and the lookup is
+vocab-parallel (each tp rank gathers the ids in its stripe, zeros
+elsewhere, and the rows are summed over tp); the towers replicate; the
+batch is split over data × fsdp.
 """
 
 from __future__ import annotations
@@ -29,11 +31,10 @@ import numpy as np
 import torch
 
 from torchkafka_tpu_torch.models.quant import QTensor, embed_rows, load_weight, quantize
-from torchkafka_tpu_torch.models.transformer import _not_ported
 from torchkafka_tpu_torch.optim import adam
 from torchkafka_tpu_torch.source.records import Record
 from torchkafka_tpu_torch.utils.devices import resolve_device
-from torchkafka_tpu_torch.utils.tree import tree_leaves
+from torchkafka_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +64,46 @@ class DLRMConfig:
     def n_interactions(self) -> int:
         n = self.n_tables + 1  # +1: the bottom-MLP dense vector
         return n * (n - 1) // 2
+
+
+def param_specs(cfg: DLRMConfig) -> dict:
+    """The JAX package's partition specs (a tuple per tensor, an axis name
+    or None per dim): tables shard their rows over ``tp`` (the capacity
+    axis); the towers replicate (they are KBs next to the tables' GBs).
+    Axes a mesh lacks are stripped by ``shardings_for_mesh``."""
+    return {
+        "tables": {f"t{i}": ("tp", None) for i in range(cfg.n_tables)},
+        "bottom": [((None, None), (None,)) for _ in cfg.bottom_mlp],
+        "top": [((None, None), (None,)) for _ in cfg.top_mlp],
+    }
+
+
+def shardings_for_mesh(mesh, specs: dict) -> dict:
+    """``param_specs`` → placements per tensor (the transformer's
+    ``shardings_for_mesh`` on each spec; the towers' (w, b) pairs keep
+    their shape)."""
+    from torchkafka_tpu_torch.models.transformer import shardings_for_mesh as placements
+
+    return {
+        "tables": placements(mesh, specs["tables"]),
+        **{k: [tuple(placements(mesh, sp) for sp in pair) for pair in specs[k]]
+           for k in ("bottom", "top")},
+    }
+
+
+def shard_params(params: dict, cfg: DLRMConfig, mesh) -> dict:
+    """A full parameter tree (the same values on every rank) → ``DTensor``s
+    laid out per ``param_specs`` on ``mesh``: each tp rank keeps its stripe
+    of every table's rows, and a copy of the towers. No communication."""
+    from torchkafka_tpu_torch.parallel.mesh import distribute
+
+    pl = shardings_for_mesh(mesh, param_specs(cfg))
+    return {
+        "tables": {k: distribute(v, mesh, pl["tables"][k]) for k, v in params["tables"].items()},
+        **{k: [tuple(distribute(t, mesh, p) for t, p in zip(pair, pls))
+               for pair, pls in zip(params[k], pl[k])]
+           for k in ("bottom", "top")},
+    }
 
 
 def init_params(generator: torch.Generator, cfg: DLRMConfig, device=None) -> dict:
@@ -122,16 +163,18 @@ def _tower(x: torch.Tensor, layers, dtype, final_linear: bool) -> torch.Tensor:
 
 
 def forward(params: dict, dense: torch.Tensor, cats: torch.Tensor,
-            cfg: DLRMConfig) -> torch.Tensor:
+            cfg: DLRMConfig, lookup=None) -> torch.Tensor:
     """dense [B, dense_dim] f32, cats [B, n_tables] int → logits [B] f32.
 
     Weights may be plain tensors or int8 ``QTensor``s
     (``quantize_dlrm_params``): table lookups gather the int8 rows first
-    and scale only the gathered rows."""
+    and scale only the gathered rows. ``lookup(table, ids)``: the
+    embedding gather (default ``embed_rows``; the mesh step's is
+    vocab-parallel)."""
     dt = cfg.dtype
+    lookup = (lambda w, ids: embed_rows(w, ids, dt)) if lookup is None else lookup
     bottom = _tower(dense.to(dt), params["bottom"], dt, final_linear=False)
-    embs = [embed_rows(params["tables"][f"t{i}"], cats[:, i], dt)
-            for i in range(cfg.n_tables)]
+    embs = [lookup(params["tables"][f"t{i}"], cats[:, i]) for i in range(cfg.n_tables)]
     feats = torch.stack([bottom, *embs], dim=1)  # [B, C+1, E]
     # The Gram matrix in f32 on compute-dtype operands: exact products,
     # an f32 sum (the JAX package's preferred_element_type=float32).
@@ -146,21 +189,25 @@ def forward(params: dict, dense: torch.Tensor, cats: torch.Tensor,
 
 
 def loss_fn(params: dict, dense: torch.Tensor, cats: torch.Tensor,
-            labels: torch.Tensor, mask: torch.Tensor, cfg: DLRMConfig) -> torch.Tensor:
+            labels: torch.Tensor, mask: torch.Tensor, cfg: DLRMConfig, *,
+            count=None, lookup=None) -> torch.Tensor:
     """Masked mean sigmoid binary cross-entropy (padded batcher rows
-    contribute nothing), a 0-d f32 tensor."""
-    logits = forward(params, dense, cats, cfg)
+    contribute nothing), a 0-d f32 tensor. ``count``: the mean's
+    denominator (the global count of real rows when this call sees one
+    rank's rows); None = this call's. ``lookup``: as ``forward``'s."""
+    logits = forward(params, dense, cats, cfg, lookup)
     labels = labels.float()
     per_row = (torch.clamp_min(logits, 0) - logits * labels
                + torch.log1p(torch.exp(-logits.abs())))
     mask = mask.float()
-    return (per_row * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    count = torch.clamp_min(mask.sum(), 1.0) if count is None else count
+    return (per_row * mask).sum() / count
 
 
 def make_dlrm_train_step(
     cfg: DLRMConfig, mesh=None, optimizer=None, *, device=None,
 ) -> tuple[Callable, Callable]:
-    """(init_fn, step_fn), the JAX package's pair on one device.
+    """(init_fn, step_fn), the JAX package's pair.
 
     init_fn(generator) → (params, opt_state) on ``device`` (CUDA unless
     the caller asks for the CPU). step_fn(params, opt_state, dense, cats,
@@ -170,10 +217,11 @@ def make_dlrm_train_step(
     the device, for ``token.commit(wait_for=loss)``.
 
     ``optimizer``: ``optim.adam(...)`` (or ``adamw``); None means
-    ``adam(1e-3)``. ``mesh``: not ported yet (must be None)."""
-    if mesh is not None:
-        raise _not_ported("mesh=", "Pipeline and expert parallelism")
+    ``adam(1e-3)``. ``mesh``: a ``parallel.make_mesh`` mesh (see
+    ``_mesh_dlrm_step``); None is the single-device step."""
     opt = adam(1e-3) if optimizer is None else optimizer
+    if mesh is not None:
+        return _mesh_dlrm_step(cfg, mesh, opt, device)
     dev = resolve_device(device)
 
     def init_fn(generator: torch.Generator):
@@ -189,6 +237,83 @@ def make_dlrm_train_step(
         opt_state.step()
         return params, opt_state, loss.detach()
 
+    return init_fn, step_fn
+
+
+def _mesh_dlrm_step(cfg: DLRMConfig, mesh, opt, device):
+    """The DLRM step over a mesh of data, fsdp and tp axes (the JAX
+    package's ``make_dlrm_train_step(cfg, mesh)``): parameters are
+    ``DTensor``s per ``param_specs`` — each tp rank holds a stripe of every
+    table's rows, the towers whole — and each rank its rows of the batch
+    (split over data × fsdp; tp peers hold the same rows). A step:
+
+    1. sums the count of real rows over data and fsdp (the global
+       mask-weighted mean, in shares);
+    2. runs ``loss_fn`` on the local rows with a vocab-parallel lookup:
+       each tp rank gathers the ids that fall in its stripe (zeros for the
+       others) and the rows are summed over tp (``reduce_from_tp``: the
+       backward hands each rank the whole gradient, which its gather
+       scatters into its own rows);
+    3. sums every gradient over data and fsdp, never over tp (the towers'
+       gradients are equal on tp peers), steps the optimizer on the local
+       tensors, and sums the loss shares over data and fsdp into the
+       global loss every rank returns.
+    ``step_fn.stats``: the last step's collective calls, bytes and host
+    seconds."""
+    from torchkafka_tpu_torch.models.transformer import _mesh_axes
+    from torchkafka_tpu_torch.parallel import collectives
+    from torchkafka_tpu_torch.parallel.mesh import local_part
+
+    sizes = _mesh_axes(mesh)
+    groups = {a: mesh.get_group(a) for a in ("data", "fsdp", "tp") if sizes.get(a, 1) > 1}
+    mesh_dev = (torch.device("cuda", torch.cuda.current_device())
+                if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    dev = resolve_device(device) if device is not None else mesh_dev
+    tp = groups.get("tp")
+    tp_rank = torch.distributed.get_rank(tp) if tp is not None else 0
+
+    def sum_(t: torch.Tensor) -> torch.Tensor:
+        for axis in ("fsdp", "data"):
+            if axis in groups:
+                collectives.all_reduce_(t, groups[axis])
+        return t
+
+    def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        if tp is None:
+            return embed_rows(table, ids, cfg.dtype)
+        n = table.shape[0]
+        lo = tp_rank * n
+        inside = (ids >= lo) & (ids < lo + n)
+        rows = embed_rows(table, torch.where(inside, ids - lo, 0), cfg.dtype)
+        return collectives.reduce_from_tp(rows * inside[:, None].to(cfg.dtype), tp)
+
+    def init_fn(generator: torch.Generator):
+        params = shard_params(init_params(generator, cfg, dev), cfg, mesh)
+        return params, opt.init(params)
+
+    def step_fn(params, opt_state, dense, cats, labels, mask):
+        opt_state.check_params(params)
+        dense, cats, labels, mask = (torch.as_tensor(local_part(a), device=dev)
+                                     for a in (dense, cats, labels, mask))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        before = collectives.COUNTS.as_dict()
+        count = sum_(mask.float().sum().reshape(1)).clamp_min(1.0)[0]
+        local = tree_map(local_part, params)
+        opt_state.zero_grad()
+        share = loss_fn(local, dense, cats, labels, mask, cfg, count=count, lookup=lookup)
+        share.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        for p in tree_leaves(local):
+            sum_(p.grad)
+        loss = sum_(share.detach().reshape(1))[0]
+        after = collectives.COUNTS.as_dict()
+        step_fn.stats = {k: after[k] - before[k] for k in after}
+        opt_state.step()
+        return params, opt_state, loss
+
+    step_fn.stats = {}
     return init_fn, step_fn
 
 

@@ -25,22 +25,27 @@ prefill uses the config's dispatch; the decode read always routes dense
 (``models/generate.py _attn_tail``), as in the JAX package.
 
 Meshes: ``Transformer(cfg, mesh)`` and ``make_train_step(cfg, mesh,
-opt)`` take a ``parallel.make_mesh`` mesh whose axes of size > 1 are
-``data``, ``fsdp``, ``tp`` and ``sp``. The parameters are ``DTensor``s
-laid out per ``param_specs`` (``fsdp`` shards each weight's model dim,
-``tp`` its heads, ``d_ff`` columns and the vocabulary, the rest
-replicates) and the batch is split over data × fsdp; the step runs the
-kernels on each rank's local tensors (see ``_mesh_train_step``). Under
-``tp`` a layer is Megatron's: each rank computes its q/kv heads and its
-``d_ff`` columns, the outputs of ``wo`` and ``w_down`` are summed over tp
-in the forward and the inputs of ``wq``/``wk``/``wv`` and
-``w_gate``/``w_up`` in the backward (``parallel.collectives``'
-``reduce_from_tp``/``copy_to_tp``). Under ``sp`` each rank runs its chunk
-of the sequence (RoPE at global positions) and attention is ring or
-Ulysses (``cfg.attn_impl``; "auto" is ring). Still raising
-``NotImplementedError`` with their ROADMAP queue A title: ``pp`` and
-``ep`` axes and MoE configs on a mesh of more than one rank ("Pipeline and
-expert parallelism").
+opt)`` take a ``parallel.make_mesh`` mesh over the axes ``data``,
+``fsdp``, ``tp``, ``sp``, ``pp`` and ``ep``. The parameters are
+``DTensor``s laid out per ``param_specs`` (``fsdp`` shards each weight's
+model dim, ``tp`` its heads, ``d_ff`` columns and the vocabulary, ``pp``
+the stacked layer dim, ``ep`` the expert dim, the rest replicates) and the
+batch is split over data × fsdp; the step runs the kernels on each rank's
+local tensors (see ``_mesh_train_step``). Under ``tp`` a layer is
+Megatron's: each rank computes its q/kv heads and its ``d_ff`` columns,
+the outputs of ``wo`` and ``w_down`` are summed over tp in the forward and
+the inputs of ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` in the backward
+(``parallel.collectives``' ``reduce_from_tp``/``copy_to_tp``). Under
+``sp`` each rank runs its chunk of the sequence (RoPE at global positions)
+and attention is ring or Ulysses (``cfg.attn_impl``; "auto" is ring).
+Under ``pp`` the layers run as a GPipe schedule (``ops.pipeline.gpipe``,
+``cfg.pp_microbatches``); the embedding, the final norm and the head stay
+outside it, replicated over pp. Under ``ep`` each rank holds E/ep experts
+(each one's ``d_ff`` split over tp) and computes them over its rows; the
+expert outputs are summed over ep and tp, and the router stays
+replicated. The router's load statistics are summed over every axis that
+splits tokens (data, fsdp, sp and the pipeline's microbatches) before
+``router_aux``, so the aux loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -64,9 +69,6 @@ from torchkafka_tpu_torch.ops.xent import dense_softmax_xent, fused_softmax_xent
 from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.utils.devices import resolve_device
 from torchkafka_tpu_torch.utils.tree import tree_leaves
-
-PP_EP = "Pipeline and expert parallelism"
-
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -270,22 +272,19 @@ def opt_shardings_like(opt_state, params, p_shardings, repl):
 
 
 def _check_mesh(cfg: TransformerConfig, mesh) -> dict[str, int]:
-    """The mesh paths the port runs: axes of size > 1 among data, fsdp, tp
-    and sp; pp and ep raise with their ROADMAP queue A title, as MoE on a
-    mesh of more than one rank does. Head counts that tp does not divide
-    raise ``ValueError`` (the JAX package serves them forward-only by its
-    dense dispatch). → axis sizes."""
+    """The axis sizes of ``mesh``, checked against ``cfg``: tp must divide
+    the q and kv heads, pp the layers and ep the experts (``ValueError``
+    otherwise; the JAX package serves heads tp does not divide forward-only
+    by its dense dispatch). → {axis: size}."""
     sizes = _mesh_axes(mesh)
-    for axis in ("pp", "ep"):
-        if sizes.get(axis, 1) > 1:
-            raise _not_ported(f"a mesh with {axis}={sizes[axis]}", PP_EP)
-    if cfg.is_moe and any(sizes.get(a, 1) > 1 for a in ("data", "fsdp", "tp", "sp")):
-        raise _not_ported("MoE configs on a mesh of more than one rank (the router's "
-                          "load-balance statistics span the global batch)", PP_EP)
     tp = sizes.get("tp", 1)
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(f"tp={tp} must divide the q heads ({cfg.n_heads}) and the kv "
                          f"heads ({cfg.n_kv_heads})")
+    if cfg.n_layers % sizes.get("pp", 1):
+        raise ValueError(f"pp={sizes['pp']} must divide n_layers ({cfg.n_layers})")
+    if cfg.is_moe and cfg.n_experts % sizes.get("ep", 1):
+        raise ValueError(f"ep={sizes['ep']} must divide n_experts ({cfg.n_experts})")
     return sizes
 
 
@@ -426,12 +425,45 @@ def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == classes).to(dtype)
 
 
-def _moe_mlp(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """This rank's experts on an ep (or tp) mesh: the layer's expert
+    weights hold experts [first, first + E_local) (each one's ``d_ff``
+    columns this rank's under tp), and the expert outputs are partial sums
+    over ``groups`` (ep and tp)."""
+
+    first: int
+    groups: tuple
+
+
+def _expert_in(t: torch.Tensor, shard: ExpertShard | None) -> torch.Tensor:
+    """The tokens or combine weights entering this rank's experts: the
+    identity forward, their gradient summed over ep and tp backward."""
+    if shard is None:
+        return t
+    from torchkafka_tpu_torch.parallel.collectives import copy_to_tp
+
+    return copy_to_tp(t, shard.groups)
+
+
+def _expert_out(t: torch.Tensor, shard: ExpertShard | None) -> torch.Tensor:
+    """This rank's experts' share of the MoE output, summed over ep and tp."""
+    if shard is None:
+        return t
+    from torchkafka_tpu_torch.parallel.collectives import reduce_from_tp
+
+    return reduce_from_tp(t, shard.groups)
+
+
+def _moe_mlp(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig,
+             shard: ExpertShard | None = None):
     """Top-k routed mixture of SwiGLU experts, dense (one-hot combine)
     dispatch: every expert computes every token and the gate-weighted
     combine keeps the routed ones. Exact w.r.t. the routing — no capacity
     drops. h: [B, S, D] → (output [B, S, D], router stats [2, E] for
-    ``router_aux``)."""
+    ``router_aux``). ``shard``: this rank's experts on a mesh (the router
+    is computed whole on every rank; each rank combines its experts'
+    outputs, summed over ep and tp)."""
     f = torch.nn.functional
     logits = torch.einsum("bsd,de->bse", h.float(), layer["router"].float())
     probs = torch.softmax(logits, dim=-1)  # [B, S, E]
@@ -443,12 +475,15 @@ def _moe_mlp(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
     # axis ([1, BS, D] @ [E, D, F]): einsum("bsd,edf->ebsf") would first
     # copy each expert weight into a [D, E·F] layout.
     b, s, d = h.shape
-    x = h.reshape(1, b * s, d)
-    gate_e = f.silu(torch.matmul(x, load_weight(layer["w_gate"], cfg.dtype)))
+    w_gate = load_weight(layer["w_gate"], cfg.dtype)
+    x = _expert_in(h, shard).reshape(1, b * s, d)
+    if shard is not None:  # this rank's experts' columns (their gradient summed whole)
+        combine = _expert_in(combine, shard).narrow(-1, shard.first, w_gate.shape[0])
+    gate_e = f.silu(torch.matmul(x, w_gate))
     up_e = torch.matmul(x, load_weight(layer["w_up"], cfg.dtype))  # [E, BS, F]
     out_e = torch.matmul(gate_e * up_e, load_weight(layer["w_down"], cfg.dtype))
     out = torch.einsum("end,ne->nd", out_e, combine.reshape(b * s, -1).to(cfg.dtype))
-    out = out.reshape(b, s, d)
+    out = _expert_out(out.reshape(b, s, d), shard)
     # Load-balance sufficient stats: token-summed routed counts and probs.
     routed = onehot.detach().sum(dim=2)
     stats = torch.stack([routed.sum(dim=(0, 1)), probs.sum(dim=(0, 1))])
@@ -466,7 +501,20 @@ def moe_capacity(cfg: TransformerConfig, n_tokens: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def _moe_mlp_capacity(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
+@dataclasses.dataclass(frozen=True)
+class GroupSpan:
+    """This rank's tokens as one part of a capacity group of ``n_g``
+    tokens that spans several ranks of the batch axes. ``offsets(counts)``
+    maps this rank's per-(tier, expert) assignment counts [K, E] to the
+    slots the group's earlier tokens take before them: in tier k, every
+    rank's tiers before k and the lower ranks' tier k."""
+
+    n_g: int
+    offsets: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _moe_mlp_capacity(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig,
+                      shard: ExpertShard | None = None, span: GroupSpan | None = None):
     """Capacity (Switch-style) dispatch: tokens split into contiguous
     groups of ``moe_group_size`` (the tail group padded with masked rows
     that claim no slot); within a group each expert takes at most
@@ -477,14 +525,24 @@ def _moe_mlp_capacity(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
     are one-hot einsums over [G, K·n_g, E, C], the JAX package's
     formulation, so the drop set is the same pair for pair. The
     load-balance stats come from the routing before capacity, padded rows
-    excluded. h: [B, S, D] → (output [B, S, D], stats [2, E])."""
+    excluded. h: [B, S, D] → (output [B, S, D], stats [2, E]).
+
+    ``shard``: this rank's experts on a mesh (each computes its experts'
+    slots; the outputs are summed over ep and tp). ``span``: this rank's
+    tokens are one part of a group spanning ranks (``GroupSpan``); their
+    slots start after the group's earlier tokens', so the drop set is the
+    global one. The expert MLP is per slot and needs no token exchange."""
     b, s, d = h.shape
     n = b * s
     e, k = cfg.n_experts, cfg.expert_top_k
-    n_g = min(cfg.moe_group_size, n)
-    g = -(-n // n_g)
+    if span is None:
+        n_g = min(cfg.moe_group_size, n)
+        g = -(-n // n_g)
+        cap = moe_capacity(cfg, n_g)
+    else:  # one group part of n tokens
+        n_g, g = n, 1
+        cap = moe_capacity(cfg, span.n_g)
     n_pad = g * n_g
-    cap = moe_capacity(cfg, n_g)
     x = h.reshape(n, d)
     if n_pad != n:
         x = torch.nn.functional.pad(x, (0, 0, 0, n_pad - n))
@@ -502,24 +560,34 @@ def _moe_mlp_capacity(h: torch.Tensor, layer: Mapping, cfg: TransformerConfig):
     idx_g = to_group_major(top_idx)
     valid_g = to_group_major(valid[:, None].expand(n_pad, k))
     onehot = _one_hot(idx_g, e, torch.float32) * valid_g[..., None]
-    pos = torch.cumsum(onehot, dim=1) - onehot  # slot within (group, expert)
+    if span is None:
+        pos = torch.cumsum(onehot, dim=1) - onehot  # slot within (group, expert)
+    else:  # within each tier, after the group's earlier tokens
+        tiers = onehot.reshape(k, n, e)
+        before = span.offsets(tiers.sum(1))  # [K, E]
+        pos = (torch.cumsum(tiers, dim=1) - tiers + before[:, None]).reshape(1, k * n, e)
     keep = onehot * (pos < cap)  # overflow drops
     slot = _one_hot(pos.to(torch.int64), cap, torch.float32)
     dispatch = keep[..., None] * slot  # [G, K·n_g, E, C]
     combine = dispatch * to_group_major(gates)[..., None, None]
 
-    disp5 = dispatch.reshape(g, k, n_g, e, cap).to(cfg.dtype)
-    comb5 = combine.reshape(g, k, n_g, e, cap).to(cfg.dtype)
-    x_g = x.reshape(g, n_g, d)
+    w_gate = load_weight(layer["w_gate"], cfg.dtype)
+    n_local = w_gate.shape[0]
+
+    def local(t: torch.Tensor) -> torch.Tensor:  # [..., E, C] → this rank's experts
+        return t if shard is None else t.narrow(-2, shard.first, n_local)
+
+    disp5 = local(dispatch.reshape(g, k, n_g, e, cap)).to(cfg.dtype)
+    comb5 = local(_expert_in(combine.reshape(g, k, n_g, e, cap).to(cfg.dtype), shard))
+    x_g = _expert_in(x, shard).reshape(g, n_g, d)
     expert_in = torch.einsum("gknec,gnd->gecd", disp5, x_g)  # [G, E, C, D]
-    gate_e = torch.nn.functional.silu(torch.einsum(
-        "gecd,edf->gecf", expert_in, load_weight(layer["w_gate"], cfg.dtype)))
+    gate_e = torch.nn.functional.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate))
     up_e = torch.einsum(
         "gecd,edf->gecf", expert_in, load_weight(layer["w_up"], cfg.dtype))
     out_e = torch.einsum(
         "gecf,efd->gecd", gate_e * up_e, load_weight(layer["w_down"], cfg.dtype))
     out = torch.einsum("gknec,gecd->gnd", comb5, out_e)
-    out = out.reshape(n_pad, d)[:n].reshape(b, s, d)
+    out = _expert_out(out.reshape(n_pad, d)[:n].reshape(b, s, d), shard)
 
     routed = _one_hot(top_idx, e, torch.float32).sum(dim=1) * valid[:, None]
     stats = torch.stack(
@@ -555,14 +623,17 @@ class Transformer(nn.Module):
                 "to fall back to flash/dense when sp is absent"
             )
         if sp > 1 and cfg.attn_impl in ("dense", "flash"):
+            if sizes.get("pp", 1) > 1:
+                raise ValueError("a pp mesh with sp>1 requires sequence-parallel "
+                                 "attention (attn_impl='ring', 'ulysses', or 'auto')")
             raise ValueError(f"a mesh with sp={sp} runs each rank's chunk of the sequence: "
                              "attn_impl must be 'ring', 'ulysses' or 'auto'")
         self.cfg = cfg
         self.mesh = mesh
+        self._sizes = sizes
         self._sp_impl = ("ulysses" if cfg.attn_impl == "ulysses" else "ring") if sp > 1 else None
         self._sp_size = sp
-        self._sp_index = (torch.distributed.get_rank(mesh.get_group("sp")) if sp > 1 else 0)
-        self._tp_group = mesh.get_group("tp") if sizes.get("tp", 1) > 1 else None
+        self._group_cache: dict = {}
         # Flash on a batch- or head-sharded mesh goes through
         # flash_attention_sharded (each rank's K1-K3 on its own rows and
         # heads, no communication).
@@ -571,6 +642,19 @@ class Transformer(nn.Module):
 
     def init(self, generator: torch.Generator, device=None) -> dict:
         return init_params(generator, self.cfg, device)
+
+    def _group(self, axis: str):
+        """The mesh's process group of ``axis`` when it has more than one
+        rank, else None (fetched at first use)."""
+        if self._sizes.get(axis, 1) == 1:
+            return None
+        if axis not in self._group_cache:
+            self._group_cache[axis] = self.mesh.get_group(axis)
+        return self._group_cache[axis]
+
+    def _rank_in(self, axis: str) -> int:
+        group = self._group(axis)
+        return 0 if group is None else torch.distributed.get_rank(group)
 
     def _use_flash(self, x: torch.Tensor) -> bool:
         impl = self.cfg.attn_impl
@@ -615,20 +699,20 @@ class Transformer(nn.Module):
     def _tp_in(self, h: torch.Tensor) -> torch.Tensor:
         """The input of a column-parallel product (identity forward, sum
         over tp backward); the identity without tp."""
-        if self._tp_group is None:
+        if self._group("tp") is None:
             return h
         from torchkafka_tpu_torch.parallel.collectives import copy_to_tp
 
-        return copy_to_tp(h, self._tp_group)
+        return copy_to_tp(h, self._group("tp"))
 
     def _tp_out(self, y: torch.Tensor) -> torch.Tensor:
         """The output of a row-parallel product (sum over tp forward,
         identity backward); the identity without tp."""
-        if self._tp_group is None:
+        if self._group("tp") is None:
             return y
         from torchkafka_tpu_torch.parallel.collectives import reduce_from_tp
 
-        return reduce_from_tp(y, self._tp_group)
+        return reduce_from_tp(y, self._group("tp"))
 
     def _seq_chunk(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's chunk of the sequence (dim 1) under sp; ``t`` itself
@@ -639,13 +723,89 @@ class Transformer(nn.Module):
         if s % self._sp_size:
             raise ValueError(f"sequence length {s} does not split over sp={self._sp_size}")
         sl = s // self._sp_size
-        return t[:, self._sp_index * sl:(self._sp_index + 1) * sl]
+        i = self._rank_in("sp")
+        return t[:, i * sl:(i + 1) * sl]
 
     def _moe_mlp(self, h: torch.Tensor, layer: Mapping):
-        """The MoE MLP through the config's dispatch."""
+        """The MoE MLP through the config's dispatch, over this rank's
+        experts on an ep or tp mesh."""
+        shard = None
+        ep_tp = tuple(g for g in (self._group("ep"), self._group("tp")) if g is not None)
+        if ep_tp:
+            n_local = (layer["w_gate"].q if isinstance(layer["w_gate"], QTensor)
+                       else layer["w_gate"]).shape[0]
+            shard = ExpertShard(first=self._rank_in("ep") * n_local, groups=ep_tp)
         if self.cfg.moe_dispatch == "capacity":
-            return _moe_mlp_capacity(h, layer, self.cfg)
-        return _moe_mlp(h, layer, self.cfg)
+            return _moe_mlp_capacity(h, layer, self.cfg, shard,
+                                     self._capacity_span(h.shape[0], h.shape[1]))
+        return _moe_mlp(h, layer, self.cfg, shard)
+
+    def _batch_ranks(self) -> int:
+        return self._sizes.get("data", 1) * self._sizes.get("fsdp", 1)
+
+    def _capacity_span(self, b: int, s: int) -> GroupSpan | None:
+        """Where this rank's b x s tokens lie in the JAX package's capacity
+        groups: None when every group is within them; a ``GroupSpan`` when
+        a group is made of whole ranks of the batch axes (the JAX tests'
+        8 x 16 tokens form one group of 128 over two data ranks). The JAX
+        package groups the global batch's tokens in row-major order (under
+        pp, one global microbatch's; under pp with sp, its sequence chunk,
+        the stage's manual view). Groups the port cannot place exactly
+        raise ``ValueError``: groups across sp chunks, and pp microbatches
+        over a batch-sharded mesh (a rank's microbatch holds other rows
+        than the JAX package's global microbatch)."""
+        cfg, n_b, sp = self.cfg, self._batch_ranks(), self._sp_size
+        pp = self._sizes.get("pp", 1)
+        if pp > 1:
+            m = cfg.pp_microbatches if cfg.pp_microbatches is not None else pp
+            if n_b > 1 and m > 1:
+                raise ValueError(
+                    f"capacity dispatch under pp with {m} microbatches on a batch-sharded "
+                    f"mesh ({n_b} ranks): a rank's microbatch holds other rows than the "
+                    "JAX package's global microbatch, whose capacity groups it shares; "
+                    "use pp_microbatches=1 or moe_dispatch='dense'")
+            seq = s
+        else:
+            seq = s * sp
+        n_loc, n = b * s, b * n_b * seq
+        if n == n_loc:  # the JAX package groups these very tokens
+            return None
+        n_g = min(cfg.moe_group_size, n)
+        if pp == 1 and sp > 1 and s % n_g:
+            raise ValueError(
+                f"capacity groups of {n_g} tokens cross the sp chunks of {s} tokens "
+                "(each chunk holds part of a group); use a moe_group_size that divides "
+                "the chunk")
+        if n_loc % n_g == 0:
+            return None
+        if n_g % n_loc:
+            raise ValueError(f"capacity groups of {n_g} tokens straddle this rank's {n_loc} "
+                             "tokens; use a moe_group_size that divides or is a multiple "
+                             "of each rank's tokens")
+        return GroupSpan(n_g=n_g, offsets=self._span_offsets(n_g // n_loc))
+
+    def _span_offsets(self, span: int):
+        """``GroupSpan.offsets`` for groups of ``span`` consecutive ranks of
+        the batch axes (data-major, as ``global_batch`` lays rows out): one
+        all-gather of every rank's [K, E] counts."""
+        from torchkafka_tpu_torch.parallel.collectives import all_gather
+
+        axes = [a for a in ("fsdp", "data") if self._sizes.get(a, 1) > 1]
+
+        def offsets(counts: torch.Tensor) -> torch.Tensor:
+            index, stride = 0, 1
+            for a in axes:  # fsdp is the faster-moving index
+                index += self._rank_in(a) * stride
+                stride *= self._sizes[a]
+            every = counts[None]
+            for a in axes:
+                every = all_gather(every[None], 0, self._group(a)).flatten(0, 1)
+            first = index // span * span
+            members = every[first:first + span]  # this rank's group, [R, K, E]
+            per_tier = members.sum(0)
+            return (torch.cumsum(per_tier, 0) - per_tier) + members[:index - first].sum(0)
+
+        return offsets
 
     def _layer(self, x: torch.Tensor, layer: Mapping):
         """One decoder layer → (x, k, v, stats): k (after RoPE) and v are
@@ -653,7 +813,7 @@ class Transformer(nn.Module):
         sums for ``router_aux`` (None for a dense MLP)."""
         cfg = self.cfg
         sl = x.shape[1]
-        positions = self._sp_index * sl + torch.arange(sl, device=x.device)  # global
+        positions = self._rank_in("sp") * sl + torch.arange(sl, device=x.device)  # global
         h = self._tp_in(_rms_norm(x, layer["ln1"]))
         q = torch.einsum("bsd,dhe->bshe", h, load_weight(layer["wq"], cfg.dtype))
         k = torch.einsum("bsd,dke->bske", h, load_weight(layer["wk"], cfg.dtype))
@@ -694,18 +854,46 @@ class Transformer(nn.Module):
         On a mesh, ``tokens`` are this rank's rows at full length and
         ``params`` the step's view of the weights: whole over fsdp, this
         rank's heads and ``d_ff`` columns of each layer weight under tp,
-        ``embed``/``lm_head`` whole. Under sp the result covers this rank's
-        chunk of the sequence, [B, S/sp, D]."""
+        its layers under pp, its experts under ep, ``embed``/``lm_head``
+        whole. Under sp the result covers this rank's chunk of the
+        sequence, [B, S/sp, D]. Under pp the layers run through ``gpipe``
+        (``cfg.pp_microbatches``) and the result is the last stage's, on
+        every stage. The aux loss is the global batch's on every rank: the
+        router statistics are summed over the axes that split tokens before
+        ``router_aux``."""
         cfg = self.cfg
+        n_tokens = tokens.shape[0] * tokens.shape[1] * self._batch_ranks()
         tokens = self._seq_chunk(tokens)
         x = embed_rows(params["embed"], tokens, cfg.dtype)
-        n_tokens = tokens.shape[0] * tokens.shape[1]
-        auxes = []
-        for layer in unstack_layers(params["layers"]):
-            x, stats = self._train_layer(x, layer)
-            if stats is not None:
-                auxes.append(router_aux(stats, n_tokens))
-        aux = torch.stack(auxes).mean() if auxes else 0.0
+        token_axes = ("data", "fsdp", "sp")
+        if self._sizes.get("pp", 1) > 1:
+            from torchkafka_tpu_torch.ops.pipeline import gpipe
+
+            sp = {"sp"} if self._sp_size > 1 else set()
+            token_axes = ("data", "fsdp")  # gpipe sums over pp and sp
+            if cfg.is_moe:
+                x, stats = gpipe(self._train_layer, params["layers"], x, mesh=self.mesh,
+                                 microbatches=cfg.pp_microbatches, extra_manual=sp,
+                                 collect_stats=True)
+            else:
+                x = gpipe(lambda a, layer: self._train_layer(a, layer)[0], params["layers"],
+                          x, mesh=self.mesh, microbatches=cfg.pp_microbatches,
+                          extra_manual=sp)
+        else:
+            per_layer = []
+            for layer in unstack_layers(params["layers"]):
+                x, st = self._train_layer(x, layer)
+                per_layer.append(st)
+            stats = torch.stack(per_layer) if cfg.is_moe else None
+        aux = 0.0
+        if cfg.is_moe:
+            from torchkafka_tpu_torch.parallel.collectives import reduce_from_tp
+
+            # [L, 2, E] token sums → the global batch's (identity backward:
+            # every rank's loss carries the same aux).
+            stats = reduce_from_tp(stats, [self._group(a) for a in token_axes
+                                           if self._group(a) is not None])
+            aux = torch.stack([router_aux(st, n_tokens) for st in stats]).mean()
         return _rms_norm(x, params["ln_f"]), aux
 
     def trunk_kv(self, params: dict, tokens: torch.Tensor):
@@ -738,9 +926,10 @@ class Transformer(nn.Module):
         return not isinstance(params["lm_head"], QTensor)
 
     def loss(self, params: dict, tokens: torch.Tensor, mask=None, *, count=None) -> torch.Tensor:
-        """Next-token cross-entropy, a 0-d f32 tensor. mask [B, S] 1=real
-        row/token, 0=padding (the ingest batcher's valid mask — padded rows
-        must not train).
+        """Next-token cross-entropy plus ``router_aux_coef`` times the
+        router aux loss, a 0-d f32 tensor. mask [B, S] 1=real row/token,
+        0=padding (the ingest batcher's valid mask — padded rows must not
+        train).
 
         The forward runs at full length S and the shift happens on the loss
         side: position i predicts token i+1, the final position is masked
@@ -752,6 +941,14 @@ class Transformer(nn.Module):
         targets and mask are shifted on the full rows before each rank takes
         its chunk: a chunk's last position predicts the next chunk's first
         token."""
+        ce, aux = self.loss_terms(params, tokens, mask, count=count)
+        return ce + self.cfg.router_aux_coef * aux
+
+    def loss_terms(self, params: dict, tokens: torch.Tensor, mask=None, *, count=None):
+        """(cross-entropy, router aux) of ``loss``; aux is 0.0 for a dense
+        MLP or a zero ``router_aux_coef``. On a mesh the cross-entropy is
+        this rank's share (over ``count``) and the aux the global batch's,
+        the same on every rank."""
         cfg = self.cfg
         x, aux = self.trunk(params, tokens)
         aux = aux if (cfg.is_moe and cfg.router_aux_coef > 0) else 0.0
@@ -766,7 +963,7 @@ class Transformer(nn.Module):
                 x, load_weight(params["lm_head"], cfg.dtype), targets, m,
                 cfg.dtype, count=count,
             )
-        return ce + cfg.router_aux_coef * aux
+        return ce, aux
 
     def shifted_targets(self, tokens: torch.Tensor, mask=None):
         """(targets, mask) of the loss: position i predicts token i+1, the
@@ -851,49 +1048,57 @@ _TP_GATHERED = ("embed", "lm_head")
 
 
 def _mesh_train_step(cfg: TransformerConfig, mesh, opt, device):
-    """The train step over a mesh of data, fsdp, tp and sp axes: an
-    explicit SPMD step in which DTensor only records placement.
+    """The train step over a mesh of data, fsdp, tp, sp, pp and ep axes:
+    an explicit SPMD step in which DTensor only records placement.
 
     Each rank holds its rows of the global batch (split over data ×
-    fsdp; ranks that differ only in tp or sp hold the same rows, at full
-    length), and each parameter as ``param_specs`` lays it out: this
-    rank's chunk of every dim sharded over fsdp or tp (the AdamW moments
-    follow, being the shapes of what they update), replicated otherwise.
-    A step:
+    fsdp; ranks that differ only in tp, sp, pp or ep hold the same rows,
+    at full length), and each parameter as ``param_specs`` lays it out:
+    this rank's chunk of every dim sharded over fsdp, tp, pp (the stacked
+    layer dim) or ep (the expert dim), replicated otherwise (the AdamW
+    moments follow, being the shapes of what they update). A step:
 
     1. gathers every fsdp-sharded parameter over fsdp, and ``embed`` and
        ``lm_head`` over tp too (``parallel.collectives.all_gather``), into
        a full tensor that is a fresh autograd leaf; the layer weights keep
-       their tp shard, and unsharded parameters are used as they are;
+       their tp, pp and ep shards, and unsharded parameters are used as
+       they are;
     2. sums each rank's count of predicted positions (of its chunk under
        sp) over data, fsdp and sp, so each rank's loss is its masked sum
        over the global count (the JAX package's global mask-weighted
        mean, in shares);
-    3. runs ``Transformer.loss`` on the local rows: under tp each rank's
-       heads and ``d_ff`` columns (the layer's all-reduces in
+    3. runs ``Transformer.loss_terms`` on the local rows: under tp each
+       rank's heads and ``d_ff`` columns (the layer's all-reduces in
        ``copy_to_tp``/``reduce_from_tp``), under sp its sequence chunk
-       with ring or Ulysses attention; K1 in the forward and K2/K3 in the
-       backward on this rank's shard, all on local tensors;
+       with ring or Ulysses attention, under pp its stage of the GPipe
+       schedule, under ep its experts; K1 in the forward and K2/K3 in the
+       backward on this rank's shard, all on local tensors; the gradient
+       comes from the rank's share plus ``router_aux_coef`` times the
+       global aux;
     4. takes each gathered gradient back to the chunk: this rank's tp
        chunk of ``embed``/``lm_head`` (each tp rank already holds the
        whole gradient), then the reduce-scatter over fsdp
        (``parallel.collectives.reduce_scatter``); then sums every gradient
        over sp and data, and over fsdp where the parameter is not sharded
-       there. Never over tp: the backward's tp all-reduces leave tp peers
-       equal gradients of the replicated parameters (``ln1``, ``ln2``,
-       ``ln_f``), and a sum would count them tp times;
-    5. steps AdamW on the local tensors, and sums the loss shares over
-       data, fsdp and sp (not tp: tp peers hold the same share) into the
-       global loss that every rank returns.
+       there. Never over tp, pp or ep: the backward's collectives leave
+       tp, pp and ep peers equal gradients of the parameters they
+       replicate (``ln1``/``ln2``/``ln_f`` under tp; ``embed``, ``ln_f``,
+       ``lm_head`` under pp, whose input gradient the pipeline sums over
+       its stages; the router and attention weights under ep), and a sum
+       would count them that many times;
+    5. steps AdamW on the local tensors, and sums the cross-entropy shares
+       over data, fsdp and sp (not tp, pp or ep: their peers hold the same
+       share) into the global loss, plus ``router_aux_coef`` times the
+       aux once, which every rank returns.
 
     Replicas over ``data`` receive the same summed gradients and stay bit
     for bit equal. ``tokens``/``mask``: ``DTensor``s from ``global_batch``
     (their local rows are used) or this rank's rows as plain tensors or
     arrays. ``step_fn.stats`` holds the last step's collective calls,
     bytes and host seconds (``torch.cuda.synchronize()`` before the step
-    and before the gradient collectives on the card: the layer's tp and sp
-    collectives inside the backward are counted with the device time they
-    wait for)."""
+    and before the gradient collectives on the card: the layer's tp, sp,
+    pp and ep collectives inside the forward and backward are counted with
+    the device time they wait for)."""
     from torchkafka_tpu_torch.parallel import collectives
     from torchkafka_tpu_torch.parallel.mesh import local_part
 
@@ -969,13 +1174,15 @@ def _mesh_train_step(cfg: TransformerConfig, mesh, opt, device):
         count = sum_(m.sum().reshape(1), ("fsdp", "sp", "data")).clamp_min(1.0)[0]
         # 3. the local share of the loss
         opt_state.zero_grad()
-        share = model.loss(full, tokens, mask, count=count)
-        share.backward()
+        ce, aux = model.loss_terms(full, tokens, mask, count=count)
+        (ce + cfg.router_aux_coef * aux).backward()
         # 4. gradients back to each parameter's placement
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         _zip_tree(local, full, place_grad)
-        loss = sum_(share.detach().reshape(1), ("fsdp", "sp", "data"))[0]
+        loss = sum_(ce.detach().reshape(1), ("fsdp", "sp", "data"))[0]
+        if torch.is_tensor(aux):
+            loss = loss + cfg.router_aux_coef * aux.detach()
         after = collectives.COUNTS.as_dict()
         step_fn.stats = {k: after[k] - before[k] for k in after}
         # 5. the optimizer on the local tensors

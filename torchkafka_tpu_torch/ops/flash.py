@@ -488,23 +488,17 @@ def flash_attention_sharded(q, k, v, mesh, causal: bool = True):
     shard) attend by themselves. So each rank calls ``flash_attention`` on
     its local tensors (K1 forward, K2/K3 backward, the CUDA kernels on the
     card) and nothing else; DTensor's op rules never see the kernels.
-    Other axes (sp) see the inputs replicated, as the JAX package's do.
+    Other axes (sp, pp, ep) see the inputs replicated, as the JAX
+    package's do: a ring step, a pipeline stage or an expert-parallel rank
+    calls it on the rows and heads it holds.
     ``q``/``k``/``v``: ``DTensor``s sharded over the batch axes
     (``Shard(0)``) and the heads over tp (``Shard(2)``) → a ``DTensor``
     with q's placements, through ``to_local``/``from_local``, which carry
     gradients in both directions without a copy; or plain tensors holding
     this rank's rows and heads → a plain tensor. Under autograd the result
-    is the unsharded call's on each rank's shard. A mesh with a ``pp`` or
-    ``ep`` axis above 1 raises ``NotImplementedError`` with its ROADMAP
-    queue A title."""
+    is the unsharded call's on each rank's shard."""
     from torch.distributed.tensor import DTensor
 
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-    for axis in ("pp", "ep"):
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"flash_attention_sharded over {axis}={sizes[axis]} is not ported "
-                "yet (ROADMAP queue A: Pipeline and expert parallelism)")
     if not isinstance(q, DTensor):
         return flash_attention(q, k, v, causal)
     out = flash_attention(q.to_local(), k.to_local(), v.to_local(), causal)

@@ -28,9 +28,15 @@ call may reuse the buffers.
 
 Autograd: ``ppermute`` and ``all_to_all`` are differentiable (the
 backward runs the inverse exchange); ``copy_to_tp`` and
-``reduce_from_tp`` are Megatron's pair for a tensor-parallel block
-(identity forward and sum backward at the input of a column-parallel
-product; sum forward and identity backward after a row-parallel one).
+``reduce_from_tp`` are Megatron's pair for a block split over one group
+or several (identity forward and sum backward at the input of a
+column-parallel product; sum forward and identity backward after a
+row-parallel one): tp, ep and the combined tp × ep region of an expert
+layer, the pipeline's input over pp and the router statistics over the
+axes that split tokens. ``broadcast`` hands one rank's tensor to its
+group; its backward keeps the source's own gradient and gives the
+others zeros (the pipeline's output, replicated over pp, whose downstream
+each pp rank computes alike: the gradient reaches the last stage once).
 
 ``COUNTS`` adds up, per process, the calls, the bytes each call handed to
 the group (the full buffer a rank reduces or gathers into, or sends) and
@@ -249,39 +255,97 @@ def all_to_all(t: torch.Tensor, split_dim: int, concat_dim: int, group=None) -> 
     return _AllToAll.apply(t, split_dim, concat_dim, group)
 
 
-class _CopyToTP(torch.autograd.Function):
+def _groups(groups) -> tuple:
+    """A group or a sequence of groups → the tuple of those with more
+    than one rank (None, the default group, counts as one)."""
+    seq = tuple(groups) if isinstance(groups, (tuple, list)) else (groups,)
+    return tuple(g for g in seq if group_size(g) > 1)
+
+
+def _sum_over(t: torch.Tensor, groups: tuple) -> torch.Tensor:
+    out = t.clone()
+    for g in groups:
+        all_reduce_(out, g)
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, groups):
+        ctx.groups = groups
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone(), ctx.group), None
+        return _sum_over(g, ctx.groups), None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
-        return all_reduce_(t.clone(), group)
+    def forward(ctx, t, groups):
+        return _sum_over(t, groups)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-def copy_to_tp(t: torch.Tensor, group) -> torch.Tensor:
+def copy_to_tp(t: torch.Tensor, groups) -> torch.Tensor:
     """The input of a column-parallel product (Megatron's f): the identity
-    forward; the backward sums the gradient over the tp group, since each
-    tp rank's columns contribute a part of it."""
-    if group_size(group) == 1:
+    forward; the backward sums the gradient over ``groups`` (a group or a
+    sequence of groups, summed in turn), since each rank's part of the
+    product contributes a part of it."""
+    groups = _groups(groups)
+    if not groups:
         return t
-    return _CopyToTP.apply(t, group)
+    return _CopyTo.apply(t, groups)
 
 
-def reduce_from_tp(t: torch.Tensor, group) -> torch.Tensor:
+def reduce_from_tp(t: torch.Tensor, groups) -> torch.Tensor:
     """The output of a row-parallel product (Megatron's g): the forward
-    sums the tp ranks' partial products; the backward is the identity."""
+    sums the ranks' partial results over ``groups`` (a group or a sequence
+    of groups); the backward is the identity."""
+    groups = _groups(groups)
+    if not groups:
+        return t
+    return _ReduceFrom.apply(t, groups)
+
+
+def _broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank ``src``'s ``t`` on every rank of ``group``: a fresh
+    tensor of ``t``'s shape on ``t``'s device (the shape and dtype must
+    agree across the group)."""
+    root = _global(group, src)
+    t0 = time.perf_counter()
+    if backend(group) == "nccl":
+        out = t.contiguous().clone()
+        torch.distributed.broadcast(out, root, group=group)
+    else:
+        host = _host(t) if t.is_cuda else t.contiguous().clone()
+        torch.distributed.broadcast(host, root, group=group)
+        out = host.to(t.device, copy=True)
+    _account(t, t0)
+    return out
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, src):
+        ctx.is_src = torch.distributed.get_rank(group) == src
+        return _broadcast(t, group, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.is_src else torch.zeros_like(g)), None, None
+
+
+def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank ``src``'s ``t`` on every rank of ``group`` (every rank
+    passes a tensor of the same shape and dtype; only the source's values
+    are read). Differentiable for a value every rank then uses alike: the
+    source keeps its own gradient and the other ranks' inputs get zeros,
+    so the gradient reaches the source once, not once per rank. No
+    collective runs in the backward."""
     if group_size(group) == 1:
         return t
-    return _ReduceFromTP.apply(t, group)
+    return _Broadcast.apply(t, group, src)
