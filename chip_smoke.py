@@ -426,8 +426,8 @@ Phases, each printing one JSON line:
    fsdp-parallel training across processes, ``check_pod_train``: two
    ranks (``chip_smoke.py --pod-rank``) in one process group on
    ``cuda:0`` under gloo, the 1b widths with f32 masters, bf16 compute,
-   B=8 a rank, S=512: ``{"data": 2}`` at 24 layers and ``{"fsdp": 2}``
-   at ``CUT_LAYERS``, 3 steps each through pod_consumer →
+   B=8 a rank, S=512: ``{"data": 2}`` and ``{"fsdp": 2}`` at
+   ``CUT_LAYERS`` (the data run was 24 layers until pod_serve joined), 3 steps each through pod_consumer →
    KafkaStream(mesh=) → make_train_step(cfg, mesh) → token.commit (step
    ms by CUDA events, collective ms and bytes, peak memory per rank; K1 =
    K2 = K3 = layers x steps on each rank, on the tensor cores; committed
@@ -466,6 +466,20 @@ Phases, each printing one JSON line:
    ``POD_UNSPLIT_PARAM_REL``); the DLRM (8 tables of 100k x 64) on
    ``{"tp": 2}`` with row-sharded tables, batch 1,024, against the
    single-process step (losses within 1e-5);
+8u. pod_serve (lane ``harness``, after pod_tp_sp): sharded serving across
+   processes, ``check_pod_serve``: two ranks (``chip_smoke.py --pod-rank N
+   --pod-mode serve``) on ``cuda:0`` under gloo, the 1b widths at
+   ``CUT_LAYERS`` in bf16, each rank's server on the mesh (rank 0 owns the
+   broker and the consumer, the other passes ``consumer=None``):
+   ``{"tp": 2}`` on the dense int8 pool (K4, the serve phase's stream),
+   ``{"tp": 2}`` on the paged int8 pool (K5, radix cache, serve_paged's
+   tenant stream), ``{"data": 2}`` on the dense bf16 pool (8 slots a
+   rank); per rank tick-block p50/p99, collective calls, bytes and ms a
+   decode tick, peak memory; K1 = layers x prefills on the tensor cores,
+   K4 = layers x decode ticks, K5 = layers x (decode ticks - chunk
+   ticks); both ranks' completions equal; committed == end offsets; then
+   f32 at 2 layers, each run's tokens and committed offsets equal to the
+   single-process server's;
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
@@ -475,12 +489,13 @@ Phases, each printing one JSON line:
    the process scenarios', ``harness_procfleet_launches``; K1-K4 with the
    MoE phases', ``moe_train_launches`` and ``moe_serve_launches``; K1-K3
    with pod_train's ranks', ``pod_launches``, pod_tp_sp's,
-   ``pod_tp_sp_launches``, and pod_pp_ep's, ``pod_pp_ep_launches``);
+   ``pod_tp_sp_launches``, and pod_pp_ep's, ``pod_pp_ep_launches``; K1,
+   K4 and K5 with pod_serve's ranks', ``pod_serve_launches``);
 then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Lanes: once the kernel phases (3-5d) have timed the kernels alone on the
 card, the script starts two processes of its own, ``chip_smoke.py --lane
-harness`` (8j, 8k, 8o, 8p, 8r) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8q,
+harness`` (8j, 8k, 8o, 8p, 8r, 8u) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8q,
 8s),
 and runs the
 other phases meanwhile; their time is mostly host work and worker
@@ -561,7 +576,8 @@ def emit(obj) -> None:
 # beside the main sequence once the kernel phases have timed the kernels
 # alone on the card: most of their time is worker start-ups and host work.
 LANES = {
-    "harness": ("harness", "harness_fleet", "harness_models", "examples", "pod_tp_sp"),
+    "harness": ("harness", "harness_fleet", "harness_models", "examples", "pod_tp_sp",
+                "pod_serve"),
     "procfleet": ("serve_procfleet", "serve_procfleet_f32", "harness_procfleet",
                   "train_moe", "pod_train", "pod_pp_ep"),
 }
@@ -571,11 +587,13 @@ LANES = {
 # processes (the main sequence and the lanes share the one card), and what
 # each holds (GB: its measured peaks, both ranks for a pod phase, with
 # room for the allocator's cache). The phases not listed peak under ~6 GB
-# and run beside them unreserved. pod_train (2 x 28.7 GB) ran out of memory
-# once beside serve_moe and pod_tp_sp when the sequences' timing shifted.
+# and run beside them unreserved. pod_train (2 x 28.7 GB while its data
+# run had 24 layers) ran out of memory once beside serve_moe and pod_tp_sp
+# when the sequences' timing shifted; at CUT_LAYERS its runs peak at
+# 2 x 7.1-7.8 GB (PERF.md).
 CARD_BUDGET_GB = 66.0
 PHASE_GB = {"train": 30.0, "serve_8b": 17.0, "serve_moe": 24.0, "train_moe": 27.0,
-            "pod_train": 60.0, "pod_tp_sp": 14.0, "pod_pp_ep": 26.0}
+            "pod_train": 18.0, "pod_tp_sp": 14.0, "pod_pp_ep": 26.0}
 
 
 @contextlib.contextmanager
@@ -656,6 +674,7 @@ def run_lane(torch, lane: str) -> None:
         "pod_train": lambda: check_pod_train(torch),
         "pod_tp_sp": lambda: check_pod_tp_sp(torch),
         "pod_pp_ep": lambda: check_pod_pp_ep(torch),
+        "pod_serve": lambda: check_pod_serve(torch),
     }
     for name in LANES.get(lane, (lane,)):
         with card_memory(name):
@@ -5860,13 +5879,13 @@ def pod_rank_main(rank: int, port: int, outdir: str, device: str = "cuda") -> in
                                              for k in _native.KERNELS) if cuda else None}
     flash = (flash_fwd_bhsd, flash_dq_bhsd, flash_dkv_bhsd)
 
-    # (a) bf16 compute, f32 masters: {"data": 2} at every layer, then
-    # {"fsdp": 2} at CUT_LAYERS. (c) rides on (a1): each rank's commits.
-    for name, axes, layers in (("data", {"data": world}, None),
-                               ("fsdp", {"fsdp": world}, CUT_LAYERS)):
+    # (a) bf16 compute, f32 masters: {"data": 2}, then {"fsdp": 2}, both
+    # at CUT_LAYERS (the data run's 24 layers were cut to keep the script
+    # near 700 s once pod_serve joined it). (c) rides on (a1): each rank's
+    # commits.
+    for name, axes in (("data", {"data": world}), ("fsdp", {"fsdp": world})):
         mesh = make_mesh(axes, device=None if cuda else device)
-        cfg = (_pod_config(torch, device) if layers is None
-               else _pod_config(torch, device, n_layers=layers))
+        cfg = _pod_config(torch, device, n_layers=CUT_LAYERS)
         row, params, opt = _pod_stream_train(
             torch, tk, cfg, mesh, topic=f"pod_{name}", steps=3, batch=8, seed=SEED + 7,
             world=world, flash=flash, device=device)
@@ -6116,8 +6135,8 @@ def check_pod_train(torch, device: str = "cuda") -> list:
     each dumping its counts to a JSON file:
 
     (a) the 1b widths, f32 masters, bf16 compute, B=8 rows a rank, S=512,
-        AdamW: ``{"data": 2}`` at all 24 layers and ``{"fsdp": 2}`` at
-        ``CUT_LAYERS``, 3 steps each through ``pod_consumer`` →
+        AdamW: ``{"data": 2}`` and ``{"fsdp": 2}`` at ``CUT_LAYERS``
+        (the data run's 24 layers cut since pod_serve), 3 steps each through ``pod_consumer`` →
         ``KafkaStream(mesh=)`` → ``make_train_step(cfg, mesh)`` →
         ``token.commit``; per rank: step ms (CUDA events), collective ms
         (host clock), bytes a step, peak memory; K1 = K2 = K3 = layers x
@@ -6181,7 +6200,7 @@ def check_pod_train(torch, device: str = "cuda") -> list:
             if row["barrier"] != "BarrierWatchdog":
                 problems.append(f"rank {r} {name}: barrier {row['barrier']}")
     if dumps[0]["data"]["checksums"] != dumps[1]["data"]["checksums"]:
-        problems.append("data replicas' parameters differ (24 layers, bf16 compute)")
+        problems.append("data replicas' parameters differ (bf16 compute)")
     for name in ("data", "fsdp"):
         if dumps[0][name]["losses"] != dumps[1][name]["losses"]:
             problems.append(f"{name}: ranks returned different global losses")
@@ -6877,6 +6896,520 @@ def check_pod_pp_ep(torch, device: str = "cuda") -> list:
     return rows
 
 
+# --------------------------------------------------------- pod serving
+
+# pod_serve's runs: (name, mesh axes, pool). (a) the serve phase's dense
+# int8 pool read by K4, (b) serve_paged's paged int8 pool read by K5 with
+# the radix cache, both with kv heads, q heads, d_ff and the vocabulary
+# over tp; (c) the dense bf16 pool with the slots over data.
+POD_SERVE_RUNS = (("tp_int8", "tp", "int8"), ("tp_paged_int8", "tp", "paged_int8"),
+                  ("data_bf16", "data", "dense"))
+# (d)'s f32 pairs at 2 layers: the three runs, and the compute-dtype pools
+# on the tp mesh. A compute-dtype pool's tokens must equal one process's
+# exactly. An int8 pool's need not under tp: the split sums of wo and
+# w_down and the narrower q/k/v products round apart in the last bit, and
+# the next layer's int8 quantization can turn such a bit into a whole int8
+# step where a value sits at a rounding edge (on the H100 at the 1b
+# widths: 3 of 32 records (a) and 5 of 48 (b) differ from output 5 on;
+# PERF.md). So those pairs are also run teacher-forced
+# (``POD_SERVE_FORCED``): the sharded server is handed the single-process
+# run's tokens at every pick, and its logits are held against that run's
+# within ``POD_SERVE_FORCED_BOUND``. tp_paged (the compute-dtype pool on
+# (b)'s stream; eager, where the dense pool's block is a CUDA graph the
+# recording cannot see into) runs forced too, as the witness of the split
+# sums' own rounding (no bound but its exact pair).
+# A control reruns each int8 pair forced with rank 1 reading its kv heads
+# in the wrong order (K4/K5 handed the pool rolled by one head): it must
+# fail the bound, or the bound could not tell a wrong read.
+POD_SERVE_PAIRS = POD_SERVE_RUNS + (("tp_dense", "tp", "dense"), ("tp_paged", "tp", "paged"))
+POD_SERVE_INT8_PAIRS = ("tp_int8", "tp_paged_int8")
+POD_SERVE_FORCED = POD_SERVE_INT8_PAIRS + ("tp_paged",)
+# The largest |logit difference| of a forced int8 pair (f32 logits of the
+# random 1b weights at 2 layers, |logit| up to 5.8). On the H100: 5.3e-3
+# (a) and 6.0e-3 (b), the compute-dtype tp_paged 1.4e-5, the wrong-head
+# controls 7.4 and 7.6 (PERF.md).
+POD_SERVE_FORCED_BOUND = 1e-2
+
+
+def _pod_serve_model(torch, device: str, f32: bool = False):
+    """(cfg, params) of pod_serve: the 1b widths at ``CUT_LAYERS`` in bf16
+    (2 layers in f32 for the pairs), random weights from the seed, the
+    same on every rank; on the CPU (a rehearsal) tiny widths."""
+    if device == "cuda":
+        from torchkafka_tpu_torch.models.zoo import random_serving_params, zoo_config
+
+        cfg = dataclasses.replace(zoo_config("1b", max_seq_len=128 + MAX_NEW),
+                                  n_layers=2 if f32 else CUT_LAYERS)
+        if f32:
+            cfg = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+        return cfg, random_serving_params(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    from torchkafka_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=8, n_kv_heads=4,
+                            d_ff=128, max_seq_len=32, dtype=torch.float32)
+    return cfg, init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+
+
+def _pod_serve_stream(cfg, kind: str, device: str):
+    """(prompts, keys, max_new, slots) of a run: the serve phase's 32 prompts
+    of 128 (unkeyed, two partitions) on the dense pools, serve_paged's 48
+    tenant prompts (keyed, four partitions) on the paged one; tiny on the
+    CPU."""
+    import numpy as np
+
+    if device != "cuda":
+        rng = np.random.default_rng(SEED)
+        prompts = rng.integers(0, cfg.vocab_size, (8, 16), dtype=np.int32)
+        keys = None
+        if kind.startswith("paged"):
+            prompts[:, :8] = prompts[np.arange(8) % 3, :8]
+            keys = [TENANTS[i % 3].encode() for i in range(8)]
+        return prompts, keys, 8, 4
+    if kind.startswith("paged"):
+        prompts, keys = tenant_prompts(np, cfg.vocab_size)
+        return prompts, keys, MAX_NEW, 16
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (32, 128),
+                                                   dtype=np.int32)
+    return prompts, None, MAX_NEW, 16
+
+
+def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) -> dict:
+    """One serve run of ``kind`` on this rank: on ``mesh`` (every rank of
+    it; the root alone owns the broker and the consumer) or, ``mesh`` None,
+    the single-process server (the f32 pairs' reference, on rank 0). The
+    kernel counts and ``parallel.collectives.COUNTS`` are zeroed just
+    before ``run`` and read just after. Hard checks: on the root, every
+    record once with ``max_new`` tokens and committed == end offsets; on
+    every rank K1 = layers x prefills (0 on the paged pool), all on the
+    tensor cores in bf16, K4 = layers x decode ticks on the dense int8
+    pool (else 0), K5 = layers x (decode ticks - chunk ticks) on the paged
+    one (else 0). ``pick``: instruments the server's picks after warmup
+    (``_recording_pick``, ``_forcing_pick``)."""
+    from torchkafka_tpu_torch.kvcache import PagedKVConfig
+    from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
+    from torchkafka_tpu_torch.ops.kvattn import (
+        int8_decode_attention_dynlen,
+        int8_paged_decode_attention,
+    )
+    from torchkafka_tpu_torch.parallel import collectives
+    from torchkafka_tpu_torch.parallel.lockstep import is_root
+    from torchkafka_tpu_torch.serve import StreamingGenerator
+    from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    cuda = device == "cuda"
+    prompts, keys, max_new, slots = _pod_serve_stream(cfg, kind, device)
+    n, plen = prompts.shape
+    paged = kind.startswith("paged")
+    parts = 4 if paged else 2
+    root = mesh is None or is_root(mesh)
+    broker = consumer = None
+    if root:
+        broker = InMemoryBroker()
+        broker.create_topic("ps", partitions=parts)
+        for i in range(n):
+            if keys is None:
+                broker.produce("ps", prompts[i].tobytes(), partition=i % parts)
+            else:
+                broker.produce("ps", prompts[i].tobytes(), key=keys[i])
+        consumer = MemoryConsumer(broker, "ps", group_id="pod-serve")
+    kw = dict(slots=slots, prompt_len=plen, max_new=max_new, commit_every=16,
+              ticks_per_sync=max_new - 1, mesh=mesh, device=device)
+    if kind == "int8":
+        kw.update(kv_dtype="int8", kv_kernel=True)
+    elif paged:
+        bs = PAGED_BS if cuda else 4
+        nblk = -(-(plen + max_new) // bs)
+        kw.update(ticks_per_sync=8,
+                  kv_pages=PagedKVConfig(block_size=bs, num_blocks=slots * nblk + 24 + 1))
+        if kind == "paged_int8":
+            kw.update(kv_dtype="int8", kv_kernel=True)
+    server = StreamingGenerator(consumer, params, cfg, **kw)
+    server.warmup()
+    if pick is not None:
+        pick(server)
+    kernels = (flash_fwd_bhsd, int8_decode_attention_dynlen, int8_paged_decode_attention)
+    for fn in kernels:
+        fn.launches = 0
+    flash_fwd_bhsd.tc_launches = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    collectives.COUNTS.reset()
+    t0 = time.perf_counter()
+    yields = [[r.partition, r.offset, out.tolist()] for r, out in server.run(max_records=n)]
+    if cuda:
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    coll = collectives.COUNTS.as_dict()
+    launches = {"flash_fwd": flash_fwd_bhsd.launches, "flash_fwd_tc": flash_fwd_bhsd.tc_launches,
+                "kvattn_dynlen": int8_decode_attention_dynlen.launches,
+                "kvattn_paged": int8_paged_decode_attention.launches}
+    m = server.metrics.summary()
+    what = f"pod_serve {kind} ({'mesh' if mesh is not None else 'single process'})"
+    committed = ends = None
+    if root:
+        consumer.close()
+        tps = [TopicPartition("ps", p) for p in range(parts)]
+        committed = [broker.committed("pod-serve", tp) or 0 for tp in tps]
+        ends = [broker.end_offset(tp) for tp in tps]
+        if committed != ends:
+            raise AssertionError(f"{what}: committed {committed} != end offsets {ends}")
+    if len(yields) != n or len({(p, o) for p, o, _ in yields}) != n or any(
+            len(t) != max_new for _, _, t in yields):
+        raise AssertionError(f"{what}: {len(yields)} completions")
+    nl = cfg.n_layers
+    want = {"flash_fwd": 0 if paged else nl * m["prefills"],
+            "kvattn_dynlen": nl * m["decode_ticks"] if kind == "int8" else 0,
+            "kvattn_paged": nl * (m["decode_ticks"] - m["chunked_prefill"]["chunk_ticks"])
+            if kind == "paged_int8" else 0}
+    if cuda and (any(launches[k] != v for k, v in want.items())
+                 or (not paged and m["prefills"] == 0)
+                 or (cfg.dtype == torch.bfloat16
+                     and launches["flash_fwd_tc"] != launches["flash_fwd"])):
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    ticks = max(1, m["decode_ticks"])
+    return {"yields": yields, "committed": committed, "end_offsets": ends,
+            "elapsed_s": elapsed, "prefills": m["prefills"], "decode_ticks": m["decode_ticks"],
+            "chunk_ticks": m["chunked_prefill"]["chunk_ticks"], "tick_blocks": m["ticks"],
+            "tick_block_ms_p50": m["step_time"]["p50_ms"],
+            "tick_block_ms_p99": m["step_time"]["p99_ms"],
+            "collectives": coll, "collective_calls_per_tick": coll["calls"] / ticks,
+            "collective_bytes_per_tick": coll["bytes"] / ticks,
+            "collective_ms_per_tick": coll["seconds"] * 1e3 / ticks,
+            "launches": launches, "cache_hits": m["prefix_cache"]["hits"],
+            "kv_backend": m["kv_backend"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+
+
+def _pair_agreement(got: list, ref: list) -> dict:
+    """A sharded run's completions against the single-process run's: equal
+    (same records, order and tokens), the share of equal tokens, the
+    records whose token 0 differs and the first differing output index of
+    each record that differs."""
+    import numpy as np
+
+    ref_of = {(p, o): t for p, o, t in ref}
+    first = {}
+    same = total = 0
+    for p, o, t in got:
+        r = ref_of.get((p, o), [])
+        a, b = np.asarray(t), np.asarray(r)
+        n = min(len(a), len(b))
+        eq = a[:n] == b[:n]
+        same += int(eq.sum())
+        total += max(len(a), len(b))
+        if not eq.all() or len(a) != len(b):
+            first[f"{p}:{o}"] = int(np.argmin(eq)) if not eq.all() else n
+    return {"tokens_equal_single": got == ref,
+            "token_agreement": same / max(1, total),
+            "records_differing": len(first),
+            "token0_differing": sum(1 for i in first.values() if i == 0),
+            "first_difference_at": sorted(first.values())}
+
+
+def _recording_pick(log: list):
+    """Instruments a server: every ``_pick`` call's tokens (host) and
+    logits (on the device) appended to ``log``, the tokens its own."""
+    def instrument(server):
+        orig = server._pick
+
+        def pick(logits, keys, idx=None):
+            tok = orig(logits, keys, idx)
+            log.append((tok.cpu().numpy(), logits.detach().clone()))
+            return tok
+        server._pick = pick
+    return instrument
+
+
+def _forcing_pick(tokens: list, ref_logits, stats: dict):
+    """Instruments a server to pick the reference run's tokens, call for
+    call (a call whose rows differ from the reference's raises), and,
+    where ``ref_logits`` is given, to fold each call's logits against the
+    reference's into ``stats`` over the rows whose token is used (a decode
+    tick's active slots, a chunk tick's finished suffixes, every admitted
+    row; the others are padding whose pool reads hold no data): the
+    largest |difference|, the largest |reference logit|, the rows and the
+    rows whose own argmax is not the forced token."""
+    import torch
+
+    stats.update(calls=0, rows=0, argmax_differs=0, max_abs_logit_diff=0.0, logit_scale=0.0)
+    used = [None]  # the rows of the pick in flight whose token is used
+
+    def scoped(fn):
+        def call(logits, mask, *rest):
+            used[0] = mask
+            try:
+                return fn(logits, mask, *rest)
+            finally:
+                used[0] = None
+        return call
+
+    def instrument(server):
+        server._bookkeep = scoped(server._bookkeep)
+        server._merge_chunk_token0 = scoped(server._merge_chunk_token0)
+
+        def pick(logits, keys, idx=None):
+            i = stats["calls"]
+            if i >= len(tokens) or len(tokens[i]) != logits.shape[0]:
+                raise AssertionError(
+                    f"forced run: pick {i} over {logits.shape[0]} rows, the reference's "
+                    f"{len(tokens[i]) if i < len(tokens) else 'none'}")
+            stats["calls"] += 1
+            tok = torch.as_tensor(tokens[i], device=logits.device)
+            if ref_logits is not None:
+                rows = (used[0] if used[0] is not None
+                        else torch.ones_like(tok, dtype=torch.bool))
+                ref = ref_logits[i][rows]
+                if ref.numel():
+                    stats["max_abs_logit_diff"] = max(stats["max_abs_logit_diff"],
+                                                      (logits[rows] - ref).abs().max().item())
+                    stats["logit_scale"] = max(stats["logit_scale"], ref.abs().max().item())
+                stats["rows"] += int(rows.sum())
+                stats["argmax_differs"] += int(((logits.argmax(-1) != tok) & rows).sum())
+            return tok
+        server._pick = pick
+    return instrument
+
+
+def _wrong_head_reads(rank: int):
+    """The control's patch: on ``rank``, K4's and K5's sharded wrappers in
+    the server module are handed the pool with its kv heads rolled by one
+    (so each q head group reads its neighbour's keys and values). →
+    a function that undoes it."""
+    from torchkafka_tpu_torch import serve
+
+    names = ("int8_decode_attention_dynlen_sharded", "int8_paged_decode_attention_sharded")
+    saved = {n: getattr(serve, n) for n in names}
+    if rank != 1:
+        return lambda: None
+
+    def rolled(fn):
+        def read(q, kq, ks, vq, vs, *rest):
+            return fn(q, *(t.roll(1, dims=1).contiguous() for t in (kq, ks, vq, vs)), *rest)
+        return read
+
+    for n in names:
+        setattr(serve, n, rolled(saved[n]))
+
+    def undo():
+        for n in names:
+            setattr(serve, n, saved[n])
+    return undo
+
+
+def _forced_pair(torch, cfg, params, mesh, kind: str, device: str, rank: int,
+                 log: list, committed_single, control: bool) -> dict:
+    """(d)'s teacher-forced pair of ``kind`` on the tp ``mesh``: ``log``,
+    rank 0's single-process run's picks (``_recording_pick``; empty on
+    the other ranks), whose tokens go to every rank (a broadcast over the
+    default group); the ranks serve the stream again on the mesh handed
+    those tokens, rank 0 holding each pick's logits against the
+    single-process run's. ``control``: once more with rank 1's reads on
+    the wrong kv heads (``_wrong_head_reads``)."""
+    import torch.distributed as dist
+
+    buf = [[t for t, _ in log] if rank == 0 else None]
+    dist.broadcast_object_list(buf, src=0)
+    tokens = buf[0]
+    ref_logits = [lg for _, lg in log] if rank == 0 else None
+    out = {}
+    for run in ("forced", "control") if control else ("forced",):
+        stats: dict = {}
+        undo = _wrong_head_reads(rank) if run == "control" else (lambda: None)
+        try:
+            got = _pod_serve_one(torch, cfg, params, mesh, kind, device,
+                                 pick=_forcing_pick(tokens, ref_logits, stats))
+        finally:
+            undo()
+        if stats["calls"] != len(tokens):
+            raise AssertionError(f"{kind} {run}: {stats['calls']} picks, the reference "
+                                 f"made {len(tokens)}")
+        out[run] = {**stats, "committed_equal_single":
+                    got["committed"] == committed_single if rank == 0 else None}
+    return out
+
+
+def serve_rank_main(rank: int, port: int, outdir: str, device: str = "cuda") -> int:
+    """One rank of the pod_serve phase (``chip_smoke.py --pod-rank N
+    --pod-mode serve``): see ``check_pod_serve``. Writes
+    ``<outdir>/rank_<rank>.json``."""
+    import torch
+
+    from torchkafka_tpu_torch.ops import _native
+    from torchkafka_tpu_torch.parallel import multihost
+    from torchkafka_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device == "cuda"
+    t_init = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", POD_RANKS, rank, timeout_s=600.0,
+                         device=None if cuda else device)
+    out = {"rank": rank, "rules": multihost.rules(), "init_s": time.perf_counter() - t_init,
+           "libraries_present_at_start": all(_native._target(k).exists()
+                                             for k in _native.KERNELS) if cuda else None}
+    meshes = {axis: make_mesh({axis: POD_RANKS}, device=None if cuda else device)
+              for axis in ("tp", "data")}
+    cfg, params = _pod_serve_model(torch, device)
+    for name, axis, kind in POD_SERVE_RUNS:
+        out[name] = _pod_serve_one(torch, cfg, params, meshes[axis], kind, device)
+        gc.collect()
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    # (d): f32 at 2 layers; rank 0 also serves each stream in one process.
+    t0 = time.perf_counter()
+    cfg32, params32 = _pod_serve_model(torch, device, f32=True)
+    pairs = {}
+    for name, axis, kind in POD_SERVE_PAIRS:
+        got = _pod_serve_one(torch, cfg32, params32, meshes[axis], kind, device)
+        pair = {"yields": got["yields"], "committed": got["committed"],
+                "launches": got["launches"]}
+        log: list = []  # the single-process run's picks, for the forced runs
+        committed_single = None
+        if rank == 0:
+            ref = _pod_serve_one(torch, cfg32, params32, None, kind, device,
+                                 pick=_recording_pick(log) if name in POD_SERVE_FORCED else None)
+            pair.update(_pair_agreement(got["yields"], ref["yields"]))
+            committed_single = ref["committed"]
+            pair["committed_equal_single"] = got["committed"] == committed_single
+        if name in POD_SERVE_FORCED:
+            pair["forced"] = _forced_pair(torch, cfg32, params32, meshes[axis], kind, device,
+                                          rank, log, committed_single,
+                                          control=name in POD_SERVE_INT8_PAIRS)
+        pairs[name] = pair
+        del log
+        gc.collect()
+    out["f32_pairs"], out["f32_pairs_s"] = pairs, time.perf_counter() - t0
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+    return 0
+
+
+def check_pod_serve(torch, device: str = "cuda") -> list:
+    """Sharded serving across processes: ``POD_RANKS`` ranks on
+    ``cuda:0`` under gloo (``chip_smoke.py --pod-rank N --pod-mode
+    serve``), the 1b widths at ``CUT_LAYERS`` in bf16 (random weights from
+    the seed, the same on both ranks), each rank's server built with
+    ``mesh=`` (the root, rank 0, owns the broker and the consumer; the
+    other rank passes ``consumer=None``):
+
+    (a) ``{"tp": 2}``, the dense int8 pool read by K4, the serve phase's
+        stream (32 prompts of 128, 16 slots, 64 new);
+    (b) ``{"tp": 2}``, the paged int8 pool read by K5, radix cache and
+        chunked prefill, serve_paged's tenant stream (48 prompts);
+    (c) ``{"data": 2}``, the dense bf16 pool, 8 slots a rank (its tick
+        block replayed from a CUDA graph: a data-only tick runs no
+        collective);
+    per rank: tick-block ms p50/p99, collective calls, bytes and ms a
+    decode tick (``parallel.collectives.COUNTS``), peak memory, launches:
+    K1 = layers x prefills on the dense pools (the rank's own prefills),
+    on the tensor cores; K4 = layers x decode ticks (a); K5 = layers x
+    (decode ticks - chunk ticks) (b); both ranks' completions equal, in
+    the same order; committed == end offsets on the root;
+    (d) f32 at 2 layers, (a)-(c) again and the compute-dtype pools (dense
+        and paged) on ``{"tp": 2}``: each run's committed offsets equal the
+        single-process f32 server's on the same stream, and its tokens too,
+        exactly, but for the int8 pools on tp, which hold token 0, report
+        their agreement and are held teacher-forced: handed the single
+        process's tokens, every logit within ``POD_SERVE_FORCED_BOUND`` of
+        that run's, and a wrong-head control outside it
+        (``POD_SERVE_PAIRS``, ``POD_SERVE_FORCED``).
+    The kernels are built once, by this process, before the ranks start.
+    ``device="cpu"`` rehearses the phase at tiny widths (no kernel counts
+    or device numbers)."""
+    import shutil
+
+    from torchkafka_tpu_torch.ops import _native
+
+    cuda = device == "cuda"
+    smi = smi_line() if cuda else None
+    t0 = time.perf_counter()
+    if cuda:
+        _native.build_all()
+    build_s = time.perf_counter() - t0
+    outdir = tempfile.mkdtemp(prefix="tk-podserve-")
+    try:
+        dumps, ranks_s = _run_ranks("serve", outdir, device)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    problems = []
+    for dmp in dumps:
+        r = dmp["rank"]
+        if dmp["rules"]["device"] != ("cuda:0" if cuda else "cpu") or \
+                dmp["rules"]["backend"] != "gloo":
+            problems.append(f"rank {r} rules {dmp['rules']}")
+        if cuda and not dmp["libraries_present_at_start"]:
+            problems.append(f"rank {r} started before the kernels were built")
+    for name, _, _ in POD_SERVE_RUNS:
+        if dumps[0][name]["yields"] != dumps[1][name]["yields"]:
+            problems.append(f"{name}: the ranks' completions differ")
+    pairs = {}
+    for name, _, _ in POD_SERVE_PAIRS:
+        pair = dumps[0]["f32_pairs"][name]
+        pairs[name] = {k: pair[k] for k in (
+            "tokens_equal_single", "token_agreement", "records_differing",
+            "token0_differing", "first_difference_at", "committed_equal_single")}
+        if name in POD_SERVE_FORCED:
+            pairs[name]["forced"] = pair["forced"]
+        if name in POD_SERVE_INT8_PAIRS:
+            # Free-running, token 0 and the commits; the tokens from there
+            # on are held teacher-forced, every logit within the bound,
+            # and the wrong-head control must fail that bound.
+            forced, control = pair["forced"]["forced"], pair["forced"]["control"]
+            exact = (pair["token0_differing"] == 0
+                     and forced["max_abs_logit_diff"] <= POD_SERVE_FORCED_BOUND
+                     and forced["committed_equal_single"])
+            if not control["max_abs_logit_diff"] > POD_SERVE_FORCED_BOUND:
+                problems.append(f"{name}: the wrong-head control passed the bound "
+                                f"{POD_SERVE_FORCED_BOUND}: {control}")
+        else:
+            exact = pair["tokens_equal_single"]
+        if not (exact and pair["committed_equal_single"]):
+            problems.append(f"{name} f32 against one process: {pairs[name]}")
+        if pair["yields"] != dumps[1]["f32_pairs"][name]["yields"]:
+            problems.append(f"{name} f32: the ranks' completions differ")
+    if problems:
+        raise AssertionError("pod_serve: " + "; ".join(problems))
+
+    def per_rank(name, key):
+        return [dmp[name][key] for dmp in dumps]
+
+    rows = []
+    for name, axis, kind in POD_SERVE_RUNS:
+        row = dumps[0][name]
+        rows.append({
+            "phase": "pod_serve", "run": name, "mesh": {axis: POD_RANKS}, "pool": kind,
+            "ranks": POD_RANKS, "nvidia_smi": smi, "layers": CUT_LAYERS if cuda else 2,
+            "completions": len(row["yields"]),
+            "tokens": sum(len(t) for _, _, t in row["yields"]),
+            "tokens_equal_across_ranks": True, "committed": row["committed"],
+            "end_offsets": row["end_offsets"], "elapsed_s": per_rank(name, "elapsed_s"),
+            "prefills": per_rank(name, "prefills"),
+            "decode_ticks": per_rank(name, "decode_ticks"),
+            "chunk_ticks": per_rank(name, "chunk_ticks"),
+            "tick_blocks": per_rank(name, "tick_blocks"),
+            "tick_block_ms_p50": per_rank(name, "tick_block_ms_p50"),
+            "tick_block_ms_p99": per_rank(name, "tick_block_ms_p99"),
+            "collective_calls_per_tick": per_rank(name, "collective_calls_per_tick"),
+            "collective_bytes_per_tick": per_rank(name, "collective_bytes_per_tick"),
+            "collective_ms_per_tick": per_rank(name, "collective_ms_per_tick"),
+            "collectives": per_rank(name, "collectives"),
+            "cache_hits": per_rank(name, "cache_hits"), "kv_backend": row["kv_backend"],
+            "peak_mem_gb": per_rank(name, "peak_mem_gb"), "launches": per_rank(name, "launches")})
+    rows.append({"phase": "pod_serve", "run": "f32_pairs", "layers": 2,
+                 "against_single_process": pairs,
+                 "launches": {n: [d["f32_pairs"][n]["launches"] for d in dumps]
+                              for n, _, _ in POD_SERVE_PAIRS},
+                 "seconds": [dmp["f32_pairs_s"] for dmp in dumps]})
+    rows.append({"phase": "pod_serve", "run": "summary", "build_s": build_s, "ranks_s": ranks_s,
+                 "init_s": [dmp["init_s"] for dmp in dumps]})
+    return rows
+
+
 # ------------------------------------------------- secondary models, examples
 
 def check_harness_models(torch) -> list:
@@ -7118,13 +7651,14 @@ def main() -> int:
     ap.add_argument("--pod-port", type=int, default=None, help="(internal) its store's port")
     ap.add_argument("--pod-out", default=None, help="(internal) its dump directory")
     ap.add_argument("--pod-device", default="cuda", help="(internal) its device")
-    ap.add_argument("--pod-mode", default="train", choices=("train", "tp_sp", "pp_ep"),
-                    help="(internal) which phase the rank runs: pod_train, pod_tp_sp "
-                         "or pod_pp_ep")
+    ap.add_argument("--pod-mode", default="train",
+                    choices=("train", "tp_sp", "pp_ep", "serve"),
+                    help="(internal) which phase the rank runs: pod_train, pod_tp_sp, "
+                         "pod_pp_ep or pod_serve")
     args = ap.parse_args()
     if args.pod_rank is not None:
         rank_main = {"train": pod_rank_main, "tp_sp": tp_sp_rank_main,
-                     "pp_ep": pp_ep_rank_main}[args.pod_mode]
+                     "pp_ep": pp_ep_rank_main, "serve": serve_rank_main}[args.pod_mode]
         return rank_main(args.pod_rank, args.pod_port, args.pod_out, args.pod_device)
     import torch
 
@@ -7319,6 +7853,7 @@ def main() -> int:
     rows_pod = by_phase["pod_train"]
     rows_tpsp = by_phase["pod_tp_sp"]
     rows_ppep = by_phase["pod_pp_ep"]
+    rows_ps = by_phase["pod_serve"]
     row_tm = by_phase["train_moe"][0]
     for phase in ("harness_models", "examples"):
         if not by_phase.get(phase):
@@ -7391,6 +7926,10 @@ def main() -> int:
                            "tc_launches": [x[kernel] for x in r["tc_launches"]]}
                 for r in rows_ppep if "launches" in r}
 
+    def pod_serve_launches(kernel):
+        """K1, K4 or K5 on each rank of pod_serve's bf16 runs, by run."""
+        return {r["run"]: [x[kernel] for x in r["launches"]] for r in rows_ps if "pool" in r}
+
     def child_launches(kernel):
         """K1-K3 as the worker processes counted them (their metrics
         dumps): serve_procfleet's replica children, then the distill
@@ -7444,6 +7983,7 @@ def main() -> int:
          "pod_launches": pod_launches("flash_fwd"),
          "pod_tp_sp_launches": tp_sp_launches("flash_fwd"),
          "pod_pp_ep_launches": pp_ep_launches("flash_fwd"),
+         "pod_serve_launches": pod_serve_launches("flash_fwd"),
          "resume_prefill": {s: {key: k1["resume_prefill"][s][key] for key in (
              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                             for s in k1["resume_prefill"]}},
@@ -7488,6 +8028,7 @@ def main() -> int:
          "harness_launches": harness_launches("kvattn_dynlen"),
          "harness_graph_block_launches": roof["graph_block_launches"]["kvattn_dynlen"],
          "moe_serve_launches": {r["run"]: r["launches"]["kvattn_dynlen"] for r in rows_sm},
+         "pod_serve_launches": pod_serve_launches("kvattn_dynlen"),
          "harness_graph_replays": roof["graph_replays"],
          "max_abs_err": main_pool["max_abs_err"]["bf16"], "ms": main_pool["kernel_ms"],
          "plain_ms": main_pool["plain_ms"], "bound_ms": main_pool["bound_ms"],
@@ -7507,6 +8048,7 @@ def main() -> int:
          "tier_launches": [r["launches"]["kvattn_paged"] for r in rows_ti
                            if r["kv_tier"] is not None],
          "disagg_launches": rows_dg[0]["launches"]["kvattn_paged"],
+         "pod_serve_launches": pod_serve_launches("kvattn_paged"),
          "max_abs_err": main_view["max_abs_err"]["bf16"], "ms": main_view["kernel_ms"],
          "plain_ms": main_view["plain_ms"], "bound_ms": main_view["bound_ms"],
          "bound_by": main_view["bound_by"], "library_ms": None,

@@ -510,6 +510,10 @@ def main(pid: int, nproc: int, port: str, outdir: str, mode: str) -> int:
             import _torch_tp_sp_cases as cases
 
             return getattr(cases, f"{mode}_main")(pid, outdir, mark)
+        if mode == "serve_mesh":
+            import _torch_serve_mesh_cases as cases
+
+            return cases.serve_mesh_main(pid, outdir, mark)
         if mode in ("pipeline", "pp_ep_train"):
             import _torch_pp_ep_cases as cases
 

@@ -227,3 +227,28 @@ def test_jax_encoded_handoff_adopted_by_port(pkgs):
     mono, mono_committed, _ = _mod._mono(pcfg, pparams, prompts)
     assert out == {k: np.asarray(v).tolist() for k, v in mono.items()}
     assert committed == mono_committed
+
+
+class _Mesh:
+    def __init__(self, coord) -> None:
+        self._coord = coord
+
+    def get_coordinate(self):
+        return self._coord
+
+
+@pytest.mark.parametrize("coord,producer,match", [
+    (None, None, "needs a producer"),
+    ([0, 0], None, "needs a producer"),
+    ([0, 1], object(), "only the serving mesh's root"),
+], ids=["meshless_without_producer", "root_without_producer", "producer_off_the_root"])
+def test_worker_publishes_from_the_root_only(coord, producer, match):
+    """A prefill worker publishes once: a mesh-less server's worker, or the
+    root's on a serving mesh, needs a producer; another rank's worker is
+    refused one."""
+    import types
+
+    shard = None if coord is None else types.SimpleNamespace(mesh=_Mesh(coord))
+    gen = types.SimpleNamespace(_prefill_role=True, _shard=shard)
+    with pytest.raises(ValueError, match=match):
+        ppre.PrefillWorker(gen, None, producer, "ho")

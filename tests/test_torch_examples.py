@@ -2,8 +2,7 @@
 CPU (``--device cpu``) at a tiny size: exit 0, every record it consumed
 committed (the committed offsets equal the topic's end offsets), and no
 module of JAX or of the JAX package loaded. The CTR example also trains as
-a two-process pod. A serving mesh flag raises naming the ROADMAP item
-that ports it."""
+a two-process pod, and the serving example serves on a two-rank tp mesh."""
 
 import pathlib
 import re
@@ -52,15 +51,32 @@ def test_example_commits_every_record(name, tmp_path):
     assert "JAX_MODULES []" in proc.stdout
 
 
-@pytest.mark.parametrize("name,flag", [("serve_prompts_torch.py", ["--tp", "2"]),
-                                       ("serve_prompts_torch.py", ["--cpu-devices", "8"])])
-def test_mesh_flags_raise(name, flag, monkeypatch):
-    """In this process: the flag is refused before any model is built."""
+def test_serve_example_on_a_tp_mesh(tmp_path):
+    """``--tp 2``: two gloo ranks on {"tp": 2}; rank 0 alone owns the
+    broker, commits every prompt and publishes every completion, and both
+    ranks serve the same tokens."""
+    proc = _run("serve_prompts_torch.py", ["--tp", "2", "--prompts", "6", "--slots", "2",
+                                           "--max-new", "4"], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    served = dict(re.findall(r"^rank (\d): served (\d+) tokens", proc.stdout, re.M))
+    assert served == {"0": "24", "1": "24"}, proc.stdout[-2000:]
+    line = re.search(r"^rank 0: .*offsets: committed=(\d+) end=(\d+) published=(\d+)",
+                     proc.stdout, re.M)
+    assert line and line.group(1) == line.group(2) == line.group(3) == "6"
+    assert "pod of 2 processes completed cleanly" in proc.stdout
+    assert "JAX_MODULES []" in proc.stdout
+
+
+def test_cpu_devices_flag_names_the_process_mesh(monkeypatch):
+    """In this process: the JAX example's ``--cpu-devices`` (virtual XLA
+    devices) has no counterpart; it is refused, pointing at ``--tp``,
+    before any model is built."""
     import runpy
 
+    name = "serve_prompts_torch.py"
     main = runpy.run_path(str(ROOT / "examples" / name), run_name="example")["main"]
-    monkeypatch.setattr(sys, "argv", [name, *flag, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Sharded serving"):
+    monkeypatch.setattr(sys, "argv", [name, "--cpu-devices", "8", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--tp N"):
         main()
 
 

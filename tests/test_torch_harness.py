@@ -5,8 +5,8 @@ scenarios' are in ``test_torch_harness_fleet.py`` and
 ``test_torch_harness_distill.py``), scenarios 5 and 7
 giving the JAX harness's tokens and committed offsets at f32 from the
 same parameters, ``run_scenario``'s flag scoping raising JAX's errors,
-every unported scenario raising ``NotImplementedError`` with its ROADMAP
-queue A title, and the CLI printing one JSON line without loading JAX."""
+every scenario ported, and the CLI printing one JSON line without loading
+JAX."""
 
 import json
 import subprocess
@@ -123,27 +123,11 @@ def test_flag_scoping_matches_jax(case):
     assert str(got.value) == str(ref.value)
 
 
-UNPORTED = {
-    20: "Sharded serving",
-}
-
-
-@pytest.mark.parametrize("num", sorted(UNPORTED))
-def test_unported_scenario_names_its_queue_title(num):
+def test_every_scenario_is_ported():
+    """All 25 of the JAX package's scenarios run in the port (20, the
+    sharded paged fleet, since the sharded serving slice)."""
     assert sorted(SCENARIOS) == list(range(1, 26))
-    assert num not in PORTED
-    with pytest.raises(NotImplementedError, match=UNPORTED[num]):
-        run_scenario(num, "tiny", **CPU)
-
-
-def test_unported_titles_are_roadmap_queue_a_items():
-    import pathlib
-    import re
-
-    text = (pathlib.Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
-    queue_a = text.split("### Queue A", 1)[1].split("### Queue B", 1)[0]
-    titles = {t.rstrip(".") for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue_a, re.M)}
-    assert set(UNPORTED.values()) <= titles
+    assert PORTED == tuple(range(1, 26))
 
 
 def test_device_rule_without_cuda(monkeypatch):

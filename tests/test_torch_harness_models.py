@@ -95,7 +95,14 @@ def test_device_rule_without_cuda(monkeypatch, num):
         run_scenario(num, "tiny")
 
 
-@pytest.mark.parametrize("num", [20])
-def test_mesh_scenarios_still_raise(num):
-    with pytest.raises(NotImplementedError, match="Sharded serving"):
-        run_scenario(num, "tiny", device="cpu")
+def test_scenario_20_serves_on_a_one_process_mesh():
+    """Scenario 20 in one process: the mesh is one rank (the one-process
+    group it starts, and ends), and the fleet serves and commits every
+    record with the radix cache hitting (its four-rank run is
+    tests/test_torch_serve_mesh.py's)."""
+    was_up = torch.distributed.is_initialized()
+    out = run_scenario(20, "tiny", device="cpu")
+    assert torch.distributed.is_initialized() == was_up
+    assert out["mesh"] == {"data": 1, "tp": 1}
+    assert out["records"] == 24 and out["coverage_complete"] and out["committed_complete"]
+    assert out["cache"]["hits"] > 0

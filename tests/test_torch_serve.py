@@ -130,7 +130,7 @@ SERVED_REJECTED = {
 # the SERVED_REJECTED cases, and so are the distill publisher's kw8 and kw9
 # and the prefill role's kw3 (once deferred, now served).
 @pytest.mark.parametrize("kw,exc", [
-    ({"mesh": object()}, NotImplementedError),
+    ({"mesh": object()}, TypeError),  # a mesh must be a parallel.make_mesh DeviceMesh
     SERVED_REJECTED["kw1"],
     SERVED_REJECTED["kw2"],
     SERVED_REJECTED["kw3"],
@@ -186,21 +186,23 @@ def _queue_a_titles() -> list[str]:
             for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)]
 
 
-def test_every_deferral_names_a_queue_a_title(model):
-    """Each still-deferred argument's error names the title of the ROADMAP
-    queue A item that ports it, never a bare item number."""
-    from torchkafka_tpu_torch import serve
+class _PPMesh:
+    """A stand-in mesh with a pp axis (no process group is needed: the
+    refusal comes before any rank's share is built)."""
+    mesh_dim_names = ("pp",)
+    mesh = torch.zeros(2)
 
+
+def test_every_deferral_names_a_queue_a_title(model):
+    """What the server still defers, a serving mesh with a pp axis
+    (layer-sharded serving), raises an error naming the title of the
+    ROADMAP queue A item that ports it, never a bare item number."""
     titles = _queue_a_titles()
     assert len(titles) >= 8
-    raised = []
-    for name in serve._DEFERRED:
-        with pytest.raises(NotImplementedError) as info:
-            _server(model, **{name: object()})
-        raised.append((name, info.value))
-    for name, exc in raised:
-        msg = str(exc).lower()
-        assert any(t in msg for t in titles), (name, msg, titles)
+    with pytest.raises(NotImplementedError) as info:
+        _server(model, mesh=_PPMesh())
+    msg = str(info.value).lower()
+    assert any(t in msg for t in titles), (msg, titles)
 
 
 @pytest.mark.parametrize("kw", [

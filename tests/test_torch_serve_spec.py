@@ -310,11 +310,35 @@ def test_spec_pools_and_counters(pkgs):
     assert paged._blocks_per_slot == -(-(P + MAX_NEW + 3) // BS)
 
 
-def test_mesh_is_not_ported(pkgs):
-    """``mesh=`` raises the base server's deferral, naming its ROADMAP
-    title (the JAX speculative server shards both models over a mesh)."""
-    with pytest.raises(NotImplementedError, match="Sharded serving"):
-        _spec_server(pkgs, mesh=object())
+def test_mesh_serves_on_a_one_process_mesh(pkgs):
+    """``mesh=`` on a one-rank mesh in this process (the one-process group
+    ``make_mesh`` starts): both models are laid out through their
+    ``ServingShard``s, and the completions, commits and counters equal
+    the mesh-less speculative server's (the 8-rank meshes are
+    tests/test_torch_serve_mesh.py's)."""
+    from torchkafka_tpu_torch.parallel import multihost
+
+    def serve(**kw):
+        cfg, params = pkgs["port"]
+        broker = ptk.InMemoryBroker()
+        broker.create_topic("p", partitions=1)
+        prompts = np.random.default_rng(3).integers(0, VOCAB, (4, P), dtype=np.int32)
+        for row in prompts:
+            broker.produce("p", row.tobytes())
+        consumer = ptk.MemoryConsumer(broker, "p", group_id="g")
+        server = SpecStreamingGenerator(consumer, params, cfg, slots=2, prompt_len=P,
+                                        max_new=MAX_NEW, k=2, device="cpu", **kw)
+        out = [(rec.offset, toks.tolist()) for rec, toks in server.run(max_records=4)]
+        server.close()
+        return out, broker.committed("g", ptk.TopicPartition("p", 0)), server.spec_stats()
+
+    started = not torch.distributed.is_initialized()
+    try:
+        got = serve(mesh=ptk.make_mesh({"data": 1}, device="cpu"))
+    finally:
+        if started:
+            multihost.shutdown()
+    assert got == serve() and got[1] == 4
 
 
 def test_weight_rebinds_drop_the_captured_block(pkgs, new_draft):

@@ -70,12 +70,17 @@ class CommitBarrier:
     initialised ``torch.distributed`` group of more than one process): adds
     ``torch.distributed.barrier``; barriers pair up in call order, so
     every process must commit the same batches in the same order (the
-    stream's commit calls are identical across processes)."""
+    stream's commit calls are identical across processes). ``sync``: the
+    cross-process barrier in its place, for a commit that concerns only
+    some of the processes (``parallel.lockstep.mesh_barrier`` over one
+    mesh's ranks)."""
 
-    def __init__(self, name: str = "tpukafka_commit", strict: bool = True) -> None:
+    def __init__(self, name: str = "tpukafka_commit", strict: bool = True,
+                 sync=None) -> None:
         self._name = name
         self._calls = 0
         self._strict = strict
+        self._sync = sync
 
     @staticmethod
     def fence(wait_for: Any) -> StepFence:
@@ -103,7 +108,9 @@ class CommitBarrier:
                 # batch's results exist before its offsets become committable.
                 self._retire(wait_for)
             self._calls += 1
-            if _world_size() > 1:
+            if self._sync is not None:
+                self._sync()
+            elif _world_size() > 1:
                 from torchkafka_tpu_torch.parallel.multihost import barrier_group
 
                 torch.distributed.barrier(group=barrier_group())

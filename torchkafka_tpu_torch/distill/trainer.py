@@ -37,7 +37,7 @@ import torch
 
 from torchkafka_tpu_torch.distill.wire import distill_processor
 from torchkafka_tpu_torch.models.spec_decode import truncated_draft
-from torchkafka_tpu_torch.models.transformer import _not_ported, make_train_step
+from torchkafka_tpu_torch.models.transformer import make_train_step, shard_params
 from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
 from torchkafka_tpu_torch.source.checkpoint_wire import publish_checkpoint
@@ -56,7 +56,13 @@ class DistillTrainer:
     layers are views of the target's, and the train step updates its
     params IN PLACE — so the trainer clones every draft leaf at init.
     Without the clone, the first step would rewrite the serving target's
-    own weights under a live server. ``mesh``: not ported (must be None).
+    own weights under a live server. ``mesh``: train on a
+    ``parallel.make_mesh`` mesh through ``make_train_step(draft_cfg,
+    mesh)`` (K1 forward, K2/K3 backward on each rank's share): every rank
+    of the mesh builds the trainer with the same arguments, the root alone
+    with a consumer (the others pass None; ``parallel.lockstep``), and
+    each rank trains on its rows of the root's batches. The root commits
+    and publishes; the draft is gathered for a publish on every rank.
 
     ``publish_every`` > 0: every that-many steps, publish the current
     draft as version ``base_version + publishes-so-far + 1`` onto
@@ -86,8 +92,6 @@ class DistillTrainer:
         base_version: int = 0,
         metrics=None,
     ) -> None:
-        if mesh is not None:
-            raise _not_ported("mesh=", "Sharded serving")
         if publish_every < 0:
             raise ValueError("publish_every must be >= 0")
         if publish_every and (broker is None or ckpt_topic is None):
@@ -99,6 +103,12 @@ class DistillTrainer:
             raise ValueError(
                 "draft_params and draft_cfg must be given together"
             )
+        if mesh is not None:
+            from torchkafka_tpu_torch.parallel.lockstep import MeshConsumer
+
+            consumer = (consumer if isinstance(consumer, MeshConsumer)
+                        else MeshConsumer(consumer, mesh))
+        self._mesh = mesh
         self._consumer = consumer
         self._seq_len = int(seq_len)
         self._batch_size = int(batch_size)
@@ -123,8 +133,12 @@ class DistillTrainer:
         )
         self._device = tree_leaves(self.draft_params)[0].device
         _init, self._step_fn = make_train_step(
-            draft_cfg, optimizer=optimizer, device=self._device
+            draft_cfg, mesh, optimizer=optimizer, device=self._device
         )
+        if mesh is not None:
+            # The mesh step's parameters: DTensors laid out per
+            # param_specs, each rank holding its chunk.
+            self.draft_params = shard_params(self.draft_params, draft_cfg, mesh)
         self._opt_state = optimizer.init(self.draft_params)
         self._broker = broker
         self._ckpt_topic = ckpt_topic
@@ -148,10 +162,18 @@ class DistillTrainer:
         publishes the same version number), never a committed token."""
         version = self.next_version
         crash_hook("distill_pre_publish")
-        publish_checkpoint(
-            self._broker, self._ckpt_topic, version, self.draft_params,
-            kind="draft",
-        )
+        params = self.draft_params
+        root = True
+        if self._mesh is not None:
+            from torchkafka_tpu_torch.parallel.lockstep import is_root
+            from torchkafka_tpu_torch.parallel.mesh import full_tensor
+
+            params = tree_map(full_tensor, params)  # a collective on every rank
+            root = is_root(self._mesh)
+        if root:
+            publish_checkpoint(
+                self._broker, self._ckpt_topic, version, params, kind="draft",
+            )
         self.published += 1
         _logger.info(
             "published draft version %d after %d steps", version, self.steps
@@ -188,6 +210,9 @@ class DistillTrainer:
             # fleet's per-round call) 200 ms on an idle topic.
             poll_timeout_ms=min(100, idle_timeout_ms),
             owns_consumer=False,
+            # On a mesh the commit barrier spans the mesh's ranks only (the
+            # root commits for them all).
+            **({} if self._mesh is None else {"barrier": self._mesh_barrier()}),
         )
         try:
             for batch, token in stream:
@@ -201,6 +226,10 @@ class DistillTrainer:
                 mask = batch.data["mask"] * (
                     rows < batch.valid_count
                 ).to(batch.data["mask"].dtype)[:, None]
+                if self._mesh is not None:
+                    # Every rank holds the whole batch (the root's polls);
+                    # the mesh step takes this rank's rows of it.
+                    tokens, mask = self._rank_rows(tokens), self._rank_rows(mask)
                 self.draft_params, self._opt_state, loss = self._step_fn(
                     self.draft_params, self._opt_state, tokens, mask
                 )
@@ -223,6 +252,27 @@ class DistillTrainer:
         finally:
             stream.close()
         return self.report()
+
+    def _mesh_barrier(self):
+        from torchkafka_tpu_torch.commit import CommitBarrier
+        from torchkafka_tpu_torch.parallel.lockstep import mesh_barrier
+
+        return CommitBarrier(sync=lambda: mesh_barrier(self._mesh))
+
+    def _rank_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch: split over data x fsdp,
+        data-major, as ``parallel.mesh.global_batch`` lays ranks out."""
+        sizes = dict(zip(self._mesh.mesh_dim_names, self._mesh.mesh.shape))
+        coords = dict(zip(self._mesh.mesh_dim_names, self._mesh.get_coordinate()))
+        n, i = 1, 0
+        for a in ("data", "fsdp"):
+            if a in sizes:
+                i, n = i * sizes[a] + coords[a], n * sizes[a]
+        if t.shape[0] % n:
+            raise ValueError(f"batch_size {t.shape[0]} does not split over the "
+                             f"mesh's {n} batch ranks")
+        b = t.shape[0] // n
+        return t[i * b:(i + 1) * b]
 
     def report(self) -> dict:
         return {

@@ -62,6 +62,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from torchkafka_tpu_torch.parallel.lockstep import agree
 from torchkafka_tpu_torch.commit.ledger import merged_watermarks
 from torchkafka_tpu_torch.fleet.metrics import FleetMetrics
 from torchkafka_tpu_torch.fleet.prefill import PrefillRouter, drain_handoffs
@@ -169,6 +170,12 @@ class ServingFleet:
     warm-resume instead of re-decoding from token 0. On construction,
     journals left by a PREVIOUS incarnation are consulted the same way —
     a whole-fleet crash restarts warm too.
+
+    ``gen_kwargs={"mesh": mesh}`` (sharded replicas): every rank of the
+    mesh builds the fleet with the same arguments; the factory returns the
+    root's consumers and None on the other ranks, each is read through a
+    ``parallel.lockstep.MeshConsumer``, and the idle timeout is the
+    root's (the loops stay in step on the root's records).
     """
 
     def __init__(
@@ -331,6 +338,13 @@ class ServingFleet:
         rid = len(self.replicas)
         consumer = self._factory(rid)
         kw = dict(self._gen_kwargs)
+        if kw.get("mesh") is not None:
+            # A fleet of mesh-sharded replicas runs on every rank of the
+            # mesh; the factory gives the root a consumer and the other
+            # ranks None, and every rank reads the root's answers.
+            from torchkafka_tpu_torch.parallel.lockstep import MeshConsumer
+
+            consumer = MeshConsumer(consumer, kw["mesh"])
         if self._journal_dir is not None:
             path = os.path.join(self._journal_dir, f"replica_{rid}.json")
             self._journal_paths[rid] = path
@@ -698,9 +712,10 @@ class ServingFleet:
                     # burning a core, but never time out on it.
                     if exhausted_at is None:
                         exhausted_at = time.monotonic()
-                    elif (
+                    elif agree(self._gen_kwargs.get("mesh"), (
                         time.monotonic() - exhausted_at
-                    ) * 1e3 >= idle_timeout_ms:
+                    ) * 1e3 >= idle_timeout_ms):
+                        # On a mesh the root's clock decides for every rank.
                         break
                 time.sleep(0.001)
             else:

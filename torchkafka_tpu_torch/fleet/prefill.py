@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from torchkafka_tpu_torch.parallel.lockstep import is_root
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
 from torchkafka_tpu_torch.serve import PrefillHandoff
 from torchkafka_tpu_torch.source.checkpoint_wire import (
@@ -179,7 +180,12 @@ class PrefillWorker:
     The ledger emit happens only AFTER the publish is issued
     (``note_handoff_published``), with the producer flushed before any
     offset commit — a death mid-transfer re-delivers the prompt to the
-    next prefill incarnation (at-least-once on the handoff plane)."""
+    next prefill incarnation (at-least-once on the handoff plane).
+
+    On a serving mesh every rank runs a worker over its rank's ``gen``
+    and the mesh's ``parallel.lockstep.MeshConsumer``; the root publishes
+    (the handoff holds every kv head, gathered over tp) and the other
+    ranks pass ``producer=None``."""
 
     def __init__(self, gen, consumer, producer, handoff_topic: str, *,
                  commit_every: int = 8, max_poll_records: int = 64) -> None:
@@ -187,6 +193,18 @@ class PrefillWorker:
             raise ValueError(
                 "PrefillWorker needs a StreamingGenerator built with "
                 "prefill_role=True"
+            )
+        shard = getattr(gen, "_shard", None)
+        off_root = shard is not None and not is_root(shard.mesh)
+        if off_root and producer is not None:
+            raise ValueError(
+                "only the serving mesh's root publishes handoffs: pass "
+                "producer=None on its other ranks"
+            )
+        if not off_root and producer is None:
+            raise ValueError(
+                "PrefillWorker needs a producer (only a serving mesh's "
+                "ranks other than the root pass producer=None)"
             )
         self.gen = gen
         self.consumer = consumer
@@ -222,13 +240,15 @@ class PrefillWorker:
             # Filled blocks extracted, nothing published: death here is
             # the mid-transfer window the crash matrix SIGKILLs at.
             crash_hook("prefill_handoff_pre_publish")
-            self.producer.send(
-                self.handoff_topic, encode_handoff(hand), key=rec.key,
-            )
+            if self.producer is not None:
+                self.producer.send(
+                    self.handoff_topic, encode_handoff(hand), key=rec.key,
+                )
             self.gen.note_handoff_published(rec, blocks=hand.prompt_blocks)
             published += 1
         if published:
-            self.producer.flush()
+            if self.producer is not None:
+                self.producer.flush()
             self._since_commit += published
         if self._retry_flush or self._since_commit >= self._commit_every:
             ok = self.gen.flush_commits()
@@ -241,7 +261,8 @@ class PrefillWorker:
 
     def close(self) -> None:
         try:
-            self.producer.flush()
+            if self.producer is not None:
+                self.producer.flush()
         except Exception:  # noqa: BLE001 - teardown best-effort
             pass
         self.gen.flush_commits()

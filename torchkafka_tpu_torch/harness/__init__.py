@@ -8,8 +8,8 @@ training scenario 9, the in-process fleets 10-16, 22 and 25, and the
 process fleets 17, 18, 19, 21, 23 and 24 (worker processes over the
 socket broker: SIGKILL storms, exactly-once output, a broker recovered
 from its write-ahead log, a killed prefill worker, a quorum cell's leader
-failover, a rolling hot-swap). Scenarios 3 and 20 raise
-``NotImplementedError`` naming their ROADMAP queue A item.
+failover, a rolling hot-swap), the data-parallel training scenario 3 and
+the sharded paged serving fleet 20 (both over the launched ranks).
 
 Run: ``python -m torchkafka_tpu_torch.harness --scenario N [--size tiny|full]
 [--device cpu]`` (CUDA unless ``--device`` names another device).

@@ -11,8 +11,7 @@ from torchkafka_tpu_torch.harness.scenarios import PORTED, SCENARIOS, run_scenar
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="torchkafka_tpu_torch benchmark harness")
     ap.add_argument("--scenario", type=int, choices=sorted(SCENARIOS), default=None,
-                    help="which BASELINE scenario; default: every ported one "
-                    "(the others raise NotImplementedError)")
+                    help="which BASELINE scenario; default: all of them")
     ap.add_argument("--size", choices=("tiny", "full"), default="tiny")
     ap.add_argument("--device", default=None,
                     help="where the scenarios run (e.g. cpu, cuda:0); default: "
@@ -58,7 +57,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="scenario 7 with --temperature: nucleus mass in "
                     "(0, 1] — minimal prefix reaching p stays sampleable")
     ap.add_argument("--replicas", type=int, default=2,
-                    help="scenarios 10-13, 15-19, 21, 23-25: replica count "
+                    help="scenarios 10-13, 15-21, 23-25: replica count "
                     "(decode replicas in 21; scenario 22 starts at 1)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="scenario 14: suffix tokens the "
@@ -71,7 +70,7 @@ def main(argv: list[str] | None = None) -> None:
     else:
         nums = list(PORTED)
     for n in nums:
-        print(json.dumps(run_scenario(
+        result = run_scenario(
             n, args.size, model_scale=args.model_scale,
             serve_eos=args.serve_eos, quantized=args.quantized,
             kv_int8=args.kv_int8,
@@ -81,7 +80,9 @@ def main(argv: list[str] | None = None) -> None:
             temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
             replicas=args.replicas, prefill_chunk=args.prefill_chunk,
             device=args.device,
-        )), flush=True)
+        )
+        if result is not None:  # ranks of scenario 20's mesh other than its root
+            print(json.dumps(result), flush=True)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@
 | 4 | PNG topic → host decode → ResNet-50 inference | here, conv MFU against the H100's bf16 peak |
 | 8 | streaming DLRM (CTR) training, commit-after-step | here, one device |
 | 3 | mesh-sharded global batches → data-parallel train step → commit | here, n = the launched ranks (``torch.distributed.run``) |
-| 20 | sharded paged serving | queue A "Sharded serving" |
+| 20 | sharded paged serving: a 2-replica fleet of paged int8 servers on a {data, tp} mesh | here, the mesh over the launched ranks (one process: a one-rank mesh) |
 
 Every ported scenario runs the JAX package's loop (poll → transform →
 batch → device → step → barrier → commit) with its sizes, seeds and
@@ -21,8 +21,7 @@ result keys, on ``device`` (``run_scenario(device=)``; CUDA unless the
 caller names another device). Where the JAX package asks
 ``jax.default_backend() == "tpu"`` before a device measurement, the port
 asks whether the scenario runs on CUDA; device times are CUDA events.
-An unported scenario raises ``NotImplementedError`` naming its ROADMAP
-queue A title.
+Every scenario of the JAX package is ported.
 """
 
 from __future__ import annotations
@@ -2975,34 +2974,144 @@ def scenario_8(size: str = "tiny", device=None) -> dict:
     )
 
 
-# --------------------------------------------------------------- unported
+def scenario_20(size: str = "tiny", replicas: int = 2, device=None, mesh=None) -> dict | None:
+    """Sharded paged serving smoke: a 2-replica in-process fleet whose
+    generators compose paged block tables with radix prefix reuse, int8
+    payloads, the block-table read under ``kv_kernel="auto"`` and a
+    {data, tp} MESH (kv heads and weights over tp; the paged per-slot
+    state replicated over data). Three keyed tenants with fixed system
+    prompts (scenario 12's shape) so the radix tree works while sharded.
+    Checks coverage, commit exactness and a non-degenerate hit rate.
 
-# Each scenario the port does not run yet, by the title of the ROADMAP
-# queue A item that ports it.
-_DEFERRED_TITLES = {
-    20: "Sharded serving",
-}
+    The mesh's ranks are processes: every rank of the process group runs
+    the scenario (``mesh`` None builds {data: 2, tp: 2} from the group as
+    the JAX package does from its devices: tp 2 where two ranks and the kv
+    heads allow, data 2 where twice that many ranks run, each 1 otherwise;
+    one process serves on a one-rank mesh). The root owns the broker and
+    the consumers and returns the summary; the other ranks of the mesh
+    return None, as do ranks outside it."""
+    from torchkafka_tpu_torch.parallel import multihost
+    from torchkafka_tpu_torch.parallel.mesh import make_mesh, process_count
+
+    dev = resolve_device(device)
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    cfg, params, label = _serving_model(size, None, prompt_len, max_new, device=dev)
+    # A group this call starts (one process) it also ends.
+    started = mesh is None and not torch.distributed.is_initialized()
+    if mesh is None:
+        multihost.initialize(device=device)  # torch.distributed.run's ranks
+        started = started and not torch.distributed.is_initialized()
+        n_ranks = process_count()
+        tp = 2 if n_ranks >= 2 and cfg.n_kv_heads % 2 == 0 else 1
+        data = 2 if n_ranks >= 2 * tp else 1
+        mesh = make_mesh({"data": data, "tp": tp}, devices=list(range(data * tp)),
+                         device=dev.type)
+    try:
+        return _scenario_20_on(mesh, size, replicas, dev, cfg, params, label)
+    finally:
+        if started:
+            multihost.shutdown()
 
 
-def _deferred(num: int) -> Callable[..., dict]:
-    def scenario(size: str = "tiny", **_kw) -> dict:
-        raise NotImplementedError(
-            f"scenario {num} is not ported yet (ROADMAP queue A: "
-            f"{_DEFERRED_TITLES[num]})"
-        )
+def _scenario_20_on(mesh, size, replicas, dev, cfg, params, label) -> dict | None:
+    import time as _time
 
-    scenario.__name__ = f"scenario_{num}"
-    return scenario
+    import torchkafka_tpu_torch as tk
+    from torchkafka_tpu_torch.fleet import ServingFleet
+    from torchkafka_tpu_torch.parallel.lockstep import is_root
+    from torchkafka_tpu_torch.source.records import TopicPartition
+
+    if mesh.get_coordinate() is None:
+        return None
+    prompt_len, max_new = (16, 8) if size == "tiny" else (64, 32)
+    n = 24 if size == "tiny" else 128
+    block = 4 if size == "tiny" else 16
+    sys_len = 3 * block
+    parts = 4
+    sizes = dict(zip(mesh.mesh_dim_names, (int(x) for x in mesh.mesh.shape)))
+    root = is_root(mesh)
+    broker = tk.InMemoryBroker() if root else None
+    rng = np.random.default_rng(0)
+    tenants = ("alpha", "beta", "gamma")
+    system = {
+        t: rng.integers(0, cfg.vocab_size, sys_len, dtype=np.int32)
+        for t in tenants
+    }
+    produced = []
+    if root:
+        broker.create_topic("t20", partitions=parts)
+        for i in range(n):
+            t = tenants[i % len(tenants)]
+            prompt = np.concatenate([
+                system[t],
+                rng.integers(0, cfg.vocab_size, prompt_len - sys_len, dtype=np.int32),
+            ])
+            rec = broker.produce("t20", prompt.tobytes(), key=t.encode())
+            produced.append((rec.partition, rec.offset))
+    # 2 slots a replica, as the JAX scenario (its compile-time lever; here
+    # admissions wave through in more quanta).
+    slots = 2 if size == "tiny" else 4
+    pages = {
+        "block_size": block,
+        "num_blocks": slots * -(-(prompt_len + max_new) // block) + 16,
+    }
+    fleet = ServingFleet(
+        lambda rid: tk.MemoryConsumer(broker, "t20", group_id="s20") if root else None,
+        params, cfg, replicas=replicas, prompt_len=prompt_len,
+        max_new=max_new, slots=slots, commit_every=4,
+        gen_kwargs={
+            "kv_pages": pages, "kv_dtype": "int8", "kv_kernel": "auto",
+            "mesh": mesh, "device": dev,
+        },
+    )
+    fleet.warmup()
+    t0 = _time.perf_counter()
+    served = fleet.serve_all(idle_timeout_ms=2000)
+    elapsed = _time.perf_counter() - t0
+    s = fleet.metrics.summary(fleet.replicas)
+    cache = s["prefix_cache"]
+    gens = [rep.gen for rep in fleet.replicas]
+    kv_backend = gens[0].metrics.summary()["kv_backend"]
+    fleet.close()
+    if not root:
+        return None
+    keys = {(r.partition, r.offset) for _rid, r, _t in served}
+    committed_complete = all(
+        broker.committed("s20", TopicPartition("t20", p))
+        == broker.end_offset(TopicPartition("t20", p))
+        for p in {p for p, _ in produced}
+    )
+    return {
+        "scenario": "20:sharded-paged-int8-fleet",
+        "model_scale": label,
+        "replicas": replicas,
+        "mesh": {"data": sizes.get("data", 1), "tp": sizes.get("tp", 1)},
+        "kv_backend": kv_backend,
+        "records": len(served),
+        "elapsed_s": round(elapsed, 3),
+        "records_per_s": round(len(served) / elapsed, 1) if elapsed else None,
+        "coverage_complete": keys == set(produced),
+        "committed_complete": committed_complete,
+        "tenants": len(tenants),
+        "system_prompt_tokens": sys_len,
+        "cache": cache,
+        "prefill_tokens": cache["prefill_tokens"],
+        "prefill_tokens_dense": n * prompt_len,
+        "prefill_savings_pct": round(
+            100 * (1 - cache["prefill_tokens"] / (n * prompt_len)), 1
+        ),
+        "commit_failures": sum(g.metrics.commit_failures.count for g in gens),
+        "dropped": sum(g.metrics.dropped.count for g in gens),
+    }
 
 
-_PORTED = {1: scenario_1, 2: scenario_2, 3: scenario_3, 4: scenario_4, 5: scenario_5, 6: scenario_6,
-           7: scenario_7, 8: scenario_8, 9: scenario_9, 10: scenario_10, 11: scenario_11,
-           12: scenario_12, 13: scenario_13, 14: scenario_14, 15: scenario_15,
-           16: scenario_16, 17: scenario_17, 18: scenario_18, 19: scenario_19,
-           21: scenario_21, 22: scenario_22, 23: scenario_23, 24: scenario_24,
-           25: scenario_25}
-PORTED = tuple(sorted(_PORTED))
-SCENARIOS = {n: _PORTED.get(n) or _deferred(n) for n in range(1, 26)}
+SCENARIOS = {1: scenario_1, 2: scenario_2, 3: scenario_3, 4: scenario_4, 5: scenario_5,
+             6: scenario_6, 7: scenario_7, 8: scenario_8, 9: scenario_9, 10: scenario_10,
+             11: scenario_11, 12: scenario_12, 13: scenario_13, 14: scenario_14,
+             15: scenario_15, 16: scenario_16, 17: scenario_17, 18: scenario_18,
+             19: scenario_19, 20: scenario_20, 21: scenario_21, 22: scenario_22,
+             23: scenario_23, 24: scenario_24, 25: scenario_25}
+PORTED = tuple(sorted(SCENARIOS))
 
 
 def run_scenario(
@@ -3016,8 +3125,7 @@ def run_scenario(
     prefill_chunk: int | None = None, device=None,
 ) -> dict:
     """The JAX package's ``run_scenario``, flag scoping and errors
-    included, plus ``device`` (None = CUDA, raising without it) for the
-    ported scenarios; an unported one raises ``NotImplementedError``."""
+    included, plus ``device`` (None = CUDA, raising without it)."""
     if size not in _SIZES:
         raise ValueError(f"size must be one of {_SIZES}")
     if prefill_chunk is not None and num != 14:
@@ -3068,8 +3176,6 @@ def run_scenario(
             )
         return SCENARIOS[5](size, model_scale=model_scale, quantized=quantized,
                             device=resolve_device(device))
-    if num not in _PORTED:
-        return SCENARIOS[num](size)
     if num == 3:  # each rank's device comes from the device rule
         return SCENARIOS[3](size, device=device)
     dev = resolve_device(device)

@@ -30,8 +30,14 @@ measurements of the TPU kernels and are not carried over.
 
 Genuine exclusions (each raises ``ValueError``): ``kv_pages`` with an MoE
 config, legacy per-record paged admission (``prefill_chunk=0``) with the
-int8 pool, and an un-honorable ``kv_kernel=True``. Mesh-sharded pools,
-the host-RAM tier and disaggregated prefill are not ported yet.
+int8 pool, and an un-honorable ``kv_kernel=True``.
+
+Under a serving mesh (``mesh``) the same pools serve on each rank's share:
+dense pools split slots over data and kv heads over tp, paged pools kv
+heads over tp with the blocks replicated over data
+(``models.generate.kv_sharding`` and its siblings); the kernels read each
+rank's local pool (``ops.kvattn.*_sharded``). ``data``/``tp`` record the
+mesh's extents.
 """
 
 from __future__ import annotations
@@ -51,9 +57,8 @@ class KVBackend:
     ``kernel_disabled_reason``: why it does not, when int8 was asked for
     with ``kv_kernel`` True or "auto". ``chunked``: paged admission
     prefills through the fused chunk tick (``prefill_chunk`` != 0).
-    ``device``: "cuda" or "cpu". ``describe()`` reports the mesh extents
-    ``data`` and ``tp`` of the JAX package's payload as 1: one device,
-    meshes are not ported."""
+    ``device``: "cuda" or "cpu". ``data``/``tp``: the serving mesh's
+    extents (1 = no mesh)."""
 
     layout: str
     int8: bool
@@ -61,10 +66,16 @@ class KVBackend:
     kernel_disabled_reason: str | None
     chunked: bool
     device: str
+    data: int = 1
+    tp: int = 1
 
     @property
     def paged(self) -> bool:
         return self.layout == "paged"
+
+    @property
+    def sharded(self) -> bool:
+        return self.data > 1 or self.tp > 1
 
     def describe(self) -> dict:
         """The ``ServeMetrics`` ``kv_backend`` info payload."""
@@ -75,8 +86,8 @@ class KVBackend:
             "kernel_disabled_reason": self.kernel_disabled_reason,
             "chunked": self.chunked,
             "device": self.device,
-            "data": 1,
-            "tp": 1,
+            "data": self.data,
+            "tp": self.tp,
         }
 
 
@@ -125,8 +136,19 @@ def resolve_kv_backend(
     kv_pages=None,
     max_len: int,
     device,
+    mesh=None,
 ) -> KVBackend:
-    """Validate one pool combination and decide the int8 read."""
+    """Validate one pool combination and decide the int8 read; ``mesh``
+    (a serving mesh) fills the extents."""
+    backend = _resolve(cfg, kv_dtype, kv_kernel, kv_pages, max_len, device)
+    if mesh is None:
+        return backend
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dataclasses.replace(backend, data=int(sizes.get("data", 1)),
+                               tp=int(sizes.get("tp", 1)))
+
+
+def _resolve(cfg, kv_dtype, kv_kernel, kv_pages, max_len: int, device) -> KVBackend:
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
     if not (kv_kernel is True or kv_kernel is False or kv_kernel == "auto"):

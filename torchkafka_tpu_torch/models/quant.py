@@ -109,3 +109,30 @@ def quantized_nbytes(tree) -> int:
         t.numel() * t.element_size()
         for t in tree_leaves(tree) if isinstance(t, torch.Tensor)
     )
+
+
+def quantize_specs(specs: dict, cfg) -> dict:
+    """The partition specs of ``quantize_params``'s output: each quantized
+    leaf becomes ``QTensor(q=<its spec>, scale=<the spec with the
+    contraction axes unsplit>)`` (a size-1 scale dim cannot split), so an
+    int8 tree lays out over a tp/fsdp mesh as the plain one does. ``specs``:
+    ``models.transformer.param_specs(cfg)`` (tuples, one axis name or None
+    per dim)."""
+    layer_axes = dict(_LAYER_AXES)
+    if cfg.is_moe:
+        layer_axes.update(_MOE_AXES)
+
+    def q_spec(spec: tuple, contract_axes: tuple[int, ...]) -> QTensor:
+        scale = tuple(None if d in contract_axes else a for d, a in enumerate(spec))
+        return QTensor(q=spec, scale=scale)
+
+    layers = {
+        name: spec if name in ("ln1", "ln2", "router") else q_spec(spec, layer_axes[name])
+        for name, spec in specs["layers"].items()
+    }
+    return {
+        "embed": q_spec(specs["embed"], (1,)),
+        "layers": layers,
+        "ln_f": specs["ln_f"],
+        "lm_head": q_spec(specs["lm_head"], (0,)),
+    }

@@ -80,13 +80,18 @@ class SpecStats(NamedTuple):
     proposed: torch.Tensor  # draft tokens proposed across all rows/rounds
 
 
-def lm_logits(params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head: hidden states [..., D] → f32 logits [..., V]."""
-    return matmul_f32(_rms_norm(x, params["ln_f"]), params["lm_head"], cfg.dtype)
+def lm_logits(params, cfg: TransformerConfig, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """Final norm + LM head: hidden states [..., D] → f32 logits [..., V]
+    (``shard``, a ``models.generate.ServingShard``: this rank's head
+    columns, all-gathered over tp)."""
+    h = _rms_norm(x, params["ln_f"])
+    if shard is not None:
+        return shard.logits(h, params["lm_head"], cfg.dtype)
+    return matmul_f32(h, params["lm_head"], cfg.dtype)
 
 
 def _multi_step(params, cfg: TransformerConfig, cache: KVCache, tokens,
-                pos_b, layers=None) -> torch.Tensor:
+                pos_b, layers=None, shard=None) -> torch.Tensor:
     """S-query decode step at PER-ROW start positions: tokens [B, S] (token
     s sits at position pos_b + s), pos_b [B]. Writes k/v for all S inputs
     at [pos_b, pos_b + S) of ``cache`` ([L, B, M, K, Dh], in place) before
@@ -94,10 +99,14 @@ def _multi_step(params, cfg: TransformerConfig, cache: KVCache, tokens,
     positions pos_b + s + 1). Query s reads positions [0, pos_b + s]. S=1
     is a per-row decode tick; S=k+1 is the verify. ``layers``: the
     unstacked layer views of ``params`` (``unstack_layers``), when the
-    caller keeps them."""
+    caller keeps them. ``shard``: the rank's ``ServingShard`` on a mesh
+    (its slots and heads; the lookup and the head through it)."""
     b, s = tokens.shape
     dev = tokens.device
-    x = embed_rows(params["embed"], tokens, cfg.dtype)  # [B, S, D]
+    if shard is None:
+        x = embed_rows(params["embed"], tokens, cfg.dtype)  # [B, S, D]
+    else:
+        x = shard.embed(params["embed"], tokens, cfg.dtype)
     positions = pos_b[:, None] + torch.arange(s, device=dev)[None, :]  # [B, S]
     rows = torch.arange(b, device=dev)[:, None]
     p = positions.long()
@@ -112,8 +121,8 @@ def _multi_step(params, cfg: TransformerConfig, cache: KVCache, tokens,
         ck, cv = cache.k[i], cache.v[i]
         ck.index_put_((rows, p), k.to(ck.dtype))
         cv.index_put_((rows, p), v.to(cv.dtype))
-        x = _attend_cached(x, q, ck, cv, valid, layer, cfg)
-    return lm_logits(params, cfg, x)
+        x = _attend_cached(x, q, ck, cv, valid, layer, cfg, shard=shard)
+    return lm_logits(params, cfg, x, shard)
 
 
 def accept(tga: torch.Tensor, d: torch.Tensor):

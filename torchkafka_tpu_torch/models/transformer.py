@@ -896,14 +896,18 @@ class Transformer(nn.Module):
             aux = torch.stack([router_aux(st, n_tokens) for st in stats]).mean()
         return _rms_norm(x, params["ln_f"]), aux
 
-    def trunk_kv(self, params: dict, tokens: torch.Tensor):
+    def trunk_kv(self, params: dict, tokens: torch.Tensor, *, x=None, layers=None):
         """The serving prefill's trunk: tokens [B, S] → (final-norm hidden
         states [B, S, D], k, v), k/v each [L, B, S, K, Dh]. An MoE layer
         routes through the config's dispatch, as the JAX package's prefill
-        (``model._layer``) does: a capacity config drops here too."""
-        x = embed_rows(params["embed"], tokens, self.cfg.dtype)
+        (``model._layer``) does: a capacity config drops here too. ``x``:
+        the embedded tokens and ``layers`` the layer views, when the caller
+        provides them (a serving mesh's vocab-parallel lookup and its
+        layers gathered over fsdp, ``models.generate.ServingShard``)."""
+        if x is None:
+            x = embed_rows(params["embed"], tokens, self.cfg.dtype)
         ks, vs = [], []
-        for layer in unstack_layers(params["layers"]):
+        for layer in unstack_layers(params["layers"]) if layers is None else layers:
             x, k, v, _ = self._layer(x, layer)
             ks.append(k)
             vs.append(v)

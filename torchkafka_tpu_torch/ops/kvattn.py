@@ -503,7 +503,7 @@ def _valid(positions: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def block_table_attention(x, q, k_new, v_new, pool_k, pool_v, table, positions,
-                          layer, cfg):
+                          layer, cfg, shard=None):
     """One layer of write-then-attend over a compute-dtype paged pool.
 
     x: [B, S, D]; q/k_new/v_new: [B, S, ·, Dh] (already rope'd); pools
@@ -511,14 +511,17 @@ def block_table_attention(x, q, k_new, v_new, pool_k, pool_v, table, positions,
     Every row's k/v is written before any row reads (a chunk's rows
     attend over positions earlier rows of the same chunk write), then
     each query attends over [0, its position] of its slot's gathered view
-    through the shared ``_attend_cached`` tail. Returns x."""
+    through the shared ``_attend_cached`` tail. Returns x. ``shard``: the
+    rank's ``models.generate.ServingShard`` (the pools hold its kv heads).
+    """
     from torchkafka_tpu_torch.models.generate import _attend_cached
 
     paged_scatter(pool_k, table, positions, k_new)
     paged_scatter(pool_v, table, positions, v_new)
     ck = paged_gather(pool_k, table)  # [B, M', K, Dh]
     cv = paged_gather(pool_v, table)
-    return _attend_cached(x, q, ck, cv, _valid(positions, ck.shape[1]), layer, cfg)
+    return _attend_cached(x, q, ck, cv, _valid(positions, ck.shape[1]), layer, cfg,
+                          shard=shard)
 
 
 def paged_write_q8(pool_kq, pool_ks, pool_vq, pool_vs, table, positions,
@@ -537,7 +540,7 @@ def paged_write_q8(pool_kq, pool_ks, pool_vq, pool_vs, table, positions,
 
 
 def block_table_attention_q8(x, q, k_new, v_new, pool_kq, pool_ks, pool_vq,
-                             pool_vs, table, positions, layer, cfg):
+                             pool_vs, table, positions, layer, cfg, shard=None):
     """``block_table_attention`` over the INT8 paged pool: ``paged_write_q8``,
     then the scale-folded ``_attend_cached`` on the gathered view. Returns
     x. ``int8_paged_decode_attention`` replaces only this read on
@@ -550,7 +553,7 @@ def block_table_attention_q8(x, q, k_new, v_new, pool_kq, pool_ks, pool_vq,
     cks = paged_gather_kmajor(pool_ks, table)  # [B, M', K] f32
     cvs = paged_gather_kmajor(pool_vs, table)
     return _attend_cached(x, q, ck, cv, _valid(positions, ck.shape[1]), layer,
-                          cfg, k_scale=cks, v_scale=cvs)
+                          cfg, k_scale=cks, v_scale=cvs, shard=shard)
 
 
 def paged_kernel_applicable(head_dim: int, block_size: int, n_rep: int = 1) -> bool:
@@ -656,6 +659,40 @@ def int8_paged_decode_attention(q, pool_kq, pool_ks, pool_vq, pool_vs, table, po
 
 
 int8_paged_decode_attention.launches = 0
+
+
+def _check_local(what: str, q, pool, kv_dim: int, shard, slots_split: bool) -> None:
+    """A sharded read's operands must be the rank's own: q's H/tp heads, the
+    pool's K/tp kv heads on dim ``kv_dim`` and, where the slots split over
+    data, B/data slots; allocated at those local shapes (contiguous), never
+    as views into a whole pool."""
+    cfg = shard.cfg
+    h, k = cfg.n_heads // shard.tp, cfg.n_kv_heads // shard.tp
+    if q.shape[2] != h or pool.shape[kv_dim] != k:
+        raise ValueError(f"{what}: this rank holds {h} q heads and {k} kv heads "
+                         f"(tp={shard.tp}), got q {tuple(q.shape)}, pool {tuple(pool.shape)}")
+    if slots_split and q.shape[0] != pool.shape[0]:
+        raise ValueError(f"{what}: q has {q.shape[0]} slots, the pool {pool.shape[0]}")
+
+
+def int8_decode_attention_dynlen_sharded(q, ck_q, ck_s, cv_q, cv_s, pos, shard):
+    """K4 on a serving mesh (``shard``: the rank's
+    ``models.generate.ServingShard``): each rank reads its B/data slots'
+    K/tp kv heads of the K-major pool with its H/tp q heads. Attention is
+    head-local and slot-local, so no collective runs; the launch counts on
+    ``int8_decode_attention_dynlen.launches`` as any other."""
+    _check_local("int8_decode_attention_dynlen_sharded", q, ck_q, 1, shard, True)
+    return int8_decode_attention_dynlen(q, ck_q, ck_s, cv_q, cv_s, pos)
+
+
+def int8_paged_decode_attention_sharded(q, pool_kq, pool_ks, pool_vq, pool_vs, table,
+                                        pos, shard):
+    """K5 on a serving mesh: each rank reads its K/tp kv heads of the paged
+    pool (blocks replicated over data) through the replicated tables. No
+    collective runs; the launch counts on
+    ``int8_paged_decode_attention.launches``."""
+    _check_local("int8_paged_decode_attention_sharded", q, pool_kq, 1, shard, False)
+    return int8_paged_decode_attention(q, pool_kq, pool_ks, pool_vq, pool_vs, table, pos)
 
 
 def _lib_paged():

@@ -60,6 +60,7 @@ import torch
 
 from torchkafka_tpu_torch.commit import CommitBarrier, CommitSequencer, CommitToken, OffsetLedger
 from torchkafka_tpu_torch.errors import ConsumerClosedError
+from torchkafka_tpu_torch.parallel.lockstep import MeshConsumer, agree
 from torchkafka_tpu_torch.source.consumer import Consumer
 from torchkafka_tpu_torch.transform.batcher import Batch, Batcher
 from torchkafka_tpu_torch.transform.bucket import BucketBatcher
@@ -109,6 +110,9 @@ class KafkaStream:
         caller forks (threads don't survive fork).
     idle_timeout_ms: if set, the stream ends after this long with no new
         records (flushing the tail under 'pad'); if None, it streams forever.
+        Over a ``parallel.lockstep.MeshConsumer`` (every rank of a mesh
+        reading the root's polls) the root's clock decides, for every rank;
+        such a stream runs with ``prefetch=0``.
     transform_threads: >0 runs the processor in a thread pool (order
         preserved); numpy-heavy processors release the GIL and scale.
     on_processor_error: what a RAISING processor does to the stream.
@@ -218,6 +222,13 @@ class KafkaStream:
         self._max_poll = max_poll_records
         self._poll_timeout_ms = poll_timeout_ms
         self._idle_timeout_ms = idle_timeout_ms
+        # A consumer shared by the ranks of a serving mesh
+        # (``parallel.lockstep.MeshConsumer``): the idle decision is the
+        # root's, and only the synchronous path takes it.
+        self._lockstep = consumer.mesh if isinstance(consumer, MeshConsumer) else None
+        if self._lockstep is not None and prefetch != 0:
+            raise ValueError("a MeshConsumer stream runs synchronously (prefetch=0): "
+                             "every rank polls at the same point of its loop")
         self._owns_consumer = owns_consumer
         self._clock = clock or time
         self._on_processor_error = on_processor_error
@@ -493,10 +504,13 @@ class KafkaStream:
             now = monotonic()
             if self._idle_since is None:
                 self._idle_since = now
-            if self._stop.is_set() or (
-                self._idle_timeout_ms is not None
-                and (now - self._idle_since) * 1000 >= self._idle_timeout_ms
-            ):
+            idle = (self._idle_timeout_ms is not None
+                    and (now - self._idle_since) * 1000 >= self._idle_timeout_ms)
+            if self._lockstep is not None:
+                # Ranks of a serving mesh poll the root's consumer: the
+                # root's clock ends the stream for every rank.
+                idle = agree(self._lockstep, idle)
+            if self._stop.is_set() or idle:
                 tails = self._batcher.flush_tails()
                 self._exhausted = True
                 if not tails:

@@ -160,8 +160,29 @@ bytes) and the slot resumes as after one emitted token, with no prompt
 pass; a handoff that fails its checks counts ``resume_rejected`` and the
 record prefills locally.
 
-Still raising ``NotImplementedError`` with its ROADMAP queue A title
-(``_DEFERRED``): mesh.
+Sharded serving (``mesh=``, a ``parallel.make_mesh`` mesh over data,
+fsdp, tp and ep): the ranks of the mesh each build this server with the
+same arguments and run the same host loop on the same records
+(``parallel.lockstep``). The root (every coordinate 0) takes the consumer
+and alone commits offsets, sends outputs, writes the journal,
+dead-letters and publishes distill frames; the other ranks pass
+``consumer=None`` (their producers, journal, quarantine and distill
+arguments are not used), and the root's polls are broadcast to them. The
+weights are laid out by ``models.generate.serving_shardings`` (a whole
+tree on every rank, or ``shard_params``' ``DTensor``s) and the pools by
+its placement records: a dense pool splits its slots over data (each data
+rank computes its slots; after each tick block the done mask, counts,
+positions and outputs are all-gathered over data so every host loop sees
+the whole pool) and its kv heads over tp; a paged pool splits kv heads
+over tp with the blocks, tables and per-slot state replicated over data
+(the paged program runs alike on every data rank). K1 runs on each
+rank's rows and heads, K4/K5 on its local pool (``ops.kvattn.*_sharded``).
+A tick block under a mesh whose tick runs collectives (tp, fsdp or ep
+over 1; gloo stages through host memory and cannot be captured) runs
+eagerly, by rule, and ``decode_roofline`` raises there. At f32 the
+compute-dtype pools are token-exact against single-process serving; an
+int8 pool under tp can part from it where a layer's k/v lands on an int8
+rounding edge (the split sums round apart in the last bit).
 """
 
 from __future__ import annotations
@@ -193,10 +214,18 @@ from torchkafka_tpu_torch.kvcache.blocks import (
 from torchkafka_tpu_torch.kvcache.radix import RadixCache
 from torchkafka_tpu_torch.kvcache.tier import HostTier, TierConfig
 from torchkafka_tpu_torch.models.generate import (
+    ServingShard,
     _attend_cached,
     _attn_tail,
     _project_qkv,
     check_sampling_params,
+    kv_kmajor_scale_sharding,
+    kv_kmajor_sharding,
+    kv_scale_sharding,
+    kv_sharding,
+    paged_pool_kmajor_sharding,
+    paged_pool_sharding,
+    paged_scale_kmajor_sharding,
     prefill_capture,
     prefill_model,
     sample_logits,
@@ -211,17 +240,20 @@ from torchkafka_tpu_torch.models.transformer import (
     TransformerConfig,
     _rms_norm,
     _rope,
-    layer_at,
     matmul_f32,
+    unstack_layers,
 )
 from torchkafka_tpu_torch.obs.trace import _default_tenant
 from torchkafka_tpu_torch.ops.kvattn import (
     block_table_attention,
     block_table_attention_q8,
     int8_decode_attention_dynlen,
+    int8_decode_attention_dynlen_sharded,
     int8_paged_decode_attention,
+    int8_paged_decode_attention_sharded,
     paged_write_q8,
 )
+from torchkafka_tpu_torch.parallel.lockstep import MeshConsumer, agree
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
 from torchkafka_tpu_torch.source.checkpoint_wire import _dtype_name, _host_leaf
 from torchkafka_tpu_torch.source.producer import RecordMetadata, _ResolvedSend
@@ -237,21 +269,6 @@ from torchkafka_tpu_torch.utils.metrics import (
 )
 
 _logger = logging.getLogger(__name__)
-
-# Arguments of the JAX package's server that this port does not serve yet,
-# each with the title of the ROADMAP queue A item that ports it. Passing
-# one (with a value other than None/False) raises NotImplementedError;
-# none is silently ignored.
-_DEFERRED = {
-    "mesh": "Sharded serving",
-}
-
-
-def _not_ported(what: str, title: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A: {title})"
-    )
-
 
 # The card's device memory rate: decode is bandwidth-bound, so this is the
 # denominator of the port's serving rooflines (``decode_roofline``, harness
@@ -325,10 +342,11 @@ def _rng_words(rng) -> tuple[int, int]:
     )
 
 
-def _slot_layer_step(x, layer, cache_k, cache_v, pos, rows, cfg):
+def _slot_layer_step(x, layer, cache_k, cache_v, pos, rows, cfg, shard=None):
     """One decode token through one layer with a different position per
     slot, over the compute-dtype pool. x: [B, 1, D]; caches [B, M, K, Dh]
-    (one layer's views, written in place); pos: [B] int32."""
+    (one layer's views, written in place); pos: [B] int32. ``shard``: the
+    rank's ``ServingShard`` (its slots, heads and layer shards)."""
     q, k, v = _project_qkv(x, layer, cfg)
     q = _rope(q, pos[:, None], cfg.rope_theta)
     k = _rope(k, pos[:, None], cfg.rope_theta)
@@ -337,10 +355,11 @@ def _slot_layer_step(x, layer, cache_k, cache_v, pos, rows, cfg):
     cache_v.index_put_((rows, p), v[:, 0].to(cache_v.dtype))
     m = torch.arange(cache_k.shape[1], device=x.device)
     valid = m[None, :] <= pos[:, None]  # [B, M]
-    return _attend_cached(x, q, cache_k, cache_v, valid, layer, cfg)
+    return _attend_cached(x, q, cache_k, cache_v, valid, layer, cfg, shard=shard)
 
 
-def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg, kernel):
+def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg, kernel,
+                       shard=None):
     """The int8-pool variant: the fresh k/v are quantized into the shared
     per-(position, head) groups and scattered into one layer's views in
     place. ``kernel``: the K-major pool (payloads [B, K, M, Dh], scales
@@ -364,15 +383,19 @@ def _slot_layer_step_q(x, layer, ck_q, ck_s, cv_q, cv_s, pos, rows, cfg, kernel)
     cv_q.index_put_(idx, vq)
     cv_s.index_put_(idx, vs)
     if kernel:
-        attn = int8_decode_attention_dynlen(q, ck_q, ck_s, cv_q, cv_s, pos)
-        return _attn_tail(x, attn, layer, cfg)
+        if shard is None:
+            attn = int8_decode_attention_dynlen(q, ck_q, ck_s, cv_q, cv_s, pos)
+        else:
+            attn = int8_decode_attention_dynlen_sharded(q, ck_q, ck_s, cv_q, cv_s,
+                                                        pos, shard)
+        return _attn_tail(x, attn, layer, cfg, shard)
     valid = torch.arange(ck_q.shape[1], device=x.device)[None, :] <= pos[:, None]
     return _attend_cached(x, q, ck_q, cv_q, valid, layer, cfg,
-                          k_scale=ck_s, v_scale=cv_s)
+                          k_scale=ck_s, v_scale=cv_s, shard=shard)
 
 
 def _paged_sweep(x, positions, tables, layers, pools, cfg, *, kernel=False,
-                 pos_b=None):
+                 pos_b=None, shard=None):
     """All layers' write-then-attend over a paged pool for a batch of query
     rows. x: [R, S, D]; positions: [R, S]; tables: [R, nblk] PER-ROW block
     tables (decode rows carry the slot table, chunk rows their own freshly
@@ -380,7 +403,8 @@ def _paged_sweep(x, positions, tables, layers, pools, cfg, *, kernel=False,
     layer views; ``pools``: that model's pools, [L, NB, ...] each (two in
     the compute dtype, or the int8 pool's four). ``kernel``: S=1 rows read
     through the block-table kernel at watermarks ``pos_b`` (int8 pool
-    only)."""
+    only). ``shard``: the rank's ``ServingShard`` (the pools hold its kv
+    heads)."""
     int8 = pools[0].dtype == torch.int8
     for i, layer in enumerate(layers):
         q, k, v = _project_qkv(x, layer, cfg)
@@ -389,12 +413,17 @@ def _paged_sweep(x, positions, tables, layers, pools, cfg, *, kernel=False,
         pl = [p[i] for p in pools]
         if kernel:
             paged_write_q8(*pl, tables, positions, k, v)
-            attn = int8_paged_decode_attention(q, *pl, tables, pos_b)
-            x = _attn_tail(x, attn, layer, cfg)
+            if shard is None:
+                attn = int8_paged_decode_attention(q, *pl, tables, pos_b)
+            else:
+                attn = int8_paged_decode_attention_sharded(q, *pl, tables, pos_b, shard)
+            x = _attn_tail(x, attn, layer, cfg, shard)
         elif int8:
-            x = block_table_attention_q8(x, q, k, v, *pl, tables, positions, layer, cfg)
+            x = block_table_attention_q8(x, q, k, v, *pl, tables, positions, layer,
+                                         cfg, shard)
         else:
-            x = block_table_attention(x, q, k, v, *pl, tables, positions, layer, cfg)
+            x = block_table_attention(x, q, k, v, *pl, tables, positions, layer, cfg,
+                                      shard)
     return x
 
 
@@ -954,9 +983,14 @@ class StreamingGenerator:
     ``resilience.PoisonQuarantine`` for prompts ``decode_prompt`` rejects
     (module docstring); None drops them.
     ``device``: where the model and the pool live; None = CUDA, raising
-    when there is none (``utils.devices.resolve_device``). The other
-    arguments of the JAX package's server raise ``NotImplementedError``
-    (``_DEFERRED``)."""
+    when there is none (``utils.devices.resolve_device``).
+    ``mesh``: sharded serving over a ``parallel.make_mesh`` mesh (module
+    docstring): every rank of the mesh builds the server with the same
+    arguments, except that only the root (every coordinate 0) passes a
+    consumer (or a ``parallel.lockstep.MeshConsumer`` on every rank); the
+    side-effect arguments are used on the root only. ``check_serving_mesh``
+    validates it with the JAX package's errors; a pp axis raises
+    ``NotImplementedError``."""
 
     def __init__(
         self,
@@ -994,15 +1028,20 @@ class StreamingGenerator:
         distill_topic: str | None = None,
         distill_producer=None,
         prefill_role: bool = False,
+        mesh=None,
         device=None,
-        **deferred,
     ) -> None:
-        for name, value in deferred.items():
-            if name not in _DEFERRED:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value is not None and value is not False:
-                raise _not_ported(f"{name}=", _DEFERRED[name])
         check_sampling_params(top_k, top_p)
+        self._shard = None if mesh is None else ServingShard(cfg, mesh, batch=slots)
+        if mesh is not None:
+            consumer = (consumer if isinstance(consumer, MeshConsumer)
+                        else MeshConsumer(consumer, mesh))
+            if not consumer.root:
+                # Side effects happen once, on the root: this rank's
+                # server sends, journals, dead-letters and publishes nothing.
+                output_producer = output_topic = distill_producer = None
+                distill_topic = journal = quarantine = None
+                exactly_once = False
         self._rng_words = _rng_words(rng)
         if prompt_len + max_new > cfg.max_seq_len:
             raise ValueError("prompt_len + max_new exceeds cfg.max_seq_len")
@@ -1075,8 +1114,13 @@ class StreamingGenerator:
         self._trace_replica = trace_replica
         self._max_new_of = max_new_of
         self._device = resolve_device(device)
+        self._tick_collectives = self._shard is not None and self._shard.tick_collectives
         self._consumer = consumer
-        self._params = _params_to(params, self._device)
+        # The consumer offsets are committed through: the root's own (None
+        # on the other ranks of a mesh, whose commits are no-ops).
+        self._commit_consumer = (consumer.inner if isinstance(consumer, MeshConsumer)
+                                 else consumer)
+        self._params = self._place(params)
         self._cfg = cfg
         self._slots = slots
         self._prompt_len = prompt_len
@@ -1138,7 +1182,7 @@ class StreamingGenerator:
         # _build re-resolves if a too-small paged pool falls back to dense.
         self._kv_backend = resolve_kv_backend(
             cfg, kv_dtype=kv_dtype, kv_kernel=kv_kernel, kv_pages=kv_pages,
-            max_len=self._max_len, device=self._device,
+            max_len=self._max_len, device=self._device, mesh=mesh,
         )
         self._kv_pages = kv_pages
         self._kv_int8 = self._kv_backend.int8
@@ -1160,22 +1204,31 @@ class StreamingGenerator:
         self._build()
         self.metrics.note_backend(self._kv_backend)
 
+    def _place(self, params):
+        """``params`` on this server's device: this rank's share under a
+        mesh (``ServingShard.local_params``), else the whole tree (leaves
+        already there are kept)."""
+        if self._shard is not None:
+            return self._shard.local_params(params, self._device)
+        return _params_to(params, self._device)
+
+    def _local_shape(self, shape: tuple, layout) -> tuple:
+        """A pool's shape on this rank: ``shape`` under ``layout(mesh)``
+        (the ``models.generate`` placement records) on a mesh, else
+        ``shape``. A paged pool's data axis is replicated, so only its kv
+        heads split."""
+        if self._shard is None:
+            return shape
+        return layout(self._shard.mesh).local_shape(shape)
+
     def _build(self) -> None:
         cfg, dev = self._cfg, self._device
         B, M, max_new = self._slots, self._max_len, self._max_new
         nl, kh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        self._model = prefill_model(cfg)
+        self._model = prefill_model(cfg, None if self._shard is None else self._shard.mesh)
         self._bind_params(self._params)
-        self._rows = torch.arange(B, device=dev)
-        self._last_tok = torch.zeros((B,), dtype=torch.int32, device=dev)
-        self._pos = torch.zeros((B,), dtype=torch.int32, device=dev)
-        self._gen = torch.zeros((B, max_new), dtype=torch.int32, device=dev)
-        # Per-slot RECORD key data (sampled runs; merged at admission).
-        self._slot_keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
-        if self._kv_pages is not None:
-            if self._paged_setup():
-                self._build_paged()
-                return
+        paged = self._kv_pages is not None and self._paged_setup()
+        if self._kv_pages is None and self._kv_backend.paged:
             if self._prefill_role:
                 raise ValueError(
                     "prefill_role cannot fall back to dense serving — size "
@@ -1184,15 +1237,34 @@ class StreamingGenerator:
             self._kv_backend = resolve_kv_backend(
                 cfg, kv_dtype=self._kv_dtype, kv_kernel=self._kv_kernel_opt,
                 max_len=M, device=dev,
+                mesh=None if self._shard is None else self._shard.mesh,
             )
+        # This rank's slots: a dense pool splits them over data (the first
+        # ``_slot_lo`` .. + ``_local_slots``); the paged program holds all.
+        if self._shard is not None and not paged:
+            self._slot_lo, bl = self._shard.row_range(B)
+        else:
+            self._slot_lo, bl = 0, B
+        self._local_slots = bl
+        self._rows = torch.arange(bl, device=dev)
+        self._last_tok = torch.zeros((bl,), dtype=torch.int32, device=dev)
+        self._pos = torch.zeros((bl,), dtype=torch.int32, device=dev)
+        self._gen = torch.zeros((bl, max_new), dtype=torch.int32, device=dev)
+        # Per-slot RECORD key data (sampled runs; merged at admission).
+        self._slot_keys = torch.zeros((bl, 2), dtype=torch.int64, device=dev)
+        if paged:
+            self._build_paged()
+            return
         if self._kv_int8:
             if self._kv_backend.kernel:
                 # K-major, the fill-bounded kernel's layout: each (slot,
                 # head) row of M positions is contiguous.
-                pay, sc = (nl, B, kh, M, dh), (nl, B, kh, M)
+                pay = self._local_shape((nl, B, kh, M, dh), kv_kmajor_sharding)
+                sc = self._local_shape((nl, B, kh, M), kv_kmajor_scale_sharding)
             else:
                 # M-major, the layout _attend_cached reads.
-                pay, sc = (nl, B, M, kh, dh), (nl, B, M, kh)
+                pay = self._local_shape((nl, B, M, kh, dh), kv_sharding)
+                sc = self._local_shape((nl, B, M, kh), kv_scale_sharding)
             self._caches = (
                 torch.zeros(pay, dtype=torch.int8, device=dev),
                 torch.zeros(sc, dtype=torch.float32, device=dev),
@@ -1200,7 +1272,7 @@ class StreamingGenerator:
                 torch.zeros(sc, dtype=torch.float32, device=dev),
             )
         else:
-            shape = (nl, B, M, kh, dh)
+            shape = self._local_shape((nl, B, M, kh, dh), kv_sharding)
             self._caches = (
                 torch.zeros(shape, dtype=cfg.dtype, device=dev),
                 torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -1250,7 +1322,8 @@ class StreamingGenerator:
         if self._kv_int8:
             # K-major per block: each block's [K, bs, Dh] tile is the
             # block-table kernel's unit, each (block, head) run contiguous.
-            pay, sc = (nl, NB, kh, bs, dh), (nl, NB, kh, bs)
+            pay = self._local_shape((nl, NB, kh, bs, dh), paged_pool_kmajor_sharding)
+            sc = self._local_shape((nl, NB, kh, bs), paged_scale_kmajor_sharding)
             self._pools = (
                 torch.zeros(pay, dtype=torch.int8, device=dev),
                 torch.zeros(sc, dtype=torch.float32, device=dev),
@@ -1258,7 +1331,7 @@ class StreamingGenerator:
                 torch.zeros(sc, dtype=torch.float32, device=dev),
             )
         else:
-            shape = (nl, NB, bs, kh, dh)
+            shape = self._local_shape((nl, NB, bs, kh, dh), paged_pool_sharding)
             self._pools = (
                 torch.zeros(shape, dtype=cfg.dtype, device=dev),
                 torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -1312,12 +1385,25 @@ class StreamingGenerator:
         decode writes it)."""
         return (self._prompt_len - 1) // self._kv_pages.block_size + 1
 
+    def _pool_head_dim(self, pool: torch.Tensor) -> int:
+        """The kv-head dim of a paged pool: 3 of [L, NB, bs, K, Dh], 2 of
+        the int8 pool's K-major [L, NB, K, bs(, Dh)]."""
+        return 2 if pool.dtype == torch.int8 or pool.dim() == 4 else 3
+
     def _extract_prompt_blocks(self, slot: int) -> tuple[int, tuple]:
         """The slot's prompt blocks of every pool, on the host (bf16 as CPU
-        tensors); ``index_select`` copies, so none shares the pool."""
+        tensors); ``index_select`` copies, so none shares the pool. Under a
+        mesh the blocks hold this rank's kv heads and are all-gathered over
+        tp: the payload is the whole pool's bytes, as on one device."""
         nb_p = self._prompt_block_count()
         ids = self._h2d(self._table_np[slot, :nb_p].astype(np.int64))
-        return nb_p, tuple(_host_leaf(p.index_select(1, ids)) for p in self._pools)
+        blocks = [p.index_select(1, ids) for p in self._pools]
+        if self._shard is not None and self._shard.tp > 1:
+            from torchkafka_tpu_torch.parallel.collectives import all_gather
+
+            blocks = [all_gather(b, self._pool_head_dim(b), self._shard.group("tp"))
+                      for b in blocks]
+        return nb_p, tuple(_host_leaf(b) for b in blocks)
 
     def _harvest_prefilled(self, finishers) -> None:
         """Prefill-role epilogue of a chunk tick: each slot whose suffix
@@ -1389,6 +1475,13 @@ class StreamingGenerator:
         if hand is None:
             return None
         nb_p = self._prompt_block_count()
+        tp = 1 if self._shard is None else self._shard.tp
+
+        def whole(p):  # the handoff's shape of pool p: every kv head
+            shape = [p.shape[0], nb_p, *p.shape[2:]]
+            shape[self._pool_head_dim(p)] *= tp
+            return tuple(shape)
+
         ok = (
             hand.crc == value_crc(rec.value)
             and hand.temperature == self._temperature
@@ -1397,8 +1490,7 @@ class StreamingGenerator:
             and hand.prompt_blocks == nb_p
             and len(hand.pools) == len(self._pools)
         ) and all(
-            tuple(a.shape) == (p.shape[0], nb_p) + tuple(p.shape[2:])
-            and _dtype_name(a) == _dtype_name(p)
+            tuple(a.shape) == whole(p) and _dtype_name(a) == _dtype_name(p)
             for a, p in zip(hand.pools, self._pools)
         )
         if not ok:
@@ -1409,17 +1501,27 @@ class StreamingGenerator:
     def _adopt_upload(self, block_ids: list[int], payloads: tuple) -> None:
         """Copy an adopted handoff's payload blocks into the pools: one
         indexed copy a pool. Each payload is snapshotted before its copy
-        (the handoff's arrays may alias a message buffer)."""
+        (the handoff's arrays may alias a message buffer). Under a mesh the
+        payload holds every kv head and this rank copies its tp chunk of
+        them, the layout the pools were built under."""
         ids = self._h2d(np.asarray(block_ids, np.int64))
         for p, a in zip(self._pools, payloads):
             src = (a.to(self._device, copy=True) if isinstance(a, torch.Tensor)
                    else self._h2d(a))
+            if self._shard is not None and self._shard.tp > 1:
+                d = self._pool_head_dim(p)
+                src = src.chunk(self._shard.tp, dim=d)[self._shard.rank("tp")].contiguous()
             p.index_copy_(1, ids, src)
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
         """Snapshot a host array, then copy it to the device: the tensor
         never aliases a buffer the host may reuse."""
         return torch.from_numpy(np.array(arr, copy=True)).to(self._device)
+
+    def _h2d_local(self, arr: np.ndarray) -> torch.Tensor:
+        """``_h2d`` of this rank's slots of a host array over every slot
+        ([B, ...]): rows [_slot_lo, _slot_lo + _local_slots)."""
+        return self._h2d(arr[self._slot_lo:self._slot_lo + self._local_slots])
 
     def _device_table(self) -> torch.Tensor:
         """The block table the decode rows read. In chunked mode the rows
@@ -1442,11 +1544,17 @@ class StreamingGenerator:
         self._table_np[i, :] = SINK_BLOCK
 
     def _head(self, x_last) -> torch.Tensor:
-        """Final norm + LM head on [R, D] rows → f32 logits [R, V]."""
+        """Final norm + LM head on [R, D] rows → f32 logits [R, V] (under a
+        mesh the columns of every tp rank, all-gathered)."""
         x = _rms_norm(x_last, self._params["ln_f"])
+        if self._shard is not None:
+            return self._shard.logits(x, self._params["lm_head"], self._cfg.dtype)
         return matmul_f32(x, self._params["lm_head"], self._cfg.dtype)
 
     def _embed(self, toks) -> torch.Tensor:
+        """The token embeddings (under a mesh the vocab-parallel lookup)."""
+        if self._shard is not None:
+            return self._shard.embed(self._params["embed"], toks, self._cfg.dtype)
         return embed_rows(self._params["embed"], toks, self._cfg.dtype)
 
     def _suffix_prefill(self, table_row: np.ndarray, toks: np.ndarray,
@@ -1461,7 +1569,7 @@ class StreamingGenerator:
         positions = (start + torch.arange(s, device=self._device))[None, :]
         table = self._h2d(table_row)[None, :]
         x = _paged_sweep(x, positions.to(torch.int32), table, self._layers,
-                         self._pools, self._cfg)
+                         self._pools, self._cfg, shard=self._shard)
         return self._head(x[:, -1])
 
     def _pack_chunk(self):
@@ -1787,7 +1895,7 @@ class StreamingGenerator:
         """Install the admitted slots' record keys (sampled runs only)."""
         if self._sampled and key_mask.any():
             self._slot_keys = torch.where(
-                self._h2d(key_mask)[:, None], self._h2d(keys_np),
+                self._h2d_local(key_mask)[:, None], self._h2d_local(keys_np),
                 self._slot_keys,
             )
 
@@ -1823,10 +1931,14 @@ class StreamingGenerator:
         stale contents; every one is rewritten by the tick that reaches it
         before it can be read."""
         cfg, P = self._cfg, self._prompt_len
-        idx = np.nonzero(admit_mask)[0]
+        lo, bl = self._slot_lo, self._local_slots
+        idx = np.nonzero(admit_mask[lo:lo + bl])[0]  # this rank's rows
+        if not len(idx):
+            return  # every admitted slot is another data rank's
         rows = self._h2d(idx)
-        toks = self._h2d(prompts[idx])
-        logits, ks, vs = prefill_capture(self._params, cfg, toks, self._model)
+        toks = self._h2d(prompts[lo:lo + bl][idx])
+        logits, ks, vs = prefill_capture(self._params, cfg, toks, self._model,
+                                         self._shard)
         c = self._caches
         if self._kv_int8:
             kq, ksc = quant_kv_groups(ks)  # [L, n, P, K, Dh], [L, n, P, K]
@@ -1854,7 +1966,7 @@ class StreamingGenerator:
         if self._kv_pages is not None:
             x = _paged_sweep(
                 x, pos[:, None], self._table_dev, self._layers, self._pools, cfg,
-                kernel=self._kv_backend.kernel, pos_b=pos,
+                kernel=self._kv_backend.kernel, pos_b=pos, shard=self._shard,
             )
             return self._head(x[:, 0])
         c = self._caches
@@ -1862,11 +1974,11 @@ class StreamingGenerator:
             if self._kv_int8:
                 x = _slot_layer_step_q(
                     x, layer, c[0][i], c[1][i], c[2][i], c[3][i], pos,
-                    self._rows, cfg, self._kv_backend.kernel,
+                    self._rows, cfg, self._kv_backend.kernel, self._shard,
                 )
             else:
                 x = _slot_layer_step(
-                    x, layer, c[0][i], c[1][i], pos, self._rows, cfg
+                    x, layer, c[0][i], c[1][i], pos, self._rows, cfg, self._shard
                 )
         return self._head(x[:, 0])
 
@@ -1908,7 +2020,7 @@ class StreamingGenerator:
         decode-only, and finally token 0 of every slot whose suffix
         completed (``fin_mask``; its last token at chunk row ``fin_row``)
         is merged in, ready to decode in the next tick block."""
-        B = self._slots
+        B = self._local_slots
         dev = self._device
         last_tok, pos, gen = self._last_tok, self._pos, self._gen
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -1920,7 +2032,7 @@ class StreamingGenerator:
             x = _paged_sweep(
                 x, torch.cat([pos, cpos])[:, None],
                 torch.cat([self._table_dev, ctable]), self._layers, self._pools,
-                self._cfg,
+                self._cfg, shard=self._shard,
             )
             logits = self._head(x[:, 0])  # [B + C, V]
             chunk_logits = logits[B:]
@@ -1963,14 +2075,15 @@ class StreamingGenerator:
         sink); legacy paged, one suffix prefill through an all-sink table.
         Then one tick block over an all-inactive pool (inactive slots only
         write at their frozen positions)."""
-        B, dev = self._slots, self._device
+        B, dev = self._local_slots, self._device
         none = torch.zeros((B,), dtype=torch.bool, device=dev)
         with torch.inference_mode():
             if self._kv_pages is None:
                 toks = torch.zeros(
                     (1, self._prompt_len), dtype=torch.int32, device=dev
                 )
-                prefill_capture(self._params, self._cfg, toks, self._model)
+                prefill_capture(self._params, self._cfg, toks, self._model,
+                                self._shard)
             elif self._chunked:
                 C, nblk = self._prefill_chunk, self._blocks_per_slot
                 zero = torch.zeros((C,), dtype=torch.int32, device=dev)
@@ -1997,9 +2110,13 @@ class StreamingGenerator:
         the tick state) are copied into the graph's buffers before a replay
         and the state is bound to copies of its outputs after. Paged
         pools, chunk ticks, int8 pools (whose decode kernel counts its
-        launches from Python), sampling and the CPU run the eager block."""
+        launches from Python), sampling and the CPU run the eager block,
+        and so does a mesh whose tick runs collectives (tp, fsdp or ep over
+        1: gloo stages them through host memory, which a graph cannot
+        capture); a data-only mesh's tick runs none and replays."""
         if (chunk is not None or self._kv_pages is not None or self._kv_int8
-                or self._sampled or self._device.type != "cuda"):
+                or self._sampled or self._device.type != "cuda"
+                or self._tick_collectives):
             return self._tick_block(active, chunk)
         if self._block_graph is None:
             self._block_graph = self._capture_block()
@@ -2019,7 +2136,7 @@ class StreamingGenerator:
         write precedes any read of (``warmup``'s all-inactive block)."""
         dev = self._device
         live = self._tick_state()
-        s_active = torch.zeros((self._slots,), dtype=torch.bool, device=dev)
+        s_active = torch.zeros((self._local_slots,), dtype=torch.bool, device=dev)
         s_state = [t.clone() for t in live]
 
         def block():
@@ -2090,10 +2207,17 @@ class StreamingGenerator:
         calls; replays add nothing) and ``peak_card``."""
         if fill not in ("mid", "live"):
             raise ValueError(f"fill must be 'mid' or 'live', got {fill!r}")
+        if self._tick_collectives:
+            raise ValueError(
+                "decode_roofline times replays of a captured tick block; this "
+                "mesh's tick runs collectives (tp, fsdp or ep over 1), which "
+                "gloo stages through host memory and a CUDA graph cannot "
+                "capture, so there is no device tick to time"
+            )
         from torchkafka_tpu_torch.fleet.proc import launch_counts
         from torchkafka_tpu_torch.utils.timing import two_point_slope
 
-        B, K, dev = self._slots, self._ticks_per_sync, self._device
+        B, K, dev = self._local_slots, self._ticks_per_sync, self._device
         active = torch.ones((B,), dtype=torch.bool, device=dev)
         pos_saved = self._pos
         if fill == "mid":
@@ -2461,8 +2585,15 @@ class StreamingGenerator:
     def _resume_supported(self) -> bool:
         """Can a PARTIAL hint warm-resume here? Not on an int8 pool: it
         gives up the token-exactness warm resume exists to keep (the
-        record replays cold, as in the JAX package)."""
-        return not self._kv_int8
+        record replays cold, as in the JAX package). Under a mesh, as in
+        the JAX package: the paged chunked pool resumes (its resume is a
+        chunk-queue suffix, replicated over data), the dense pool only on a
+        mesh without a data axis (its resume prefills one slot's rows)."""
+        if self._kv_int8:
+            return False
+        if self._shard is None or (self._kv_pages is not None and self._chunked):
+            return True
+        return self._shard.data == 1
 
     def _key_for_journal(self, rec: Record):
         """``rec``'s record key where a journal entry or the sampler needs
@@ -2528,10 +2659,10 @@ class StreamingGenerator:
             last[i] = emitted[-1]
             pos[i] = P + len(emitted) - 1
             gen[i, :len(emitted)] = emitted
-        m = self._h2d(mask)
-        self._last_tok = torch.where(m, self._h2d(last), self._last_tok)
-        self._pos = torch.where(m, self._h2d(pos), self._pos)
-        self._gen = torch.where(m[:, None], self._h2d(gen), self._gen)
+        m = self._h2d_local(mask)
+        self._last_tok = torch.where(m, self._h2d_local(last), self._last_tok)
+        self._pos = torch.where(m, self._h2d_local(pos), self._pos)
+        self._gen = torch.where(m[:, None], self._h2d_local(gen), self._gen)
 
     def _resume_into_slot(self, i: int, rec: Record, prompt_toks,
                           hint: JournalEntry, key_np) -> None:
@@ -2542,7 +2673,7 @@ class StreamingGenerator:
         emitted = np.asarray(hint.tokens, np.int32)
         seq = np.concatenate([np.asarray(prompt_toks, np.int32), emitted[:-1]])
         _logits, ks, vs = prefill_capture(
-            self._params, self._cfg, self._h2d(seq)[None, :], self._model
+            self._params, self._cfg, self._h2d(seq)[None, :], self._model, self._shard
         )
         s, c = len(seq), self._caches
         c[0][:, i, :s] = ks[:, 0].to(c[0].dtype)
@@ -2588,20 +2719,20 @@ class StreamingGenerator:
             self._journal.set_model_version(version)
             self._journal.sync()
         crash_hook("swap_mid_apply")
-        self._bind_params(_params_to(params, self._device))
+        self._bind_params(self._place(params))
         self._model_version = version
         if self._tracer is not None:
             self._tracer.swapped(version, replica=self._trace_replica)
 
     def _bind_params(self, params) -> None:
-        """Serve ``params`` (on this server's device): the tree and the
-        per-layer views every sweep reads, rebound together (a captured
-        tick block reads the old ones: it is dropped)."""
+        """Serve ``params`` (on this server's device, this rank's share
+        under a mesh): the tree and the per-layer views every sweep reads,
+        rebound together (a captured tick block reads the old ones: it is
+        dropped). Under fsdp a layer's weights are gathered when it runs."""
         self._block_graph = None
         self._params = params
-        self._layers = [
-            layer_at(params["layers"], i) for i in range(self._cfg.n_layers)
-        ]
+        self._layers = (unstack_layers(params["layers"]) if self._shard is None
+                        else self._shard.layers(params["layers"]))
 
     def spawn_shadow(self, params, version: int) -> "StreamingGenerator":
         """A scratch server over CANDIDATE weights for canary shadow
@@ -2759,16 +2890,21 @@ class StreamingGenerator:
                         *ops, packed, finishers = self._pack_chunk()
                 with tracing.span(tracing.SPAN_TICK):
                     chunk = tuple(self._h2d(a) for a in ops) if run_chunk else None
-                    done, n_out = self._serve_block(self._h2d(self._active), chunk)
-                # ONE host sync per tick block: done/n_out/pos/gen together.
+                    done, n_out = self._serve_block(self._h2d_local(self._active), chunk)
+                # ONE host sync per tick block: done/n_out/pos/gen together
+                # (every data rank's slots, all-gathered, under a mesh that
+                # splits them).
                 with tracing.span(tracing.SPAN_SYNC):
-                    packed_h = torch.cat([
-                        done.to(torch.int32), n_out, self._pos,
-                        self._gen.reshape(-1),
-                    ]).cpu().numpy()
-            done_h = packed_h[:B].astype(bool)
-            n_out_h, pos_h = packed_h[B:2 * B], packed_h[2 * B:3 * B]
-            gen_h = packed_h[3 * B:].reshape(B, self._max_new)
+                    packed_t = torch.cat([
+                        done.to(torch.int32)[:, None], n_out[:, None],
+                        self._pos[:, None], self._gen,
+                    ], dim=1)
+                    if self._local_slots != B:
+                        packed_t = self._shard.gather_rows(packed_t)
+                    packed_h = packed_t.cpu().numpy()
+            done_h = packed_h[:, 0].astype(bool)
+            n_out_h, pos_h = packed_h[:, 1], packed_h[:, 2]
+            gen_h = packed_h[:, 3:]
             self.metrics.tick_time.observe(time.perf_counter() - tick_t0)
             self.metrics.decode_ticks.add(self._ticks_per_sync)
             if run_chunk:
@@ -2924,7 +3060,10 @@ class StreamingGenerator:
                 if not pending:
                     if exhausted_at is None:
                         exhausted_at = time.monotonic()
-                    elif (time.monotonic() - exhausted_at) * 1000 >= idle_timeout_ms:
+                    elif agree(
+                        None if self._shard is None else self._shard.mesh,
+                        (time.monotonic() - exhausted_at) * 1000 >= idle_timeout_ms,
+                    ):  # the root's clock decides for every rank of a mesh
                         break
                 continue
             for rec, out in self.step():
@@ -2950,6 +3089,8 @@ class StreamingGenerator:
         ``exactly_once`` the commit is one transaction (``_commit_txn``).
         A successful commit prunes the journal of what it covers."""
         t0 = time.perf_counter()
+        if self._commit_consumer is None:
+            return True  # a mesh rank other than the root: the root commits
         if self._txn_mode:
             return self._commit_txn(t0)
         if self._output_producer is not None:
@@ -2975,7 +3116,7 @@ class StreamingGenerator:
                     ) from exc
         snapshot = self._ledger.snapshot()
         try:
-            assigned = set(self._consumer.assignment())
+            assigned = set(self._commit_consumer.assignment())
         except Exception:  # noqa: BLE001 - transport hiccup: commit as-is
             assigned = None
         if assigned is not None:
@@ -2985,7 +3126,7 @@ class StreamingGenerator:
         crash_hook("pre_commit")
         try:
             with tracing.span(tracing.SPAN_COMMIT):
-                self._consumer.commit(snapshot)
+                self._commit_consumer.commit(snapshot)
             self.metrics.commit_latency.observe(time.perf_counter() - t0)
         except CommitFailedError:
             self.metrics.commit_failures.add(1)
@@ -3053,7 +3194,7 @@ class StreamingGenerator:
         p = self._output_producer
         snapshot = self._ledger.snapshot()
         try:
-            assigned = set(self._consumer.assignment())
+            assigned = set(self._commit_consumer.assignment())
         except Exception:  # noqa: BLE001 - transport hiccup: commit as-is
             assigned = None
         outbox = self._txn_outbox
@@ -3093,9 +3234,9 @@ class StreamingGenerator:
                 p.send(self._distill_topic, self._distill_outbox[ident])
             if snapshot:
                 p.send_offsets(
-                    self._consumer.group_id, snapshot,
-                    member_id=getattr(self._consumer, "member_id", None),
-                    generation=getattr(self._consumer, "generation", None),
+                    self._commit_consumer.group_id, snapshot,
+                    member_id=getattr(self._commit_consumer, "member_id", None),
+                    generation=getattr(self._commit_consumer, "generation", None),
                 )
             p.commit()
         except ProducerFencedError:

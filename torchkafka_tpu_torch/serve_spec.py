@@ -46,6 +46,11 @@ as it is plain XLA in the JAX package. ``spec_stats()`` reads the
 device-side (rounds, proposed, accepted) counters; ``swap_draft_params``
 hot-swaps the draft between ticks (the draft never changes committed
 output, only the acceptance).
+
+Under a mesh (``mesh=``, the base server's) the draft is sharded as the
+target is (its own ``ServingShard``: its heads over tp, its slots over
+data on a dense pool), and ``spec_stats()`` sums the data ranks'
+counters, a collective every rank of the mesh calls together.
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ import torch
 
 from torchkafka_tpu_torch.models.generate import (
     KVCache,
+    ServingShard,
+    kv_sharding,
+    paged_pool_sharding,
     prefill_capture,
     prefill_model,
 )
@@ -141,6 +149,9 @@ class SpecStreamingGenerator(StreamingGenerator):
         self._k = int(k)
         self._draft_params = _params_to(draft_params, dev)
         self._draft_cfg = draft_cfg
+        mesh = kwargs.get("mesh")
+        self._draft_shard = (None if mesh is None else
+                             ServingShard(draft_cfg, mesh, batch=kwargs.get("slots", 8)))
         super().__init__(consumer, params, cfg, **kwargs)
 
     # ------------------------------------------------------------- build
@@ -153,17 +164,20 @@ class SpecStreamingGenerator(StreamingGenerator):
         dcfg, dev = self._draft_cfg, self._device
         self._max_len = self._prompt_len + self._max_new + self._k
         super()._build()
-        self._draft_model = prefill_model(dcfg)
-        self._draft_layers = unstack_layers(self._draft_params["layers"])
+        ds = self._draft_shard
+        self._draft_model = prefill_model(dcfg, None if ds is None else ds.mesh)
+        self._bind_draft(self._draft_params)
         dl, dkh, ddh = dcfg.n_layers, dcfg.n_kv_heads, dcfg.head_dim
         if self._kv_pages is not None:
             pages = self._kv_pages
-            shape = (dl, pages.num_blocks, pages.block_size, dkh, ddh)
+            shape = self._local_shape(
+                (dl, pages.num_blocks, pages.block_size, dkh, ddh), paged_pool_sharding)
             self._pools += tuple(
                 torch.zeros(shape, dtype=dcfg.dtype, device=dev) for _ in range(2)
             )
         else:
-            shape = (dl, self._slots, self._max_len, dkh, ddh)
+            shape = self._local_shape((dl, self._slots, self._max_len, dkh, ddh),
+                                      kv_sharding)
             self._caches += tuple(
                 torch.zeros(shape, dtype=dcfg.dtype, device=dev) for _ in range(2)
             )
@@ -172,14 +186,24 @@ class SpecStreamingGenerator(StreamingGenerator):
             torch.zeros((), dtype=torch.int64, device=dev) for _ in range(3)
         )
 
+    def _bind_draft(self, draft_params) -> None:
+        """Propose with ``draft_params`` (this rank's share under a mesh):
+        the tree and its layer views, rebound together."""
+        ds = self._draft_shard
+        if ds is not None:
+            draft_params = ds.local_params(draft_params, self._device)
+        self._draft_params = draft_params
+        self._draft_layers = (unstack_layers(draft_params["layers"]) if ds is None
+                              else ds.layers(draft_params["layers"]))
+
     def _spec_model(self, draft: bool):
-        """(params, cfg, layers, pools) of the draft or the target; pools
-        are the model's two of the dense or paged pool tuple."""
+        """(params, cfg, layers, pools, shard) of the draft or the target;
+        pools are the model's two of the dense or paged pool tuple."""
         pools = self._caches if self._kv_pages is None else self._pools
         if draft:
             return (self._draft_params, self._draft_cfg, self._draft_layers,
-                    pools[2:4])
-        return self._params, self._cfg, self._layers, pools[0:2]
+                    pools[2:4], self._draft_shard)
+        return self._params, self._cfg, self._layers, pools[0:2], self._shard
 
     # --------------------------------------------------------- admission
 
@@ -187,7 +211,8 @@ class SpecStreamingGenerator(StreamingGenerator):
         """Write the draft's cache rows [0, S) of dense slots ``rows`` from
         one prefill of ``toks`` [n, S]."""
         _logits, ks, vs = prefill_capture(
-            self._draft_params, self._draft_cfg, toks, self._draft_model
+            self._draft_params, self._draft_cfg, toks, self._draft_model,
+            self._draft_shard,
         )
         s = toks.shape[1]
         self._caches[2][:, rows, :s] = ks.to(self._caches[2].dtype)
@@ -196,8 +221,10 @@ class SpecStreamingGenerator(StreamingGenerator):
     def _admit(self, prompts: np.ndarray, admit_mask: np.ndarray) -> None:
         """Both models' prefill of the admitted rows; token 0 is the
         target's argmax (the base admit)."""
-        idx = np.nonzero(admit_mask)[0]
-        self._prefill_draft_rows(self._h2d(idx), self._h2d(prompts[idx]))
+        lo, bl = self._slot_lo, self._local_slots
+        idx = np.nonzero(admit_mask[lo:lo + bl])[0]  # this rank's rows
+        if len(idx):
+            self._prefill_draft_rows(self._h2d(idx), self._h2d(prompts[lo:lo + bl][idx]))
         super()._admit(prompts, admit_mask)
 
     def _resume_into_slot(self, i: int, rec, prompt_toks, hint, key_np) -> None:
@@ -213,13 +240,16 @@ class SpecStreamingGenerator(StreamingGenerator):
         """One model's S-query write-then-attend over its paged pools at
         per-row start positions ``pos_b`` [R] through ``table`` [R, nblk]
         → the last layer's output [R, S, D] (before the final norm)."""
-        params, cfg, layers, pools = self._spec_model(draft)
+        params, cfg, layers, pools, shard = self._spec_model(draft)
         s = tokens.shape[1]
-        x = embed_rows(params["embed"], tokens, cfg.dtype)
+        if shard is None:
+            x = embed_rows(params["embed"], tokens, cfg.dtype)
+        else:
+            x = shard.embed(params["embed"], tokens, cfg.dtype)
         positions = pos_b[:, None] + torch.arange(
             s, dtype=torch.int32, device=tokens.device
         )[None, :]
-        return _paged_sweep(x, positions, table, layers, pools, cfg)
+        return _paged_sweep(x, positions, table, layers, pools, cfg, shard=shard)
 
     def _suffix_prefill(self, table_row: np.ndarray, toks: np.ndarray,
                         start: int) -> torch.Tensor:
@@ -231,19 +261,19 @@ class SpecStreamingGenerator(StreamingGenerator):
         pos0 = torch.full((1,), start, dtype=torch.int32, device=self._device)
         self._paged_hidden(True, tok_t, pos0, table)
         x = self._paged_hidden(False, tok_t, pos0, table)
-        return lm_logits(self._params, self._cfg, x[:, -1])
+        return lm_logits(self._params, self._cfg, x[:, -1], self._shard)
 
     # -------------------------------------------------------------- tick
 
     def _round_logits(self, draft: bool, tokens, pos_b) -> torch.Tensor:
         """One model's multi-query step over the slots → f32 logits [B, S,
         V]; the pools are written in place."""
+        params, cfg, layers, pools, shard = self._spec_model(draft)
         if self._kv_pages is None:
-            params, cfg, layers, pools = self._spec_model(draft)
-            return _multi_step(params, cfg, KVCache(*pools), tokens, pos_b, layers)
-        params, cfg = self._spec_model(draft)[:2]
+            return _multi_step(params, cfg, KVCache(*pools), tokens, pos_b, layers,
+                               shard)
         x = self._paged_hidden(draft, tokens, pos_b, self._table_dev)
-        return lm_logits(params, cfg, x)
+        return lm_logits(params, cfg, x, shard)
 
     def _tick_block(self, active: torch.Tensor, chunk=None):
         """``ticks_per_sync`` speculative rounds with the latched done
@@ -256,12 +286,12 @@ class SpecStreamingGenerator(StreamingGenerator):
         through the target's pools and then the draft's before the rounds;
         afterwards token 0 of every slot whose suffix completed is merged
         from the target's chunk logits."""
-        B, P, k = self._slots, self._prompt_len, self._k
+        B, P, k = self._local_slots, self._prompt_len, self._k
         max_new, eos_id, dev = self._max_new, self._eos_id, self._device
         if chunk is not None:
             ctok, ctable, cpos, fin_mask, fin_row = chunk
             x = self._paged_hidden(False, ctok[:, None], cpos, ctable)
-            chunk_logits = lm_logits(self._params, self._cfg, x[:, 0])  # [C, V]
+            chunk_logits = lm_logits(self._params, self._cfg, x[:, 0], self._shard)
             self._paged_hidden(True, ctok[:, None], cpos, ctable)
         last_tok, pos, gen = self._last_tok, self._pos, self._gen
         acc, prop, rounds = self._spec_counts
@@ -364,16 +394,22 @@ class SpecStreamingGenerator(StreamingGenerator):
         # must be invisible in committed output: the incumbent draft still
         # proposes on restart, and either draft yields the target's tokens.
         crash_hook("draft_swap_pre_apply")
-        self._draft_params = draft_params
-        self._draft_layers = unstack_layers(draft_params["layers"])
+        self._bind_draft(draft_params)
         self._block_graph = None  # a captured block reads the old draft
 
     def spec_stats(self) -> dict:
         """The speculation counters since construction, read with one
         device-to-host copy. ``acceptance`` is the realized α =
         accepted / proposed (None before any proposal); warmup's
-        all-inactive rounds count nothing."""
-        acc, prop, rounds = (int(x) for x in torch.stack(self._spec_counts).cpu())
+        all-inactive rounds count nothing. Under a mesh that splits the
+        slots over data, the data ranks' counts are summed (a collective:
+        every rank calls it together); the rounds are the most any data
+        rank ran."""
+        counts = torch.stack(self._spec_counts)
+        if self._local_slots != self._slots:
+            whole = self._shard.gather_rows(counts[None])  # [data, 3]
+            counts = torch.cat([whole[:, :2].sum(0), whole[:, 2].max()[None]])
+        acc, prop, rounds = (int(x) for x in counts.cpu())
         return {
             "rounds": rounds,
             "proposed": prop,
