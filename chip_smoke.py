@@ -403,7 +403,8 @@ Phases, each printing one JSON line:
    the watermarks, K1 = K2 = K3 = layers x steps on the tensor cores;
    before it, at f32 on 2 layers, capacity dispatch at an ample factor (no
    drop) gives dense dispatch's loss within 1e-4;
-8n. serve_moe (the end of the main sequence, after serve_8b_f32): MoE serving at the
+8n. serve_moe (the main sequence, after serve_8b_f32; then pod_tp_sp ends
+   it, see 8r): MoE serving at the
    same widths, all 24 layers (~7.1B parameters, random bf16 weights from
    the seed), scenario 7's traffic (32 prompts of 128, 16 slots, 64 new):
    greedy on the bf16 pool (its tick block replayed from a CUDA graph),
@@ -438,7 +439,9 @@ Phases, each printing one JSON line:
    a pod checkpoint at step 2 restored by this process, which trains on to
    the topic's end; harness scenario 3 at full size under two ranks
    through ``torch.distributed.run``;
-8r. pod_tp_sp (lane ``harness``, after examples): tensor and sequence
+8r. pod_tp_sp (the main sequence's end, after serve_moe: in the harness
+   lane, before pod_serve, it made that lane outlast the other two
+   sequences): tensor and sequence
    parallelism across processes, ``check_pod_tp_sp``: two ranks
    (``chip_smoke.py --pod-rank N --pod-mode tp_sp``) on ``cuda:0`` under
    gloo, the 1b widths at ``CUT_LAYERS``, f32 masters, bf16 compute, 8
@@ -466,7 +469,7 @@ Phases, each printing one JSON line:
    ``POD_UNSPLIT_PARAM_REL``); the DLRM (8 tables of 100k x 64) on
    ``{"tp": 2}`` with row-sharded tables, batch 1,024, against the
    single-process step (losses within 1e-5);
-8u. pod_serve (lane ``harness``, after pod_tp_sp): sharded serving across
+8u. pod_serve (lane ``harness``, after examples): sharded serving across
    processes, ``check_pod_serve``: two ranks (``chip_smoke.py --pod-rank N
    --pod-mode serve``) on ``cuda:0`` under gloo, the 1b widths at
    ``CUT_LAYERS`` in bf16, each rank's server on the mesh (rank 0 owns the
@@ -479,7 +482,12 @@ Phases, each printing one JSON line:
    K4 = layers x decode ticks, K5 = layers x (decode ticks - chunk
    ticks); both ranks' completions equal; committed == end offsets; then
    f32 at 2 layers, each run's tokens and committed offsets equal to the
-   single-process server's;
+   single-process server's; then layer-sharded serving on ``{"pp": 2}``
+   (each rank its stage's layers and their pools only): the 8b widths at
+   ``CUT_LAYERS_8B`` with int8 weights on K4 (serve_8b's stream and output
+   topic), the paged int8 pool on K5 at ``CUT_LAYERS`` (bit-equal to one
+   process), K1/K4/K5 = (layers / pp) x their events, the collective
+   calls and bytes as worked out, and f32 pairs at 2 layers (1 a stage);
 9. kernels: one line for every ported kernel (all eight; K1 and K4 with
    the fleet runs' launches, ``fleet_launches``; K1-K3 with the worker
    processes' dumped counts, ``process_launches``; K5 with serve_disagg's,
@@ -495,7 +503,7 @@ then the card's nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 
 Lanes: once the kernel phases (3-5d) have timed the kernels alone on the
 card, the script starts two processes of its own, ``chip_smoke.py --lane
-harness`` (8j, 8k, 8o, 8p, 8r, 8u) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8q,
+harness`` (8j, 8k, 8o, 8p, 8u) and ``--lane procfleet`` (8h, 8i, 8l, 8m, 8q,
 8s),
 and runs the
 other phases meanwhile; their time is mostly host work and worker
@@ -576,8 +584,7 @@ def emit(obj) -> None:
 # beside the main sequence once the kernel phases have timed the kernels
 # alone on the card: most of their time is worker start-ups and host work.
 LANES = {
-    "harness": ("harness", "harness_fleet", "harness_models", "examples", "pod_tp_sp",
-                "pod_serve"),
+    "harness": ("harness", "harness_fleet", "harness_models", "examples", "pod_serve"),
     "procfleet": ("serve_procfleet", "serve_procfleet_f32", "harness_procfleet",
                   "train_moe", "pod_train", "pod_pp_ep"),
 }
@@ -593,7 +600,7 @@ LANES = {
 # 2 x 7.1-7.8 GB (PERF.md).
 CARD_BUDGET_GB = 66.0
 PHASE_GB = {"train": 30.0, "serve_8b": 17.0, "serve_moe": 24.0, "train_moe": 27.0,
-            "pod_train": 18.0, "pod_tp_sp": 14.0, "pod_pp_ep": 26.0}
+            "pod_train": 18.0, "pod_tp_sp": 14.0, "pod_pp_ep": 26.0, "pod_serve": 18.0}
 
 
 @contextlib.contextmanager
@@ -6053,7 +6060,7 @@ def _pod_resume(torch, ckpt_root: str, world: int, device: str) -> dict:
 
 
 def _scenario3_torchrun(torch, world: int, device: str) -> dict:
-    """(e): harness scenario 3 at full size under ``world`` ranks, started
+    """Harness scenario 3 at full size under ``world`` ranks, started
     through ``torch.distributed.run``; one JSON line a rank."""
     here = os.path.dirname(os.path.abspath(__file__))
     port = free_port()
@@ -6071,6 +6078,33 @@ def _scenario3_torchrun(torch, world: int, device: str) -> dict:
         raise AssertionError(f"pod_train scenario 3: rc {proc.returncode}\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     return {"seconds": seconds, "ranks": rows}
+
+
+def check_pod_scenario_3(torch, device: str = "cuda") -> list:
+    """pod_train's (e): harness scenario 3 at full size under
+    ``POD_RANKS`` ranks through ``torch.distributed.run`` (the kernels
+    already built): every rank consumes its own partitions, commits each
+    of its 50 steps, returns the same global loss and times a slope that
+    holds; K1 = K2 = K3 = 4 layers x 50 steps on each rank. One row, run
+    ``scenario_3``; ``device="cpu"`` rehearses it at tiny size (no kernel
+    counts)."""
+    cuda = device == "cuda"
+    s3 = _scenario3_torchrun(torch, POD_RANKS, device)
+    problems = []
+    steps, rows_a_step, layers = (50, 8, 4) if cuda else (8, 2, 2)
+    for row in s3["ranks"]:
+        if (row["records"] != steps * rows_a_step or row["commit"]["count"] != steps
+                or row["commit_failures"] or row["mesh"] != {"data": POD_RANKS}
+                or (cuda and not row.get("slope_ok")) or row["rules"]["backend"] != "gloo"
+                or any(n != (layers * steps if cuda else 0) for n in row["launches"].values())):
+            problems.append(f"rank {row.get('process_index')}: {row}")
+    if s3["ranks"][0]["last_loss"] != s3["ranks"][1]["last_loss"]:
+        problems.append("the ranks' losses differ")
+    if problems:
+        raise AssertionError("pod_train scenario 3: " + "; ".join(problems))
+    return [{"phase": "pod_train", "run": "scenario_3",
+             "nvidia_smi": smi_line() if cuda else None, "seconds": s3["seconds"],
+             "ranks": s3["ranks"]}]
 
 
 def _json_objects(text: str) -> list:
@@ -6150,7 +6184,7 @@ def check_pod_train(torch, device: str = "cuda") -> list:
         complete, and one process restores it and trains on from its
         offsets to the topic's end;
     (e) harness scenario 3 at full size under 2 ranks through
-        ``torch.distributed.run``.
+        ``torch.distributed.run`` (``check_pod_scenario_3``).
     The kernels are built once, by this process, before any rank starts;
     the ranks only load them. ``device="cpu"`` rehearses the phase at
     tiny widths (no kernel counts or device numbers)."""
@@ -6174,9 +6208,6 @@ def check_pod_train(torch, device: str = "cuda") -> list:
         t0 = time.perf_counter()
         resume = _pod_resume(torch, os.path.join(outdir, "ckpt"), POD_RANKS, device)
         resume_s = time.perf_counter() - t0
-        if cuda:
-            torch.cuda.empty_cache()
-        s3 = _scenario3_torchrun(torch, POD_RANKS, device)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
 
@@ -6220,16 +6251,6 @@ def check_pod_train(torch, device: str = "cuda") -> list:
             and resume["steps_after_restore"] >= 1
             and resume["committed"] == resume["end_offsets"]):
         problems.append(f"pod checkpoint resume: {resume}")
-    s3_ranks = s3["ranks"]
-    for row in s3_ranks:
-        steps, rows_a_step, layers = (50, 8, 4) if cuda else (8, 2, 2)
-        if (row["records"] != steps * rows_a_step or row["commit"]["count"] != steps
-                or row["commit_failures"] or row["mesh"] != {"data": POD_RANKS}
-                or (cuda and not row.get("slope_ok")) or row["rules"]["backend"] != "gloo"
-                or any(n != (layers * steps if cuda else 0) for n in row["launches"].values())):
-            problems.append(f"scenario 3 rank {row.get('process_index')}: {row}")
-    if s3_ranks[0]["last_loss"] != s3_ranks[1]["last_loss"]:
-        problems.append("scenario 3: ranks' losses differ")
     if rebuilt:
         problems.append(f"kernels rebuilt during the phase: {rebuilt}")
     if problems:
@@ -6256,8 +6277,9 @@ def check_pod_train(torch, device: str = "cuda") -> list:
     rows.append({"phase": "pod_train", "run": "checkpoint",
                  "save": [c["checkpoint"] for c in ck], "losses_before": ck[0]["losses"],
                  "resume": resume, "resume_s": resume_s})
-    rows.append({"phase": "pod_train", "run": "scenario_3", "seconds": s3["seconds"],
-                 "ranks": s3_ranks})
+    if cuda:
+        torch.cuda.empty_cache()
+    rows += check_pod_scenario_3(torch, device)
     rows.append({"phase": "pod_train", "run": "summary", "build_s": build_s,
                  "ranks_s": ranks_s, "kernels_built_once": not rebuilt,
                  "init_s": [d["init_s"] for d in dumps],
@@ -6904,6 +6926,16 @@ def check_pod_pp_ep(torch, device: str = "cuda") -> list:
 # over tp; (c) the dense bf16 pool with the slots over data.
 POD_SERVE_RUNS = (("tp_int8", "tp", "int8"), ("tp_paged_int8", "tp", "paged_int8"),
                   ("data_bf16", "data", "dense"))
+# Layer-sharded serving, ``{"pp": 2}``, each rank holding its stage's layers
+# and their pools only: (e) the 8b widths at ``CUT_LAYERS_8B`` (8 a stage)
+# with int8 weights on the dense int8 pool read by K4, serve_8b's stream and
+# its output topic; (f) the paged int8 pool read by K5 with the radix cache
+# and chunked prefill, serve_paged's tenant stream at ``CUT_LAYERS`` (2 a
+# stage). Each layer runs whole on one rank, on the single process's shapes
+# and kernels, so (f) must equal rank 0's single-process run of the same
+# stream bit for bit in bf16/int8.
+POD_SERVE_PP_RUNS = (("pp_8b_int8", "pp", "int8_out"), ("pp_paged_int8", "pp", "paged_int8"))
+POD_SERVE_PP_EXACT = ("pp_paged_int8",)
 # (d)'s f32 pairs at 2 layers: the three runs, and the compute-dtype pools
 # on the tp mesh. A compute-dtype pool's tokens must equal one process's
 # exactly. An int8 pool's need not under tp: the split sums of wo and
@@ -6921,7 +6953,13 @@ POD_SERVE_RUNS = (("tp_int8", "tp", "int8"), ("tp_paged_int8", "tp", "paged_int8
 # A control reruns each int8 pair forced with rank 1 reading its kv heads
 # in the wrong order (K4/K5 handed the pool rolled by one head): it must
 # fail the bound, or the bound could not tell a wrong read.
-POD_SERVE_PAIRS = POD_SERVE_RUNS + (("tp_dense", "tp", "dense"), ("tp_paged", "tp", "paged"))
+POD_SERVE_PAIRS = POD_SERVE_RUNS + (("tp_dense", "tp", "dense"), ("tp_paged", "tp", "paged"),
+                                    ("pp_paged_int8", "pp", "paged_int8"),
+                                    ("pp_dense", "pp", "dense"))
+# (g): the pp pairs at 2 layers (1 a stage), (f)'s pool and the dense
+# compute-dtype pool at the 1b widths, and (e) at the 8b widths on its own
+# f32 model (``POD_SERVE_8B_PAIR``); every token and commit exact.
+POD_SERVE_8B_PAIR = ("pp_8b_int8", "pp", "int8_out")
 POD_SERVE_INT8_PAIRS = ("tp_int8", "tp_paged_int8")
 POD_SERVE_FORCED = POD_SERVE_INT8_PAIRS + ("tp_paged",)
 # The largest |logit difference| of a forced int8 pair (f32 logits of the
@@ -6931,29 +6969,38 @@ POD_SERVE_FORCED = POD_SERVE_INT8_PAIRS + ("tp_paged",)
 POD_SERVE_FORCED_BOUND = 1e-2
 
 
-def _pod_serve_model(torch, device: str, f32: bool = False):
+def _pod_serve_model(torch, device: str, f32: bool = False, scale: str = "1b"):
     """(cfg, params) of pod_serve: the 1b widths at ``CUT_LAYERS`` in bf16
     (2 layers in f32 for the pairs), random weights from the seed, the
-    same on every rank; on the CPU (a rehearsal) tiny widths."""
-    if device == "cuda":
-        from torchkafka_tpu_torch.models.zoo import random_serving_params, zoo_config
+    same on every rank; ``scale="8b"``: the 8b widths at ``CUT_LAYERS_8B``
+    with int8 weights (``random_serving_params(quantized=True)``, as
+    serve_8b). On the CPU (a rehearsal) tiny widths, 4 layers for the pp
+    runs' bf16 model, int8 weights for the 8b."""
+    from torchkafka_tpu_torch.models.zoo import random_serving_params
 
-        cfg = dataclasses.replace(zoo_config("1b", max_seq_len=128 + MAX_NEW),
-                                  n_layers=2 if f32 else CUT_LAYERS)
+    if device == "cuda":
+        from torchkafka_tpu_torch.models.zoo import zoo_config
+
+        cut = CUT_LAYERS_8B if scale == "8b" else CUT_LAYERS
+        cfg = dataclasses.replace(zoo_config(scale, max_seq_len=128 + MAX_NEW),
+                                  n_layers=2 if f32 else cut)
         if f32:
             cfg = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
         return cfg, random_serving_params(
-            torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
-    from torchkafka_tpu_torch.models.transformer import TransformerConfig, init_params
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            quantized=scale == "8b", device="cuda")
+    from torchkafka_tpu_torch.models.transformer import TransformerConfig
 
-    cfg = TransformerConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=8, n_kv_heads=4,
-                            d_ff=128, max_seq_len=32, dtype=torch.float32)
-    return cfg, init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    cfg = TransformerConfig(vocab_size=256, d_model=64, n_layers=2 if f32 else 4, n_heads=8,
+                            n_kv_heads=4, d_ff=128, max_seq_len=32, dtype=torch.float32)
+    return cfg, random_serving_params(torch.Generator().manual_seed(SEED), cfg,
+                                      quantized=scale == "8b", device="cpu")
 
 
 def _pod_serve_stream(cfg, kind: str, device: str):
     """(prompts, keys, max_new, slots) of a run: the serve phase's 32 prompts
-    of 128 (unkeyed, two partitions) on the dense pools, serve_paged's 48
+    of 128 (unkeyed, two partitions) on the dense pools, serve_8b's 48
+    (keyed by index, two partitions) on ``int8_out``, serve_paged's 48
     tenant prompts (keyed, four partitions) on the paged one; tiny on the
     CPU."""
     import numpy as np
@@ -6965,13 +7012,39 @@ def _pod_serve_stream(cfg, kind: str, device: str):
         if kind.startswith("paged"):
             prompts[:, :8] = prompts[np.arange(8) % 3, :8]
             keys = [TENANTS[i % 3].encode() for i in range(8)]
+        elif kind == "int8_out":
+            keys = [f"prompt-{i}".encode() for i in range(8)]
         return prompts, keys, 8, 4
     if kind.startswith("paged"):
         prompts, keys = tenant_prompts(np, cfg.vocab_size)
         return prompts, keys, MAX_NEW, 16
-    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (32, 128),
+    n = 48 if kind == "int8_out" else 32
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (n, 128),
                                                    dtype=np.int32)
-    return prompts, None, MAX_NEW, 16
+    keys = [f"prompt-{i}".encode() for i in range(n)] if kind == "int8_out" else None
+    return prompts, keys, MAX_NEW, 16
+
+
+def _pp_collectives_want(cfg, paged: bool, m: dict, slots: int, plen: int, pp: int,
+                         chunk: int, elt: int) -> dict:
+    """The collective calls and bytes a ``{"pp": P}`` run makes, worked out
+    from its counts: each layer sweep hands the residual on P - 1 times
+    (``ppermute`` of [rows, S, D] in the compute dtype, ``elt`` bytes an
+    element) and broadcasts the last stage's final-norm rows once ([rows,
+    D]). A decode tick sweeps the slots' [B, 1, D]; a chunk tick's first
+    sweep also carries the ``chunk`` chunk rows; a dense admission sweeps
+    its prompts' [n, P, D] and broadcasts [n, D] (every wave of these
+    streams admits all B slots)."""
+    row = elt * cfg.d_model
+    rows = slots * m["decode_ticks"]
+    if paged:
+        rows += chunk * m["chunked_prefill"]["chunk_ticks"]
+        hop_rows = bcast_rows = rows
+    else:
+        hop_rows = rows + slots * plen * m["prefills"]
+        bcast_rows = rows + slots * m["prefills"]
+    return {"calls": pp * (m["decode_ticks"] + m["prefills"]),
+            "bytes": row * ((pp - 1) * hop_rows + bcast_rows)}
 
 
 def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) -> dict:
@@ -6980,12 +7053,19 @@ def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) 
     the single-process server (the f32 pairs' reference, on rank 0). The
     kernel counts and ``parallel.collectives.COUNTS`` are zeroed just
     before ``run`` and read just after. Hard checks: on the root, every
-    record once with ``max_new`` tokens and committed == end offsets; on
-    every rank K1 = layers x prefills (0 on the paged pool), all on the
-    tensor cores in bf16, K4 = layers x decode ticks on the dense int8
-    pool (else 0), K5 = layers x (decode ticks - chunk ticks) on the paged
-    one (else 0). ``pick``: instruments the server's picks after warmup
-    (``_recording_pick``, ``_forcing_pick``)."""
+    record once with ``max_new`` tokens and committed == end offsets (on
+    ``int8_out`` one output record a completion, equal to it); on every
+    rank K1 = layers x prefills (0 on the paged pool), all on the tensor
+    cores in bf16, K4 = layers x decode ticks on the dense int8 pools
+    (else 0), K5 = layers x (decode ticks - chunk ticks) on the paged one
+    (else 0), layers being this rank's stage's under pp; under pp alone the
+    collective calls and bytes ``_pp_collectives_want`` works out.
+    ``params``: the tree, or a function that returns it (called once, so
+    the caller need not hold the whole tree while the server keeps its
+    share: ``resident_gb`` is what stays allocated after warmup, and
+    ``build_peak_gb`` the peak since the caller last reset it). ``pick``:
+    instruments the server's picks after warmup (``_recording_pick``,
+    ``_forcing_pick``)."""
     from torchkafka_tpu_torch.kvcache import PagedKVConfig
     from torchkafka_tpu_torch.ops.flash import flash_fwd_bhsd
     from torchkafka_tpu_torch.ops.kvattn import (
@@ -6996,6 +7076,7 @@ def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) 
     from torchkafka_tpu_torch.parallel.lockstep import is_root
     from torchkafka_tpu_torch.serve import StreamingGenerator
     from torchkafka_tpu_torch.source.memory import InMemoryBroker, MemoryConsumer
+    from torchkafka_tpu_torch.source.producer import MemoryProducer
     from torchkafka_tpu_torch.source.records import TopicPartition
 
     cuda = device == "cuda"
@@ -7004,19 +7085,25 @@ def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) 
     paged = kind.startswith("paged")
     parts = 4 if paged else 2
     root = mesh is None or is_root(mesh)
+    pp = 1 if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get("pp", 1)
     broker = consumer = None
+    kw = dict(slots=slots, prompt_len=plen, max_new=max_new, commit_every=16,
+              ticks_per_sync=max_new - 1, mesh=mesh, device=device)
     if root:
         broker = InMemoryBroker()
         broker.create_topic("ps", partitions=parts)
         for i in range(n):
-            if keys is None:
+            if kind == "int8_out":  # serve_8b's layout: keyed, round-robin
+                broker.produce("ps", prompts[i].tobytes(), key=keys[i], partition=i % parts)
+            elif keys is None:
                 broker.produce("ps", prompts[i].tobytes(), partition=i % parts)
             else:
                 broker.produce("ps", prompts[i].tobytes(), key=keys[i])
         consumer = MemoryConsumer(broker, "ps", group_id="pod-serve")
-    kw = dict(slots=slots, prompt_len=plen, max_new=max_new, commit_every=16,
-              ticks_per_sync=max_new - 1, mesh=mesh, device=device)
-    if kind == "int8":
+        if kind == "int8_out":
+            broker.create_topic("completions", partitions=2)
+            kw.update(output_producer=MemoryProducer(broker), output_topic="completions")
+    if kind in ("int8", "int8_out"):
         kw.update(kv_dtype="int8", kv_kernel=True)
     elif paged:
         bs = PAGED_BS if cuda else 4
@@ -7025,8 +7112,17 @@ def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) 
                   kv_pages=PagedKVConfig(block_size=bs, num_blocks=slots * nblk + 24 + 1))
         if kind == "paged_int8":
             kw.update(kv_dtype="int8", kv_kernel=True)
-    server = StreamingGenerator(consumer, params, cfg, **kw)
+    server = StreamingGenerator(consumer, params() if callable(params) else params, cfg,
+                                **kw)
     server.warmup()
+    w = server._params["layers"]["wq"]
+    resident_layers = int(getattr(w, "q", w).shape[0])  # this rank's stage's layers
+    build_peak = resident = None
+    if cuda:
+        gc.collect()
+        torch.cuda.synchronize()
+        build_peak = torch.cuda.max_memory_allocated() / 1e9
+        resident = torch.cuda.memory_allocated() / 1e9
     if pick is not None:
         pick(server)
     kernels = (flash_fwd_bhsd, int8_decode_attention_dynlen, int8_paged_decode_attention)
@@ -7038,7 +7134,10 @@ def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) 
         torch.cuda.reset_peak_memory_stats()
     collectives.COUNTS.reset()
     t0 = time.perf_counter()
-    yields = [[r.partition, r.offset, out.tolist()] for r, out in server.run(max_records=n)]
+    yields, by_key = [], {}
+    for r, out in server.run(max_records=n):
+        yields.append([r.partition, r.offset, out.tolist()])
+        by_key[r.key] = out
     if cuda:
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -7059,9 +7158,23 @@ def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) 
     if len(yields) != n or len({(p, o) for p, o, _ in yields}) != n or any(
             len(t) != max_new for _, _, t in yields):
         raise AssertionError(f"{what}: {len(yields)} completions")
-    nl = cfg.n_layers
+    if kind == "int8_out" and root:
+        reader = MemoryConsumer(broker, "completions", group_id="check")
+        published = []
+        while batch := reader.poll(max_records=1000, timeout_ms=0):
+            published.extend(batch)
+        reader.close()
+        pub = {r.key: r.value for r in published}
+        if (len(published) != n or sorted(pub) != sorted(by_key)
+                or any(pub[k] != by_key[k].astype("int32").tobytes() for k in by_key)
+                or any(tuple(r.headers) != (("mv", b"0"),) for r in published)):
+            raise AssertionError(f"{what}: {len(published)} output records for {n} prompts, "
+                                 "or one differs from its completion")
+    nl = cfg.n_layers // pp  # this rank's stage's layers
+    if resident_layers != nl:
+        raise AssertionError(f"{what}: {resident_layers} layers resident, want {nl}")
     want = {"flash_fwd": 0 if paged else nl * m["prefills"],
-            "kvattn_dynlen": nl * m["decode_ticks"] if kind == "int8" else 0,
+            "kvattn_dynlen": nl * m["decode_ticks"] if kind in ("int8", "int8_out") else 0,
             "kvattn_paged": nl * (m["decode_ticks"] - m["chunked_prefill"]["chunk_ticks"])
             if kind == "paged_int8" else 0}
     if cuda and (any(launches[k] != v for k, v in want.items())
@@ -7069,8 +7182,17 @@ def _pod_serve_one(torch, cfg, params, mesh, kind: str, device: str, pick=None) 
                  or (cfg.dtype == torch.bfloat16
                      and launches["flash_fwd_tc"] != launches["flash_fwd"])):
         raise AssertionError(f"{what}: launches {launches}, want {want}")
+    coll_want = None
+    if pp > 1:
+        elt = torch.empty((), dtype=cfg.dtype).element_size()
+        coll_want = _pp_collectives_want(cfg, paged, m, slots, plen, pp,
+                                         getattr(server, "_prefill_chunk", 0), elt)
+        if {k: coll[k] for k in coll_want} != coll_want:
+            raise AssertionError(f"{what}: collectives {coll}, worked out {coll_want}")
     ticks = max(1, m["decode_ticks"])
     return {"yields": yields, "committed": committed, "end_offsets": ends,
+            "layers": cfg.n_layers, "stage_layers": nl, "collectives_want": coll_want,
+            "build_peak_gb": build_peak, "resident_gb": resident,
             "elapsed_s": elapsed, "prefills": m["prefills"], "decode_ticks": m["decode_ticks"],
             "chunk_ticks": m["chunked_prefill"]["chunk_ticks"], "tick_blocks": m["ticks"],
             "tick_block_ms_p50": m["step_time"]["p50_ms"],
@@ -7251,19 +7373,41 @@ def serve_rank_main(rank: int, port: int, outdir: str, device: str = "cuda") -> 
            "libraries_present_at_start": all(_native._target(k).exists()
                                              for k in _native.KERNELS) if cuda else None}
     meshes = {axis: make_mesh({axis: POD_RANKS}, device=None if cuda else device)
-              for axis in ("tp", "data")}
+              for axis in ("tp", "data", "pp")}
     cfg, params = _pod_serve_model(torch, device)
-    for name, axis, kind in POD_SERVE_RUNS:
+    for name, axis, kind in POD_SERVE_RUNS + POD_SERVE_PP_RUNS[1:]:
         out[name] = _pod_serve_one(torch, cfg, params, meshes[axis], kind, device)
+        if name in POD_SERVE_PP_EXACT and rank == 0:  # (f) against one process
+            ref = _pod_serve_one(torch, cfg, params, None, kind, device)
+            out[name]["single"] = _pair_agreement(out[name]["yields"], ref["yields"])
+            out[name]["single"]["committed_equal_single"] = (
+                out[name]["committed"] == ref["committed"])
         gc.collect()
     del params
     if cuda:
         torch.cuda.empty_cache()
-    # (d): f32 at 2 layers; rank 0 also serves each stream in one process.
+        torch.cuda.reset_peak_memory_stats()
+    # (e): each rank draws the whole 8b tree, keeps its stage's share and
+    # lets the whole tree go (the server is handed a function that returns
+    # it).
+    cfg8, params8 = _pod_serve_model(torch, device, scale="8b")
+    box = [params8]
+    del params8
+    name, axis, kind = POD_SERVE_PP_RUNS[0]
+    out[name] = _pod_serve_one(torch, cfg8, box.pop, meshes[axis], kind, device)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # (d) and (g): f32 at 2 layers; rank 0 also serves each stream in one
+    # process.
     t0 = time.perf_counter()
     cfg32, params32 = _pod_serve_model(torch, device, f32=True)
     pairs = {}
-    for name, axis, kind in POD_SERVE_PAIRS:
+    for name, axis, kind in POD_SERVE_PAIRS + (POD_SERVE_8B_PAIR,):
+        if name == POD_SERVE_8B_PAIR[0]:  # (e) at f32: its own model
+            del params32
+            gc.collect()
+            cfg32, params32 = _pod_serve_model(torch, device, f32=True, scale="8b")
         got = _pod_serve_one(torch, cfg32, params32, meshes[axis], kind, device)
         pair = {"yields": got["yields"], "committed": got["committed"],
                 "launches": got["launches"]}
@@ -7317,7 +7461,21 @@ def check_pod_serve(torch, device: str = "cuda") -> list:
         their agreement and are held teacher-forced: handed the single
         process's tokens, every logit within ``POD_SERVE_FORCED_BOUND`` of
         that run's, and a wrong-head control outside it
-        (``POD_SERVE_PAIRS``, ``POD_SERVE_FORCED``).
+        (``POD_SERVE_PAIRS``, ``POD_SERVE_FORCED``);
+    (e) ``{"pp": 2}``, the 8b widths at ``CUT_LAYERS_8B`` with int8
+        weights, the dense int8 pool read by K4, serve_8b's stream (48
+        prompts of 128) and its output topic: each rank draws the whole tree
+        from the seed and keeps its stage's 8 layers (``resident_gb``,
+        ``build_peak_gb``), every completion published once by the root;
+    (f) ``{"pp": 2}``, (b)'s paged int8 pool and stream at ``CUT_LAYERS``
+        (2 a stage): tokens and commits equal, bit for bit, to rank 0's
+        single-process run of the same stream;
+    under pp K1/K4/K5 count (L/P) x their events on each rank, and the
+    collective calls and bytes are those ``_pp_collectives_want`` works
+    out (P - 1 hops and one broadcast a layer sweep);
+    (g) f32 at 2 layers (1 a stage) on ``{"pp": 2}``: (f)'s pool, the dense
+        compute-dtype pool and (e) at the 8b widths, every token and commit
+        equal to one process's.
     The kernels are built once, by this process, before the ranks start.
     ``device="cpu"`` rehearses the phase at tiny widths (no kernel counts
     or device numbers)."""
@@ -7344,11 +7502,15 @@ def check_pod_serve(torch, device: str = "cuda") -> list:
             problems.append(f"rank {r} rules {dmp['rules']}")
         if cuda and not dmp["libraries_present_at_start"]:
             problems.append(f"rank {r} started before the kernels were built")
-    for name, _, _ in POD_SERVE_RUNS:
+    for name, _, _ in POD_SERVE_RUNS + POD_SERVE_PP_RUNS:
         if dumps[0][name]["yields"] != dumps[1][name]["yields"]:
             problems.append(f"{name}: the ranks' completions differ")
+    for name in POD_SERVE_PP_EXACT:  # (f): bit for bit against one process
+        single = dumps[0][name]["single"]
+        if not (single["tokens_equal_single"] and single["committed_equal_single"]):
+            problems.append(f"{name} against one process: {single}")
     pairs = {}
-    for name, _, _ in POD_SERVE_PAIRS:
+    for name, _, _ in POD_SERVE_PAIRS + (POD_SERVE_8B_PAIR,):
         pair = dumps[0]["f32_pairs"][name]
         pairs[name] = {k: pair[k] for k in (
             "tokens_equal_single", "token_agreement", "records_differing",
@@ -7379,11 +7541,17 @@ def check_pod_serve(torch, device: str = "cuda") -> list:
         return [dmp[name][key] for dmp in dumps]
 
     rows = []
-    for name, axis, kind in POD_SERVE_RUNS:
+    for name, axis, kind in POD_SERVE_RUNS + POD_SERVE_PP_RUNS:
         row = dumps[0][name]
+        extra = {}
+        if axis == "pp":
+            extra = {k: per_rank(name, k) for k in (
+                "stage_layers", "collectives_want", "build_peak_gb", "resident_gb")}
+            if "single" in row:
+                extra["against_single_process"] = row["single"]
         rows.append({
             "phase": "pod_serve", "run": name, "mesh": {axis: POD_RANKS}, "pool": kind,
-            "ranks": POD_RANKS, "nvidia_smi": smi, "layers": CUT_LAYERS if cuda else 2,
+            "ranks": POD_RANKS, "nvidia_smi": smi, "layers": row["layers"], **extra,
             "completions": len(row["yields"]),
             "tokens": sum(len(t) for _, _, t in row["yields"]),
             "tokens_equal_across_ranks": True, "committed": row["committed"],
@@ -7401,11 +7569,12 @@ def check_pod_serve(torch, device: str = "cuda") -> list:
             "cache_hits": per_rank(name, "cache_hits"), "kv_backend": row["kv_backend"],
             "peak_mem_gb": per_rank(name, "peak_mem_gb"), "launches": per_rank(name, "launches")})
     rows.append({"phase": "pod_serve", "run": "f32_pairs", "layers": 2,
-                 "against_single_process": pairs,
+                 "nvidia_smi": smi, "against_single_process": pairs,
                  "launches": {n: [d["f32_pairs"][n]["launches"] for d in dumps]
-                              for n, _, _ in POD_SERVE_PAIRS},
+                              for n, _, _ in POD_SERVE_PAIRS + (POD_SERVE_8B_PAIR,)},
                  "seconds": [dmp["f32_pairs_s"] for dmp in dumps]})
-    rows.append({"phase": "pod_serve", "run": "summary", "build_s": build_s, "ranks_s": ranks_s,
+    rows.append({"phase": "pod_serve", "run": "summary", "nvidia_smi": smi,
+                 "build_s": build_s, "ranks_s": ranks_s,
                  "init_s": [dmp["init_s"] for dmp in dumps]})
     return rows
 
@@ -7640,7 +7809,7 @@ def main() -> int:
                          "(more rounds: tok/s compared over more interleaved "
                          "runs)")
     ap.add_argument("--lane", choices=tuple(dict.fromkeys(
-                        (*LANES, *sum(LANES.values(), ()), "serve_moe"))),
+                        (*LANES, *sum(LANES.values(), ()), "serve_moe", "pod_tp_sp"))),
                     help="run only this lane's phases, or only this one lane "
                          "phase (the script starts each lane itself, beside "
                          "its main sequence)")
@@ -7830,13 +7999,18 @@ def main() -> int:
                 emit(row)
             del params8_32
             torch.cuda.empty_cache()
-        # MoE serving ends the main sequence (the procfleet lane carries
-        # pod_train, so the three sequences end together).
+        # MoE serving and pod_tp_sp end the main sequence (the procfleet
+        # lane ends with pod_train and pod_pp_ep, the harness lane with
+        # pod_serve, so the three sequences end together).
         with card_memory("serve_moe"):
             rows_sm_all = check_serve_moe(torch)
             for row in rows_sm_all:
                 emit(row)
             torch.cuda.empty_cache()
+        with card_memory("pod_tp_sp"):
+            rows_tpsp = check_pod_tp_sp(torch)
+            for row in rows_tpsp:
+                emit(row)
         lane_rows = [finish_lane(job) for job in lanes]
     finally:
         stop_lanes(lanes)
@@ -7851,7 +8025,6 @@ def main() -> int:
     rows_hp = by_phase["harness_procfleet"]
     rows_sm = [r for r in rows_sm_all if "launches" in r]
     rows_pod = by_phase["pod_train"]
-    rows_tpsp = by_phase["pod_tp_sp"]
     rows_ppep = by_phase["pod_pp_ep"]
     rows_ps = by_phase["pod_serve"]
     row_tm = by_phase["train_moe"][0]

@@ -157,6 +157,10 @@ def _serve_case(c, mesh, data, info):
             res["roofline"] = str(e)
     if c["fn"] == "spec":
         res["spec"] = server.spec_stats()
+        # This rank's own count of the rounds its slots were live in.
+        res["rank_rounds"] = int(server._spec_counts[2])
+    res["sharding"] = [ln for ln in server.metrics.render_prometheus().splitlines()
+                       if ln.startswith("torchkafka_serve_kv_backend_info")]
     if server._kv_pages is not None:
         res["cache_hits"] = server.metrics.cache_summary()["hits"]
     if consumer is not None:
@@ -263,6 +267,7 @@ def serve_mesh_main(pid: int, outdir: str, mark) -> int:
         mesh = _mesh_of(meshes, c)
         if mesh.get_coordinate() is None:
             continue
+        t0 = time.perf_counter()
         try:
             if c["fn"] == "generate":
                 _generate_case(c, mesh, data, info)
@@ -280,5 +285,7 @@ def serve_mesh_main(pid: int, outdir: str, mark) -> int:
             info[c["name"]] = {"error": traceback.format_exc()}
             mark("serve_mesh", info)
             raise e
+        # Each case's seconds on this rank (waits for its inputs included).
+        info[c["name"]]["seconds"] = time.perf_counter() - t0
     mark("serve_mesh", info)
     return 0

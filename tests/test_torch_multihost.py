@@ -178,6 +178,23 @@ def test_make_mesh_and_global_batch_on_one_process():
         multihost.shutdown()
 
 
+def test_staging_buffers_outlive_inference_mode():
+    """A host staging buffer first made under ``torch.inference_mode`` (a
+    serving tick's collective) is a normal tensor, so a train step's
+    collective in the same process may write it afterwards."""
+    from torchkafka_tpu_torch.parallel import collectives
+
+    key = (torch.float64, "send", False)
+    collectives._STAGING.pop(key, None)
+    try:
+        with torch.inference_mode():
+            collectives._host(torch.ones(3, dtype=torch.float64))
+        buf = collectives._host(torch.full((5,), 2.0, dtype=torch.float64))
+        assert not buf.is_inference() and buf.tolist() == [2.0] * 5
+    finally:
+        collectives._STAGING.pop(key, None)
+
+
 @pytest.mark.parametrize("count,local_rank,want", [
     (1, 0, "cuda:0"), (1, 1, "cuda:0"), (2, 1, "cuda:1"), (2, 3, "cuda:1"), (4, 2, "cuda:2"),
 ], ids=["own", "shared", "own_second", "wraps", "own_third"])

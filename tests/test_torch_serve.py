@@ -175,36 +175,6 @@ def test_observability_budget_and_tier_arguments_go_through(model, kw):
     assert summary["prefix_cache"]["tier"]["demotions"] == 0
 
 
-def _queue_a_titles() -> list[str]:
-    """The item titles of ROADMAP.md's queue A, lower-cased."""
-    import pathlib
-    import re
-
-    text = (pathlib.Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
-    queue = text.split("### Queue A", 1)[1].split("\n### ", 1)[0]
-    return [t.rstrip(".").lower()
-            for t in re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M)]
-
-
-class _PPMesh:
-    """A stand-in mesh with a pp axis (no process group is needed: the
-    refusal comes before any rank's share is built)."""
-    mesh_dim_names = ("pp",)
-    mesh = torch.zeros(2)
-
-
-def test_every_deferral_names_a_queue_a_title(model):
-    """What the server still defers, a serving mesh with a pp axis
-    (layer-sharded serving), raises an error naming the title of the
-    ROADMAP queue A item that ports it, never a bare item number."""
-    titles = _queue_a_titles()
-    assert len(titles) >= 8
-    with pytest.raises(NotImplementedError) as info:
-        _server(model, mesh=_PPMesh())
-    msg = str(info.value).lower()
-    assert any(t in msg for t in titles), (msg, titles)
-
-
 @pytest.mark.parametrize("kw", [
     {"top_k": 4}, {"quarantine": object()}, {"temperature": 0.7},
     {"rng": prng.key(3)}, {"rng": np.array([0, 3], np.uint32)},

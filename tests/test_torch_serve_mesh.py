@@ -1,6 +1,7 @@
 """The port's sharded serving (``mesh=`` on ``generate``, the server, the
 speculative server, disaggregated prefill and the distill trainer;
-harness scenario 20) against the JAX package at f32.
+harness scenario 20), on meshes over data, fsdp, tp, ep and pp, against
+the JAX package at f32.
 
 One gloo group of 8 processes runs every case once
 (tests/_torch_serve_mesh_cases.py, mode ``serve_mesh``); the JAX
@@ -46,6 +47,9 @@ GEN_CFG = dict(vocab_size=96, d_model=48, n_layers=2, n_heads=4, n_kv_heads=2, d
 MESH_CFG = dict(vocab_size=VOCAB, d_model=32, n_layers=2, n_heads=2, n_kv_heads=2, d_ff=64,
                 max_seq_len=P + MAX_NEW)
 MOE_CFG = dict(MESH_CFG, n_experts=4)
+# Four layers, so that the speculative server's 2-layer self-draft splits
+# over pp = 2 too.
+DEEP_CFG = dict(MESH_CFG, n_layers=4)
 ALL = list(range(NPROC))
 SAMPLED = {"temperature": 0.9, "top_k": 16}
 
@@ -83,7 +87,34 @@ CASES = {
                    {"pages": PAGES}),
     "distill_data2": ("distill", {"data": 2}, [6, 7], MESH_CFG, "mesh", None,
                       {"frames": "frames", "frame_ends": "frame_ends"}),
+    # Layer-sharded serving: a pp axis, alone or with data, tp and ep.
+    "gen_data4_pp2": ("generate", {"data": 4, "pp": 2}, ALL, GEN_CFG, "gen", "gen_prompt", {}),
+    "gen_int8_data2_pp2_tp2": ("generate", {"data": 2, "pp": 2, "tp": 2}, ALL, GEN_CFG, "gen",
+                               "gen_prompt", {"quantized": True}),
+    "serve_data4_pp2": ("serve", {"data": 4, "pp": 2}, ALL, MESH_CFG, "mesh", "serve_prompts",
+                        {"slots": 4, "commit_every": 1}),
+    "serve_int8_data2_pp2_tp2": ("serve", {"data": 2, "pp": 2, "tp": 2}, ALL, MESH_CFG, "mesh",
+                                 "serve_prompts",
+                                 {"slots": 4, "commit_every": 1, "kw": {"kv_dtype": "int8"}}),
+    "moe_pp2_ep2_data2": ("serve", {"data": 2, "pp": 2, "ep": 2}, ALL, MOE_CFG, "moe",
+                          "moe_prompts", {"slots": 2, "commit_every": 1}),
+    "paged_int8_pp2_tp2": ("serve", {"pp": 2, "tp": 2}, [4, 5, 6, 7], MESH_CFG, "mesh",
+                           "paged_prompts",
+                           {"slots": 4, "commit_every": 4,
+                            "kw": {"kv_dtype": "int8", "kv_kernel": True, "kv_pages": PAGES}}),
+    "spec_pp2": ("spec", {"pp": 2}, [0, 1], DEEP_CFG, "deep", "spec_prompts",
+                 {"slots": 4, "commit_every": 4, "kw": {"k": 2}}),
+    "disagg_pp2": ("disagg", {"pp": 2}, [2, 3], MESH_CFG, "mesh", "disagg_prompts",
+                   {"pages": PAGES}),
+    # The data ranks' slots drain at different rounds (ten records on four
+    # slots, two rounds a block): the live rounds of the whole batch are
+    # more than either rank's own.
+    "spec_data2_drain": ("spec", {"data": 2}, [2, 3], MESH_CFG, "mesh", "serve_prompts",
+                         {"slots": 4, "commit_every": 4,
+                          "kw": {"k": 2, "ticks_per_sync": 2}}),
 }
+PP_SERVERS = [n for n, c in CASES.items() if c[0] in ("serve", "spec") and "pp" in c[1]]
+SPECS = [n for n, c in CASES.items() if c[0] == "spec"]
 SERVERS = [n for n, c in CASES.items() if c[0] in ("serve", "spec", "disagg")]
 
 
@@ -152,7 +183,10 @@ def _jax_serve(cls, cfg, params, prompts, axes, slots, commit_every, **kw):
     server.close()
     committed = {str(p): broker.committed("g", tk.TopicPartition("p", p)) for p in (0, 1)}
     consumer.close()
-    return {"tokens": dict(out), "committed": committed}
+    res = {"tokens": dict(out), "committed": committed}
+    if cls is JSpec:
+        res["spec"] = server.spec_stats()
+    return res
 
 
 def _jax_disagg(cfg, params, prompts):
@@ -212,6 +246,7 @@ def _jax_references(outdir) -> dict:
     jcfg, jmoe = _jcfg(MESH_CFG), _jcfg(MOE_CFG)
     sampled = dict(SAMPLED, rng=jax.random.key(11))
     d2f2t2 = {"data": 2, "fsdp": 2, "tp": 2}
+    d2p2t2 = {"data": 2, "pp": 2, "tp": 2}
     with ThreadPoolExecutor(4) as pool:
         # Scenario 20, the longest, builds its own model.
         jobs = {"scenario20_data2_tp2": pool.submit(_jax_scenario20)}
@@ -222,6 +257,8 @@ def _jax_references(outdir) -> dict:
             "gen_int8_data2_fsdp2_tp2": pool.submit(_jax_generate, d2f2t2, jp, gp, True),
             "gen_data4_tp2": pool.submit(_jax_generate, {"data": 4, "tp": 2}, jp, gp, False),
             "gen_data2_fsdp2_tp2": pool.submit(_jax_generate, d2f2t2, jp, gp, False),
+            "gen_data4_pp2": pool.submit(_jax_generate, {"data": 4, "pp": 2}, jp, gp, False),
+            "gen_int8_data2_pp2_tp2": pool.submit(_jax_generate, d2p2t2, jp, gp, True),
         })
         mp = jt.init_params(jax.random.key(0), jcfg)
         _write(outdir, "mesh", _flat(_np_tree(mp)))
@@ -234,13 +271,29 @@ def _jax_references(outdir) -> dict:
             "serve_int8_data2_tp2_fsdp2": pool.submit(
                 _jax_serve, JServer, jcfg, mp, inputs["serve_prompts"],
                 {"data": 2, "tp": 2, "fsdp": 2}, 4, 1, kv_dtype="int8"),
+            "serve_data4_pp2": pool.submit(_jax_serve, JServer, jcfg, mp,
+                                           inputs["serve_prompts"], {"data": 4, "pp": 2}, 4, 1),
+            "serve_int8_data2_pp2_tp2": pool.submit(
+                _jax_serve, JServer, jcfg, mp, inputs["serve_prompts"], d2p2t2, 4, 1,
+                kv_dtype="int8"),
+            "spec_data2_drain": pool.submit(_jax_serve, JSpec, jcfg, mp,
+                                            inputs["serve_prompts"], None, 4, 4, k=2,
+                                            ticks_per_sync=2),
         })
+        deep_cfg = _jcfg(DEEP_CFG)
+        deep = jt.init_params(jax.random.key(3), deep_cfg)
+        _write(outdir, "deep", _flat(_np_tree(deep)))
+        jobs["spec_pp2"] = pool.submit(_jax_serve, JSpec, deep_cfg, deep,
+                                       inputs["spec_prompts"], None, 4, 4, k=2)
         moe = jt.init_params(jax.random.key(2), jmoe)
         _write(outdir, "moe", _flat(_np_tree(moe)))
         jobs.update({
             "moe_data2_ep2_tp2": pool.submit(_jax_serve, JServer, jmoe, moe,
                                              inputs["moe_prompts"], {"data": 2, "ep": 2,
                                                                      "tp": 2}, 2, 1),
+            "moe_pp2_ep2_data2": pool.submit(_jax_serve, JServer, jmoe, moe,
+                                             inputs["moe_prompts"], {"data": 2, "pp": 2,
+                                                                     "ep": 2}, 2, 1),
             "paged_int8_data2_tp2": pool.submit(_jax_serve, JServer, jcfg, mp,
                                                 inputs["paged_prompts"], None, 4, 4,
                                                 kv_dtype="int8"),
@@ -252,7 +305,12 @@ def _jax_references(outdir) -> dict:
                                       None, 4, 4, k=2),
             "disagg_tp2": pool.submit(_jax_disagg, jcfg, mp, inputs["disagg_prompts"]),
         })
-        return {n: j.result() for n, j in jobs.items()}
+        refs = {n: j.result() for n, j in jobs.items()}
+    # One mesh-less JAX run is the reference of both disaggregated meshes,
+    # and of both paged int8 meshes (the int8-dense server's tokens).
+    refs["disagg_pp2"] = refs["disagg_tp2"]
+    refs["paged_int8_pp2_tp2"] = refs["paged_int8_data2_tp2"]
+    return refs
 
 
 @pytest.fixture(scope="module")
@@ -371,6 +429,73 @@ def test_spec_counters_sum_over_data(run):
     assert stats[0] == stats[1] and stats[0]["proposed"] > 0
 
 
+def test_spec_stats_count_the_whole_batch(run):
+    """The repair of the speculative server's round count under a data
+    split: where the data ranks' slots drain at different rounds, each
+    rank's own live rounds fall short of the rounds in which any slot of
+    the batch was live, which the JAX package counts and the port now
+    reports on every rank."""
+    want = run["refs"]["spec_data2_drain"]["spec"]
+    results = _results(run, "spec_data2_drain")
+    assert max(res["rank_rounds"] for _, res in results) < want["rounds"]
+    assert all(res["spec"]["rounds"] == want["rounds"] for _, res in results)
+
+
+@pytest.mark.parametrize("name", SPECS)
+def test_spec_stats_equal_jax(run, name):
+    """Every rank's ``spec_stats()`` (rounds, proposed, accepted,
+    acceptance, k, draft layers) is the JAX server's for the same run."""
+    want = run["refs"][name]["spec"]
+    for r, res in _results(run, name):
+        assert res["spec"] == want, f"rank {r}"
+
+
+_PP_POOLS = {
+    # [L/pp, B/data, M, K/tp, Dh], K4's K-major int8 pool [L/pp, B/data,
+    # K/tp, M, Dh] and its scales; a paged pool's blocks are whole; the
+    # speculative server's draft pools follow the target's, at the draft's
+    # 2 layers over pp.
+    "serve_data4_pp2": [[1, 1, 16, 2, 16]] * 2,
+    "serve_int8_data2_pp2_tp2": [[1, 2, 1, 16, 16], [1, 2, 1, 16]] * 2,
+    "moe_pp2_ep2_data2": [[1, 1, 16, 2, 16]] * 2,
+    "paged_int8_pp2_tp2": [[1, 40, 1, BS, 16], [1, 40, 1, BS]] * 2,
+    "spec_pp2": [[2, 4, 18, 2, 16]] * 2 + [[1, 4, 18, 2, 16]] * 2,
+}
+
+
+@pytest.mark.parametrize("name", PP_SERVERS)
+def test_pp_pools_hold_the_stage_layers(run, name):
+    """Under pp each rank allocates the pools of its stage's layers only
+    (the placement records split L over pp), at its local shapes, and the
+    backend records the mesh's pp extent."""
+    for _, res in _results(run, name):
+        assert res["pool_shapes"] == _PP_POOLS[name]
+        assert res["kv_backend"]["pp"] == 2
+
+
+def test_decode_roofline_refuses_a_pp_tick(run):
+    """A {"data": 4, "pp": 2} tick runs no tp, fsdp or ep collective, but
+    its pp hops are gloo collectives all the same: ``decode_roofline``
+    raises; the backend's sharding label names the pp extent."""
+    for _, res in _results(run, "serve_data4_pp2"):
+        assert "runs collectives" in res["roofline"], res["roofline"]
+        assert res["collectives"] > 0
+        assert res["sharding"] == [
+            'torchkafka_serve_kv_backend_info{layout="dense",kv_dtype="compute",'
+            'sharding="data=4,tp=1,pp=2"} 1']
+
+
+def test_disagg_pp2_adopts_every_handoff(run):
+    """Disaggregated prefill on {"pp": 2}: each handoff carries every layer
+    (gathered over pp, the wire the JAX package's) and each adoption takes
+    this stage's layers back; every slot adopted, no decode-side prefill,
+    JAX's count."""
+    want = run["refs"]["disagg_pp2"]
+    for _, res in _results(run, "disagg_pp2"):
+        assert res["adopted"] == want["adopted"] == 8
+        assert res["decode_prefill_tokens"] == 0 and res["published"] == 8
+
+
 def test_disagg_adopts_every_handoff(run):
     """Disaggregated prefill on {"tp": 2}: the handoffs carry every kv head
     (gathered over tp) and each adoption scatters this rank's back; every
@@ -424,7 +549,8 @@ class _FakeMesh:
     ({"data": 8}, 6, "slots"),
     ({"sp": 2}, None, "must not carry an sp axis"),
     ({"fsdp": 5}, None, "d_model"),
-], ids=["tp_heads", "data_slots", "sp", "fsdp"])
+    ({"data": 2, "pp": 4}, None, "n_layers"),
+], ids=["tp_heads", "data_slots", "sp", "fsdp", "pp_layers"])
 def test_check_serving_mesh_raises_as_jax(axes, batch, match):
     """``check_serving_mesh``'s errors, word for word the JAX package's."""
     cfg = pt.TransformerConfig(**GEN_CFG)
@@ -439,11 +565,39 @@ def test_check_serving_mesh_raises_as_jax(axes, batch, match):
     assert str(got.value) == str(want.value)
 
 
-def test_pp_serving_mesh_is_not_ported():
-    """Layer-sharded serving (a pp axis) raises ``NotImplementedError``
-    naming the ROADMAP queue A title."""
-    with pytest.raises(NotImplementedError, match="Sharded serving"):
-        pg.ServingShard(pt.TransformerConfig(**GEN_CFG), _FakeMesh({"pp": 2}))
+def test_spec_draft_mesh_raises_as_jax():
+    """The speculative server checks its draft against the mesh first, with
+    the JAX package's words: a 2-layer target's 1-layer self-draft does not
+    split over pp = 2."""
+    from torchkafka_tpu_torch.serve_spec import SpecStreamingGenerator
+
+    cfg = pt.TransformerConfig(**MESH_CFG, dtype=torch.float32)
+    params = pt.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(ValueError, match="n_layers=1") as got:
+        SpecStreamingGenerator(None, params, cfg, slots=4, prompt_len=P, max_new=MAX_NEW,
+                               k=2, mesh=_FakeMesh({"pp": 2}), device="cpu")
+
+    class JMesh:
+        shape = {"pp": 2}
+
+    jdraft = _jcfg(dict(MESH_CFG, n_layers=1))
+    with pytest.raises(ValueError) as want:
+        jg.check_serving_mesh(jdraft, JMesh(), batch=4)
+    assert str(got.value) == str(want.value)
+
+
+def test_serving_prefill_groups_capacity_over_the_whole_batch():
+    """The serving prefill on a pp mesh places capacity groups as on the
+    same mesh without pp (each stage runs the whole batch through its
+    layers; the JAX package's prefill groups the global batch), where the
+    train step's pipeline, whose microbatches hold other rows than JAX's
+    on a batch-sharded mesh, refuses them."""
+    cfg = pt.TransformerConfig(**MOE_CFG, moe_dispatch="capacity", moe_group_size=32)
+    serving = pg.prefill_model(cfg, _FakeMesh({"data": 2, "pp": 2}))
+    flat = pg.prefill_model(cfg, _FakeMesh({"data": 2}))
+    assert serving._capacity_span(2, 8).n_g == flat._capacity_span(2, 8).n_g == 32
+    with pytest.raises(ValueError, match="microbatches"):
+        pt.Transformer(cfg, _FakeMesh({"data": 2, "pp": 2}))._capacity_span(2, 8)
 
 
 def test_placement_records_give_local_shapes():
@@ -456,6 +610,20 @@ def test_placement_records_give_local_shapes():
     assert pg.paged_pool_sharding(mesh).local_shape((2, 40, 4, 2, 8)) == (2, 40, 4, 1, 8)
     assert pg.paged_pool_kmajor_sharding(mesh).local_shape((2, 40, 2, 4, 8)) == (2, 40, 1, 4, 8)
     assert pg.slot_sharding(mesh, 2).local_shape((4, 8)) == (2, 8)
+    # Under pp every pool splits its layers too (the port's storage: each
+    # stage holds the pools of the layers it runs); per-slot state does not.
+    pp = _FakeMesh({"data": 2, "pp": 2, "tp": 2})
+    assert pg.kv_sharding(pp).local_shape((4, 4, 16, 2, 8)) == (2, 2, 16, 1, 8)
+    assert pg.kv_scale_sharding(pp).local_shape((4, 4, 16, 2)) == (2, 2, 16, 1)
+    assert pg.kv_kmajor_sharding(pp).local_shape((4, 4, 2, 16, 8)) == (2, 2, 1, 16, 8)
+    assert pg.kv_kmajor_scale_sharding(pp).local_shape((4, 4, 2, 16)) == (2, 2, 1, 16)
+    assert pg.paged_pool_sharding(pp).local_shape((4, 40, 4, 2, 8)) == (2, 40, 4, 1, 8)
+    assert pg.paged_pool_kmajor_sharding(pp).local_shape((4, 40, 2, 4, 8)) == (2, 40, 1, 4, 8)
+    assert pg.paged_scale_kmajor_sharding(pp).local_shape((4, 40, 2, 4)) == (2, 40, 1, 4)
+    assert pg.slot_sharding(pp, 2).local_shape((4, 8)) == (2, 8)
+    lay = pg.paged_pool_kmajor_sharding(pp)
+    assert lay.splits() == [(0, "pp", 2), (2, "tp", 2)]
+    assert lay.global_shape((2, 3, 1, 4, 8)) == (4, 3, 2, 4, 8)
 
 
 def test_serving_shardings_are_the_training_layouts():

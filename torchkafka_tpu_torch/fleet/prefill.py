@@ -184,8 +184,8 @@ class PrefillWorker:
 
     On a serving mesh every rank runs a worker over its rank's ``gen``
     and the mesh's ``parallel.lockstep.MeshConsumer``; the root publishes
-    (the handoff holds every kv head, gathered over tp) and the other
-    ranks pass ``producer=None``."""
+    (the handoff holds every layer and kv head, gathered over pp and tp)
+    and the other ranks pass ``producer=None``."""
 
     def __init__(self, gen, consumer, producer, handoff_topic: str, *,
                  commit_every: int = 8, max_poll_records: int = 64) -> None:

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 from torchkafka_tpu_torch.harness.scenarios import PORTED, SCENARIOS, run_scenario
 
@@ -82,7 +83,10 @@ def main(argv: list[str] | None = None) -> None:
             device=args.device,
         )
         if result is not None:  # ranks of scenario 20's mesh other than its root
-            print(json.dumps(result), flush=True)
+            # One write a line: ranks launched together share one stdout, and
+            # an unbuffered print writes the line and its newline apart.
+            sys.stdout.write(json.dumps(result) + "\n")
+            sys.stdout.flush()
 
 
 if __name__ == "__main__":

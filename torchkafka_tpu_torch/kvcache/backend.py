@@ -35,9 +35,10 @@ int8 pool, and an un-honorable ``kv_kernel=True``.
 Under a serving mesh (``mesh``) the same pools serve on each rank's share:
 dense pools split slots over data and kv heads over tp, paged pools kv
 heads over tp with the blocks replicated over data
-(``models.generate.kv_sharding`` and its siblings); the kernels read each
-rank's local pool (``ops.kvattn.*_sharded``). ``data``/``tp`` record the
-mesh's extents.
+(``models.generate.kv_sharding`` and its siblings), and under pp each
+stage's pools hold its layers only; the kernels read each rank's local
+pool (``ops.kvattn.*_sharded``). ``data``/``tp``/``pp`` record the mesh's
+extents.
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ class KVBackend:
     ``kernel_disabled_reason``: why it does not, when int8 was asked for
     with ``kv_kernel`` True or "auto". ``chunked``: paged admission
     prefills through the fused chunk tick (``prefill_chunk`` != 0).
-    ``device``: "cuda" or "cpu". ``data``/``tp``: the serving mesh's
-    extents (1 = no mesh)."""
+    ``device``: "cuda" or "cpu". ``data``/``tp``/``pp``: the serving
+    mesh's extents (1 = no mesh)."""
 
     layout: str
     int8: bool
@@ -68,6 +69,7 @@ class KVBackend:
     device: str
     data: int = 1
     tp: int = 1
+    pp: int = 1
 
     @property
     def paged(self) -> bool:
@@ -75,7 +77,7 @@ class KVBackend:
 
     @property
     def sharded(self) -> bool:
-        return self.data > 1 or self.tp > 1
+        return self.data > 1 or self.tp > 1 or self.pp > 1
 
     def describe(self) -> dict:
         """The ``ServeMetrics`` ``kv_backend`` info payload."""
@@ -88,6 +90,7 @@ class KVBackend:
             "device": self.device,
             "data": self.data,
             "tp": self.tp,
+            "pp": self.pp,
         }
 
 
@@ -145,7 +148,7 @@ def resolve_kv_backend(
         return backend
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     return dataclasses.replace(backend, data=int(sizes.get("data", 1)),
-                               tp=int(sizes.get("tp", 1)))
+                               tp=int(sizes.get("tp", 1)), pp=int(sizes.get("pp", 1)))
 
 
 def _resolve(cfg, kv_dtype, kv_kernel, kv_pages, max_len: int, device) -> KVBackend:

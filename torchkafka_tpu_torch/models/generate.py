@@ -29,8 +29,17 @@ every rank picks from the same logits. Under ``data`` it holds and
 computes its slots; under ``fsdp`` each weight's fan-in dim is split and
 gathered at use, layer by layer; under ``ep`` its experts, whose outputs
 are summed over ep and tp (``models.transformer.ExpertShard``). sp raises
-the JAX package's ``ValueError``; pp (layer-sharded storage) is not
-ported and raises ``NotImplementedError``.
+the JAX package's ``ValueError``.
+
+Under ``pp`` (layer-sharded storage, not a pipelined schedule, as the
+JAX package says) stage s holds the layers [s·L/P, (s+1)·L/P) and the
+kv pools of those layers only; ``embed``, ``ln_f`` and ``lm_head`` are
+whole on every stage. A decode token is serial through the layers: stage
+0 runs its layers on the embedded tokens, the residual hops to the next
+stage (``ServingShard.stages``), and the last stage's rows are broadcast
+over pp before the head, so every rank computes the same logits and picks
+the same tokens (``ServingShard.logits``). Each layer runs whole on one
+rank, on the shapes and kernels of the single process.
 """
 
 from __future__ import annotations
@@ -54,7 +63,6 @@ from torchkafka_tpu_torch.models.transformer import (
     _mesh_axes,
     _mlp,
     _moe_mlp,
-    _not_ported,
     _rms_norm,
     _rope,
     layer_at,
@@ -211,11 +219,19 @@ def _project_qkv(x, layer, cfg: TransformerConfig):
 def prefill_model(cfg: TransformerConfig, mesh=None) -> Transformer:
     """The prefill trunk for ``cfg`` (on ``mesh``: its tp all-reduces, ep
     experts and K1 through ``flash_attention_sharded`` on each rank's rows
-    and heads). A config that asked for sequence-parallel attention
-    ('ring'/'ulysses') serves through 'auto', as in the JAX package."""
+    and heads; a pp axis holds layers, not microbatches). A config that
+    asked for sequence-parallel attention ('ring'/'ulysses') serves
+    through 'auto', as in the JAX package."""
     if cfg.attn_impl in ("ring", "ulysses"):
         cfg = dataclasses.replace(cfg, attn_impl="auto")
-    return Transformer(cfg, mesh)
+    return Transformer(cfg, mesh, serving=True)
+
+
+def staged(shard, x: torch.Tensor, body):
+    """``body(x)`` over this rank's layers: on a mesh with a pp axis stage
+    by stage (``ServingShard.stages``; the result is the last stage's on
+    the last stage), else at once."""
+    return body(x) if shard is None else shard.stages(x, body)
 
 
 def prefill_capture(params, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -224,23 +240,29 @@ def prefill_capture(params, cfg: TransformerConfig, tokens: torch.Tensor,
     [L, B, S, K, Dh] in the compute dtype: the prompt's cache rows, for a
     caller that writes them into its own pool. ``shard`` (a
     ``ServingShard``, with ``model`` on its mesh): ``params`` are the
-    rank's, k/v hold its kv heads and the logits are whole."""
+    rank's, k/v hold its kv heads of its stage's L/P layers and the
+    logits are whole."""
     model = model or prefill_model(cfg, None if shard is None else shard.mesh)
     if shard is None:
         x, ks, vs = model.trunk_kv(params, tokens)
         return matmul_f32(x[:, -1], params["lm_head"], cfg.dtype), ks, vs
-    x, ks, vs = model.trunk_kv(
-        params, tokens, x=shard.embed(params["embed"], tokens, cfg.dtype),
-        layers=shard.layers(params["layers"]),
-    )
-    return shard.logits(x[:, -1], params["lm_head"], cfg.dtype), ks, vs
+    kv = []
+
+    def body(x):
+        x, ks, vs = model.layers_kv(x, shard.layers(params["layers"]))
+        kv[:] = [ks, vs]
+        return x
+
+    x = shard.stages(shard.embed(params["embed"], tokens, cfg.dtype), body)
+    x = _rms_norm(x, params["ln_f"])
+    return shard.logits(x[:, -1], params["lm_head"], cfg.dtype), kv[0], kv[1]
 
 
 def prefill(params, cfg: TransformerConfig, tokens: torch.Tensor, max_len: int,
             shard=None):
     """tokens [B, S] → (last-position logits [B, V] f32, KVCache with
     positions [0, S) filled and the rest zero, [L, B, max_len, K, Dh];
-    this rank's kv heads under ``shard``)."""
+    this rank's kv heads of its stage's layers under ``shard``)."""
     logits, ks, vs = prefill_capture(params, cfg, tokens, shard=shard)
     nl, b, s, kh, dh = ks.shape
     shape = (nl, b, max_len, kh, dh)
@@ -278,9 +300,13 @@ def _decode_one(params, cfg: TransformerConfig, cache: KVCache,
     else:
         x = shard.embed(params["embed"], token, cfg.dtype)[:, None, :]
         layers = shard.layers(params["layers"])
-    for i, layer in enumerate(layers):
-        x = _layer_step(x, layer, cache.k[i], cache.v[i], pos, cfg, shard)
-    x = _rms_norm(x[:, 0], params["ln_f"])
+
+    def body(x):
+        for i, layer in enumerate(layers):
+            x = _layer_step(x, layer, cache.k[i], cache.v[i], pos, cfg, shard)
+        return x
+
+    x = _rms_norm(staged(shard, x, body)[:, 0], params["ln_f"])
     if shard is None:
         return matmul_f32(x, params["lm_head"], cfg.dtype)
     return shard.logits(x, params["lm_head"], cfg.dtype)
@@ -308,8 +334,8 @@ def generate(
     ``mesh``: model-sharded decode over a ``parallel.make_mesh`` mesh, run
     by every rank with the same arguments: ``params`` whole on every rank
     or ``shard_params``' ``DTensor``s (``serving_shardings``' layouts), the
-    whole ``prompt``. Each rank decodes its data rows on its heads (see
-    ``ServingShard``); a sampled step draws over the logits gathered over
+    whole ``prompt``. Each rank decodes its data rows on its heads and its
+    stage's layers (see ``ServingShard``); a sampled step draws over the logits gathered over
     data, since one key draws over the whole batch. Every rank returns the
     whole [B, max_new]; token-exact against the mesh-less call at f32."""
     check_sampling_params(top_k, top_p)
@@ -443,19 +469,42 @@ class Layout:
             out.append(n // k)
         return tuple(out)
 
+    def global_shape(self, shape) -> tuple:
+        """The whole tensor's shape of a rank's local ``shape``."""
+        out = list(shape)
+        for d, _axis, n in self.splits():
+            out[d] *= n
+        return tuple(out)
+
+    def splits(self) -> list[tuple[int, str, int]]:
+        """(dim, axis, size) of every dim that splits over an axis above 1."""
+        sizes = dict(self.sizes)
+        return [(d, a, sizes[a]) for d, a in enumerate(self.spec)
+                if a is not None and sizes.get(a, 1) > 1]
+
 
 def _layout(mesh, *spec) -> Layout:
     return Layout(tuple(spec), tuple(_mesh_axes(mesh).items()))
 
 
+# The placement records below split the layer dim L over pp. The JAX
+# package's pool ``NamedSharding``s leave L unsplit and GSPMD decides where
+# each layer runs; in the port the stage that holds a layer's weights runs
+# that layer, so its cache lives there too (a copy of every layer's pool on
+# every stage would double the pool bytes, and nothing would write it).
+# The tokens and commits are the same; only the storage differs.
+
+
 def kv_sharding(mesh) -> Layout:
-    """Dense pool [L, B, M, K, Dh]: slots over data, kv heads over tp."""
-    return _layout(mesh, None, "data", None, "tp", None)
+    """Dense pool [L, B, M, K, Dh]: layers over pp (the port's storage,
+    see above), slots over data, kv heads over tp."""
+    return _layout(mesh, "pp", "data", None, "tp", None)
 
 
 def kv_scale_sharding(mesh) -> Layout:
-    """int8-pool scales [L, B, M, K]: slots over data, kv heads over tp."""
-    return _layout(mesh, None, "data", None, "tp")
+    """int8-pool scales [L, B, M, K]: layers over pp, slots over data, kv
+    heads over tp."""
+    return _layout(mesh, "pp", "data", None, "tp")
 
 
 def slot_sharding(mesh, ndim: int = 1) -> Layout:
@@ -464,34 +513,36 @@ def slot_sharding(mesh, ndim: int = 1) -> Layout:
 
 
 def kv_kmajor_sharding(mesh) -> Layout:
-    """K-major dense int8 pool [L, B, K, M, Dh] (K4's layout): slots over
-    data, kv heads over tp."""
-    return _layout(mesh, None, "data", "tp", None, None)
+    """K-major dense int8 pool [L, B, K, M, Dh] (K4's layout): layers over
+    pp, slots over data, kv heads over tp."""
+    return _layout(mesh, "pp", "data", "tp", None, None)
 
 
 def kv_kmajor_scale_sharding(mesh) -> Layout:
-    """K-major int8 scales [L, B, K, M]."""
-    return _layout(mesh, None, "data", "tp", None)
+    """K-major int8 scales [L, B, K, M]: layers over pp."""
+    return _layout(mesh, "pp", "data", "tp", None)
 
 
 def paged_pool_sharding(mesh) -> Layout:
-    """Paged block pool [L, NB, bs, K, Dh]: kv heads over tp, blocks
-    REPLICATED over data: any slot's table may reference any block and
-    radix prefix blocks are read by every slot, so each data rank holds
-    the whole pool for its heads and the paged program runs replicated
-    over data (the same tables, positions and tokens on every data rank)."""
-    return _layout(mesh, None, None, None, "tp", None)
+    """Paged block pool [L, NB, bs, K, Dh]: layers over pp, kv heads over
+    tp, blocks REPLICATED over data: any slot's table may reference any
+    block and radix prefix blocks are read by every slot, so each data
+    rank holds the whole pool for its layers and heads and the paged
+    program runs replicated over data (the same tables, positions and
+    tokens on every data rank)."""
+    return _layout(mesh, "pp", None, None, "tp", None)
 
 
 def paged_pool_kmajor_sharding(mesh) -> Layout:
     """K-major-per-block int8 paged payloads [L, NB, K, bs, Dh] (K5's
-    layout): kv heads over tp, blocks replicated over data."""
-    return _layout(mesh, None, None, "tp", None, None)
+    layout): layers over pp, kv heads over tp, blocks replicated over
+    data."""
+    return _layout(mesh, "pp", None, "tp", None, None)
 
 
 def paged_scale_kmajor_sharding(mesh) -> Layout:
-    """K-major-per-block int8 paged scales [L, NB, K, bs]."""
-    return _layout(mesh, None, None, "tp", None)
+    """K-major-per-block int8 paged scales [L, NB, K, bs]: layers over pp."""
+    return _layout(mesh, "pp", None, "tp", None)
 
 
 def _axis_dim(spec: tuple, axis: str) -> int | None:
@@ -520,20 +571,16 @@ class _GatheredLayers:
 
 class ServingShard:
     """One rank's share of a serving mesh (``parallel.make_mesh`` over the
-    axes data, fsdp, tp and ep), and the collectives that make its share
-    of the program the whole one's (``parallel.collectives``, by written
-    rule: gloo stages CUDA tensors through host memory).
+    axes data, fsdp, tp, ep and pp), and the collectives that make its
+    share of the program the whole one's (``parallel.collectives``, by
+    written rule: gloo stages CUDA tensors through host memory).
 
-    Built by every rank of ``mesh`` with the same arguments;
-    ``check_serving_mesh`` first, then a pp axis raises
-    ``NotImplementedError`` (layer-sharded serving is not ported)."""
+    Built by every rank of ``mesh`` with the same arguments, after
+    ``check_serving_mesh``."""
 
     def __init__(self, cfg: TransformerConfig, mesh, *, batch: int | None = None) -> None:
         check_serving_mesh(cfg, mesh, batch=batch)
         sizes = _mesh_axes(mesh)
-        if sizes.get("pp", 1) > 1:
-            raise _not_ported("mesh= with a pp axis (layer-sharded serving)",
-                              "Sharded serving")
         coord = mesh.get_coordinate()
         if coord is None:
             raise ValueError("this rank is not on the serving mesh")
@@ -544,6 +591,7 @@ class ServingShard:
         self._groups = {a: mesh.get_group(a) for a, n in sizes.items() if n > 1}
         self.tp, self.data = sizes.get("tp", 1), sizes.get("data", 1)
         self.fsdp, self.ep = sizes.get("fsdp", 1), sizes.get("ep", 1)
+        self.pp = sizes.get("pp", 1)
 
     def rank(self, axis: str) -> int:
         return self.coords.get(axis, 0)
@@ -555,8 +603,41 @@ class ServingShard:
     @property
     def tick_collectives(self) -> bool:
         """Does a decode tick run collectives (tp sums, fsdp gathers, ep
-        sums)? A data-only mesh's tick runs none."""
-        return self.tp > 1 or self.fsdp > 1 or self.ep > 1
+        sums, pp hops)? A data-only mesh's tick runs none."""
+        return self.tp > 1 or self.fsdp > 1 or self.ep > 1 or self.pp > 1
+
+    # ------------------------------------------------------------ stages
+
+    def stages(self, x: torch.Tensor, body) -> torch.Tensor:
+        """``body`` (this stage's layers) run stage after stage: stage 0 on
+        ``x``, each later stage on the residual the one before handed on
+        (a ``ppermute`` over pp a hop, P - 1 of them; every stage joins
+        each hop, and only the next stage keeps what it received). Returns
+        ``body``'s output on the last stage; the other stages hold a
+        residual of the same shape that ``logits`` overwrites with the last
+        stage's. At pp = 1: ``body(x)``."""
+        if self.pp == 1:
+            return body(x)
+        from torchkafka_tpu_torch.parallel.collectives import ppermute
+
+        me, group = self.rank("pp"), self.group("pp")
+        for s in range(self.pp):
+            if s == me:
+                x = body(x)
+            if s + 1 < self.pp:
+                got = ppermute(x, group)
+                if me == s + 1:
+                    x = got
+        return x
+
+    def from_last_stage(self, x: torch.Tensor) -> torch.Tensor:
+        """The last pp stage's ``x`` on every stage (a broadcast over pp;
+        ``x`` itself at pp = 1)."""
+        if self.pp == 1:
+            return x
+        from torchkafka_tpu_torch.parallel.collectives import broadcast
+
+        return broadcast(x, self.group("pp"), self.pp - 1)
 
     # ------------------------------------------------------------ params
 
@@ -646,8 +727,10 @@ class ServingShard:
         return all_reduce_(rows, self.group("tp"))
 
     def logits(self, x: torch.Tensor, w, dtype) -> torch.Tensor:
-        """f32 logits of ``x`` through this rank's ``lm_head`` columns,
+        """f32 logits of ``x`` (the final-norm rows of the last pp stage,
+        broadcast over pp first) through this rank's ``lm_head`` columns,
         all-gathered over tp: every rank holds the whole [..., V]."""
+        x = self.from_last_stage(x)
         w = self.gather_fsdp(w, self._specs(w, "lm_head"))
         out = matmul_f32(x, w, dtype)
         if self.tp == 1:
@@ -686,6 +769,22 @@ class ServingShard:
         """This data rank's rows of ``t`` (a tensor or an array)."""
         lo, per = self.row_range(t.shape[0])
         return t[lo:lo + per]
+
+    def gather_layout(self, t: torch.Tensor, layout) -> torch.Tensor:
+        """The whole of ``t`` (this rank's part under ``layout``, a
+        placement record of this mesh): all-gathered along each split dim
+        over its axis."""
+        from torchkafka_tpu_torch.parallel.collectives import all_gather
+
+        for d, axis, _n in layout.splits():
+            t = all_gather(t.contiguous(), d, self.group(axis))
+        return t
+
+    def local_of_layout(self, t: torch.Tensor, layout) -> torch.Tensor:
+        """This rank's part of a whole ``t`` under ``layout`` (a copy)."""
+        for d, axis, n in layout.splits():
+            t = t.chunk(n, dim=d)[self.rank(axis)]
+        return t.contiguous()
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """Every data rank's rows of ``t``, in rank order (all-gather over

@@ -42,6 +42,7 @@ from torchkafka_tpu_torch.models.generate import (
     _attend_cached,
     _project_qkv,
     prefill,
+    staged,
 )
 from torchkafka_tpu_torch.models.quant import QTensor, embed_rows
 from torchkafka_tpu_torch.models.transformer import (
@@ -100,7 +101,8 @@ def _multi_step(params, cfg: TransformerConfig, cache: KVCache, tokens,
     is a per-row decode tick; S=k+1 is the verify. ``layers``: the
     unstacked layer views of ``params`` (``unstack_layers``), when the
     caller keeps them. ``shard``: the rank's ``ServingShard`` on a mesh
-    (its slots and heads; the lookup and the head through it)."""
+    (its slots, heads and stage's layers; the lookup and the head through
+    it)."""
     b, s = tokens.shape
     dev = tokens.device
     if shard is None:
@@ -114,15 +116,19 @@ def _multi_step(params, cfg: TransformerConfig, cache: KVCache, tokens,
              <= positions[:, :, None])  # [B, S, M] per-query masks
     if layers is None:
         layers = unstack_layers(params["layers"])
-    for i, layer in enumerate(layers):
-        q, k, v = _project_qkv(x, layer, cfg)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-        ck, cv = cache.k[i], cache.v[i]
-        ck.index_put_((rows, p), k.to(ck.dtype))
-        cv.index_put_((rows, p), v.to(cv.dtype))
-        x = _attend_cached(x, q, ck, cv, valid, layer, cfg, shard=shard)
-    return lm_logits(params, cfg, x, shard)
+
+    def body(x):
+        for i, layer in enumerate(layers):
+            q, k, v = _project_qkv(x, layer, cfg)
+            q = _rope(q, positions, cfg.rope_theta)
+            k = _rope(k, positions, cfg.rope_theta)
+            ck, cv = cache.k[i], cache.v[i]
+            ck.index_put_((rows, p), k.to(ck.dtype))
+            cv.index_put_((rows, p), v.to(cv.dtype))
+            x = _attend_cached(x, q, ck, cv, valid, layer, cfg, shard=shard)
+        return x
+
+    return lm_logits(params, cfg, staged(shard, x, body), shard)
 
 
 def accept(tga: torch.Tensor, d: torch.Tensor):

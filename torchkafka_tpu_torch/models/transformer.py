@@ -70,11 +70,6 @@ from torchkafka_tpu_torch.optim import adamw
 from torchkafka_tpu_torch.utils.devices import resolve_device
 from torchkafka_tpu_torch.utils.tree import tree_leaves
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to torchkafka_tpu_torch yet (ROADMAP queue A: {item})"
-    )
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -609,7 +604,7 @@ class Transformer(nn.Module):
     dict tree above), so one module serves any weights of its config, as
     the JAX package's functional model does."""
 
-    def __init__(self, cfg: TransformerConfig, mesh=None):
+    def __init__(self, cfg: TransformerConfig, mesh=None, *, serving: bool = False):
         super().__init__()
         if cfg.attn_impl not in ("auto", "dense", "flash", "ring", "ulysses"):
             raise ValueError(f"attn_impl must be 'auto', 'flash', 'dense', 'ring' or "
@@ -631,6 +626,9 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         self._sizes = sizes
+        # A serving mesh's pp axis holds layers (each rank runs its stage's
+        # whole batch), never the train step's microbatches.
+        self._pp_microbatched = sizes.get("pp", 1) > 1 and not serving
         self._sp_impl = ("ulysses" if cfg.attn_impl == "ulysses" else "ring") if sp > 1 else None
         self._sp_size = sp
         self._group_cache: dict = {}
@@ -755,7 +753,7 @@ class Transformer(nn.Module):
         over a batch-sharded mesh (a rank's microbatch holds other rows
         than the JAX package's global microbatch)."""
         cfg, n_b, sp = self.cfg, self._batch_ranks(), self._sp_size
-        pp = self._sizes.get("pp", 1)
+        pp = self._sizes.get("pp", 1) if self._pp_microbatched else 1
         if pp > 1:
             m = cfg.pp_microbatches if cfg.pp_microbatches is not None else pp
             if n_b > 1 and m > 1:
@@ -896,22 +894,26 @@ class Transformer(nn.Module):
             aux = torch.stack([router_aux(st, n_tokens) for st in stats]).mean()
         return _rms_norm(x, params["ln_f"]), aux
 
-    def trunk_kv(self, params: dict, tokens: torch.Tensor, *, x=None, layers=None):
+    def trunk_kv(self, params: dict, tokens: torch.Tensor):
         """The serving prefill's trunk: tokens [B, S] → (final-norm hidden
         states [B, S, D], k, v), k/v each [L, B, S, K, Dh]. An MoE layer
         routes through the config's dispatch, as the JAX package's prefill
-        (``model._layer``) does: a capacity config drops here too. ``x``:
-        the embedded tokens and ``layers`` the layer views, when the caller
-        provides them (a serving mesh's vocab-parallel lookup and its
-        layers gathered over fsdp, ``models.generate.ServingShard``)."""
-        if x is None:
-            x = embed_rows(params["embed"], tokens, self.cfg.dtype)
+        (``model._layer``) does: a capacity config drops here too."""
+        x = embed_rows(params["embed"], tokens, self.cfg.dtype)
+        x, ks, vs = self.layers_kv(x, unstack_layers(params["layers"]))
+        return _rms_norm(x, params["ln_f"]), ks, vs
+
+    def layers_kv(self, x: torch.Tensor, layers):
+        """``layers`` (layer views) over the residual x [B, S, D] → (x, k,
+        v), k/v [len(layers), B, S, K, Dh]: ``trunk_kv``'s layers, which a
+        serving mesh runs on its stage's layers
+        (``models.generate.prefill_capture``)."""
         ks, vs = [], []
-        for layer in unstack_layers(params["layers"]) if layers is None else layers:
+        for layer in layers:
             x, k, v, _ = self._layer(x, layer)
             ks.append(k)
             vs.append(v)
-        return _rms_norm(x, params["ln_f"]), torch.stack(ks), torch.stack(vs)
+        return x, torch.stack(ks), torch.stack(vs)
 
     def forward(self, params: dict, tokens: torch.Tensor, *, return_aux: bool = False):
         """tokens [B, S] int → logits [B, S, V] float32 (and, with

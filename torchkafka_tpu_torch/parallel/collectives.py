@@ -82,12 +82,15 @@ def group_size(group=None) -> int:
 
 def _staging(shape, dtype: torch.dtype, slot: str, pinned: bool) -> torch.Tensor:
     """A host buffer of ``shape`` in the reused buffer of (dtype, slot,
-    pinned), grown on demand; its contents are undefined."""
+    pinned), grown on demand; its contents are undefined. The buffer is
+    a normal tensor even when it is made under ``torch.inference_mode``
+    (a serving tick), so a train step in the same process may write it."""
     n = math.prod(shape)
     key = (dtype, slot, pinned)
     buf = _STAGING.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.empty(max(n, 1), dtype=dtype, pin_memory=pinned)
+        with torch.inference_mode(False):
+            buf = torch.empty(max(n, 1), dtype=dtype, pin_memory=pinned)
         _STAGING[key] = buf
     return buf[:n].view(shape)
 

@@ -161,7 +161,7 @@ pass; a handoff that fails its checks counts ``resume_rejected`` and the
 record prefills locally.
 
 Sharded serving (``mesh=``, a ``parallel.make_mesh`` mesh over data,
-fsdp, tp and ep): the ranks of the mesh each build this server with the
+fsdp, tp, ep and pp): the ranks of the mesh each build this server with the
 same arguments and run the same host loop on the same records
 (``parallel.lockstep``). The root (every coordinate 0) takes the consumer
 and alone commits offsets, sends outputs, writes the journal,
@@ -175,11 +175,17 @@ rank computes its slots; after each tick block the done mask, counts,
 positions and outputs are all-gathered over data so every host loop sees
 the whole pool) and its kv heads over tp; a paged pool splits kv heads
 over tp with the blocks, tables and per-slot state replicated over data
-(the paged program runs alike on every data rank). K1 runs on each
-rank's rows and heads, K4/K5 on its local pool (``ops.kvattn.*_sharded``).
-A tick block under a mesh whose tick runs collectives (tp, fsdp or ep
-over 1; gloo stages through host memory and cannot be captured) runs
-eagerly, by rule, and ``decode_roofline`` raises there. At f32 the
+(the paged program runs alike on every data rank). Under pp every pool
+holds the stage's layers only (layer-sharded storage): each sweep runs
+the stages in turn, the residual handed on between them, and the last
+stage's rows are broadcast before the head (``ServingShard.stages``), so
+every rank picks the same tokens; a handoff's payload is gathered over
+pp and tp and adoption takes the rank's part back. K1 runs on each
+rank's rows, heads and layers, K4/K5 on its local pool
+(``ops.kvattn.*_sharded``). A tick block under a mesh whose tick runs
+collectives (tp, fsdp, ep or pp over 1; gloo stages through host memory
+and cannot be captured) runs eagerly, by rule, and ``decode_roofline``
+raises there. At f32 the
 compute-dtype pools are token-exact against single-process serving; an
 int8 pool under tp can part from it where a layer's k/v lands on an int8
 rounding edge (the split sums round apart in the last bit).
@@ -229,6 +235,7 @@ from torchkafka_tpu_torch.models.generate import (
     prefill_capture,
     prefill_model,
     sample_logits,
+    staged,
 )
 from torchkafka_tpu_torch.models.quant import (
     QTensor,
@@ -299,6 +306,13 @@ def decode_tick_bytes(params, cfg: TransformerConfig, batch: int,
     else:
         kv = groups * cfg.head_dim * torch.empty((), dtype=cfg.dtype).element_size()
     return total - embed + embed_rows_read, kv
+
+
+def _sharding_label(kb: dict) -> str:
+    """The ``kv_backend_info`` sharding label: the JAX package's
+    ``data=D,tp=T``, with ``,pp=P`` on a layer-sharded mesh."""
+    label = f"data={kb.get('data', 1)},tp={kb.get('tp', 1)}"
+    return label + (f",pp={kb['pp']}" if kb.get("pp", 1) > 1 else "")
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -404,27 +418,32 @@ def _paged_sweep(x, positions, tables, layers, pools, cfg, *, kernel=False,
     the compute dtype, or the int8 pool's four). ``kernel``: S=1 rows read
     through the block-table kernel at watermarks ``pos_b`` (int8 pool
     only). ``shard``: the rank's ``ServingShard`` (the pools hold its kv
-    heads)."""
+    heads of its stage's layers; the stages run in turn, ``staged``)."""
     int8 = pools[0].dtype == torch.int8
-    for i, layer in enumerate(layers):
-        q, k, v = _project_qkv(x, layer, cfg)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-        pl = [p[i] for p in pools]
-        if kernel:
-            paged_write_q8(*pl, tables, positions, k, v)
-            if shard is None:
-                attn = int8_paged_decode_attention(q, *pl, tables, pos_b)
+
+    def body(x):
+        for i, layer in enumerate(layers):
+            q, k, v = _project_qkv(x, layer, cfg)
+            q = _rope(q, positions, cfg.rope_theta)
+            k = _rope(k, positions, cfg.rope_theta)
+            pl = [p[i] for p in pools]
+            if kernel:
+                paged_write_q8(*pl, tables, positions, k, v)
+                if shard is None:
+                    attn = int8_paged_decode_attention(q, *pl, tables, pos_b)
+                else:
+                    attn = int8_paged_decode_attention_sharded(q, *pl, tables, pos_b,
+                                                               shard)
+                x = _attn_tail(x, attn, layer, cfg, shard)
+            elif int8:
+                x = block_table_attention_q8(x, q, k, v, *pl, tables, positions, layer,
+                                             cfg, shard)
             else:
-                attn = int8_paged_decode_attention_sharded(q, *pl, tables, pos_b, shard)
-            x = _attn_tail(x, attn, layer, cfg, shard)
-        elif int8:
-            x = block_table_attention_q8(x, q, k, v, *pl, tables, positions, layer,
-                                         cfg, shard)
-        else:
-            x = block_table_attention(x, q, k, v, *pl, tables, positions, layer, cfg,
-                                      shard)
-    return x
+                x = block_table_attention(x, q, k, v, *pl, tables, positions, layer,
+                                          cfg, shard)
+        return x
+
+    return staged(shard, x, body)
 
 
 class ServeMetrics:
@@ -725,7 +744,7 @@ class ServeMetrics:
                 (format_labels(
                     layout=str(kb.get("layout", "dense")),
                     kv_dtype=str(kb.get("kv_dtype", "compute")),
-                    sharding=f"data={kb.get('data', 1)},tp={kb.get('tp', 1)}",
+                    sharding=_sharding_label(kb),
                 ), 1),
             ]),
             ("kv_kernel_engaged", "gauge", kb["kernel_engaged"]),
@@ -1324,6 +1343,8 @@ class StreamingGenerator:
             # block-table kernel's unit, each (block, head) run contiguous.
             pay = self._local_shape((nl, NB, kh, bs, dh), paged_pool_kmajor_sharding)
             sc = self._local_shape((nl, NB, kh, bs), paged_scale_kmajor_sharding)
+            self._pool_layouts = (paged_pool_kmajor_sharding,
+                                  paged_scale_kmajor_sharding) * 2
             self._pools = (
                 torch.zeros(pay, dtype=torch.int8, device=dev),
                 torch.zeros(sc, dtype=torch.float32, device=dev),
@@ -1332,6 +1353,7 @@ class StreamingGenerator:
             )
         else:
             shape = self._local_shape((nl, NB, bs, kh, dh), paged_pool_sharding)
+            self._pool_layouts = (paged_pool_sharding,) * 2
             self._pools = (
                 torch.zeros(shape, dtype=cfg.dtype, device=dev),
                 torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -1385,24 +1407,18 @@ class StreamingGenerator:
         decode writes it)."""
         return (self._prompt_len - 1) // self._kv_pages.block_size + 1
 
-    def _pool_head_dim(self, pool: torch.Tensor) -> int:
-        """The kv-head dim of a paged pool: 3 of [L, NB, bs, K, Dh], 2 of
-        the int8 pool's K-major [L, NB, K, bs(, Dh)]."""
-        return 2 if pool.dtype == torch.int8 or pool.dim() == 4 else 3
-
     def _extract_prompt_blocks(self, slot: int) -> tuple[int, tuple]:
         """The slot's prompt blocks of every pool, on the host (bf16 as CPU
         tensors); ``index_select`` copies, so none shares the pool. Under a
-        mesh the blocks hold this rank's kv heads and are all-gathered over
-        tp: the payload is the whole pool's bytes, as on one device."""
+        mesh the blocks hold this rank's kv heads of its stage's layers and
+        are all-gathered over tp and pp (the pools' placement records): the
+        payload is the whole pool's bytes, as on one device."""
         nb_p = self._prompt_block_count()
         ids = self._h2d(self._table_np[slot, :nb_p].astype(np.int64))
         blocks = [p.index_select(1, ids) for p in self._pools]
-        if self._shard is not None and self._shard.tp > 1:
-            from torchkafka_tpu_torch.parallel.collectives import all_gather
-
-            blocks = [all_gather(b, self._pool_head_dim(b), self._shard.group("tp"))
-                      for b in blocks]
+        if self._shard is not None:
+            blocks = [self._shard.gather_layout(b, lay(self._shard.mesh))
+                      for b, lay in zip(blocks, self._pool_layouts)]
         return nb_p, tuple(_host_leaf(b) for b in blocks)
 
     def _harvest_prefilled(self, finishers) -> None:
@@ -1475,12 +1491,10 @@ class StreamingGenerator:
         if hand is None:
             return None
         nb_p = self._prompt_block_count()
-        tp = 1 if self._shard is None else self._shard.tp
 
-        def whole(p):  # the handoff's shape of pool p: every kv head
-            shape = [p.shape[0], nb_p, *p.shape[2:]]
-            shape[self._pool_head_dim(p)] *= tp
-            return tuple(shape)
+        def whole(p, lay):  # the handoff's shape of pool p: every layer and kv head
+            shape = (p.shape[0], nb_p, *p.shape[2:])
+            return shape if self._shard is None else lay(self._shard.mesh).global_shape(shape)
 
         ok = (
             hand.crc == value_crc(rec.value)
@@ -1490,8 +1504,8 @@ class StreamingGenerator:
             and hand.prompt_blocks == nb_p
             and len(hand.pools) == len(self._pools)
         ) and all(
-            tuple(a.shape) == whole(p) and _dtype_name(a) == _dtype_name(p)
-            for a, p in zip(hand.pools, self._pools)
+            tuple(a.shape) == whole(p, lay) and _dtype_name(a) == _dtype_name(p)
+            for a, p, lay in zip(hand.pools, self._pools, self._pool_layouts)
         )
         if not ok:
             self.metrics.resume_rejected.add(1)
@@ -1502,15 +1516,15 @@ class StreamingGenerator:
         """Copy an adopted handoff's payload blocks into the pools: one
         indexed copy a pool. Each payload is snapshotted before its copy
         (the handoff's arrays may alias a message buffer). Under a mesh the
-        payload holds every kv head and this rank copies its tp chunk of
-        them, the layout the pools were built under."""
+        payload holds every layer and kv head and this rank copies its part
+        (its stage's layers, its tp chunk of the heads), the layout the
+        pools were built under."""
         ids = self._h2d(np.asarray(block_ids, np.int64))
-        for p, a in zip(self._pools, payloads):
+        for p, a, lay in zip(self._pools, payloads, self._pool_layouts):
             src = (a.to(self._device, copy=True) if isinstance(a, torch.Tensor)
                    else self._h2d(a))
-            if self._shard is not None and self._shard.tp > 1:
-                d = self._pool_head_dim(p)
-                src = src.chunk(self._shard.tp, dim=d)[self._shard.rank("tp")].contiguous()
+            if self._shard is not None:
+                src = self._shard.local_of_layout(src, lay(self._shard.mesh))
             p.index_copy_(1, ids, src)
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
@@ -1970,17 +1984,21 @@ class StreamingGenerator:
             )
             return self._head(x[:, 0])
         c = self._caches
-        for i, layer in enumerate(self._layers):
-            if self._kv_int8:
-                x = _slot_layer_step_q(
-                    x, layer, c[0][i], c[1][i], c[2][i], c[3][i], pos,
-                    self._rows, cfg, self._kv_backend.kernel, self._shard,
-                )
-            else:
-                x = _slot_layer_step(
-                    x, layer, c[0][i], c[1][i], pos, self._rows, cfg, self._shard
-                )
-        return self._head(x[:, 0])
+
+        def body(x):
+            for i, layer in enumerate(self._layers):
+                if self._kv_int8:
+                    x = _slot_layer_step_q(
+                        x, layer, c[0][i], c[1][i], c[2][i], c[3][i], pos,
+                        self._rows, cfg, self._kv_backend.kernel, self._shard,
+                    )
+                else:
+                    x = _slot_layer_step(
+                        x, layer, c[0][i], c[1][i], pos, self._rows, cfg, self._shard
+                    )
+            return x
+
+        return self._head(staged(self._shard, x, body)[:, 0])
 
     def _bookkeep(self, logits, act, last_tok, pos, gen, done, n_out):
         """One tick's pick (output index ``pos - P + 1``), EOS/budget test
@@ -2111,8 +2129,8 @@ class StreamingGenerator:
         and the state is bound to copies of its outputs after. Paged
         pools, chunk ticks, int8 pools (whose decode kernel counts its
         launches from Python), sampling and the CPU run the eager block,
-        and so does a mesh whose tick runs collectives (tp, fsdp or ep over
-        1: gloo stages them through host memory, which a graph cannot
+        and so does a mesh whose tick runs collectives (tp, fsdp, ep or pp
+        over 1: gloo stages them through host memory, which a graph cannot
         capture); a data-only mesh's tick runs none and replays."""
         if (chunk is not None or self._kv_pages is not None or self._kv_int8
                 or self._sampled or self._device.type != "cuda"
@@ -2158,6 +2176,14 @@ class StreamingGenerator:
         finally:
             self._set_tick_state(live)
         return graph, s_active, s_state, outs
+
+    def _block_record(self) -> list[torch.Tensor]:
+        """Extra int32 columns [local slots, n] that ride the tick block's
+        sync (all-gathered with the slot rows over data); none here."""
+        return []
+
+    def _note_block_record(self, cols: np.ndarray) -> None:
+        """The synced ``_block_record`` columns of every slot ([B, n])."""
 
     def _tick_state(self) -> list[torch.Tensor]:
         """The device state ``_tick_block`` rebinds (last token, position,
@@ -2210,7 +2236,7 @@ class StreamingGenerator:
         if self._tick_collectives:
             raise ValueError(
                 "decode_roofline times replays of a captured tick block; this "
-                "mesh's tick runs collectives (tp, fsdp or ep over 1), which "
+                "mesh's tick runs collectives (tp, fsdp, ep or pp over 1), which "
                 "gloo stages through host memory and a CUDA graph cannot "
                 "capture, so there is no device tick to time"
             )
@@ -2897,14 +2923,15 @@ class StreamingGenerator:
                 with tracing.span(tracing.SPAN_SYNC):
                     packed_t = torch.cat([
                         done.to(torch.int32)[:, None], n_out[:, None],
-                        self._pos[:, None], self._gen,
+                        self._pos[:, None], self._gen, *self._block_record(),
                     ], dim=1)
                     if self._local_slots != B:
                         packed_t = self._shard.gather_rows(packed_t)
                     packed_h = packed_t.cpu().numpy()
             done_h = packed_h[:, 0].astype(bool)
             n_out_h, pos_h = packed_h[:, 1], packed_h[:, 2]
-            gen_h = packed_h[:, 3:]
+            gen_h = packed_h[:, 3:3 + self._max_new]
+            self._note_block_record(packed_h[:, 3 + self._max_new:])
             self.metrics.tick_time.observe(time.perf_counter() - tick_t0)
             self.metrics.decode_ticks.add(self._ticks_per_sync)
             if run_chunk:

@@ -49,8 +49,15 @@ output, only the acceptance).
 
 Under a mesh (``mesh=``, the base server's) the draft is sharded as the
 target is (its own ``ServingShard``: its heads over tp, its slots over
-data on a dense pool), and ``spec_stats()`` sums the data ranks'
-counters, a collective every rank of the mesh calls together.
+data on a dense pool, its layers over pp by its own count, as the JAX
+package re-places the draft: draft stage s takes the draft's layers
+[s·d/P, (s+1)·d/P) from the whole tree, a copy, whichever target stage
+holds them), and ``spec_stats()`` sums the data ranks' counters, a
+collective every rank of the mesh calls together. A round counts once if
+any slot of the whole batch is live in it, as in the JAX package: under a
+data split each rank records its rounds' liveness for the tick block,
+which rides the block's sync (``_block_record``), and the host ORs the
+ranks' records.
 """
 
 from __future__ import annotations
@@ -73,11 +80,11 @@ from torchkafka_tpu_torch.models.spec_decode import (
     lm_logits,
     truncated_draft,
 )
-from torchkafka_tpu_torch.models.transformer import unstack_layers
+from torchkafka_tpu_torch.models.transformer import _mesh_axes, unstack_layers
 from torchkafka_tpu_torch.resilience.crashpoint import crash_hook
 from torchkafka_tpu_torch.serve import StreamingGenerator, _paged_sweep, _params_to
 from torchkafka_tpu_torch.utils.devices import resolve_device
-from torchkafka_tpu_torch.utils.tree import tree_flatten
+from torchkafka_tpu_torch.utils.tree import tree_flatten, tree_leaves
 
 
 class SpecStreamingGenerator(StreamingGenerator):
@@ -131,9 +138,20 @@ class SpecStreamingGenerator(StreamingGenerator):
             )
         dev = resolve_device(kwargs.get("device"))
         params = _params_to(params, dev)
+        mesh = kwargs.get("mesh")
         if draft_params is None:
             if draft_layers is None:
                 draft_layers = max(1, cfg.n_layers // 2)
+            if mesh is not None and _mesh_axes(mesh).get("pp", 1) > 1:
+                from torch.distributed.tensor import DTensor
+
+                if any(isinstance(t, DTensor) for t in tree_leaves(params)):
+                    # Draft stage s takes target layers another stage holds.
+                    raise ValueError(
+                        "the self-draft on a pp mesh is cut from the whole target "
+                        "tree: pass whole params (or draft_params/draft_cfg), not "
+                        "a pp-sharded tree"
+                    )
             draft_params, draft_cfg = truncated_draft(params, cfg, draft_layers)
         elif draft_layers is not None:
             raise ValueError(
@@ -149,9 +167,11 @@ class SpecStreamingGenerator(StreamingGenerator):
         self._k = int(k)
         self._draft_params = _params_to(draft_params, dev)
         self._draft_cfg = draft_cfg
-        mesh = kwargs.get("mesh")
         self._draft_shard = (None if mesh is None else
                              ServingShard(draft_cfg, mesh, batch=kwargs.get("slots", 8)))
+        # Live rounds of the whole batch, counted from each block's synced
+        # liveness record (read by spec_stats under a data split).
+        self._live_rounds = 0
         super().__init__(consumer, params, cfg, **kwargs)
 
     # ------------------------------------------------------------- build
@@ -175,6 +195,7 @@ class SpecStreamingGenerator(StreamingGenerator):
             self._pools += tuple(
                 torch.zeros(shape, dtype=dcfg.dtype, device=dev) for _ in range(2)
             )
+            self._pool_layouts += (paged_pool_sharding,) * 2
         else:
             shape = self._local_shape((dl, self._slots, self._max_len, dkh, ddh),
                                       kv_sharding)
@@ -185,6 +206,8 @@ class SpecStreamingGenerator(StreamingGenerator):
         self._spec_counts = tuple(
             torch.zeros((), dtype=torch.int64, device=dev) for _ in range(3)
         )
+        # This rank's liveness of each round of the last tick block.
+        self._live = torch.zeros((self._ticks_per_sync,), dtype=torch.bool, device=dev)
 
     def _bind_draft(self, draft_params) -> None:
         """Propose with ``draft_params`` (this rank's share under a mesh):
@@ -298,6 +321,7 @@ class SpecStreamingGenerator(StreamingGenerator):
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         n_out = torch.zeros((B,), dtype=torch.int32, device=dev)
         cols = torch.arange(max_new, device=dev)[None, :]
+        live = []
         for _ in range(self._ticks_per_sync):
             act = active & ~done
             # k+1 draft steps for k proposals (the last only ingests).
@@ -345,8 +369,10 @@ class SpecStreamingGenerator(StreamingGenerator):
             acc = acc + torch.where(act, n_acc, 0).sum()
             prop = prop + k * n_act
             rounds = rounds + (n_act > 0)
+            live.append(n_act > 0)
             done = done | done_now
         self._spec_counts = (acc, prop, rounds)
+        self._live = torch.stack(live)
         if chunk is not None:
             last_tok, pos, gen = self._merge_chunk_token0(
                 chunk_logits, fin_mask, fin_row, last_tok, pos, gen
@@ -359,11 +385,22 @@ class SpecStreamingGenerator(StreamingGenerator):
         the rounds also rebind: ``decode_roofline`` (inherited, as in the
         JAX package, with target-only byte accounting) runs live rounds
         and so advances them, as the JAX server's probe does."""
-        return super()._tick_state() + list(self._spec_counts)
+        return super()._tick_state() + list(self._spec_counts) + [self._live]
 
     def _set_tick_state(self, state: list[torch.Tensor]) -> None:
         super()._set_tick_state(state[:3])
-        self._spec_counts = tuple(state[3:])
+        self._spec_counts = tuple(state[3:6])
+        self._live = state[6]
+
+    def _block_record(self) -> list[torch.Tensor]:
+        """This rank's liveness of the block's rounds, on each of its slot
+        rows: [local slots, ticks_per_sync] int32."""
+        return [self._live.to(torch.int32)[None, :].expand(self._local_slots, -1)]
+
+    def _note_block_record(self, cols: np.ndarray) -> None:
+        """A round is live if any slot of the whole batch is: the OR over
+        every rank's rows."""
+        self._live_rounds += int(cols.any(axis=0).sum())
 
     # ---------------------------------------------------------- lifecycle
 
@@ -402,14 +439,17 @@ class SpecStreamingGenerator(StreamingGenerator):
         device-to-host copy. ``acceptance`` is the realized α =
         accepted / proposed (None before any proposal); warmup's
         all-inactive rounds count nothing. Under a mesh that splits the
-        slots over data, the data ranks' counts are summed (a collective:
-        every rank calls it together); the rounds are the most any data
-        rank ran."""
+        slots over data, the data ranks' proposals and acceptances are
+        summed (a collective: every rank calls it together), and the rounds
+        are those in which any slot of the whole batch was live (counted at
+        each tick block's sync, ``_note_block_record``)."""
         counts = torch.stack(self._spec_counts)
-        if self._local_slots != self._slots:
-            whole = self._shard.gather_rows(counts[None])  # [data, 3]
-            counts = torch.cat([whole[:, :2].sum(0), whole[:, 2].max()[None]])
+        split = self._local_slots != self._slots
+        if split:
+            counts = self._shard.gather_rows(counts[None]).sum(0)  # [data, 3] summed
         acc, prop, rounds = (int(x) for x in counts.cpu())
+        if split:
+            rounds = self._live_rounds
         return {
             "rounds": rounds,
             "proposed": prop,
